@@ -1,0 +1,262 @@
+# -*- coding: utf-8 -*-
+"""Device-resident entity tables (port of ``drin_tpu/data/device_store.py``,
+single device).
+
+The global WikiMEL entity tables are uploaded once to one device; a request
+carries only a [B, C] row-index matrix and the store rebuilds the model's
+entity features from it.  Three layouts:
+
+  * float (bf16 or f32): the tables as they are, in the compute dtype;
+  * int8 (``quantize=True``): one f32 max-abs scale per entity row (per
+    (row, slot) for the pooled text table), dequantized after the gather;
+  * fused (``fused_gather=True``, with ``quantize``): the three int8 tables
+    packed into one [N, m, 128] table with the JAX package's byte layout,
+    read through the gather+dequant kernel (``ops/cuda/gather.py``).
+
+Row indices follow the JAX package's indexing semantics in every layout:
+negatives wrap once, the rest clamp (``ops.cuda.gather.sanitize_rows``).
+The row-sharded store is on the ROADMAP (multi-device).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from drin_tpu.common.config import Config
+from drin_tpu_torch.ops.cuda.gather import (fused_gather_supported, gather_dequant,
+                                            pack_quantized_tables, sanitize_rows)
+
+
+class DrinRowsBatch(NamedTuple):
+    """DRIN batch with the entity side replaced by table row indices."""
+
+    mention_text_feature: np.ndarray
+    mention_text_mask: np.ndarray
+    mention_start_pos: np.ndarray
+    mention_end_pos: np.ndarray
+    mention_image_feature: np.ndarray
+    mention_object_feature: np.ndarray
+    mention_object_score: np.ndarray
+    entity_rows: np.ndarray  # [B, C] int32
+    miet_similarity: np.ndarray
+    mtei_similarity: np.ndarray
+    answer: np.ndarray
+
+
+def include_for(kind: str) -> tuple:
+    """The entity tables a model kind reads: DRIN all three, the baselines
+    only the text table."""
+    return ("text", "image", "obj") if kind == "drin" else ("text",)
+
+
+def quantize_entity_rows(x: np.ndarray, per_slot: bool = False):
+    """Per-entity max-abs int8 quantization of an [N, ...] table: one f32
+    scale per row (``per_slot``: per (row, slot), scale [N, S]).  Returns
+    ``(q, scale)`` with ``q * scale ~= x``; zero rows get scale 1."""
+    x = np.asarray(x)
+    lead = 2 if per_slot else 1
+    assert x.ndim > lead, (x.shape, per_slot)
+    flat = x.reshape(x.shape[:lead] + (-1,)).astype(np.float32)
+    s = np.max(np.abs(flat), axis=-1)
+    s = np.where(s == 0, np.float32(1.0), s)
+    q = np.clip(np.round(flat / s[..., None] * 127.0), -127, 127).astype(np.int8)
+    return q.reshape(x.shape), (s / 127.0).astype(np.float32)
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
+    """int8 rows + scale -> compute-dtype rows: multiply in f32, then cast
+    (the scale multiply rounds once)."""
+    s = scale.reshape(tuple(scale.shape) + (1,) * (q.ndim - scale.ndim))
+    return (q.to(torch.float32) * s).to(dt)
+
+
+class DeviceEntityStore:
+    """Upload the global entity tables once to ``device``;
+    :meth:`drin_feats_fn` rebuilds the model's feature tuple from a rows
+    batch."""
+
+    def __init__(self, cfg: Config, tables: dict, *, device, dtype=None,
+                 quantize: bool = False, fused_gather: bool = False):
+        assert cfg.entity_pooling_cached, (
+            "the single-device store holds the pooled entity cache; token-level "
+            "tables need the row-sharded store (ROADMAP: multi-device)")
+        self.include = include_for("drin")  # the baselines' narrowed stores are not ported
+        self.device = torch.device(device)
+        self.dtype = dt = dtype or getattr(torch, cfg.compute_dtype)
+        self.quantized = bool(quantize)
+        self.fused = bool(fused_gather)
+        self.n_rows = int(np.asarray(tables["entity_text_feature"]).shape[0])
+
+        def put(x, cast=True):
+            t = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+            if cast and t.is_floating_point():
+                t = t.to(dt)
+            return t.to(self.device)
+
+        keys = {"text": "entity_text_feature", "image": "entity_image_feature",
+                "obj": "entity_object_feature"}
+        self.packed = self.packed_scales = None
+        self.text = self.image = self.obj = None
+        self.text_scale = self.image_scale = self.obj_scale = None
+        if self.fused:
+            assert quantize, "fused_gather reads the int8 tables: it requires quantize=True"
+            # per-slot scales only for the pooled text table's (projected,
+            # raw-CLS) slot pair
+            qs = [quantize_entity_rows(np.asarray(tables[keys[n]]), per_slot=n == "text")
+                  for n in self.include]
+            tails = tuple(np.asarray(tables[keys[n]]).shape[1:] for n in self.include)
+            chunks = tuple((int(np.prod(t)), int(np.prod(s.shape[1:])))
+                           for t, (_, s) in zip(tails, qs))
+            assert fused_gather_supported(sum(w for w, _ in chunks), chunks), (
+                "fused_gather needs 128-lane-aligned feature slots; got widths "
+                f"{[c[0] for c in chunks]}", chunks)
+            packed, psc = pack_quantized_tables([q for q, _ in qs], [s for _, s in qs])
+            self._chunks, self._tails = chunks, tails
+            subs = np.cumsum([0] + [w // 128 for w, _ in chunks])
+            self._layout = {name: (int(subs[i]), int(subs[i + 1]), chunks[i][1], tails[i])
+                            for i, name in enumerate(self.include)}
+            self.packed = put(packed)
+            self.packed_scales = put(psc, cast=False)
+        elif quantize:
+            def put_q(x, per_slot=False):
+                q, s = quantize_entity_rows(x, per_slot=per_slot)
+                return put(q), put(s, cast=False)  # scales stay f32
+
+            self.text, self.text_scale = put_q(tables["entity_text_feature"], per_slot=True)
+            self.image, self.image_scale = put_q(tables["entity_image_feature"])
+            self.obj, self.obj_scale = put_q(tables["entity_object_feature"])
+        else:
+            self.text = put(tables["entity_text_feature"])  # [N, 2, D]
+            self.image = put(tables["entity_image_feature"])  # [N, 1, Dr]
+            self.obj = put(tables["entity_object_feature"])  # [N, Te, 1, Dr]
+        self.obj_score = put(tables["entity_object_score"])  # [N, Te]
+        self.nbytes = sum(t.numel() * t.element_size() for t in self._tables())
+
+    def _tables(self):
+        if self.fused:
+            ts = [self.packed, self.packed_scales, self.obj_score]
+        elif self.quantized:
+            ts = [self.text, self.text_scale, self.image, self.image_scale, self.obj,
+                  self.obj_scale, self.obj_score]
+        else:
+            ts = [self.text, self.image, self.obj, self.obj_score]
+        return tuple(ts)
+
+    def _qview(self, name: str, lo: int, hi: int):
+        """Quantized ``(rows, scales)`` of ``table[lo:hi]`` in the per-table
+        shapes; on a fused store these are views into the packed table."""
+        assert name in self.include, f"unknown table {name!r}"
+        if not self.fused:
+            return getattr(self, name)[lo:hi], getattr(self, f"{name}_scale")[lo:hi]
+        s0, s1, nslots, tail = self._layout[name]
+        hi = min(hi, self.packed.shape[0])
+        q = self.packed[lo:hi, s0:s1].reshape((hi - lo,) + tuple(tail))
+        ss = self.packed_scales[lo:hi, s0:s1:(s1 - s0) // nslots]
+        return q, (ss if nslots > 1 else ss[:, 0])
+
+    def float_table(self, name: str, chunk: int = 32768) -> torch.Tensor:
+        """Float view of ``'text'`` / ``'image'`` / ``'obj'``: a quantized
+        store dequantizes in ``chunk``-row pieces into one output tensor."""
+        assert name in self.include, f"unknown table {name!r}"
+        if not self.quantized:
+            return getattr(self, name)
+        n = self.n_rows
+        tail = self._layout[name][3] if self.fused else tuple(getattr(self, name).shape[1:])
+        out = torch.empty((n,) + tuple(tail), dtype=self.dtype, device=self.device)
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            out[lo:hi] = _dequantize(*self._qview(name, lo, hi), self.dtype)
+        return out
+
+    def float_rows(self, name: str, lo: int, hi: int, slot=None) -> torch.Tensor:
+        """Dequantized ``table[lo:hi]`` (optionally one second-axis slot)."""
+        assert name in self.include, f"unknown table {name!r}"
+        if not self.quantized:
+            q = getattr(self, name)
+            return q[lo:hi] if slot is None else q[lo:hi, slot]
+        qs, ss = self._qview(name, lo, hi)
+        if slot is not None:
+            qs = qs[:, slot]
+            if ss.ndim > 1:
+                ss = ss[:, slot]
+        return _dequantize(qs, ss, self.dtype)
+
+    def drin_feats_fn(self):
+        """``feats_fn(feats) -> feature tuple``: rows-batch features (the
+        :class:`DrinRowsBatch` fields minus the answer, as tensors on the
+        store's device) -> the 14-tensor DRIN batch."""
+        dt, n = self.dtype, self.n_rows
+
+        def etm_for(rows):
+            return torch.zeros((rows.shape[0],), dtype=torch.int64, device=rows.device)
+
+        if self.fused:
+            chunks, tails = self._chunks, self._tails
+
+            def feats_fn(feats):
+                (mtf, mtm, sp, ep, mif, mof, mos, rows, miet, mtei) = feats
+                tf, imf, of = gather_dequant(self.packed, self.packed_scales, rows, chunks, dt)
+                shape = tuple(rows.shape)
+                eos = self.obj_score[sanitize_rows(rows, n)].reshape(
+                    shape + tuple(self.obj_score.shape[1:]))
+                return (mtf, mtm, sp, ep, mif, mof, mos, tf.reshape(shape + tails[0]),
+                        etm_for(rows), imf.reshape(shape + tails[1]),
+                        of.reshape(shape + tails[2]), eos, miet, mtei)
+
+            return feats_fn
+
+        def feats_fn(feats):
+            (mtf, mtm, sp, ep, mif, mof, mos, rows, miet, mtei) = feats
+            shape = tuple(rows.shape)
+            flat = sanitize_rows(rows, n)
+            take = lambda t: t[flat].reshape(shape + tuple(t.shape[1:]))
+            if self.quantized:
+                etf = _dequantize(take(self.text), take(self.text_scale), dt)
+                eif = _dequantize(take(self.image), take(self.image_scale), dt)
+                eof = _dequantize(take(self.obj), take(self.obj_scale), dt)
+            else:
+                etf, eif, eof = take(self.text), take(self.image), take(self.obj)
+            return (mtf, mtm, sp, ep, mif, mof, mos, etf, etm_for(rows), eif, eof,
+                    take(self.obj_score), miet, mtei)
+
+        return feats_fn
+
+
+def project_drin_tables(cfg: Config, tables: dict, state_dict, *, device,
+                        chunk: int = 16384) -> dict:
+    """Serving cache: push the trained DRIN entity-side linears into the
+    frozen tables once (``cfg.entity_projected`` consumes the result).
+    Exact math, ``linear(gather(T)) == gather(linear(T))``.  Slot 0 of the
+    text table gets the projected pooled text, slot 1 keeps the raw CLS (the
+    mtet edge reads it).  Projects in float32 on ``device``."""
+    assert cfg.entity_pooling_cached, "projection builds on the pooled cache layout"
+    assert cfg.entity_final_output_dim == cfg.bert_embed_dim, (
+        "projected slot 0 and raw-CLS slot 1 must share a table dim")
+    f32 = torch.float32
+    g = lambda k: torch.as_tensor(state_dict[k]).to(device=device, dtype=f32)
+    tw = g("vertex_encoder.entity_text_encoder.final_layer.weight")
+    tb = g("vertex_encoder.entity_text_encoder.final_layer.bias")
+    iw = g("vertex_encoder.entity_image_linear.weight")
+    ib = g("vertex_encoder.entity_image_linear.bias")
+    text = tables["entity_text_feature"]  # [N, 2, D] (pooled, CLS)
+    img = tables["entity_image_feature"]  # [N, 1, Dr] or [N, Dr]
+    slot = 1 if cfg.entity_final_pooling == "bert default" else 0
+    N = text.shape[0]
+    t_out = np.empty((N, 2, cfg.bert_embed_dim), np.float32)
+    i_out = np.empty((N, cfg.gcn_embed_dim), np.float32)
+    with torch.inference_mode():
+        for lo in range(0, N, chunk):
+            t = torch.as_tensor(np.asarray(text[lo:lo + chunk]), dtype=f32, device=device)
+            i = torch.as_tensor(np.asarray(img[lo:lo + chunk]), dtype=f32, device=device)
+            if i.ndim == 3:
+                i = i.mean(-2)
+            t_out[lo:lo + chunk, 0] = (t[:, slot] @ tw.T + tb).cpu().numpy()
+            t_out[lo:lo + chunk, 1] = np.asarray(text[lo:lo + chunk, 1])
+            i_out[lo:lo + chunk] = (i @ iw.T + ib).cpu().numpy()
+    new = dict(tables)
+    new["entity_text_feature"] = t_out
+    new["entity_image_feature"] = i_out
+    return new
