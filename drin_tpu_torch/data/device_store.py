@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from drin_tpu.common.config import Config
+from drin_tpu_torch.common.config import Config
 from drin_tpu_torch.ops.cuda.gather import (fused_gather_supported, gather_dequant,
                                             pack_quantized_tables, sanitize_rows)
 

@@ -1,5 +1,6 @@
 # -*- coding: utf-8 -*-
-"""Model registry (port of ``drin_tpu/models/__init__.py``), DRIN only."""
+"""Model registry (port of ``drin_tpu/models/__init__.py``): DRIN, GHMFC over
+precomputed features and GHMFC with online BERT.  MELHI is not ported yet."""
 
 from __future__ import annotations
 
@@ -7,15 +8,38 @@ from typing import Optional, Tuple
 
 import torch
 
-from drin_tpu.common.config import Config
+from drin_tpu_torch.common.config import Config
 
 
-def get_model(cfg: Config, generator: Optional[torch.Generator] = None) -> Tuple[object, str]:
-    """Return ``(nn.Module, batch kind)`` for the configured model."""
+def get_model(cfg: Config, generator: Optional[torch.Generator] = None,
+              bert_cfg=None) -> Tuple[object, str]:
+    """Return ``(nn.Module, batch kind)`` for the configured model.
+
+    Batch kind names the request layout: 'drin' the 15-tensor DRIN batch,
+    'baseline' the 9-tensor offline batch, 'online' the token-id
+    ``OnlineBatch``.  The model may be moved to any device afterwards: the
+    online model picks its attention path from where its input lies.
+    ``bert_cfg`` overrides the bert-base dimensions."""
     if cfg.model_type == "drin":
         from drin_tpu_torch.models.drin import DRIN
 
         return DRIN(cfg, generator), "drin"
-    raise NotImplementedError(
-        f"model_type={cfg.model_type!r} is not ported yet (ROADMAP: GHMFC "
-        "offline, MELHI, online BERT); the port runs DRIN")
+    if cfg.model_type == "ghmfc":
+        if cfg.online_bert:
+            from drin_tpu_torch.encoders.bert import BertConfig
+            from drin_tpu_torch.models.ghmfc import GHMFCOnline
+
+            if cfg.bert_checkpoint:
+                raise NotImplementedError(
+                    f"bert_checkpoint={cfg.bert_checkpoint!r}: loading a pretrained BERT is "
+                    "not ported yet (ROADMAP: encoders/checkpoints.py); pass the weights in "
+                    "the state_dict")
+            if bert_cfg is None:
+                bert_cfg = BertConfig(max_position_embeddings=cfg.max_bert_len)
+            return GHMFCOnline(cfg, bert_cfg, generator), "online"
+        from drin_tpu_torch.models.ghmfc import GHMFC
+
+        return GHMFC(cfg, generator), "baseline"
+    if cfg.model_type == "melhi":
+        raise NotImplementedError("model_type='melhi' is not ported yet (ROADMAP: MELHI)")
+    raise ValueError(f"unknown model_type: {cfg.model_type}")

@@ -15,7 +15,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from drin_tpu.common.config import Config
+from drin_tpu_torch.common.config import Config
 
 
 def _t(x) -> torch.Tensor:
@@ -57,4 +57,92 @@ def drin_state_dict_from_jax(params: Mapping, cfg: Config) -> Dict[str, torch.Te
             for name in ("w_u", "w_v"):
                 sd[p + name + ".weight"] = _t(np.asarray(layer[name + "_kernel"]).T)
                 sd[p + name + ".bias"] = _t(layer[name + "_bias"])
+    return sd
+
+
+def _layernorm(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def bert_state_dict_from_jax(params: Mapping, bert_cfg, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``BertModel`` params -> a float32 state_dict with the HF
+    ``BertModel`` keys (the inverse of
+    ``drin_tpu.encoders.bert.bert_params_from_torch``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    emb = params["embeddings"]
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"{prefix}embeddings.{name}.weight"] = _t(emb[name])
+    _layernorm(sd, prefix + "embeddings.LayerNorm", emb["LayerNorm"])
+    _dense(sd, prefix + "pooler.dense", params["pooler"])
+    for i in range(bert_cfg.num_hidden_layers):
+        layer, p = params[f"layer_{i}"], f"{prefix}encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            _dense(sd, p + "attention.self." + name, layer["self"][name])
+        _dense(sd, p + "attention.output.dense", layer["attention_output_dense"])
+        _layernorm(sd, p + "attention.output.LayerNorm", layer["attention_output_norm"])
+        _dense(sd, p + "intermediate.dense", layer["intermediate_dense"])
+        _dense(sd, p + "output.dense", layer["output_dense"])
+        _layernorm(sd, p + "output.LayerNorm", layer["output_norm"])
+    return sd
+
+
+def _mha(sd: Dict, prefix: str, p: Mapping) -> None:
+    """Flax MultiheadAttention -> the upstream ``nn.MultiheadAttention`` keys:
+    one packed ``in_proj_weight`` when q, k and v read the same width."""
+    w = {n: np.asarray(p[f"{n}_proj"]["kernel"]).T for n in "qkv"}
+    if w["q"].shape == w["k"].shape == w["v"].shape:
+        sd[prefix + ".in_proj_weight"] = _t(np.concatenate([w["q"], w["k"], w["v"]]))
+    else:
+        for n in "qkv":
+            sd[f"{prefix}.{n}_proj_weight"] = _t(w[n])
+    sd[prefix + ".in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(p[f"{n}_proj"]["bias"]) for n in "qkv"]))
+    _dense(sd, prefix + ".out_proj", p["out_proj"])
+
+
+def _cross_attention(sd: Dict, prefix: str, p: Mapping) -> None:
+    for name in ("a2b_attention", "b2a_attention"):
+        _mha(sd, f"{prefix}.{name}", p[name])
+    for name in ("a2b_ffn", "b2a_ffn"):
+        _dense(sd, f"{prefix}.{name}", p[name]["Dense_0"])
+    for i in range(4):
+        _layernorm(sd, f"{prefix}.layernorms.{i}", p[f"ln{i}"])
+
+
+def _mention_encoder(sd: Dict, prefix: str, p: Mapping, cfg: Config) -> None:
+    name = cfg.mention_final_layer_name
+    if name == "linear":
+        _dense(sd, prefix + ".final_layer.linear", p["final_layer"]["linear"]["Dense_0"])
+    elif name == "multimodal" and cfg.mention_multimodal_attention == "bi":
+        inter, pre = p["intermediate_layer"], prefix + ".intermediate_layer"
+        for ca in ("t2v_attention", "v2t_attention"):
+            _cross_attention(sd, f"{pre}.{ca}", inter[ca])
+        for lin in ("text_linear", "image_linear", "score_linear"):
+            _dense(sd, f"{pre}.{lin}", inter[lin]["Dense_0"])
+    elif name == "multimodal":
+        _cross_attention(sd, prefix + ".intermediate_layer", p["intermediate_layer"])
+    elif name != "none":
+        raise NotImplementedError(f"mention_final_layer_name={name!r} is not ported yet")
+
+
+def ghmfc_state_dict_from_jax(params: Mapping, cfg: Config) -> Dict[str, torch.Tensor]:
+    """Flax GHMFC params -> a float32 state_dict for
+    ``drin_tpu_torch.models.ghmfc.GHMFC(cfg)``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _mention_encoder(sd, "mention_encoder", params.get("mention_encoder", {}), cfg)
+    if cfg.entity_final_layer_name == "linear":
+        _dense(sd, "entity_encoder.final_layer",
+               params["entity_encoder"]["final_layer"]["Dense_0"])
+    return sd
+
+
+def ghmfc_online_state_dict_from_jax(params: Mapping, cfg: Config,
+                                     bert_cfg) -> Dict[str, torch.Tensor]:
+    """Flax GHMFCOnline params -> a float32 state_dict for
+    ``drin_tpu_torch.models.ghmfc.GHMFCOnline(cfg, bert_cfg)``."""
+    sd = bert_state_dict_from_jax(params["bert"], bert_cfg, prefix="bert.")
+    _mention_encoder(sd, "mention_encoder", params.get("mention_encoder", {}), cfg)
+    if cfg.entity_final_layer_name == "linear":
+        _dense(sd, "entity_final_layer", params["entity_final_layer"]["Dense_0"])
     return sd

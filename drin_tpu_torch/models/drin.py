@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from drin_tpu.common.config import Config
+from drin_tpu_torch.common.config import Config
 from drin_tpu_torch.models.ghmfc import EntityEncoder, MentionEncoder
 from drin_tpu_torch.nn.layers import LayerNorm, Linear, get_activation
 from drin_tpu_torch.ops.core import cosine_similarity, object_pair_similarity, span_mean

@@ -1,10 +1,12 @@
 # -*- coding: utf-8 -*-
-"""GHMFC's mention and entity encoders, the branches DRIN uses (port of
-``drin_tpu/models/ghmfc.py::MentionEncoder`` / ``EntityEncoder``).
+"""GHMFC (port of ``drin_tpu/models/ghmfc.py``): gated hierarchical
+multimodal fusion between the mention sentence and its image regions, scored
+by cosine against pooled candidate entity text.
 
-DRIN's text vertices come out of these two encoders.  The ``transformer``
-and ``multimodal`` mention layers belong to the GHMFC port (ROADMAP:
-GHMFC offline) and raise here.
+:class:`MentionEncoder` and :class:`EntityEncoder` also give DRIN its text
+vertices.  :class:`GHMFC` runs over precomputed BERT features;
+:class:`GHMFCOnline` runs BERT inside the forward pass.  The ``transformer``
+mention layer is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -14,35 +16,55 @@ from typing import Optional
 import torch
 from torch import nn
 
-from drin_tpu.common.config import Config
-from drin_tpu_torch.nn.layers import Avg, AvgLinear, Linear, MaxPool
-from drin_tpu_torch.ops.core import token_span_max, token_span_mean
+from drin_tpu_torch.common.config import Config
+from drin_tpu_torch.nn.layers import (Avg, AvgLinear, CrossAttention, Linear, MaxPool,
+                                      MultimodalFusion)
+from drin_tpu_torch.ops.core import (cosine_similarity, token_span_max, token_span_mean,
+                                     unzip_entities)
 
 
 class MentionEncoder(nn.Module):
-    """Mention-side encoder over precomputed BERT features: ``linear``
-    (span-average + projection) or ``none`` (span-average or max-pool, per
-    ``mention_final_representation``)."""
+    """Mention-side encoder over BERT features.  ``mention_final_layer_name``
+    picks ``linear`` (span-average + projection), ``multimodal`` (gated
+    text/image fusion when ``mention_multimodal_attention == "bi"``, else
+    text-only cross attention followed by the final representation) or
+    ``none`` (the final representation alone: max-pool or span-average)."""
 
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
         name = cfg.mention_final_layer_name
+        self.fusion = name == "multimodal" and cfg.mention_multimodal_attention == "bi"
         if name == "linear":
             self.final_layer = AvgLinear(cfg.bert_embed_dim, cfg.mention_final_output_dim,
                                          generator)
-        elif name == "none":
-            self.final_repr = (MaxPool(dim=1)
-                               if cfg.mention_final_representation == "max pool" else Avg())
-        else:
+            return
+        if self.fusion:
+            self.intermediate_layer = MultimodalFusion(
+                cfg.bert_embed_dim, cfg.resnet_embed_dim, cfg.mention_final_output_dim,
+                cfg.transformer_num_heads, cfg.multimodal_subspace_activation, generator)
+            return
+        if name == "multimodal":
+            self.intermediate_layer = CrossAttention(cfg.bert_embed_dim, cfg.resnet_embed_dim,
+                                                     cfg.transformer_num_heads, generator)
+        elif name != "none":
             raise NotImplementedError(
-                f"mention_final_layer_name={name!r} belongs to the GHMFC port "
-                "(ROADMAP: GHMFC offline); the port supports 'linear' and 'none'")
+                f"mention_final_layer_name={name!r} is not ported yet (ROADMAP: "
+                "MultilayerTransformer); the port supports 'linear', 'multimodal' and 'none'")
+        self.final_repr = (MaxPool(dim=1)
+                           if cfg.mention_final_representation == "max pool" else Avg())
 
-    def forward(self, sentence_feature, attention_mask, begin, end):
-        if self.cfg.mention_final_layer_name == "linear":
+    def forward(self, sentence_feature, attention_mask, begin, end, image_feature=None):
+        name = self.cfg.mention_final_layer_name
+        if name == "linear":
             return self.final_layer(sentence_feature, begin, end)
-        return self.final_repr(sentence_feature, begin, end)
+        if self.fusion:
+            return self.intermediate_layer(sentence_feature, attention_mask, image_feature)
+        feature = sentence_feature
+        if name == "multimodal":  # text-only cross attention
+            feature = self.intermediate_layer(sentence_feature, attention_mask, image_feature,
+                                              None)
+        return self.final_repr(feature, begin, end)
 
 
 class EntityEncoder(nn.Module):
@@ -77,3 +99,96 @@ class EntityEncoder(nn.Module):
         if cfg.entity_final_layer_name == "linear":
             encoded = self.final_layer(encoded)
         return encoded
+
+
+def _cosine_scores(mention, entity, num_candidates: int):
+    """cos(mention [B, D], entity [B, C, D]) cut to the model's candidates
+    (padded fake candidates sit past them)."""
+    return cosine_similarity(mention[:, None, :].expand_as(entity), entity)[:, :num_candidates]
+
+
+class GHMFC(nn.Module):
+    """GHMFC over precomputed features.  Batch (answer stripped): mention
+    fields [0:5], entity fields [5:8].  Output: cosine scores [B, C]."""
+
+    def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.mention_encoder = MentionEncoder(cfg, generator)
+        self.entity_encoder = EntityEncoder(cfg, generator)
+
+    def forward(self, batch):
+        (sentence_feature, attention_mask, begin, end, mention_image,
+         entity_feature, entity_mask, _entity_image) = batch
+        mention = self.mention_encoder(sentence_feature, attention_mask, begin, end,
+                                       mention_image)
+        entity = self.entity_encoder(entity_feature, entity_mask)
+        return _cosine_scores(mention, entity, self.cfg.num_candidates_model)
+
+
+class GHMFCOnline(nn.Module):
+    """GHMFC with BERT inside the forward pass.
+
+    Batch (answer stripped), zipped mode (``cfg.num_entity_sentence > 0``):
+      (mention_ids [B, Lm], mention_mask, begin, end, mention_image,
+       entity_ids [B, S, Le], entity_mask [B, S, Le], sep_idx [B, S, E],
+       entity_image)
+    direct mode (``num_entity_sentence == 0``): entity_ids/mask are
+    [B, C, Le] and sep_idx is an ignored placeholder.
+
+    One shared BERT serves the mention and the entity tower, and the entity
+    sentences go through it as one batched [B*S, L] call.
+    ``bert_fused_attention=None`` is settled at each call from where the
+    tensors lie (the kernel on CUDA, the written-out product on the CPU), so
+    the model may be built anywhere and moved.  BERT is frozen
+    unless ``cfg.finetune_bert`` (training is not ported yet)."""
+
+    def __init__(self, cfg: Config, bert_cfg=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        from drin_tpu_torch.encoders.bert import BertConfig, BertModel
+
+        if cfg.num_entity_sentence and cfg.entity_final_pooling == "bert default":
+            raise ValueError(
+                "entity_final_pooling='bert default' has no per-candidate pooler output in "
+                "zipped mode; use 'avg' or 'max', or set num_entity_sentence=0")
+        self.cfg = cfg
+        self.bert = BertModel(bert_cfg or BertConfig(), remat=cfg.bert_remat,
+                              fused_attention=cfg.bert_fused_attention, generator=generator)
+        self.mention_encoder = MentionEncoder(cfg, generator)
+        if cfg.entity_final_layer_name == "linear":
+            self.entity_final_layer = Linear(cfg.bert_embed_dim, cfg.entity_final_output_dim,
+                                             generator)
+
+    def _encode(self, ids, mask):
+        if self.cfg.finetune_bert:
+            return self.bert(ids, mask)
+        with torch.no_grad():
+            return self.bert(ids, mask)
+
+    def forward(self, batch):
+        cfg = self.cfg
+        (mention_ids, mention_mask, begin, end, mention_image,
+         entity_ids, entity_mask, sep_idx, _entity_image) = batch
+        # mention tower: BERT, clipped to max_mention_sentence_len
+        h, _ = self._encode(mention_ids, mention_mask)
+        Lm = cfg.max_mention_sentence_len
+        mention = self.mention_encoder(h[:, :Lm], mention_mask[:, :Lm], begin, end,
+                                       mention_image)
+        # entity tower
+        B, C = entity_ids.shape[0], cfg.num_candidates_model
+        flat_ids = entity_ids.reshape((-1,) + entity_ids.shape[2:])
+        flat_mask = entity_mask.reshape(flat_ids.shape)
+        eh, epooled = self._encode(flat_ids, flat_mask)
+        if cfg.num_entity_sentence:  # zipped
+            zipped = eh.reshape(B, cfg.num_entity_sentence, *eh.shape[1:])
+            encoded = unzip_entities(zipped, sep_idx, C, cfg.entity_final_pooling)
+        else:  # per candidate; Ci may exceed C under candidate padding
+            Ci = entity_ids.shape[1]
+            if cfg.entity_final_pooling == "bert default":
+                encoded = epooled.reshape(B, Ci, -1)
+            else:
+                pool = token_span_max if cfg.entity_final_pooling == "max" else token_span_mean
+                encoded = pool(eh, flat_mask.sum(-1)).reshape(B, Ci, -1)
+        if cfg.entity_final_layer_name == "linear":
+            encoded = self.entity_final_layer(encoded)
+        return _cosine_scores(mention, encoded, C)

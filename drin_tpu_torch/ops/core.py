@@ -9,6 +9,7 @@ Same closed forms and edge-case semantics as the JAX module:
     the window give 0
   * ``token_span_mean`` / ``token_span_max`` <- per-candidate entity pooling
   * ``object_pair_similarity`` <- score-weighted object-pair cosine
+  * ``unzip_entities``         <- zipped-sentence features back to candidates
 
 The reductions accumulate in float32 and return the input dtype (the JAX
 module runs them at ``Precision.HIGHEST`` for the same reason).
@@ -88,3 +89,30 @@ def object_pair_similarity(mention_obj: torch.Tensor,  # [B, Tm, D]
     num = torch.sum(sim * w, dim=(-1, -2))
     den = torch.sum(w, dim=(-1, -2))
     return (num / (den + eps)).to(mention_obj.dtype)
+
+
+def unzip_entities(zipped: torch.Tensor, sep_idx: torch.Tensor, num_candidates: int,
+                   pooling: str = "avg") -> torch.Tensor:
+    """Split zipped-sentence BERT features back into per-candidate vectors:
+    candidate k of sentence j spans token positions ``[prev_sep + 1, sep_jk)``
+    (position 0 is CLS; spans start at 1).
+
+    zipped [B, S, L, D], sep_idx [B, S, E] -> [B, num_candidates, D].
+    Zero-width spans (padding seps) pool to 0 instead of NaN."""
+    B, S, L, D = zipped.shape
+    sep_idx = sep_idx.to(torch.int32)
+    E = sep_idx.shape[-1]
+    pos = torch.arange(L, device=zipped.device).reshape(1, 1, 1, L)
+    lo = torch.cat([torch.ones((B, S, 1), dtype=torch.int32, device=zipped.device),
+                    sep_idx[..., :-1] + 1], dim=-1)
+    mask = (pos >= lo[..., None]) & (pos < sep_idx[..., None])  # [B, S, E, L]
+    if pooling == "avg":
+        m = mask.to(torch.float32)
+        count = torch.clamp(m.sum(-1, keepdim=True), min=1.0)
+        pooled = (torch.einsum("bsel,bsld->bsed", m, zipped.to(torch.float32))
+                  / count).to(zipped.dtype)
+    else:  # max; zero-width spans pool to 0
+        neg = torch.finfo(zipped.dtype).min
+        pooled = torch.amax(zipped[:, :, None].masked_fill(~mask[..., None], neg), dim=-2)
+        pooled = pooled.masked_fill(~torch.any(mask, dim=-1)[..., None], 0.0)
+    return pooled.reshape(B, S * E, D)[:, :num_candidates]

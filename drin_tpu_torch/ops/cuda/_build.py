@@ -18,14 +18,18 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "drin_tpu_torch"
+KERNELS = ("gather_dequant", "gcn_layer", "attention")  # csrc/<name>.cu
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict = {}
+nvcc_seconds: dict = {}  # name -> wall time of its nvcc process in this interpreter
 _lock = threading.Lock()
 
 
@@ -47,20 +51,37 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _compile(name: str, out: Path) -> None:
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    nvcc_seconds[name] = time.perf_counter() - t0
+    out.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+
+
+def build_all(names=KERNELS) -> list:
+    """Compile ``csrc/<name>.cu`` for every name whose library is missing:
+    one ``nvcc`` process per source, all started together.  Each process's
+    own time lands in ``nvcc_seconds``."""
+    outs = [library_path(name) for name in names]
+    missing = [(name, out) for name, out in zip(names, outs) if not out.exists()]
+    if missing:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with ThreadPoolExecutor(len(missing)) as pool:
+            jobs = [pool.submit(_compile, name, out) for name, out in missing]
+        failed = [str(job.exception()) for job in jobs if job.exception()]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same sources exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    return build_all((name,))[0]
 
 
 def load(name: str) -> ctypes.CDLL:

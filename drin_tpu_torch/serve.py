@@ -1,17 +1,23 @@
 # -*- coding: utf-8 -*-
 """Serving, the rank stage (port of ``drin_tpu/serve.py``).
 
-  * :class:`Ranker` scores a rows batch (mention features + [B, C] candidate
-    row indices) against device-resident entity tables and returns top-k.
+  * :class:`Ranker` scores a request and returns top-k.  Two model families
+    are ported: DRIN (a rows batch, mention features + [B, C] candidate row
+    indices, against device-resident entity tables, or the full 14-field
+    batch) and GHMFC with online BERT (the nine token-id fields of an
+    ``OnlineBatch``: BERT runs inside the request).
   * :func:`serve_http` is the stdlib JSON-over-HTTP wrapper: POST /rank,
     GET /health and /stats, with the JAX server's status-code rules.
   * :func:`main` is the CLI, ``python -m drin_tpu_torch.serve``.
 
 Everything runs under ``torch.inference_mode()``.  On CUDA the scalar-edge
-GCN layer always runs the fused layer kernel and a fused store reads its
-int8 tables through the gather+dequant kernel; ``use_pallas`` and
-``pallas_block_b`` are not read.  ``BatchingRanker``, retrieval, bundles and
-``rank_text`` are not ported yet (ROADMAP).
+GCN layer always runs the fused layer kernel, a fused store reads its int8
+tables through the gather+dequant kernel and BERT's self-attention runs the
+fused attention kernel from 256 tokens on; ``use_pallas`` and
+``pallas_block_b`` are not read.  Not ported yet (ROADMAP): raw-text serving
+(``rank_text``, ``/rank_text``), ``BatchingRanker``, retrieval, bundles, and
+GHMFC over precomputed features with device entity tables
+(``baseline_feats_fn``).
 """
 
 from __future__ import annotations
@@ -27,9 +33,11 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from drin_tpu.common.config import Config
+from drin_tpu_torch.common.config import Config
+from drin_tpu_torch.data.dataset import BaselineBatch, DrinBatch
 from drin_tpu_torch.data.device_store import (DeviceEntityStore, DrinRowsBatch, include_for,
                                               project_drin_tables)
+from drin_tpu_torch.data.online import OnlineBatch
 from drin_tpu_torch.models import get_model
 
 
@@ -42,31 +50,42 @@ def _check_device(device) -> torch.device:
 
 
 class Ranker:
-    """Mention-candidate ranking service over a port DRIN.
+    """Mention-candidate ranking service over a port model (DRIN, or GHMFC
+    with online BERT).
 
     ``params`` is a port state_dict (tensors or numpy arrays); without it
     the weights come from ``<checkpoint_dir>/params.pt`` (``torch.save``
     of a state_dict).  Parameters are cast to ``cfg.compute_dtype`` on
-    ``device``."""
+    ``device``.  ``bert_cfg`` overrides the online model's bert-base
+    dimensions."""
 
     def __init__(self, cfg: Config, params: Optional[Mapping] = None,
                  entity_tables: Optional[dict] = None, checkpoint_dir: Optional[str] = None,
-                 *, device, quantize_store: bool = False, fused_gather: bool = False):
+                 *, device, quantize_store: bool = False, fused_gather: bool = False,
+                 bert_cfg=None):
         self.cfg = cfg
         self.device = _check_device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
+        self._bert_cfg = bert_cfg
         if params is None:
             params = self._restore(checkpoint_dir or cfg.checkpoint_dir)
         self.model, self.kind = self._build_model(cfg, params)
         self.store = None
         self._feats_fn = None
-        # the raw host tables are kept for precompute_entity_projection
-        self._tables = entity_tables
+        # the raw host tables are kept only for DRIN's
+        # precompute_entity_projection; any other kind would pin them for
+        # the server's lifetime
+        self._tables = entity_tables if self.kind == "drin" else None
         if entity_tables is not None and cfg.entity_pooling_cached:
+            if self.kind == "baseline":
+                raise NotImplementedError(
+                    "GHMFC over precomputed features with device entity tables is not "
+                    "ported yet (ROADMAP: baseline_feats_fn); serve it without "
+                    "entity_tables, or serve DRIN or online-BERT GHMFC")
             self.store = DeviceEntityStore(cfg, entity_tables, device=self.device,
                                            dtype=self.dtype, quantize=quantize_store,
                                            fused_gather=fused_gather)
-            self._feats_fn = self.store.drin_feats_fn()
+            self._feats_fn = self._feats_fn_for(self.store)
         elif quantize_store or fused_gather:
             raise ValueError(
                 ("quantize_store" if quantize_store else "fused_gather")
@@ -75,7 +94,7 @@ class Ranker:
 
     def _build_model(self, cfg: Config, params: Mapping):
         with torch.device("meta"):  # no init work: every weight is loaded below
-            model, kind = get_model(cfg)
+            model, kind = get_model(cfg, bert_cfg=self._bert_cfg)
         want = model.state_dict()
         sd = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
               for k, v in params.items() if k in want}
@@ -88,15 +107,20 @@ class Ranker:
         path = os.path.join(os.path.abspath(checkpoint_dir), "params.pt")
         if not os.path.exists(path):
             raise FileNotFoundError(f"no port checkpoint at {path} (a torch.save'd "
-                                    "state_dict of drin_tpu_torch.models.drin.DRIN)")
+                                    "state_dict of the configured port model)")
         return torch.load(path, map_location="cpu", weights_only=True)
 
     def set_store(self, store: DeviceEntityStore, entity_tables: Optional[dict] = None):
         """Swap in a different store (and the host tables a later
         projection reads; None makes a projection fail loudly)."""
         self.store = store
-        self._feats_fn = store.drin_feats_fn()
-        self._tables = entity_tables
+        self._feats_fn = self._feats_fn_for(store)
+        self._tables = entity_tables if self.kind == "drin" else None
+
+    def _feats_fn_for(self, store: DeviceEntityStore):
+        """Rows batch -> model batch for DRIN.  The online model's requests
+        carry token ids, never table rows: no feats_fn even with a store."""
+        return store.drin_feats_fn() if self.kind == "drin" else None
 
     def precompute_entity_projection(self):
         """Project the frozen entity tables through the entity-side linears
@@ -120,7 +144,7 @@ class Ranker:
     # ------------------------------------------------------------------
     def _prepare(self, feats) -> tuple:
         feats = tuple(feats)
-        n = len(DrinRowsBatch._fields) - 1 if self.store is not None else 14
+        n = len(_batch_type(self)._fields) - 1
         if len(feats) != n:
             raise ValueError(f"expected {n} feature fields, got {len(feats)}")
         out = []
@@ -132,7 +156,7 @@ class Ranker:
         if B is None or any(t.ndim == 0 or t.shape[0] != B for t in out):
             raise ValueError("every feature field needs the same leading batch dim, got "
                              f"{[tuple(t.shape) for t in out]}")
-        if self.store is not None:
+        if self._feats_fn is not None:
             rows, miet, mtei = out[7], out[8], out[9]
             if rows.ndim != 2 or miet.shape != rows.shape or mtei.shape != rows.shape:
                 raise ValueError("entity_rows, miet_similarity and mtei_similarity must "
@@ -147,8 +171,8 @@ class Ranker:
         return self.model(feats).float()
 
     def score(self, feats) -> np.ndarray:
-        """Raw candidate scores [B, C] for a feature tuple (rows-batch
-        fields minus the answer when the tables are device-resident)."""
+        """Raw candidate scores [B, C] for a feature tuple (the batch fields
+        of :func:`rank_feat_fields`, in order)."""
         with torch.inference_mode():
             return self._scores(feats).cpu().numpy()
 
@@ -177,13 +201,18 @@ def _decode_arrays(payload: str) -> dict:
     return {k: data[k] for k in data.files}
 
 
-def rank_feat_fields(ranker: Ranker) -> list:
-    """The positional feature-field names a ``/rank`` request carries (the
-    batch NamedTuple minus ``answer``)."""
-    from drin_tpu.data.dataset import DrinBatch
+def _batch_type(ranker: Ranker):
+    if ranker.kind == "online":
+        return OnlineBatch
+    if ranker.kind == "drin":
+        return DrinRowsBatch if ranker.store is not None else DrinBatch
+    return BaselineBatch
 
-    bt = DrinRowsBatch if ranker.store is not None else DrinBatch
-    return list(bt._fields[:-1])
+
+def rank_feat_fields(ranker: Ranker) -> list:
+    """The positional feature-field names a ``/rank`` request carries for
+    this ranker (its batch NamedTuple minus ``answer``)."""
+    return list(_batch_type(ranker)._fields[:-1])
 
 
 def serve_http(ranker: Ranker, host: str = "127.0.0.1", port: int = 8787,
@@ -268,19 +297,22 @@ def main(argv=None):
         python -m drin_tpu_torch.serve model_type=drin dataset_name=wikimel \\
             checkpoint_dir=ckpt preprocess_dir=data/wikimel \\
             quantize_store=true fused_gather=true device=cuda port=8787
+        python -m drin_tpu_torch.serve model_type=ghmfc dataset_name=wikimel \\
+            online_bert=true checkpoint_dir=ckpt device=cuda
 
     Serving keys: ``host``/``port``, ``device`` (default ``cuda``; raises
     when CUDA is absent), ``quantize_store``, ``fused_gather`` and
     ``project_entities``; every other key is a Config override.  Returns
     the server object; the ``__main__`` path blocks until interrupted."""
-    from drin_tpu.common.cli import parse_overrides
-    from drin_tpu.common.config import make_config
+    from drin_tpu_torch.common.cli import parse_overrides
+    from drin_tpu_torch.common.config import make_config
 
     overrides = parse_overrides(argv if argv is not None else sys.argv[1:])
     unported = sorted(k for k in overrides if k in _NOT_PORTED)
     if unported:
-        raise SystemExit(f"not ported yet: {', '.join(unported)} "
-                         "(ROADMAP: BatchingRanker, retrieval, bundles)")
+        raise SystemExit(f"not ported yet: {', '.join(unported)} (ROADMAP: BatchingRanker, "
+                         "retrieval, bundles, offline-GHMFC entity precompute, raw-text "
+                         "serving; ported: DRIN and online-BERT GHMFC behind /rank)")
     host = overrides.pop("host", "127.0.0.1")
     port = int(overrides.pop("port", 8787))
     device = _check_device(overrides.pop("device", "cuda"))
@@ -291,10 +323,11 @@ def main(argv=None):
     dataset_name = overrides.pop("dataset_name", "wikidiverse")
     cfg = make_config(model_type, dataset_name, **overrides)
     tables = None
-    if cfg.dataset_name == "wikimel" and cfg.entity_pooling_cached:
-        from drin_tpu.data.dataset import load_wikimel_entity_tables
+    # the online model reads entity text from the request, not from tables
+    if cfg.dataset_name == "wikimel" and cfg.entity_pooling_cached and not cfg.online_bert:
+        from drin_tpu_torch.data.dataset import load_wikimel_entity_tables
 
-        tables = load_wikimel_entity_tables(cfg, include=include_for("drin"))
+        tables = load_wikimel_entity_tables(cfg, include=include_for("drin" if cfg.model_type == "drin" else "baseline"))
     ranker = Ranker(cfg, entity_tables=tables, device=device,
                     quantize_store=bool(quantize_store), fused_gather=bool(fused_gather))
     if project:

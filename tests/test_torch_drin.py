@@ -99,8 +99,9 @@ def test_upstream_parameter_names_and_seeded_init():
 
 
 @pytest.mark.parametrize("kw", [{"mention_final_layer_name": "transformer"},
-                                {"mention_final_layer_name": "multimodal"},
-                                {"model_type": "ghmfc"}])
+                                {"model_type": "melhi"},
+                                {"model_type": "ghmfc", "online_bert": True,
+                                 "bert_checkpoint": "some/dir"}])
 def test_unported_branches_raise(kw):
     cfg = tiny_config("wikimel", "drin", preprocess_dir="/tmp/unused-torch-drin").replace(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

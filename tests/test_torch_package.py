@@ -1,6 +1,9 @@
 # -*- coding: utf-8 -*-
-"""Package rules of the PyTorch port: no JAX anywhere in ``drin_tpu_torch``
-or ``chip_smoke.py``, nothing built at import, no CPU fallback on CUDA."""
+"""Package rules of the PyTorch port: no JAX and nothing of the JAX package
+``drin_tpu`` anywhere in ``drin_tpu_torch`` or ``chip_smoke.py``, nothing
+built at import, no CPU fallback on CUDA, no library attention; and the
+port's own copies of the jax-free ``drin_tpu/common`` modules stay equal to
+their originals."""
 
 import ast
 import os
@@ -11,10 +14,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax"}
-JAX_MODULES = ("drin_tpu.data.device_store", "drin_tpu.serve", "drin_tpu.ops",
-               "drin_tpu.nn", "drin_tpu.models.drin", "drin_tpu.models.ghmfc",
-               "drin_tpu.parallel", "drin_tpu.train", "drin_tpu.encoders")
+# the five JAX distributions, and the JAX package itself: the port keeps its
+# own copy of whatever it needs from there, jax-free modules included
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "drin_tpu"}
+PORT_FILES = sorted((ROOT / "drin_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imports(path: Path):
@@ -25,17 +28,19 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted((ROOT / "drin_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"],
-                         ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     for mod in _imports(path):
         assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
-        assert not mod.startswith(JAX_MODULES), (path, mod)
+    # nor by name at run time (importlib.import_module("drin_tpu..."), __import__)
+    text = path.read_text()
+    for call in ("import_module(", "__import__("):
+        assert call not in text, (path, call)
 
 
 def test_import_builds_nothing_and_pulls_in_no_jax(tmp_path):
-    """Importing every port module in a fresh interpreter loads no jax and
-    starts no kernel build."""
+    """Importing every port module in a fresh interpreter loads no jax,
+    nothing of ``drin_tpu``, and starts no kernel build."""
     code = (
         "import sys, importlib, pkgutil, drin_tpu_torch\n"
         "for m in pkgutil.walk_packages(drin_tpu_torch.__path__, 'drin_tpu_torch.'):\n"
@@ -64,6 +69,8 @@ def test_build_without_nvcc_raises_and_never_falls_back(tmp_path, monkeypatch):
     lib = _build.library_path("gather_dequant")
     assert lib.parent == tmp_path / "build" and lib.name.startswith("libgather_dequant-")
     assert _build.library_path("gather_dequant") == lib  # keyed by the sources
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all(("gather_dequant", "gcn_layer", "attention"))
 
 
 def test_ranker_on_cuda_without_cuda_raises(monkeypatch):
@@ -83,4 +90,101 @@ def test_package_data_lists_kernel_sources():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"drin_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
     assert sorted(p.name for p in (ROOT / "drin_tpu_torch" / "csrc").iterdir()) == [
-        "common.cuh", "gather_dequant.cu", "gcn_layer.cu"]
+        "attention.cu", "common.cuh", "gather_dequant.cu", "gcn_layer.cu"]
+    from drin_tpu_torch.ops.cuda import _build
+
+    assert _build.KERNELS == ("gather_dequant", "gcn_layer", "attention")
+
+
+def test_no_library_attention_in_the_port():
+    """The attention kernel is the port's own: no fused PyTorch attention
+    and no compiler stands in for it anywhere in the package."""
+    for path in (ROOT / "drin_tpu_torch").rglob("*"):
+        if path.suffix in (".py", ".cu", ".cuh"):
+            text = path.read_text()
+            for word in ("scaled_dot_product_attention", "torch.compile", "nn.MultiheadAttention("):
+                assert word not in text, (path, word)
+
+
+CONFIG_CASES = [(m, d, {}) for m in ("drin", "ghmfc", "melhi") for d in ("wikimel", "wikidiverse")]
+CONFIG_CASES += [("drin", "wikimel", {"debug": True}),
+                 ("ghmfc", "wikimel", {"online_bert": True, "finetune_bert": False,
+                                       "compute_dtype": "bfloat16", "num_candidates_data": 50}),
+                 ("ghmfc", "wikidiverse", {"debug": True, "entity_final_pooling": "max"})]
+
+
+@pytest.mark.parametrize("model_type,dataset,kw", CONFIG_CASES,
+                         ids=[f"{m}-{d}-{'-'.join(k) or 'defaults'}" for m, d, k in CONFIG_CASES])
+def test_make_config_equals_the_jax_package(model_type, dataset, kw):
+    """The port's copy of the configuration cannot drift unseen: every
+    field, property and default equals ``drin_tpu``'s."""
+    import dataclasses
+
+    from drin_tpu.common import config as jconfig
+    from drin_tpu_torch.common import config as tconfig
+
+    ours = tconfig.make_config(model_type, dataset, **kw)
+    theirs = jconfig.make_config(model_type, dataset, **kw)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(theirs)]
+    for prop in ("num_candidates_model", "entity_pooling_cached", "object_topk"):
+        assert getattr(ours, prop) == getattr(theirs, prop)
+    assert tconfig.config_summary(ours) == jconfig.config_summary(theirs)
+    assert (tconfig.CLS_TOKEN_ID, tconfig.SEP_TOKEN_ID) == (jconfig.CLS_TOKEN_ID,
+                                                            jconfig.SEP_TOKEN_ID)
+    # either package's Config serves the port: it reads attributes only
+    assert dataclasses.asdict(ours.replace(batch_size=3)) == dataclasses.asdict(
+        theirs.replace(batch_size=3))
+
+
+def test_make_config_rejects_what_the_jax_package_rejects():
+    from drin_tpu.common import config as jconfig
+    from drin_tpu_torch.common import config as tconfig
+
+    for mod in (tconfig, jconfig):
+        with pytest.raises(Exception):
+            mod.make_config("drin", "wikimel", no_such_field=1)
+        with pytest.raises(Exception):
+            mod.make_config("drin", "no-such-dataset")
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["a=1", "b=2.5", "c=true", "d=False", "e=none", "f=text"], ["--port=0", "--host=::1"],
+    ["topk=(1,5,10)", "edges=[1,0,0,1]", "name='quoted'"], ["path=/data/wikimel", "x=1e-3"],
+    ["k=a=b"], ["novalue"]])
+def test_parse_overrides_equals_the_jax_package(argv):
+    from drin_tpu.common.cli import parse_overrides as theirs
+    from drin_tpu_torch.common.cli import parse_overrides as ours
+
+    if argv == ["novalue"]:
+        for fn in (ours, theirs):
+            with pytest.raises(SystemExit, match="expected key=value"):
+                fn(argv)
+        return
+    got, want = ours(argv), theirs(argv)
+    assert got == want and [type(v) for v in got.values()] == [type(v) for v in want.values()]
+
+
+def test_port_data_copies_equal_the_jax_package(tmp_path):
+    """Batch layouts, the entity-table pooling and the .npy naming contract
+    of the port's own data modules equal their originals."""
+    import numpy as np
+
+    from drin_tpu.common import npy_io as jnpy
+    from drin_tpu.data import dataset as jdata
+    from drin_tpu_torch.common import npy_io as tnpy
+    from drin_tpu_torch.data import dataset as tdata
+
+    assert tdata.DrinBatch._fields == jdata.DrinBatch._fields
+    assert tdata.BaselineBatch._fields == jdata.BaselineBatch._fields
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((9, 6, 4)).astype(np.float32)
+    mask = (np.arange(6)[None] < rng.integers(0, 7, 9)[:, None]).astype(np.int64)
+    np.testing.assert_array_equal(tdata.pool_entity_table(feats, mask, chunk=4),
+                                  jdata.pool_entity_table(feats, mask, chunk=4))
+    jnpy.save_field(str(tmp_path), "entity_attr_feature", feats)
+    jnpy.save_field(str(tmp_path), "entity_object_score", mask, "all")
+    np.testing.assert_array_equal(tnpy.load_field(str(tmp_path), "entity_attr_feature"), feats)
+    got = tnpy.load_field(str(tmp_path), "entity_object_score", "all", mmap="r")
+    np.testing.assert_array_equal(got, mask)
+    assert isinstance(got, np.memmap)

@@ -205,3 +205,161 @@ def test_cpu_serving_never_launches_kernels(wm128):
     tgather.launches = 0
     tr.rank(batch[:-1], k=2)
     assert tgather.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# GHMFC with online BERT behind the same entry points
+
+
+@pytest.fixture(scope="module")
+def online():
+    """Tiny zipped online model: (cfg, port bert_cfg, flax module, params, batch)."""
+    from drin_tpu_torch.encoders.bert import BertConfig
+    from tests.test_torch_ghmfc import BERT_DIMS, jax_online, online_batch, online_cfg
+
+    cfg = online_cfg(zipped=True)
+    batch = online_batch(cfg, 3, 9)  # the shapes of test_torch_ghmfc: its compiles are reused
+    jmodel, params = jax_online(cfg, batch)
+    return cfg, BertConfig(**BERT_DIMS), jmodel, params, batch
+
+
+def _online_ranker(online, **kw):
+    from drin_tpu_torch.models.convert import ghmfc_online_state_dict_from_jax
+
+    cfg, bert_cfg, _, params, _ = online
+    return Ranker(cfg, ghmfc_online_state_dict_from_jax(params, cfg, bert_cfg), device="cpu",
+                  bert_cfg=bert_cfg, **kw)
+
+
+def test_online_ranker_matches_jax_ranker(online):
+    from drin_tpu.data.online import OnlineBatch
+
+    cfg, _, jmodel, params, batch = online
+    jr = JaxRanker(cfg, params=params, model=jmodel)
+    tr = _online_ranker(online)
+    assert tr.kind == jr.kind == "online" and tr.store is None and tr._feats_fn is None
+    assert rank_feat_fields(tr) == list(OnlineBatch._fields[:-1])
+    want = jr.score(batch)
+    got = tr.score(batch)
+    assert got.shape == want.shape == (3, cfg.num_candidates_model)
+    np.testing.assert_allclose(got, want, rtol=F32_RTOL, atol=1e-5)
+    js, ji = jr.rank(batch, k=3)
+    ts, ti = tr.rank(batch, k=3)
+    np.testing.assert_allclose(ts, js, rtol=F32_RTOL, atol=1e-5)
+    _assert_topk_equal_away_from_ties(want, ti, ji, 3)
+    # token ids stay integer on their way in; float fields take the compute dtype
+    prepared = tr._prepare(batch)
+    assert [t.dtype for t in prepared[:4]] == [torch.int64] * 4
+    assert prepared[4].dtype == torch.float32 and prepared[5].dtype == torch.int64
+
+
+def test_online_http_rank_and_field_count(online):
+    cfg, _, _, _, batch = online
+    tr = _online_ranker(online)
+    fields = rank_feat_fields(tr)
+    server = serve_http(tr, port=0, feat_fields=fields)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(feats: dict, k=3):
+        req = urllib.request.Request(
+            url + "/rank", data=json.dumps({"features": _encode_arrays(feats), "k": k}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return json.loads(resp.read())
+
+    try:
+        feats = {n: np.asarray(v) for n, v in zip(fields, batch)}
+        out = post(feats)
+        want_s, want_i = tr.rank(batch, k=3)
+        np.testing.assert_array_equal(np.asarray(out["scores"]), want_s)
+        np.testing.assert_array_equal(np.asarray(out["indices"]), want_i)
+        with urllib.request.urlopen(url + "/stats", timeout=10) as resp:
+            stats = json.loads(resp.read())
+        assert stats["model"] == "ghmfc" and stats["entity_rows"] is None
+        for bad in ({k: v for k, v in feats.items() if k != "entity_sep_idx"},  # 8 fields
+                    dict(feats, entity_ids=feats["entity_ids"][:2])):           # ragged batch
+            with pytest.raises(urllib.error.HTTPError) as exc:
+                post(bad)
+            assert exc.value.code == 400 and "error" in json.loads(exc.value.read())
+        with pytest.raises(ValueError, match="expected 9 feature fields, got 14"):
+            tr.score(tuple(batch) + tuple(batch[:5]))
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_online_ranker_with_tables_installs_no_rows_feats_fn(online, wm128):
+    """An online model's requests carry token ids even when a store is
+    given, and the host tables are kept only for DRIN."""
+    from drin_tpu_torch.data.device_store import DeviceEntityStore
+
+    cfg, _, _, _, batch = online
+    dcfg, tables, _, _ = wm128
+    tr = _online_ranker(online)
+    before = tr.score(batch)
+    tr.set_store(DeviceEntityStore(dcfg, tables, device="cpu", dtype=torch.float32), tables)
+    assert tr.store is not None and tr._feats_fn is None and tr._tables is None
+    assert len(rank_feat_fields(tr)) == 9
+    np.testing.assert_array_equal(tr.score(batch), before)
+
+
+def test_offline_ghmfc_ranker(wm128):
+    """GHMFC over precomputed features serves full batches; with device
+    entity tables it needs baseline_feats_fn, which is not ported."""
+    from drin_tpu.models.ghmfc import GHMFC as JaxGHMFC
+    from drin_tpu_torch.data.dataset import BaselineBatch
+    from drin_tpu_torch.models.convert import ghmfc_state_dict_from_jax
+    from tests.test_torch_ghmfc import _baseline_batch
+
+    dcfg, tables, _, _ = wm128
+    cfg = dcfg.replace(model_type="ghmfc", mention_final_layer_name="multimodal",
+                       transformer_num_heads=2)
+    batch = _baseline_batch(cfg, 3, 2, "pooled")
+    jmodel = JaxGHMFC(cfg)
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0), batch)["params"])
+    sd = ghmfc_state_dict_from_jax(params, cfg)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Ranker(cfg, sd, tables, device="cpu")
+    tr = Ranker(cfg, sd, device="cpu")
+    assert tr.kind == "baseline" and rank_feat_fields(tr) == list(BaselineBatch._fields[:-1])
+    np.testing.assert_allclose(tr.score(batch), np.asarray(jmodel.apply({"params": params}, batch)),
+                               rtol=F32_RTOL, atol=1e-5)
+
+
+def test_serve_main_online(online, tmp_path, monkeypatch):
+    """The CLI stands up the online model from a checkpoint; bert-base dims
+    are its default, so the tiny checkpoint is refused loudly, and the
+    unported serving keys still are."""
+    from drin_tpu_torch import serve as tserve
+    from drin_tpu_torch.models.convert import ghmfc_online_state_dict_from_jax
+
+    cfg, bert_cfg, _, params, batch = online
+    torch.save(ghmfc_online_state_dict_from_jax(params, cfg, bert_cfg), tmp_path / "params.pt")
+    argv = ["model_type=ghmfc", "dataset_name=wikimel", "online_bert=true", "finetune_bert=false",
+            f"checkpoint_dir={tmp_path}", "compute_dtype=float32", "port=0", "device=cpu",
+            f"num_candidates_data={cfg.num_candidates_data}", "num_entity_sentence=3",
+            f"max_bert_len={cfg.max_bert_len}", f"bert_embed_dim={cfg.bert_embed_dim}",
+            f"resnet_embed_dim={cfg.resnet_embed_dim}", "transformer_num_heads=2",
+            f"mention_final_output_dim={cfg.mention_final_output_dim}",
+            f"entity_final_output_dim={cfg.entity_final_output_dim}",
+            f"max_mention_sentence_len={cfg.max_mention_sentence_len}"]
+    with pytest.raises(SystemExit, match="not ported"):
+        main(argv + ["bundle=some.bundle"])
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        main(argv)  # a bert-base model does not load the tiny checkpoint
+    real = tserve.Ranker
+    monkeypatch.setattr(tserve, "Ranker", lambda *a, **kw: real(*a, bert_cfg=bert_cfg, **kw))
+    server = main(argv)
+    try:
+        fields = list(tserve.OnlineBatch._fields[:-1])
+        body = json.dumps({"features": _encode_arrays(dict(zip(fields, map(np.asarray, batch)))),
+                           "k": 2}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/rank",
+                                     data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            out = json.loads(resp.read())
+        np.testing.assert_array_equal(np.asarray(out["scores"]),
+                                      _online_ranker(online).rank(batch, k=2)[0])
+    finally:
+        server.shutdown()
+        server.server_close()
