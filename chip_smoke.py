@@ -4,11 +4,12 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``drin_tpu_torch/csrc`` (one nvcc per
-source, started together, sm_90a), holds each against its plain PyTorch
-version on the card, then drives two serving paths through ``Ranker`` and
-``serve_http``, each at the full width of its model with seeded random
-weights:
+Builds the CUDA kernels from ``drin_tpu_torch/csrc`` (one nvcc per source,
+started together, sm_90a), holds each against its plain PyTorch version on
+the card (gather+dequant, the GCN layer, the attention forward, the
+attention backward with and without a mask, the vertex update), then drives
+four paths at the full width of their models with seeded random weights.
+Served, through ``Ranker`` and ``serve_http``:
 
   * DRIN's rank stage at the WikiMEL width over an int8 fused store of
     32,768 synthetic entities (the gather+dequant and GCN-layer kernels);
@@ -16,8 +17,17 @@ weights:
     ids, 101 candidates zipped into 12 sentences of 512 tokens (the fused
     attention kernel, 12 launches per request).
 
+Trained, through ``Trainer`` and ``build_step_fns``:
+
+  * GHMFC with online BERT, fine-tuned: B=8 mentions with 12 zipped
+    sentences of 512 tokens each, a bf16 body over float32 masters, every
+    BERT layer recomputed in the backward (the attention forward and backward
+    kernels, 24 and 12 launches per step);
+  * DRIN at B=64, C=101, D=768 over the device-resident entity tables (the
+    GCN-layer kernel in the forward, its backward through the plain version).
+
 It checks the answers against the port's float32 forward on the CPU, shows
-through the launch counters that each served path ran its kernels, and
+through the launch counters that each path ran its kernels, and
 prints times measured with CUDA events beside each kernel's bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
 peak rate of their type, whichever is larger).
@@ -25,7 +35,10 @@ peak rate of their type, whichever is larger).
 Without CUDA, or without the repository around it, it exits non-zero and
 prints no result.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists the kernels with their launches, errors and times.
+the line before it lists the kernels with their errors, times and launches:
+each main path's own count (``launches_by_path``) and their sum.  The
+mask-free attention backward and the vertex update are on no model path, as
+in the JAX package: their counts are 0 and their kernel phases hold them.
 """
 
 from __future__ import annotations
@@ -55,6 +68,21 @@ SCORE_ATOL = 5e-2
 # terms, 2^-9 * sum(p |v|) <~ 2e-3 per rounding, floor 1e-2
 ATTN_BF16_TOL = dict(atol=1e-2, rtol=1.6e-2)
 ATTN_F32_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 summation order and expf only
+# kernels 3b/3c vs attention_backward_plain.  The gradients' size depends on
+# the sequence: with every key kept p ~ 1/512 and |dq|, |dk|, |dv| ~ 0.1; with
+# a prefix of 9 kept keys p ~ 1/9 and they reach ~10.  So the floor is
+# relative: |got - want| <= rtol * |want| + floor * max |want| over the
+# sequence (b) the value belongs to.  bf16: both sides round P and dS to bf16
+# before the products and sum in f32 in another order; the kernel takes delta
+# from its bf16 output o, the plain version from the f32 P, and the kernel's
+# exp and 1/l differ from the plain softmax in the last f32 bits, so some dS
+# land on the neighbouring bf16; a gradient that is a cancelling sum of large
+# terms keeps the absolute error of its terms: floor 1e-2 of the sequence's
+# largest value; elsewhere one bf16 step either way (rtol 1.6e-2 = 2 ulps).
+# dmask is a sum of H*L terms of dS per key, returned in the mask's type.
+# f32: summation order and expf only.
+ATTN_BWD_BF16_TOL = dict(floor=1e-2, rtol=1.6e-2)
+ATTN_BWD_F32_TOL = dict(floor=1e-5, rtol=1e-4)
 # served bf16 online scores vs the port's f32 CPU forward: 12 BERT layers and
 # the fusion round to bf16 at every step.  With random weights the cosines
 # of one mention's candidates spread by only ~5e-3, so the limit is absolute
@@ -65,6 +93,40 @@ ONLINE_SCORE_ATOL = 2e-3
 # which reaches a score of ~0.03 as a few of its bf16 steps (2^-13 each)
 ONLINE_SWAP_ATOL = 8e-4
 ONLINE_F32_ATOL = 1e-4  # float32 on the card vs float32 on the CPU: summation order
+# first-step gradients of the fine-tuned online model, the kernels against the
+# same bf16 model on the card with the plain attention (and autograd through
+# it) swapped in: per parameter tensor, |g - g_plain|_2 / |g_plain|_2.  The
+# two attentions differ by one bf16 step, forward and backward, in each of
+# the 12 layers, and every later bf16 op rounds the difference again; the
+# gradients are sums over 8 x 101 hinge terms of mixed sign, so a tensor with
+# a small gradient (a bias behind the cosine) keeps up to ~0.1 of it as
+# difference, most tensors under 0.04.  A planted fault of the backward
+# (delta left out of dS) moves BERT's tensors by several times their norm
+TRAIN_GRAD_REL = 0.2
+# the online model's eval loss after five train steps on one batch, the main
+# path (bf16 body, remat, the kernels) against the float32 model that keeps
+# its activations and runs the plain attention: five Adam steps of all of
+# BERT carry the bf16 rounding of every step on, so the two trajectories part
+# by a few hundredths of a loss that starts at the margin, 0.25; a fifth of
+# the margin still tells a run that learns (loss under 0.1) from one that
+# does not (loss at the margin)
+TRAIN_WITNESS_ATOL = 5e-2
+# DRIN's first train-step loss, bf16 on the card against the float32 port on
+# the CPU: the bf16 body rounds every activation to 8 bits, the loss is a
+# mean of hinges over cosines of size ~0.25
+TRAIN_LOSS_RTOL = 2e-2
+# DRIN's second train-step loss against the same: it has been through the
+# backward, the cast of the gradients into the float32 masters and one Adam
+# update; by then the loss is ~0.01, and the two sides drew other dropout
+# masks (a generator per device), so the limit is absolute, 1% of the margin
+TRAIN_LOSS2_ATOL = 2.5e-3
+# DRIN's first-step gradients (dropout off), bf16 on the card against the
+# float32 port on the CPU: per parameter tensor, |g - g_cpu|_2 / |g_cpu|_2.
+# The bf16 body rounds every activation and every activation gradient to 8
+# bits and the loss sums 64 x 100 hinges, some of which lie within a bf16 step
+# of the margin and switch on or off.  A layer's W_h gradient dropped in the
+# backward of the fused layer moves that tensor by its whole norm (1.0)
+TRAIN_DRIN_GRAD_REL = 0.2
 # the card's published peaks (H100 SXM, dense): bytes/s and FLOP/s by type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -114,6 +176,19 @@ def outside(got, want, atol, rtol) -> int:
     """How many values of ``got`` lie outside the tolerance around ``want``."""
     got, want = got.float(), want.float()
     return int(((got - want).abs() > atol + rtol * want.abs()).sum())
+
+
+def excess_rel(got, want, floor, rtol):
+    """|got - want| - rtol * |want| in units of floor * (max |want| over the
+    slice of the first dimension the value lies in): > 1 is outside."""
+    got, want = got.float(), want.float()
+    top = want.abs().reshape(want.shape[0], -1).amax(1).clamp_min(1e-30)
+    top = top.reshape((-1,) + (1,) * (want.ndim - 1))
+    return ((got - want).abs() - rtol * want.abs()) / (floor * top)
+
+
+def outside_rel(got, want, floor, rtol) -> int:
+    return int((excess_rel(got, want, floor, rtol) > 1).sum())
 
 
 def check_close(name, got, want, atol, rtol) -> float:
@@ -364,6 +439,191 @@ def phase_attention(torch, np, attn):
             attn.fused_attention(*bad(q, k, v, mask))
             raise AssertionError(f"attention: {why} was accepted")
         except ValueError:
+            pass
+    return result
+
+
+def _attn_grads(torch, attn, q, k, v, mask, do):
+    """dq, dk, dv (and dmask for a mask that requires grad) of the wrapper,
+    through autograd, as a caller gets them."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    if mask is not None:
+        leaves.append(mask.detach().requires_grad_(True))
+    out = attn.fused_attention(*leaves[:3], leaves[3] if mask is not None else None)
+    return list(torch.autograd.grad(out, leaves, do))
+
+
+def phase_attention_bwd(torch, np, attn):
+    """Kernels 3b (masked, with the mask's cotangent) and 3c (no mask)
+    against attention_backward_plain, both on the card; the check must also
+    fail each planted fault of the plain version."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED)
+    main_lens = rng.integers(9, 513, 96)
+    main_lens[:6] = [512, 40, 63, 64, 65, 0]  # one sequence with every key dropped
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("main", 96, 12, 512, bf16, main_lens),
+             ("main, no mask", 96, 12, 512, bf16, None),
+             ("L=256", 16, 12, 256, bf16, rng.integers(1, 257, 16)),
+             ("L=384", 16, 12, 384, bf16, rng.integers(1, 385, 16)),
+             ("L=264 ragged", 16, 12, 264, bf16, rng.integers(200, 265, 16)),
+             ("L=264 ragged, no mask", 4, 12, 264, bf16, None),
+             ("f32", 4, 12, 512, f32, [512, 300, 17, 0]),
+             ("f32 L=264 no mask", 2, 12, 264, f32, None),
+             ("B'=1", 1, 12, 512, bf16, [77])]
+    names = ("dq", "dk", "dv", "dmask")
+    results = {}
+    for i, (name, B, H, L, dt, lens) in enumerate(cases):
+        q, k, v, mask = _attn_inputs(torch, np, B, H, L, dt, SEED + i, lens)
+        # the gradient as BERT's backward hands it over: a [B, H, L, 64] view of [B, L, H*64]
+        do = _attn_inputs(torch, np, B, H, L, dt, SEED + 100 + i)[0]
+        before = (attn.bwd_launches, attn.bwd_nomask_launches)
+        got = _attn_grads(torch, attn, q, k, v, mask, do)
+        torch.cuda.synchronize()
+        after = (attn.bwd_launches, attn.bwd_nomask_launches)
+        assert after == ((before[0] + 1, before[1]) if mask is not None
+                         else (before[0], before[1] + 1)), (name, before, after)
+        with torch.no_grad():
+            want = [w for w in attn.attention_backward_plain(q, k, v, mask, do) if w is not None]
+        if i % 2:  # a contiguous gradient takes the same kernels
+            again = _attn_grads(torch, attn, q, k, v, mask, do.contiguous())
+            for a, b in zip(again, got):
+                assert torch.equal(a, b), f"attention bwd {name}: contiguous dO != strided"
+        torch.cuda.synchronize()
+        tol = ATTN_BWD_BF16_TOL if dt == bf16 else ATTN_BWD_F32_TOL
+        assert len(got) == len(want) == (4 if mask is not None else 3)
+        errs = {}
+        for n, a, b in zip(names, got, want):
+            assert a.shape == b.shape and torch.isfinite(a.float()).all(), (name, n)
+            used = excess_rel(a, b, **tol).max().item()  # share of the floor in use
+            errs[n] = (float(f"{(a.float() - b.float()).abs().max().item():.4g}"),
+                       float(f"{b.float().abs().max().item():.4g}"), float(f"{used:.3g}"),
+                       outside_rel(a, b, **tol))
+        print(f"[attention_bwd] {name}: [{B},{H},{L},64] {str(dt)[6:]}: (max abs err, max |want|, "
+              f"largest share of the floor in use, values outside tol) {errs} (tol {tol})")
+        assert not any(e[3] for e in errs.values()), f"attention bwd {name}: outside tol: {errs}"
+        err = max(e[0] for e in errs.values())
+        if i > 1:
+            continue
+        # the reach of the check: each fault planted in the plain version must
+        # fall outside the tolerance
+        with torch.no_grad():
+            pdq, pdk, pdv, pdm = attn.attention_backward_plain(q, k, v, mask, do)
+            seen = {"scale left out of dq": outside_rel(pdq * 8, want[0], **tol),
+                    "scale left out of dk": outside_rel(pdk * 8, want[1], **tol)}
+            # delta left out of dS: dS = P * dP, so dq = s * (P * dP) . K
+            scale = 0.125
+            logits = torch.einsum("bhqd,bhkd->bhqk", q[:8].float(), k[:8].float()) * scale
+            if mask is not None:
+                logits = logits + mask[:8, None, None, :].float()
+            p = torch.softmax(logits, -1)
+            ds_bad = (p * torch.einsum("bhqd,bhkd->bhqk", do[:8].float(), v[:8].float())).to(dt).float()
+            dq_bad = (torch.einsum("bhqk,bhkd->bhqd", ds_bad, k[:8].float()) * scale).to(dt)
+            seen["delta left out of dS"] = outside_rel(dq_bad, want[0][:8], **tol)
+            dv_rot = pdv.clone()
+            dv_rot[:, :, 64:128] = pdv[:, :, 64:128].roll(1, 2)
+            seen["dV of key tile 1 rotated"] = outside_rel(dv_rot, want[2], **tol)
+            if mask is not None:
+                # summed over the keys of a row instead of the rows of a key:
+                # the row sums of dS are 0, so this dmask is 0 everywhere
+                seen["dmask summed over the wrong axis"] = outside_rel(torch.zeros_like(pdm),
+                                                                       want[3], **tol)
+            del logits, p, ds_bad, dq_bad, dv_rot, pdq, pdk, pdv, pdm
+        for f_, n in seen.items():
+            assert n, f"attention bwd: the check cannot see the plain version with {f_}"
+        print(f"[attention_bwd]   values a planted fault puts outside tol: {seen}")
+        # time: the two backward launches alone, on the residuals of one forward
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attn.fused_attention(*leaves, mask)
+        o, m, l = out.grad_fn.saved_tensors[4:7]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
+            plain_ms = cuda_ms(lambda: attn.attention_backward_plain(q, k, v, mask, do), reps=5,
+                               warmup=1)
+        lib_mask = None if mask is None else mask[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
+        lib = torch.autograd.grad(lib_out, leaves, do)
+        kept = torch.ones(B, dtype=torch.bool, device="cuda") if lens is None else \
+            torch.as_tensor(np.asarray(lens) > 0, device="cuda")
+        lib_err = max((a.float() - b.float())[kept].abs().max().item() for a, b in zip(lib, want))
+        flops = 10 * L * L * 64 * B * H  # the five products
+        moved = nbytes(q, k, v, o, do, m, l, *got[:3]) + (nbytes(mask) if mask is not None else 0)
+        bound_ms, bound_by = bound(moved, flops)
+        print(f"[attention_bwd] [96,12,512,64] bf16, {'masked' if mask is not None else 'no mask'}: "
+              f"kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, autograd through "
+              f"F.scaled_dot_product_attention {library_ms:.4f} ms (yardstick only; max abs diff "
+              f"to plain on the sequences that keep a key {lib_err:.3g}), bound {bound_ms:.4f} ms "
+              f"({bound_by}: {flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB)")
+        results["attention_bwd" if mask is not None else "attention_bwd_nomask"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+        del lib_out, lib, out, leaves, o, m, l
+    for bad, why in ((lambda q, k, v: (q.half(), k.half(), v.half()), "fp16"),
+                     (lambda q, k, v: (q[..., :32], k[..., :32], v[..., :32]), "Dh=32"),
+                     (lambda q, k, v: (q[:, :, :260], k[:, :, :260], v[:, :, :260]), "L % 8")):
+        q, k, v, _ = _attn_inputs(torch, np, 2, 12, 264, bf16, SEED)
+        try:
+            attn.fused_attention(*(t.detach().requires_grad_(True) for t in bad(q, k, v)))
+            raise AssertionError(f"attention with a gradient: {why} was accepted")
+        except ValueError:
+            pass
+    return results
+
+
+def _vertex_inputs(torch, B, C, D, dt, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    u = lambda *s: torch.rand(*s, generator=g, device="cuda")
+    # v, e1, m1, e2, m2, w [out, in], b, ln scale, ln bias
+    return [r(B, C, D).to(dt), u(B, C).to(dt), r(B, D).to(dt), u(B, C).to(dt), r(B, D).to(dt),
+            ((u(D, D) * 2 - 1) * D ** -0.5).to(dt), ((u(D) * 2 - 1) * D ** -0.5).to(dt),
+            (1 + 0.1 * r(D)).to(dt), (0.1 * r(D)).to(dt)]
+
+
+def phase_vertex_update(torch, vu):
+    """Kernel 4 against vertex_update_plain, both on the card; the check
+    must also fail the plain version with e2*m2 left out."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(64, 101, 768, bf16, "gelu"),   # the WikiMEL width
+             (64, 101, 768, f32, "gelu"),
+             (5, 11, 32, bf16, "relu"), (5, 11, 32, f32, "tanh"),
+             (5, 11, 32, bf16, "sigmoid"), (3, 33, 48, f32, "gelu")]
+    result = None
+    for i, (B, C, D, dt, act) in enumerate(cases):
+        args = _vertex_inputs(torch, B, C, D, dt, SEED + i)
+        with torch.inference_mode():
+            got = vu.fused_vertex_update(*args, act=act)
+            want = vu.vertex_update_plain(*args, act=act)
+            fault = vu.vertex_update_plain(*args[:3], torch.zeros_like(args[3]), *args[4:], act=act)
+        torch.cuda.synchronize()
+        tol = GCN_BF16_TOL if dt == bf16 else GCN_F32_TOL  # the GCN layer's epilogue and reasons
+        err = check_close(f"vertex_update {act}", got, want, **tol)
+        seen = outside(fault, want, **tol)
+        assert seen, "vertex_update: the check cannot see the plain version with e2*m2 left out"
+        print(f"[vertex_update] B={B} C={C} D={D} {str(dt)[6:]} {act}: max abs err {err:.3g} "
+              f"(tol {tol}); values outside tol with e2*m2 left out: {seen} of {want.numel()}")
+        if i:
+            continue
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: vu.fused_vertex_update(*args, act=act))
+            plain_ms = cuda_ms(lambda: vu.vertex_update_plain(*args, act=act))
+        flops = 2 * B * C * D * D
+        moved = nbytes(*args, got)
+        bound_ms, bound_by = bound(moved, flops)
+        print(f"[vertex_update] B=64 C=101 D=768 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
+        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "library_ms": None}
+    args = _vertex_inputs(torch, 4, 11, 32, bf16, SEED)
+    for bad, exc, why in ((lambda a: [a[0].half()] + a[1:], ValueError, "fp16"),
+                          (lambda a: [a[0][:, :, :31]] + a[1:], ValueError, "shape"),
+                          (lambda a: [a[0].requires_grad_(True)] + a[1:], RuntimeError, "grad")):
+        try:
+            vu.fused_vertex_update(*bad(list(args)))
+            raise AssertionError(f"vertex_update: {why} was accepted")
+        except exc:
             pass
     return result
 
@@ -662,11 +922,396 @@ def phase_online(torch, np, attn):
     return launches, score_err
 
 
+def _onehot_answers(np, cfg, B, seed):
+    rng = np.random.default_rng(seed)
+    Cd = cfg.num_candidates_data
+    return np.eye(Cd + 1, dtype=np.float32)[rng.integers(0, Cd, B)][:, :Cd]
+
+
+def _run_steps(torch, trainer, batch, valid, n_steps):
+    """``n_steps`` train steps on one repeated batch: losses and host-clock
+    ms per step (each ends in a synchronise)."""
+    from drin_tpu_torch.train import metrics as M
+
+    mstate = M.init_state(trainer.cfg.metrics_topk, trainer.device)
+    losses, times = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state, loss, mstate = trainer.fns.train_step(trainer.state, batch, valid, mstate)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, times, mstate
+
+
+def phase_train_online(torch, np, attn):
+    """GHMFC with online BERT, fine-tuned, through Trainer / build_step_fns
+    at bert-base width: B=8 mentions, 12 zipped sentences of 512 tokens each,
+    bf16 body over float32 masters, each BERT layer recomputed in the
+    backward (``bert_remat``)."""
+    import copy
+
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.encoders import bert as bert_module
+    from drin_tpu_torch.models import get_model
+    from drin_tpu_torch.train import metrics as M
+    from drin_tpu_torch.train.trainer import Trainer, step_generator
+
+    B, n_steps = 8, 5
+    # learning_rate: at the config's default 1e-3 Adam on all of BERT leaves the
+    # loss at the margin, in this run and in the float32 model with the plain
+    # attention alike (both are run and printed below), so the counted run
+    # takes a fine-tuning rate, at which both fall
+    cfg = make_config("ghmfc", "wikimel", online_bert=True, finetune_bert=True, bert_remat=True,
+                      compute_dtype="bfloat16", batch_size=B, learning_rate=1e-4)
+    assert (cfg.num_candidates_model, cfg.num_entity_sentence, cfg.max_bert_len) == (101, 12, 512)
+
+    def build(cfg):
+        with torch.device("meta"):
+            model, kind = get_model(cfg)
+        assert kind == "online"
+        model.load_state_dict(_online_weights(torch, np, model), assign=True)
+        return Trainer(cfg, model, device="cuda", log=lambda *a: None)
+
+    t0 = time.perf_counter()
+    trainer = build(cfg)
+    model, layers = trainer.state.model, trainer.state.model.bert.cfg.num_hidden_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in model.parameters())
+    print(f"[train_online] Trainer(ghmfc, online_bert, finetune_bert, bert_remat) on cuda: "
+          f"{n_params / 1e6:.1f} M float32 master parameters, body in {cfg.compute_dtype}, built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    request = _online_request(np, cfg, B, SEED + 21, model.bert.cfg.vocab_size)
+    batch, valid = trainer._put(request + (_onehot_answers(np, cfg, B, SEED + 22),),
+                                np.ones((B,), np.float32))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    # the first step's gradients: the kernels against the plain attention on the card
+    def grads(attend):
+        model.zero_grad(set_to_none=True)
+        bert_module.fused_attention = attend
+        try:
+            loss, _, _ = trainer.fns.loss_and_metrics(
+                batch, valid, M.init_state(cfg.metrics_topk, "cuda"), step_generator(cfg, 0, "cuda"))
+            loss.backward()
+        finally:
+            bert_module.fused_attention = attn.fused_attention
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    class NoDelta(torch.autograd.Function):
+        """The plain attention with delta left out of dS in its backward."""
+
+        @staticmethod
+        def forward(ctx, q, k, v, mask):
+            ctx.save_for_backward(q, k, v, mask)
+            return attn.attention_plain(q, k, v, mask)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, mask = ctx.saved_tensors
+            f = torch.float32
+            logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f), k.to(f)) * 0.125
+            p = torch.softmax(logits + mask[:, None, None, :].to(f), -1)
+            ds = (p * torch.einsum("bhqd,bhkd->bhqk", do.to(f), v.to(f))).to(q.dtype).to(f)
+            dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(f)) * 0.125
+            dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(f)) * 0.125
+            dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).to(f), do.to(f))
+            return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), None
+
+    attn.launches = attn.bwd_launches = attn.bwd_nomask_launches = 0
+    loss_k, g_kernel = grads(attn.fused_attention)
+    counted = (attn.launches, attn.bwd_launches, attn.bwd_nomask_launches)
+    assert counted == (2 * layers, layers, 0), counted
+    loss_p, g_plain = grads(attn.attention_plain)
+    _, g_fault = grads(NoDelta.apply)
+    assert set(g_kernel) == set(g_plain) and len(g_kernel) > 200
+    # every tensor but the key biases: adding a constant to all keys leaves the
+    # softmax as it is, so their exact gradient is 0 and both sides hold noise
+    names = [n for n in g_plain if not n.endswith("attention.self.key.bias")]
+    rel = lambda g: {n: ((g[n] - g_plain[n]).norm() / g_plain[n].norm().clamp_min(1e-30)).item()
+                     for n in names}
+    rel_k, rel_f = rel(g_kernel), rel(g_fault)
+    top = sorted(rel_k, key=rel_k.get, reverse=True)[:4]
+    print(f"[train_online] first-step loss {loss_k:.6f} (plain attention swapped in: {loss_p:.6f}); "
+          f"gradients vs the plain swap, relative L2 per tensor ({len(names)} tensors, the key "
+          f"biases left out), the largest: {[(n, float(f'{rel_k[n]:.3g}')) for n in top]}; with "
+          f"delta left out of dS the largest: {max(rel_f.values()):.4g} (limit {TRAIN_GRAD_REL})")
+    assert all(torch.isfinite(g).all() for g in g_kernel.values())
+    assert rel_k[top[0]] <= TRAIN_GRAD_REL, (top[0], rel_k[top[0]])
+    assert max(rel_f.values()) > TRAIN_GRAD_REL, "the gradient check cannot see a faulty backward"
+    del g_kernel, g_plain, g_fault
+    model.zero_grad(set_to_none=True)
+
+    # the main path, counted: train steps and one eval step.  The train losses
+    # carry the fusion's attention dropout (other masks every step); whether
+    # the steps learn is read from the deterministic eval loss before and after
+    ev_before = float(trainer.fns.eval_step(batch, valid,
+                                            M.init_state(cfg.metrics_topk, "cuda"))[0])
+    torch.cuda.reset_peak_memory_stats()
+    attn.launches = attn.bwd_launches = attn.bwd_nomask_launches = 0
+    losses, times, mstate = _run_steps(torch, trainer, batch, valid, n_steps)
+    ev_loss, mstate, scores = trainer.fns.eval_step(batch, valid, mstate)
+    torch.cuda.synchronize()
+    counts = {"attention": attn.launches, "attention_bwd": attn.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[train_online] {n_steps} train steps + 1 eval step: forward launches "
+          f"{counts['attention']} ({2 * layers} per train step: {layers} per entity-tower BERT "
+          f"call and {layers} more when the backward recomputes each layer; {layers} per eval "
+          f"step; 0 for the 128-token mention tower), backward launches {counts['attention_bwd']} "
+          f"({layers} per train step), without mask {attn.bwd_nomask_launches}")
+    assert counts == {"attention": 2 * layers * n_steps + layers,
+                      "attention_bwd": layers * n_steps}, counts
+    assert attn.bwd_nomask_launches == 0
+    assert np.isfinite(losses).all() and np.isfinite(float(ev_loss)), losses
+    assert losses[-1] < losses[0], losses
+    assert float(ev_loss) < ev_before, \
+        f"the loss did not fall on the repeated batch: eval {ev_before} -> {float(ev_loss)}, {losses}"
+    assert tuple(scores.shape) == (B, cfg.num_candidates_model) and torch.isfinite(scores).all()
+    assert trainer.state.step == n_steps and float(mstate["total"]) == B * (n_steps + 1)
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p, before[n])]
+    assert any(n.startswith("bert.encoder.layer.0.") for n in moved) and \
+        any(n.startswith("mention_encoder.") for n in moved), "parameters did not move"
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    step_ms = statistics.median(times[1:])
+    print(f"[train_online] train losses {[round(x, 5) for x in losses]}, eval loss {ev_before:.5f} "
+          f"before and {float(ev_loss):.5f} after; "
+          f"{step_ms:.1f} ms per step (median of {n_steps - 1}, host clock to a synchronise; the "
+          f"first {times[0]:.1f} ms), {B * cfg.num_candidates_model / (step_ms / 1e3):.0f} pairs/s, "
+          f"peak memory {peak:.2f} GiB; {len(moved)} of {len(before)} tensors moved")
+    mstate0 = M.init_state(cfg.metrics_topk, "cuda")
+    profile_call(torch, lambda: trainer.fns.train_step(trainer.state, batch, valid, mstate0),
+                 "online train step B=8 (remat)", reps=2, top=14)
+    # the same step keeping every activation instead of recomputing the layers
+    model.bert.remat = False
+    torch.cuda.reset_peak_memory_stats()
+    attn.launches = attn.bwd_launches = 0
+    _, t_keep, _ = _run_steps(torch, trainer, batch, valid, 3)
+    assert (attn.launches, attn.bwd_launches) == (3 * layers, 3 * layers)
+    print(f"[train_online] bert_remat=False: {statistics.median(t_keep[1:]):.1f} ms per step, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, {layers} forward "
+          f"and {layers} backward launches per step")
+    model.bert.remat = True
+
+    # the learning rate: the same five steps from the same weights at the
+    # config's default 1e-3 and at 1e-4, each by two witnesses that share no
+    # attention code, no rounding and no recompute: the main path (bf16 body,
+    # bert_remat, the kernels) and the float32 model keeping every activation
+    # with the plain attention swapped in and autograd through it
+    del trainer, model, before
+    torch.cuda.empty_cache()
+    main, plain = "bf16, remat, kernels", "f32, no remat, plain attention"
+    evals = {(cfg.learning_rate, main): (ev_before, float(ev_loss))}  # the counted run above
+    for lr, witness, over, attend in (
+            (1e-3, main, {}, attn.fused_attention),
+            (1e-3, plain, {"compute_dtype": "float32", "bert_remat": False}, attn.attention_plain),
+            (1e-4, plain, {"compute_dtype": "float32", "bert_remat": False}, attn.attention_plain)):
+        tr = build(cfg.replace(learning_rate=lr, **over))
+        bert_module.fused_attention = attend
+        try:
+            ev0 = float(tr.fns.eval_step(batch, valid, M.init_state(cfg.metrics_topk, "cuda"))[0])
+            ls, _, ms = _run_steps(torch, tr, batch, valid, n_steps)
+            ev1 = float(tr.fns.eval_step(batch, valid, ms)[0])
+        finally:
+            bert_module.fused_attention = attn.fused_attention
+        evals[lr, witness] = (ev0, ev1)
+        print(f"[train_online] learning_rate={lr:g}, {witness}: train losses "
+              f"{[round(x, 5) for x in ls]}, eval loss {ev0:.5f} before and {ev1:.5f} after")
+        assert np.isfinite(ls).all() and np.isfinite([ev0, ev1]).all()
+        del tr
+        torch.cuda.empty_cache()
+    for lr in (1e-3, 1e-4):
+        gap = abs(evals[lr, main][1] - evals[lr, plain][1])
+        print(f"[train_online] learning_rate={lr:g}: eval loss after {n_steps} steps, the two "
+              f"witnesses apart by {gap:.4f} (limit {TRAIN_WITNESS_ATOL})")
+        assert gap <= TRAIN_WITNESS_ATOL, (lr, evals)
+    assert all(evals[1e-4, w][1] < 0.5 * evals[1e-4, w][0] for w in (main, plain)), evals
+    model = build(cfg).state.model
+
+    # BERT called without an attention mask under a gradient: the mask-free backward
+    bert16 = copy.deepcopy(model.bert).to(torch.bfloat16)
+    ids = batch[5][0]  # one mention's 12 zipped sentences
+    attn.launches = attn.bwd_launches = attn.bwd_nomask_launches = 0
+    hidden, _ = bert16(ids, None)
+    hidden.float().square().mean().backward()
+    torch.cuda.synchronize()
+    nomask = attn.bwd_nomask_launches
+    assert (attn.launches, attn.bwd_launches, nomask) == (2 * layers, 0, layers), \
+        (attn.launches, attn.bwd_launches, nomask)
+    assert all(torch.isfinite(p.grad).all() for p in bert16.encoder.parameters())
+    print(f"[train_online] BertModel(ids [12, 512], attention_mask=None) forward + backward in "
+          f"bf16: {nomask} mask-free backward launches (a check beside the main paths: no "
+          f"model calls BERT without a mask, and the kernels line does not count these)")
+    del bert16, hidden, model
+    torch.cuda.empty_cache()
+
+    # frozen BERT: no gradient reaches it, Adam holds nothing for it, no backward launch
+    frozen = build(cfg.replace(finetune_bert=False))
+    fmodel = frozen.state.model
+    start = {n: p.detach().clone() for n, p in fmodel.named_parameters()}
+    held = {id(p) for g in frozen.state.optimizer.param_groups for p in g["params"]}
+    assert not any(id(p) in held for n, p in fmodel.named_parameters() if n.startswith("bert."))
+    attn.launches = attn.bwd_launches = 0
+    f_losses, f_times, _ = _run_steps(torch, frozen, batch, valid, 3)
+    assert (attn.launches, attn.bwd_launches) == (3 * layers, 0), (attn.launches, attn.bwd_launches)
+    for n, p in fmodel.named_parameters():
+        if n.startswith("bert."):
+            assert p.grad is None and torch.equal(p, start[n]), f"frozen {n} changed"
+    assert any(not torch.equal(p, start[n]) for n, p in fmodel.named_parameters()
+               if not n.startswith("bert."))
+    assert len(frozen.state.optimizer.state) == sum(
+        1 for n, p in fmodel.named_parameters() if not n.startswith("bert.") and p.grad is not None)
+    print(f"[train_online] finetune_bert=False: BERT bit-equal after 3 steps, no Adam state for "
+          f"it, {layers} forward launches per step and no backward launch; losses "
+          f"{[round(x, 5) for x in f_losses]}, {statistics.median(f_times[1:]):.1f} ms per step")
+    return counts, {"step_ms": step_ms, "peak_gib": peak}
+
+
+def phase_train_drin(torch, np, gcn, vu):
+    """DRIN train steps through Trainer / build_step_fns at the full WikiMEL
+    width: B=64, C=101, D=768, bf16 body over float32 masters, the
+    device-resident entity tables gathered inside the step."""
+    import copy
+
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.device_store import DeviceEntityStore
+    from drin_tpu_torch.models.drin import DRIN
+    from drin_tpu_torch.train import metrics as M
+    from drin_tpu_torch.train.trainer import Trainer
+
+    B, n_steps = 64, 5
+    cfg = make_config("drin", "wikimel", compute_dtype="bfloat16", batch_size=B)
+    tables = _tables(np, cfg, N_ENTITIES)
+    model = DRIN(cfg, generator=torch.Generator().manual_seed(SEED))
+    cpu_model = copy.deepcopy(model)
+    store = DeviceEntityStore(cfg, tables, device="cuda")
+    trainer = Trainer(cfg, model, device="cuda", feats_fn=store.drin_feats_fn(),
+                      log=lambda *a: None)
+    rows = _rows_batch(np, cfg, B, SEED + 31) + (_onehot_answers(np, cfg, B, SEED + 32),)
+    ones = np.ones((B,), np.float32)
+    batch, valid = trainer._put(rows, ones)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[train_drin] Trainer(drin, wikimel) on cuda: {n_params / 1e6:.2f} M float32 master "
+          f"parameters, body in {cfg.compute_dtype}, store of {store.n_rows} entities resident "
+          f"({store.nbytes / 2 ** 20:.0f} MiB)")
+    # the same model in float32 on the CPU
+    cpu_cfg = cfg.replace(compute_dtype="float32")
+    cpu = Trainer(cpu_cfg, cpu_model, device="cpu", log=lambda *a: None,
+                  feats_fn=DeviceEntityStore(cpu_cfg, tables, device="cpu").drin_feats_fn())
+    cbatch, cvalid = cpu._put(rows, ones)
+
+    # the first step's gradients with dropout off: the card (kernel 1 forward,
+    # its backward through the plain version, bf16 body, gradients cast into
+    # the float32 masters) against the float32 CPU port, tensor by tensor
+    def grads(tr, b, v):
+        tr.state.model.zero_grad(set_to_none=True)
+        loss, _, _ = tr.fns.loss_and_metrics(b, v, M.init_state(cfg.metrics_topk, tr.device))
+        loss.backward()
+        got = {n: p.grad.float().cpu() for n, p in tr.state.model.named_parameters()
+               if p.grad is not None}
+        tr.state.model.zero_grad(set_to_none=True)
+        return got
+
+    def drop_wh(ctx, *gs):
+        """The fused layer's backward with W_h's gradient left out."""
+        out = list(layer_backward(ctx, *gs))
+        out[1 + 8] = None  # inputs: opts, 4 vertexes, 4 edges, then wh
+        return tuple(out)
+
+    g_cpu, g_card = grads(cpu, cbatch, cvalid), grads(trainer, batch, valid)
+    layer_backward = gcn._FusedGCNLayer.backward
+    gcn._FusedGCNLayer.backward = staticmethod(drop_wh)
+    try:
+        g_fault = grads(trainer, batch, valid)
+    finally:
+        gcn._FusedGCNLayer.backward = staticmethod(layer_backward)
+    # a tensor the loss does not depend on (the last layer's edge update) has
+    # no gradient on the CPU and an all-zero one behind the fused layer
+    extra = sorted(set(g_card) - set(g_cpu))
+    assert set(g_cpu) <= set(g_card) and len(g_cpu) >= 20, (len(g_card), len(g_cpu))
+    assert all(not g_card[n].any() for n in extra), extra
+    rel = lambda g: {n: float((g.get(n, torch.zeros_like(w)) - w).norm() / w.norm().clamp_min(1e-30))
+                     for n, w in g_cpu.items()}
+    rel_c, rel_f = rel(g_card), rel(g_fault)
+    top = sorted(rel_c, key=rel_c.get, reverse=True)[:4]
+    worst_f = max(rel_f, key=rel_f.get)
+    print(f"[train_drin] first-step gradients (dropout off) vs the float32 CPU port, relative L2 "
+          f"per tensor ({len(g_cpu)} tensors), the largest: "
+          f"{[(n, float(f'{rel_c[n]:.3g}')) for n in top]}; with W_h's gradient dropped in the "
+          f"fused layer's backward: {worst_f} {rel_f[worst_f]:.3g} (limit {TRAIN_DRIN_GRAD_REL})")
+    assert all(torch.isfinite(g).all() for g in g_card.values())
+    assert rel_c[top[0]] <= TRAIN_DRIN_GRAD_REL, (top[0], rel_c[top[0]])
+    assert rel_f[worst_f] > TRAIN_DRIN_GRAD_REL and "w_h" in worst_f, \
+        f"the gradient check cannot see a faulty backward: {worst_f} {rel_f[worst_f]}"
+    del g_cpu, g_card, g_fault
+
+    gcn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, mstate = _run_steps(torch, trainer, batch, valid, n_steps)
+    ev_loss, mstate, scores = trainer.fns.eval_step(batch, valid, mstate)
+    torch.cuda.synchronize()
+    launches = gcn.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[train_drin] {n_steps} train steps + 1 eval step: gcn_layer launches {launches} "
+          f"({cfg.num_gcn_layers} per forward; the backward differentiates the plain version)")
+    assert launches == cfg.num_gcn_layers * (n_steps + 1), launches
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert tuple(scores.shape) == (B, cfg.num_candidates_model) and torch.isfinite(scores).all()
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    # the same steps of the float32 port on the CPU
+    cstate, cpu_losses = M.init_state(cfg.metrics_topk), []
+    for _ in range(2):
+        cpu.state, closs, cstate = cpu.fns.train_step(cpu.state, cbatch, cvalid, cstate)
+        cpu_losses.append(float(closs))
+    err = abs(losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
+    err2 = abs(losses[1] - cpu_losses[1])
+    step_ms = statistics.median(times[1:])
+    print(f"[train_drin] losses {[round(x, 5) for x in losses]}, eval {float(ev_loss):.5f}; the "
+          f"float32 CPU port's first two: {[round(x, 5) for x in cpu_losses]}; first-step loss "
+          f"relative error {err:.3g} (tol {TRAIN_LOSS_RTOL}), second-step loss absolute error "
+          f"{err2:.3g} (tol {TRAIN_LOSS2_ATOL}); {step_ms:.2f} ms per step (median "
+          f"of {n_steps - 1}; the first {times[0]:.1f} ms), "
+          f"{B * cfg.num_candidates_model / (step_ms / 1e3):.0f} pairs/s, peak memory {peak:.2f} GiB")
+    assert err <= TRAIN_LOSS_RTOL, err
+    assert err2 <= TRAIN_LOSS2_ATOL, err2
+    mstate0 = M.init_state(cfg.metrics_topk, "cuda")
+    profile_call(torch, lambda: trainer.fns.train_step(trainer.state, batch, valid, mstate0),
+                 "DRIN train step B=64", reps=3)
+
+    # kernel 4 on the run's own vertices.  No model calls the op, in either
+    # package; driven here through its public entry it must give kernel 1's
+    # et' (the same x . W_h^T, LayerNorm and gelu) from the same inputs
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        feats = tuple(x.to(bf16) if x.is_floating_point() else x
+                      for x in trainer.feats_fn(batch[:-1]))
+        m16 = copy.deepcopy(model).to(bf16)
+        vertexes = [v.contiguous() for v in m16.vertex_encoder(*feats[:5], *feats[7:10])]
+        mtet, miei = m16.edge_encoder(feats[0], feats[2], feats[3], feats[5], feats[6], feats[7],
+                                      feats[10], feats[11])
+        edges = [e.contiguous() for e in (mtet, feats[13] / 100.0, feats[12] / 100.0, miei)]
+        layer = m16.gcn_layers[0]
+        w = (layer.w_h.weight, layer.w_h.bias, layer.layer_norm.weight, layer.layer_norm.bias)
+        (_, _, et_k1, _), _ = gcn.fused_gcn_layer(vertexes, edges, *w, dynamic=False)
+        vu.launches = 0
+        mt, mi, et, _ = vertexes
+        et_k4 = vu.fused_vertex_update(et, edges[0], mt, edges[2], mi, *w)
+        torch.cuda.synchronize()
+    vu_launches = vu.launches
+    err4 = check_close("vertex_update vs kernel 1's et'", et_k4, et_k1, **GCN_BF16_TOL)
+    print(f"[train_drin] fused_vertex_update on the step's vertices ([{B}, 101, 768] bf16): "
+          f"{vu_launches} launch, max abs diff to kernel 1's et' {err4:.3g} (a check beside "
+          f"the main paths: no model calls the op, and the kernels line does not count it)")
+    assert vu_launches == 1
+    return {"gcn_layer": launches}, {"step_ms": step_ms}
+
+
 def profile_rank(torch, ranker, feats, label: str, reps: int = 5):
     """Where a rank's time goes: host-side input preparation (numpy ->
     device copy and cast), device time by kernel and the device's idle
     share, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
 
     def prep():
         with torch.inference_mode():
@@ -674,33 +1319,40 @@ def profile_rank(torch, ranker, feats, label: str, reps: int = 5):
         torch.cuda.synchronize()
 
     print(f"[profile] {label} input preparation (host to device, cast): {host_ms(prep):.3f} ms")
-    ranker.rank(feats, k=5)
+    profile_call(torch, lambda: ranker.rank(feats, k=5), f"{label} rank", reps)
+
+
+def profile_call(torch, fn, label: str, reps: int = 5, top: int = 12):
+    """Device time by kernel, the device's idle share and the host's largest
+    self times over ``reps`` calls of ``fn``, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            ranker.rank(feats, k=5)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    from torch.autograd import DeviceType
-
     # device-side events only (kernels, copies): CPU ops also carry the
     # device time of what they launched and would count it twice
-    rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
+    rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
         print("[profile] device time not measured (the profiler saw no device activity)")
         return
-    print(f"[profile] {label} rank under the profiler: {wall:.3f} ms wall, {busy:.3f} ms device "
+    print(f"[profile] {label} under the profiler: {wall:.3f} ms wall, {busy:.3f} ms device "
           f"busy, idle share {1 - busy / wall:.3f}")
-    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
-        print(f"[profile]   {ms:8.4f} ms  x{n:<3d} {key[:90]}")
-    host = sorted(((e.self_cpu_time_total / 1e3 / reps, e.count // reps, e.key)
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
+        print(f"[profile]   {ms:8.4f} ms  x{n:<5g} {key[:90]}")
+    host = sorted(((e.self_cpu_time_total / 1e3 / reps, e.count / reps, e.key)
                    for e in prof.key_averages() if e.device_type == DeviceType.CPU), reverse=True)
     for ms, n, key in host[:6]:
-        print(f"[profile]   host {ms:8.4f} ms  x{n:<4d} {key[:80]}")
+        print(f"[profile]   host {ms:8.4f} ms  x{n:<5g} {key[:80]}")
 
 
 def main() -> int:
@@ -717,7 +1369,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from drin_tpu_torch.ops.cuda import _build, attention as attn, gather, gcn_layer as gcn
+    from drin_tpu_torch.ops.cuda import (_build, attention as attn, gather, gcn_layer as gcn,
+                                         vertex_update as vu)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -739,22 +1392,44 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     measured = {"gather_dequant": phase_gather(torch, gather), "gcn_layer": phase_gcn(torch, gcn),
-                "attention": phase_attention(torch, np, attn)}
-    # each served path is driven with its kernels' counts set to 0 just
-    # before and read just after
-    launches, _ = phase_slice(torch, np, gather, gcn)
-    launches["attention"], _ = phase_online(torch, np, attn)
-    assert all(launches.values()), f"a kernel of the served paths was never launched: {launches}"
+                "attention": phase_attention(torch, np, attn),
+                "vertex_update": phase_vertex_update(torch, vu)}
+    measured.update(phase_attention_bwd(torch, np, attn))
+    # each main path is driven with its kernels' counts set to 0 just before
+    # and read just after; a kernel of a path that the path never launched fails
+    paths = {}
+    paths["serve_drin"], _ = phase_slice(torch, np, gather, gcn)
+    paths["serve_online"] = {"attention": phase_online(torch, np, attn)[0]}
+    paths["train_online"], _ = phase_train_online(torch, np, attn)
+    paths["train_drin"], _ = phase_train_drin(torch, np, gcn, vu)
+    assert {p: sorted(c) for p, c in paths.items()} == {
+        "serve_drin": ["gather_dequant", "gcn_layer"], "serve_online": ["attention"],
+        "train_online": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"]}, paths
+    for path, counts in paths.items():
+        assert all(counts.values()), f"{path} never launched one of its kernels: {counts}"
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "drin_tpu"))
     assert not bad, f"the port imported {bad}"
 
-    replaces = {"gather_dequant": "drin_tpu/ops/pallas/gather.py:127",
-                "gcn_layer": "drin_tpu/ops/pallas/gcn_layer.py:120",
-                "attention": "drin_tpu/ops/pallas/attention.py:180"}
+    # name -> (source, the TPU kernel it replaces).  launches_by_path holds each
+    # main path's own count and launches is their sum.  The mask-free backward
+    # and the vertex update are on no model path, in this package as in the
+    # JAX one (BERT always passes a mask; no model calls the vertex update):
+    # their counts are 0 and the kernel phases above are what holds them
+    kernels = {
+        "gather_dequant": ("gather_dequant.cu", "drin_tpu/ops/pallas/gather.py:127"),
+        "gcn_layer": ("gcn_layer.cu", "drin_tpu/ops/pallas/gcn_layer.py:120"),
+        "attention": ("attention.cu", "drin_tpu/ops/pallas/attention.py:48"),
+        "attention_bwd": ("attention_bwd.cu", "drin_tpu/ops/pallas/attention.py:122"),
+        "attention_bwd_nomask": ("attention_bwd.cu", "drin_tpu/ops/pallas/attention.py:134"),
+        "vertex_update": ("gcn_layer.cu", "drin_tpu/ops/pallas/gcn.py:58")}
+    assert set(kernels) == set(measured)
+    by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
+               for name in kernels}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"drin_tpu_torch/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": launches[name], **measured[name]}
-        for name in _build.KERNELS]}))
+        {"name": name, "route": "cuda", "source": f"drin_tpu_torch/csrc/{src}", "replaces": tpu,
+         "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+         "on_a_main_path": any(by_path[name].values()), **measured[name]}
+        for name, (src, tpu) in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -11,6 +11,7 @@ Common entry points:
 
     from drin_tpu_torch import make_config, get_model
     from drin_tpu_torch.serve import Ranker
+    from drin_tpu_torch.train.trainer import Trainer
 """
 
 __version__ = "0.1.0"

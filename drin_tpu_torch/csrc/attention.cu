@@ -35,75 +35,15 @@
 //
 // The f32 instantiation is a plain-FMA kernel of the same streaming form
 // (64 query rows per block, two threads per row, tiles of 32 keys).
+//
+// Where a gradient will be asked for, both kernels also store the row max m
+// and the row sum l of exp(logit - m), [B, H, L] f32 each: the backward
+// (attention_bwd.cu) recomputes P = exp(S - m) / l from them.  Inference
+// passes null pointers and stores nothing.
 
-#include <math_constants.h>
-
-#include "common.cuh"
+#include "attention_common.cuh"
 
 namespace {
-
-constexpr int kDh = 64;       // head width both kernels are written for
-constexpr int kMaxL = 512;    // longest sequence (the mask row lives in shared memory)
-constexpr int kThreads = 128;
-
-struct Strides {
-  long long b, h, l;  // in elements; Dh is contiguous
-};
-
-template <typename T>
-__device__ void fill_mask(float* mask_s, const T* __restrict__ mask, long long mask_sb, int b, int L) {
-  for (int i = threadIdx.x; i < kMaxL; i += kThreads)
-    mask_s[i] = i < L ? (mask ? to_f(mask[(size_t)b * mask_sb + i]) : 0.f) : -CUDART_INF_F;
-}
-
-// ------------------------------------------------------------------ bf16
-constexpr int kBQ = 64;            // query rows per block
-constexpr int kBK = 64;            // keys per tile
-constexpr int kRow = kDh + 8;      // padded tile row (elements): conflict-free fragment loads
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes == 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows r0 .. r0 + 64 of one (b, h) matrix [L, 64] into a padded tile, zeros past L
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*tile)[kRow], const __nv_bfloat16* __restrict__ src,
-                                          long long stride_l, int r0, int L) {
-#pragma unroll
-  for (int i = 0; i < (kBK * kDh / 8) / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c / 8, col = (c % 8) * 8;
-    const bool in = r0 + r < L;
-    const __nv_bfloat16* g = src + (size_t)(in ? r0 + r : 0) * stride_l + col;
-    cp_async16(&tile[r][col], g, in ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // grid: B * H * ceil(L / 64) blocks, the query tiles of one (b, h) adjacent
 // (their K and V then meet in L2); out is [B, L, H, 64] contiguous.  The
@@ -114,8 +54,8 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
 __global__ void __launch_bounds__(kThreads, 4)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ mask,
-              __nv_bfloat16* __restrict__ out, Strides qs, Strides ks, Strides vs, long long mask_sb,
-              int H, int L, float scale) {
+              __nv_bfloat16* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+              Strides qs, Strides ks, Strides vs, long long mask_sb, int H, int L, float scale) {
   __shared__ __align__(16) __nv_bfloat16 k_s[2][kBK][kRow];
   __shared__ __align__(16) __nv_bfloat16 v_s[2][kBK][kRow];
   __shared__ float mask_s[kMaxL];
@@ -252,6 +192,10 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + r * 8;
     if (row >= L) continue;
+    if (m_out && t == 0) {  // the softmax residuals of the backward: row max and row sum
+      m_out[(size_t)bh * L + row] = m_run[r];
+      l_out[(size_t)bh * L + row] = l_run[r];
+    }
     __nv_bfloat16* op = out + (((size_t)b * L + row) * H + h) * kDh + t * 2;
 #pragma unroll
     for (int j = 0; j < kDh / 8; ++j)
@@ -267,8 +211,9 @@ constexpr int kFRow = kDh + 4;   // padded tile row (floats), rows stay 16-byte 
 
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-             const float* __restrict__ mask, float* __restrict__ out, Strides qs, Strides ks,
-             Strides vs, long long mask_sb, int H, int L, float scale) {
+             const float* __restrict__ mask, float* __restrict__ out, float* __restrict__ m_out,
+             float* __restrict__ l_out, Strides qs, Strides ks, Strides vs, long long mask_sb, int H,
+             int L, float scale) {
   __shared__ __align__(16) float k_s[kFK][kFRow];
   __shared__ __align__(16) float v_s[kFK][kFRow];
   __shared__ float s_s[kFQ][kFK + 1];
@@ -344,6 +289,10 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
     }
   }
   if (row < L) {
+    if (m_out && half == 0) {
+      m_out[(size_t)bh * L + row] = m_run;
+      l_out[(size_t)bh * L + row] = l_run;
+    }
     const float inv = 1.f / l_run;
     float4* op = reinterpret_cast<float4*>(out + (((size_t)b * L + row) * H + h) * kDh + half * (kDh / 2));
 #pragma unroll
@@ -359,13 +308,16 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
 // last dimension contiguous, every row 16-byte aligned); mask: [B, L] in the
 // compute type with row stride mask_sb, or null; out: [B, L, H, 64]
 // contiguous, so that a view [B, H, L, 64] of it is the result and
-// [B, L, H * 64] costs no copy.
+// [B, L, H * 64] costs no copy.  m_out, l_out: [B, H, L] f32, the row max of
+// the logits and the row sum of exp(logit - max), or both null (inference:
+// nothing is stored).
 DRIN_EXPORT int drin_attention_fwd(int dtype, int B, int H, int L, int Dh, const void* q,
                                    const void* k, const void* v, const void* mask, void* out,
-                                   long long q_sb, long long q_sh, long long q_sl, long long k_sb,
+                                   void* m_out, void* l_out, long long q_sb, long long q_sh, long long q_sl, long long k_sb,
                                    long long k_sh, long long k_sl, long long v_sb, long long v_sh,
                                    long long v_sl, long long mask_sb, void* stream) {
   if (B < 1 || H < 1 || L < 1 || L > kMaxL || Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
+  if ((m_out == nullptr) != (l_out == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_sl}, ks{k_sb, k_sh, k_sl}, vs{v_sb, v_sh, v_sl};
   const float scale = 0.125f;  // 64^-1/2
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -375,13 +327,15 @@ DRIN_EXPORT int drin_attention_fwd(int dtype, int B, int H, int L, int Dh, const
     attn_fwd_bf16<<<(unsigned)blocks, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(mask),
-        static_cast<__nv_bfloat16*>(out), qs, ks, vs, mask_sb, H, L, scale);
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(m_out), static_cast<float*>(l_out), qs,
+        ks, vs, mask_sb, H, L, scale);
   } else if (dtype == DT_FLOAT32) {
     const long long blocks = (long long)B * H * ((L + kFQ - 1) / kFQ);
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     attn_fwd_f32<<<(unsigned)blocks, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(mask), static_cast<float*>(out), qs, ks, vs, mask_sb, H, L, scale);
+        static_cast<const float*>(mask), static_cast<float*>(out), static_cast<float*>(m_out),
+        static_cast<float*>(l_out), qs, ks, vs, mask_sb, H, L, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

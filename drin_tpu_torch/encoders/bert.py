@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from drin_tpu_torch.nn.layers import Linear
 from drin_tpu_torch.ops.cuda.attention import fused_attention
@@ -183,9 +184,11 @@ class BertModel(nn.Module):
 
     ``fused_attention=True`` routes self-attention through the hand-written
     kernel where the gate allows; None does so for tensors on a CUDA device
-    (:func:`resolve_fused_attention`).  ``remat`` is a training matter
-    (activation checkpointing); it is accepted and not read, inference keeps
-    no activations."""
+    (:func:`resolve_fused_attention`).  ``remat`` recomputes each layer in
+    the backward instead of keeping its activations
+    (``torch.utils.checkpoint``, non-reentrant): the layer's forward, its
+    attention kernel included, then runs a second time inside the backward.
+    It is read only where a gradient is being recorded."""
 
     def __init__(self, cfg: BertConfig, remat: bool = False,
                  fused_attention: Optional[bool] = False,
@@ -205,7 +208,16 @@ class BertModel(nn.Module):
             neg = torch.finfo(x.dtype).min
             additive = torch.zeros(attention_mask.shape, dtype=x.dtype, device=x.device)
             additive = additive.masked_fill(attention_mask == 0, neg)[:, None, None, :]
+        remat = self.remat and torch.is_grad_enabled() and x.requires_grad
         for layer in self.encoder.layer:
-            x = layer(x, additive)
+            if remat:
+                # The recompute runs inside the backward.  A caller that swapped
+                # the parameters for this forward (the trainer's copies in the
+                # compute dtype) has put the masters back by then, so the
+                # recompute is handed the layer's tensors of this moment.
+                x = checkpoint(torch.func.functional_call, layer, dict(layer.named_parameters()),
+                               (x, additive), use_reentrant=False)
+            else:
+                x = layer(x, additive)
         pooled = torch.tanh(self.pooler.dense(x[:, 0]))
         return x, pooled

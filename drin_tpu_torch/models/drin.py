@@ -44,9 +44,11 @@ class VertexEncoder(nn.Module):
 
     def forward(self, mention_text_feature, mention_text_mask, mention_start_pos,
                 mention_end_pos, mention_image_feature, entity_text_feature,
-                entity_text_mask, entity_image_feature):
+                entity_text_mask, entity_image_feature, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
         mt = self.mention_text_encoder(mention_text_feature, mention_text_mask,
-                                       mention_start_pos, mention_end_pos)
+                                       mention_start_pos, mention_end_pos, None,
+                                       deterministic, rng)
         et = self.entity_text_encoder(entity_text_feature, entity_text_mask)
         mi = self.mention_image_linear(mention_image_feature.mean(-2))
         if self.cfg.entity_projected:
@@ -181,7 +183,8 @@ class GCNLayer(nn.Module):
 
 class DRIN(nn.Module):
     """Full DRIN forward.  Input: the 14-tensor batch (DrinBatch minus the
-    answer).  Output: cosine scores [B, C]."""
+    answer).  Output: cosine scores [B, C].  ``deterministic=False`` is the
+    train mode: attention dropout in the mention encoder, drawn from ``rng``."""
 
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -191,7 +194,8 @@ class DRIN(nn.Module):
         self.gcn_layers = nn.ModuleList(GCNLayer(cfg, generator)
                                         for _ in range(cfg.num_gcn_layers))
 
-    def forward(self, batch):
+    def forward(self, batch, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
         cfg = self.cfg
         (mention_text_feature, mention_text_mask, mention_start_pos, mention_end_pos,
          mention_image_feature, mention_object_feature, mention_object_score,
@@ -201,7 +205,7 @@ class DRIN(nn.Module):
         vertexes = self.vertex_encoder(
             mention_text_feature, mention_text_mask, mention_start_pos, mention_end_pos,
             mention_image_feature, entity_text_feature, entity_text_mask,
-            entity_image_feature)
+            entity_image_feature, deterministic, rng)
         mtet, miei = self.edge_encoder(
             mention_text_feature, mention_start_pos, mention_end_pos,
             mention_object_feature, mention_object_score, entity_text_feature,

@@ -42,11 +42,13 @@ class MentionEncoder(nn.Module):
         if self.fusion:
             self.intermediate_layer = MultimodalFusion(
                 cfg.bert_embed_dim, cfg.resnet_embed_dim, cfg.mention_final_output_dim,
-                cfg.transformer_num_heads, cfg.multimodal_subspace_activation, generator)
+                cfg.transformer_num_heads, cfg.multimodal_subspace_activation, generator,
+                cfg.transformer_dropout)
             return
         if name == "multimodal":
             self.intermediate_layer = CrossAttention(cfg.bert_embed_dim, cfg.resnet_embed_dim,
-                                                     cfg.transformer_num_heads, generator)
+                                                     cfg.transformer_num_heads, generator,
+                                                     cfg.transformer_dropout)
         elif name != "none":
             raise NotImplementedError(
                 f"mention_final_layer_name={name!r} is not ported yet (ROADMAP: "
@@ -54,16 +56,18 @@ class MentionEncoder(nn.Module):
         self.final_repr = (MaxPool(dim=1)
                            if cfg.mention_final_representation == "max pool" else Avg())
 
-    def forward(self, sentence_feature, attention_mask, begin, end, image_feature=None):
+    def forward(self, sentence_feature, attention_mask, begin, end, image_feature=None,
+                deterministic: bool = True, rng: Optional[torch.Generator] = None):
         name = self.cfg.mention_final_layer_name
         if name == "linear":
             return self.final_layer(sentence_feature, begin, end)
         if self.fusion:
-            return self.intermediate_layer(sentence_feature, attention_mask, image_feature)
+            return self.intermediate_layer(sentence_feature, attention_mask, image_feature,
+                                           deterministic, rng)
         feature = sentence_feature
         if name == "multimodal":  # text-only cross attention
             feature = self.intermediate_layer(sentence_feature, attention_mask, image_feature,
-                                              None)
+                                              None, deterministic, rng)
         return self.final_repr(feature, begin, end)
 
 
@@ -117,11 +121,12 @@ class GHMFC(nn.Module):
         self.mention_encoder = MentionEncoder(cfg, generator)
         self.entity_encoder = EntityEncoder(cfg, generator)
 
-    def forward(self, batch):
+    def forward(self, batch, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
         (sentence_feature, attention_mask, begin, end, mention_image,
          entity_feature, entity_mask, _entity_image) = batch
         mention = self.mention_encoder(sentence_feature, attention_mask, begin, end,
-                                       mention_image)
+                                       mention_image, deterministic, rng)
         entity = self.entity_encoder(entity_feature, entity_mask)
         return _cosine_scores(mention, entity, self.cfg.num_candidates_model)
 
@@ -140,8 +145,12 @@ class GHMFCOnline(nn.Module):
     sentences go through it as one batched [B*S, L] call.
     ``bert_fused_attention=None`` is settled at each call from where the
     tensors lie (the kernel on CUDA, the written-out product on the CPU), so
-    the model may be built anywhere and moved.  BERT is frozen
-    unless ``cfg.finetune_bert`` (training is not ported yet)."""
+    the model may be built anywhere and moved.  BERT is frozen (it runs
+    under ``torch.no_grad()``, so no gradient reaches its parameters) unless
+    ``cfg.finetune_bert``; ``cfg.bert_remat`` then recomputes each BERT layer
+    in the backward instead of keeping its activations.  ``deterministic=False``
+    turns on the fusion's attention dropout, drawn from ``rng``; BERT itself
+    has no dropout."""
 
     def __init__(self, cfg: Config, bert_cfg=None, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -165,7 +174,8 @@ class GHMFCOnline(nn.Module):
         with torch.no_grad():
             return self.bert(ids, mask)
 
-    def forward(self, batch):
+    def forward(self, batch, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
         cfg = self.cfg
         (mention_ids, mention_mask, begin, end, mention_image,
          entity_ids, entity_mask, sep_idx, _entity_image) = batch
@@ -173,7 +183,7 @@ class GHMFCOnline(nn.Module):
         h, _ = self._encode(mention_ids, mention_mask)
         Lm = cfg.max_mention_sentence_len
         mention = self.mention_encoder(h[:, :Lm], mention_mask[:, :Lm], begin, end,
-                                       mention_image)
+                                       mention_image, deterministic, rng)
         # entity tower
         B, C = entity_ids.shape[0], cfg.num_candidates_model
         flat_ids = entity_ids.reshape((-1,) + entity_ids.shape[2:])

@@ -88,21 +88,33 @@ class AvgLinear(nn.Module):
 # attention
 
 
+def dropout(x, rate: float, deterministic: bool, rng: Optional[torch.Generator]):
+    """Inverted dropout with the mask drawn from an explicit generator
+    (``F.dropout`` takes none): keep with probability ``1 - rate``, scale
+    the kept values by ``1 / (1 - rate)``.  The identity when
+    ``deterministic`` or ``rate == 0``."""
+    if deterministic or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
 class MultiheadAttention(nn.Module):
     """``torch.nn.MultiheadAttention``-compatible attention (batch first),
     written out: projections, masked softmax and the two products, so the
     numbers are the JAX module's.  Parameters carry the upstream names:
     ``in_proj_weight`` [3E, E] when ``kdim == vdim == embed_dim``, else
     ``q_proj_weight`` / ``k_proj_weight`` / ``v_proj_weight``;
-    ``in_proj_bias`` [3E]; ``out_proj``.  Inference only: attention dropout
-    is not applied."""
+    ``in_proj_bias`` [3E]; ``out_proj``.  Dropout on the attention weights
+    is applied only when ``deterministic=False``, from ``rng``."""
 
     def __init__(self, embed_dim: int, num_heads: int, kdim: Optional[int] = None,
-                 vdim: Optional[int] = None, generator: Optional[torch.Generator] = None):
+                 vdim: Optional[int] = None, generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0):
         super().__init__()
         assert embed_dim % num_heads == 0, "embed_dim must be divisible by num_heads"
         E = embed_dim
-        self.embed_dim, self.num_heads = E, num_heads
+        self.embed_dim, self.num_heads, self.dropout = E, num_heads, dropout
         kdim = E if kdim is None else kdim
         vdim = E if vdim is None else vdim
         self.packed = kdim == E and vdim == E
@@ -123,7 +135,8 @@ class MultiheadAttention(nn.Module):
                 nn.init.xavier_uniform_(w, generator=generator)
             self.out_proj.bias.zero_()
 
-    def forward(self, query, key, value, key_padding_mask=None):
+    def forward(self, query, key, value, key_padding_mask=None, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
         E, H = self.embed_dim, self.num_heads
         hd = E // H
         if self.packed:
@@ -139,7 +152,7 @@ class MultiheadAttention(nn.Module):
         if key_padding_mask is not None:  # True = the key is masked out
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(logits.dtype).min)
-        attn = torch.softmax(logits, dim=-1)
+        attn = dropout(torch.softmax(logits, dim=-1), self.dropout, deterministic, rng)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Lq, E)
         return self.out_proj(out)
 
@@ -150,23 +163,26 @@ class CrossAttention(nn.Module):
     (``layernorms.0-3``) and two residual linears along the way."""
 
     def __init__(self, dim_a: int, dim_b: int, num_heads: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dropout: float = 0.1):
         super().__init__()
         self.a2b_attention = MultiheadAttention(dim_a, num_heads, kdim=dim_b, vdim=dim_b,
-                                                generator=generator)
-        self.b2a_attention = MultiheadAttention(dim_a, num_heads, generator=generator)
+                                                generator=generator, dropout=dropout)
+        self.b2a_attention = MultiheadAttention(dim_a, num_heads, generator=generator,
+                                                dropout=dropout)
         self.a2b_ffn = Linear(dim_a, dim_a, generator)
         self.b2a_ffn = Linear(dim_a, dim_a, generator)
         self.layernorms = nn.ModuleList([LayerNorm(dim_a) for _ in range(4)])
 
-    def forward(self, seq_a, mask_a, seq_b, mask_b=None):
+    def forward(self, seq_a, mask_a, seq_b, mask_b=None, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
         # a mask of None: no key of that sequence is masked
         kpm_a = (mask_a == 0) if mask_a is not None else None
         kpm_b = (mask_b == 0) if mask_b is not None else None
         ln = self.layernorms
-        attended_b = ln[0](self.a2b_attention(seq_a, seq_b, seq_b, kpm_b))
+        attended_b = ln[0](self.a2b_attention(seq_a, seq_b, seq_b, kpm_b, deterministic, rng))
         attended_b = ln[1](self.a2b_ffn(attended_b) + attended_b)
-        attended_a = ln[2](self.b2a_attention(attended_b, seq_a, seq_a, kpm_a))
+        attended_a = ln[2](self.b2a_attention(attended_b, seq_a, seq_a, kpm_a, deterministic,
+                                                  rng))
         return ln[3](self.b2a_ffn(attended_a) + attended_a)
 
 
@@ -176,20 +192,22 @@ class MultimodalFusion(nn.Module):
     gate-weighted sum."""
 
     def __init__(self, text_dim: int, image_dim: int, output_dim: int, num_heads: int,
-                 activation: str = "gelu", generator: Optional[torch.Generator] = None):
+                 activation: str = "gelu", generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.1):
         super().__init__()
         self.act = get_activation(activation)
-        self.t2v_attention = CrossAttention(text_dim, image_dim, num_heads, generator)
-        self.v2t_attention = CrossAttention(image_dim, text_dim, num_heads, generator)
+        self.t2v_attention = CrossAttention(text_dim, image_dim, num_heads, generator, dropout)
+        self.v2t_attention = CrossAttention(image_dim, text_dim, num_heads, generator, dropout)
         self.text_linear = Linear(text_dim, output_dim, generator)
         self.image_linear = Linear(image_dim, output_dim, generator)
         self.score_linear = Linear(2 * output_dim, 2, generator)
 
-    def forward(self, text_seq, text_mask, image_seq):
+    def forward(self, text_seq, text_mask, image_seq, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
         # every image region is a valid key: no image mask
-        t = self.t2v_attention(text_seq, text_mask, image_seq, None)
+        t = self.t2v_attention(text_seq, text_mask, image_seq, None, deterministic, rng)
         attended_text = self.act(self.text_linear(torch.amax(t, dim=1)))
-        v = self.v2t_attention(image_seq, None, text_seq, text_mask)
+        v = self.v2t_attention(image_seq, None, text_seq, text_mask, deterministic, rng)
         attended_image = self.act(self.image_linear(torch.amax(v, dim=1)))
         score = torch.softmax(
             self.score_linear(torch.cat([attended_text, attended_image], dim=1)), dim=-1)

@@ -20,8 +20,13 @@ Weights are in torch layout (``[out, in]``).  Rounding points follow
 product, p before the edge dot, and the messages stay float32.
 
 :func:`fused_gcn_layer` takes :func:`gcn_layer_plain` only for tensors on
-the CPU; on a CUDA tensor it launches the kernel or raises.  It is
-forward-only: the backward kernel comes with the training port.
+the CPU; on a CUDA tensor it launches the kernel or raises.  Where an input
+requires grad it is a ``torch.autograd.Function`` with the kernel in the
+forward.  Its backward is no kernel, as in the JAX package, whose
+``_fused_ad_bwd`` (``gcn_layer.py:259-268``) differentiates
+``gcn_layer_reference`` with XLA on the saved inputs: here autograd runs
+through :func:`gcn_layer_plain` on the saved inputs (a recompute of the
+layer in plain torch, then its backward).
 """
 
 from __future__ import annotations
@@ -119,7 +124,6 @@ def _check_cuda(vertexes, edges, weights, dynamic):
         raise ValueError(f"fused_gcn_layer needs B >= 1 and C >= 1, got B={B} C={C}")
     if et.dtype == torch.bfloat16 and D % 16:
         raise ValueError(f"the bf16 kernel needs D % 16 == 0, got D={D}")
-    grad = torch.is_grad_enabled()
     for k, t in named.items():
         if t is None:
             raise ValueError(f"dynamic edges need {k}")
@@ -131,37 +135,21 @@ def _check_cuda(vertexes, edges, weights, dynamic):
             raise ValueError(f"{k} must be {want[k]}, got {tuple(t.shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{k} must be contiguous and 16-byte aligned")
-        if grad and t.requires_grad:
-            raise RuntimeError("fused_gcn_layer is forward-only on CUDA (no backward "
-                               f"kernel yet): {k} requires grad; run under torch.no_grad() "
-                               "or torch.inference_mode()")
     for k in ("wh", "wu", "wv"):  # tensor-core fragments load from these directly
         if k in names and named[k].data_ptr() % 32:
             raise ValueError(f"{k} must be 32-byte aligned")
     return B, C, D
 
 
-def fused_gcn_layer(vertexes, edges, wh, bh, ln_scale, ln_bias,
-                    wu=None, bu=None, wv=None, bv=None,
-                    vact: str = "gelu", eact: str = "sigmoid", eps: float = 1e-5,
-                    dynamic: bool = True, num_candidates: Optional[int] = None):
-    """One scalar-edge GCN layer, shared W_h: (vertexes [mt, mi, et, ei],
-    edges [tt, ti, it, ii] as [B, C]) -> (new vertexes, new edges).  The
-    kernel averages over all C candidates: on CUDA ``num_candidates`` must be
-    None or C."""
+def _launch(vertexes, edges, wh, bh, ln_scale, ln_bias, wu, bu, wv, bv, vact, eact, eps,
+            dynamic):
+    """Check the inputs and launch the kernel once."""
     global launches
-    if not vertexes[2].is_cuda:
-        return gcn_layer_plain(vertexes, edges, wh, bh, ln_scale, ln_bias, wu, bu, wv, bv,
-                               vact=vact, eact=eact, eps=eps, dynamic=dynamic,
-                               num_candidates=num_candidates)
     if vact not in KERNEL_VERTEX_ACTS or eact not in KERNEL_EDGE_ACTS:
         raise ValueError(f"the kernel implements vertex activations {KERNEL_VERTEX_ACTS} "
                          f"and edge activations {KERNEL_EDGE_ACTS}; got {vact}/{eact}")
     weights = (wh, bh, ln_scale, ln_bias) + ((wu, bu, wv, bv) if dynamic else ())
     B, C, D = _check_cuda(vertexes, edges, weights, dynamic)
-    if num_candidates not in (None, C):
-        raise ValueError(f"the kernel averages over all {C} candidates; padded candidates "
-                         f"(num_candidates={num_candidates}) are not supported on CUDA")
     mt, mi, et, ei = vertexes
     dt, dev = et.dtype, et.device
     Bp = -(-B // 16) * 16  # the edge-fold products run in tiles of 16 mentions
@@ -193,3 +181,65 @@ def fused_gcn_layer(vertexes, edges, wh, bh, ln_scale, ln_bias,
     new_mt, new_mi = _mention_updates(mt, mi, msg_mt, msg_mi, wh, bh, ln_scale,
                                       ln_bias, eps, vact)
     return [new_mt, new_mi, et_o, ei_o], new_edges
+
+
+class _FusedGCNLayer(torch.autograd.Function):
+    """The layer with a gradient: the kernel (on the CPU the plain version)
+    in the forward; the backward recomputes the layer with
+    :func:`gcn_layer_plain` on the saved inputs and runs autograd through
+    it.  Takes the options and the 16 tensors flat (the dynamic-edge weights
+    None for static edges); returns the 4 new vertexes and, for dynamic
+    edges, the 4 new edges."""
+
+    @staticmethod
+    def forward(ctx, opts, *tensors):
+        vact, eact, eps, dynamic, num_candidates = opts
+        ctx.opts = opts
+        ctx.save_for_backward(*tensors)
+        vertexes, edges, weights = list(tensors[:4]), list(tensors[4:8]), tensors[8:]
+        if tensors[2].is_cuda:
+            nv, ne = _launch(vertexes, edges, *weights, vact, eact, eps, dynamic)
+        else:
+            nv, ne = gcn_layer_plain(vertexes, edges, *weights, vact=vact, eact=eact, eps=eps,
+                                     dynamic=dynamic, num_candidates=num_candidates)
+        return tuple(nv) + (tuple(ne) if dynamic else ())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        vact, eact, eps, dynamic, num_candidates = ctx.opts
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+            nv, ne = gcn_layer_plain(leaves[:4], leaves[4:8], *leaves[8:], vact=vact, eact=eact,
+                                     eps=eps, dynamic=dynamic, num_candidates=num_candidates)
+            outs = list(nv) + (list(ne) if dynamic else [])
+            wanted = [t for t in leaves if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad(outs, wanted, list(grads), allow_unused=True))
+        return (None,) + tuple(next(got) if t is not None and t.requires_grad else None
+                               for t in leaves)
+
+
+def fused_gcn_layer(vertexes, edges, wh, bh, ln_scale, ln_bias,
+                    wu=None, bu=None, wv=None, bv=None,
+                    vact: str = "gelu", eact: str = "sigmoid", eps: float = 1e-5,
+                    dynamic: bool = True, num_candidates: Optional[int] = None):
+    """One scalar-edge GCN layer, shared W_h: (vertexes [mt, mi, et, ei],
+    edges [tt, ti, it, ii] as [B, C]) -> (new vertexes, new edges).  The
+    kernel averages over all C candidates: on CUDA ``num_candidates`` must be
+    None or C.  Differentiable in every tensor."""
+    if not vertexes[2].is_cuda:
+        return gcn_layer_plain(vertexes, edges, wh, bh, ln_scale, ln_bias, wu, bu, wv, bv,
+                               vact=vact, eact=eact, eps=eps, dynamic=dynamic,
+                               num_candidates=num_candidates)
+    C = vertexes[2].shape[1]
+    if num_candidates not in (None, C):
+        raise ValueError(f"the kernel averages over all {C} candidates; padded candidates "
+                         f"(num_candidates={num_candidates}) are not supported on CUDA")
+    if not dynamic:
+        wu = bu = wv = bv = None
+    tensors = (*vertexes, *edges, wh, bh, ln_scale, ln_bias, wu, bu, wv, bv)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        out = _FusedGCNLayer.apply((vact, eact, eps, dynamic, num_candidates), *tensors)
+        return list(out[:4]), (list(out[4:]) if dynamic else list(edges))
+    return _launch(list(vertexes), list(edges), wh, bh, ln_scale, ln_bias, wu, bu, wv, bv,
+                   vact, eact, eps, dynamic)

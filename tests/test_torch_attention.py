@@ -102,14 +102,13 @@ def _on_card(*shape, dtype=torch.bfloat16, requires_grad=False):
     ("fp16", "float32 or bfloat16"), ("dh32", "Dh=64"), ("L520", "multiple of 8 up to 512"),
     ("L20", "multiple of 8"), ("mask_dtype", "must be torch.bfloat16"),
     ("mask_shape", "additive_mask must be"), ("device", "must be on"),
-    ("k_shape", "k must be"), ("misaligned", "16-byte aligned"), ("grad", "forward-only")])
+    ("k_shape", "k must be"), ("misaligned", "16-byte aligned"), ("grad", None)])
 def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, match):
     shape = {"dh32": (2, 2, 256, 32), "L520": (1, 1, 520, 64), "L20": (1, 1, 20, 64)}.get(
         case, (2, 2, 256, 64))
     dt = torch.float16 if case == "fp16" else torch.bfloat16
     q, k, v = (_on_card(*shape, dtype=dt) for _ in range(3))
     mask = _on_card(shape[0], shape[2], dtype=dt)
-    err = RuntimeError if case == "grad" else ValueError
     if case == "mask_dtype":
         mask = _on_card(2, 256, dtype=torch.float32)
     elif case == "mask_shape":
@@ -122,7 +121,11 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, match):
         q = _OnCard(torch.zeros(2, 2, 256, 68, dtype=dt)[..., 4:])
     elif case == "grad":
         q = _on_card(*shape, dtype=dt, requires_grad=True)
-    with torch.enable_grad(), pytest.raises(err, match=match):
+    if match is None:  # an input that requires grad is taken: the backward is a kernel too
+        with torch.enable_grad():
+            assert tattn._check_cuda(q, k, v, mask) == shape
+        return
+    with torch.enable_grad(), pytest.raises(ValueError, match=match):
         tattn._check_cuda(q, k, v, mask)
 
 

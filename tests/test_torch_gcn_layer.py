@@ -21,7 +21,7 @@ from drin_tpu.models.drin import GCNLayer as JaxGCNLayer
 from drin_tpu.ops.pallas.gcn_layer import fused_gcn_layer as jax_fused, gcn_layer_reference
 from drin_tpu_torch.models.convert import drin_state_dict_from_jax
 from drin_tpu_torch.models.drin import GCNLayer
-from drin_tpu_torch.ops.cuda.gcn_layer import fused_gcn_layer, gcn_layer_plain
+from drin_tpu_torch.ops.cuda.gcn_layer import _FusedGCNLayer, fused_gcn_layer, gcn_layer_plain
 
 F32 = dict(rtol=2e-4, atol=1e-6)
 BF16 = dict(rtol=1.6e-2, atol=2e-2)
@@ -133,3 +133,49 @@ def test_gcn_layer_module_matches_flax(kw, pad):
     with torch.inference_mode():
         got = layer([torch.from_numpy(x) for x in vertexes], [torch.from_numpy(x) for x in edges])
     _compare(got, want, F32)
+
+
+@pytest.mark.parametrize("dynamic", [True, False], ids=["dynamic", "static"])
+def test_function_gradients_match_jax_grad_of_the_reference(dynamic):
+    """The layer's ``autograd.Function`` on the CPU (plain forward, backward
+    by autograd through the plain version on the saved inputs) against
+    ``jax.grad`` through ``gcn_layer_reference``, which is what the JAX
+    package's backward differentiates: all 16 inputs."""
+    B, C, D = 3, 7, 16
+    vertexes, edges, w, k = _inputs(B, C, D, seed=21)
+    rng = np.random.default_rng(22)
+    n_out = 8 if dynamic else 4
+    cot = [rng.standard_normal(x.shape).astype(np.float32) for x in (vertexes + edges)[:n_out]]
+
+    def loss(vs, es, ws, ks):
+        nv, ne = gcn_layer_reference(vs, es, *ws, *ks, dynamic=dynamic)
+        outs = list(nv) + (list(ne) if dynamic else [])
+        return sum(jnp.sum(o * c) for o, c in zip(outs, cot))
+
+    J = lambda xs: [jnp.asarray(x) for x in xs]
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(J(vertexes), J(edges), J(w), J(k))
+    gv, ge, (gwh, gbh, gs, glb), (gku, gbu, gkv, gbv) = want
+    # back to torch layout: weights [out, in]
+    want = list(gv) + list(ge) + [gwh.T, gbh, gs, glb, gku.T, gbu, gkv.T, gbv]
+
+    tv, te, *tw = _torch_args(vertexes, edges, w, k, torch.float32)
+    leaves = [t.requires_grad_(True) for t in tv + te + tw]
+    if not dynamic:
+        leaves[12:] = [None] * 4
+    out = _FusedGCNLayer.apply(("gelu", "sigmoid", 1e-5, dynamic, None), *leaves)
+    assert len(out) == n_out
+    live = [t for t in leaves if t is not None]
+    got = torch.autograd.grad(out, live, [torch.from_numpy(c) for c in cot], allow_unused=True)
+    for i, (g, wnt) in enumerate(zip(got, want)):
+        wnt = np.asarray(wnt)
+        assert g is not None, i
+        np.testing.assert_allclose(g.numpy(), wnt, rtol=2e-4, atol=2e-4 * np.abs(wnt).max(),
+                                   err_msg=str(i))
+    if not dynamic:  # the edge-update weights of a static layer get zero gradient in JAX
+        assert all(not np.asarray(x).any() for x in want[12:])
+    # the wrapper on CPU tensors differentiates the plain version directly: the same numbers
+    nv, ne = fused_gcn_layer(leaves[:4], leaves[4:8], *leaves[8:], dynamic=dynamic)
+    outs = list(nv) + (list(ne) if dynamic else [])
+    direct = torch.autograd.grad(outs, live, [torch.from_numpy(c) for c in cot], allow_unused=True)
+    for g, d in zip(got, direct):
+        np.testing.assert_allclose(g.numpy(), d.numpy(), rtol=1e-6, atol=1e-7)

@@ -90,10 +90,11 @@ def test_package_data_lists_kernel_sources():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"drin_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
     assert sorted(p.name for p in (ROOT / "drin_tpu_torch" / "csrc").iterdir()) == [
-        "attention.cu", "common.cuh", "gather_dequant.cu", "gcn_layer.cu"]
+        "attention.cu", "attention_bwd.cu", "attention_common.cuh", "common.cuh",
+        "gather_dequant.cu", "gcn_layer.cu"]
     from drin_tpu_torch.ops.cuda import _build
 
-    assert _build.KERNELS == ("gather_dequant", "gcn_layer", "attention")
+    assert _build.KERNELS == ("gather_dequant", "gcn_layer", "attention", "attention_bwd")
 
 
 def test_no_library_attention_in_the_port():
@@ -188,3 +189,106 @@ def test_port_data_copies_equal_the_jax_package(tmp_path):
     got = tnpy.load_field(str(tmp_path), "entity_object_score", "all", mmap="r")
     np.testing.assert_array_equal(got, mask)
     assert isinstance(got, np.memmap)
+
+
+@pytest.mark.parametrize("ds", ["wikidiverse", "wikimel"])
+def test_synthetic_store_and_datasets_equal_the_jax_package(tmp_path, ds):
+    """``tiny_config`` field for field, ``make_synthetic_store`` byte for
+    byte, and every batch kind of ``MELFeatureDataset`` bit for bit."""
+    import dataclasses
+    import filecmp
+
+    import numpy as np
+
+    from drin_tpu.data import dataset as jdata, synthetic as jsyn
+    from drin_tpu.data.device_store import DrinRowsBatch as JaxRows
+    from drin_tpu_torch.data import dataset as tdata, synthetic as tsyn
+    from drin_tpu_torch.data.device_store import DrinRowsBatch
+
+    assert DrinRowsBatch._fields == JaxRows._fields
+    kw = dict(entity_text_type="name") if ds == "wikidiverse" else {}
+    for model_type in ("drin", "ghmfc"):
+        assert dataclasses.asdict(tsyn.tiny_config(ds, model_type, preprocess_dir="x", **kw)) == \
+            dataclasses.asdict(jsyn.tiny_config(ds, model_type, preprocess_dir="x", **kw))
+    dirs = {}
+    for name, syn in (("jax", jsyn), ("port", tsyn)):
+        for learnable in (False, True):
+            d = str(tmp_path / f"{name}-{learnable}")
+            cfg = syn.tiny_config(ds, "drin", preprocess_dir=d, **kw)
+            assert syn.make_synthetic_store(cfg, n_mentions=9, n_entities=20, seed=4,
+                                            learnable=learnable) == d
+            dirs[name, learnable] = d
+    for learnable in (False, True):
+        a, b = dirs["jax", learnable], dirs["port", learnable]
+        files = sorted(os.listdir(a))
+        assert files == sorted(os.listdir(b)) and len(files) >= 12
+        match, mismatch, errors = filecmp.cmpfiles(a, b, files, shallow=False)
+        assert not mismatch and not errors, (mismatch, errors)
+    for cache in (True, False):
+        d = dirs["port", False]
+        jcfg = jsyn.tiny_config(ds, "drin", preprocess_dir=d, cache_entity_pooling=cache, **kw)
+        tcfg = tsyn.tiny_config(ds, "drin", preprocess_dir=d, cache_entity_pooling=cache, **kw)
+        for jsplit, tsplit in zip(jdata.create_datasets(jcfg), tdata.create_datasets(tcfg)):
+            assert len(jsplit) == len(tsplit)
+            idx = np.array([2, 0, 1])
+            kinds = ["drin", "baseline"] + (["drin_rows"] if ds == "wikimel" else [])
+            for kind in kinds:
+                jb, tb = jsplit.make_batch(idx, kind), tsplit.make_batch(idx, kind)
+                assert type(jb)._fields == type(tb)._fields
+                for name, x, y in zip(type(jb)._fields, jb, tb):
+                    assert x.dtype == y.dtype and x.shape == y.shape, (kind, name)
+                    np.testing.assert_array_equal(x, y, err_msg=f"{kind}.{name}")
+            np.testing.assert_array_equal(jsplit.labels(idx), tsplit.labels(idx))
+            jall = list(jsplit.batches(2, shuffle=True, seed=5, kind="drin", pad_to_full=True))
+            tall = list(tsplit.batches(2, shuffle=True, seed=5, kind="drin", pad_to_full=True))
+            assert len(jall) == len(tall)
+            for jb, tb in zip(jall, tall):
+                np.testing.assert_array_equal(jb.mention_text_feature, tb.mention_text_feature)
+    with pytest.raises(ValueError, match="num_candidates_data"):
+        tdata.MELFeatureDataset(tcfg.replace(num_candidates_data=9), "train",
+                                getattr(tsplit, "tables", None))
+
+
+def test_batch_index_helpers_equal_the_jax_package():
+    import numpy as np
+
+    from drin_tpu.data import dataset as jdata
+    from drin_tpu_torch.data import dataset as tdata
+
+    for kw in (dict(), dict(shuffle=True, seed=3), dict(drop_remainder=True),
+               dict(shuffle=True, seed=1, pad_to_full=True)):
+        for n, b in ((10, 4), (3, 8), (8, 4)):
+            got = list(tdata.iter_batch_indices(n, b, **kw))
+            want = list(jdata.iter_batch_indices(n, b, **kw))
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(tdata.make_onehot_lookup(5), jdata.make_onehot_lookup(5))
+    ans = np.array([0, 3, 5, 4])
+    np.testing.assert_array_equal(tdata.gold_labels(ans, 6), jdata.gold_labels(ans, 6))
+
+
+def test_prefetcher_equals_the_jax_package():
+    """Order, transform, error propagation and close, for both copies."""
+    import threading
+
+    from drin_tpu.data.prefetch import Prefetcher as Theirs
+    from drin_tpu_torch.data.prefetch import Prefetcher as Ours
+
+    for cls in (Ours, Theirs):
+        assert list(cls(range(7), lambda x: x * x, depth=2)) == [i * i for i in range(7)]
+        assert list(cls([], None)) == []
+
+        def boom():
+            yield 1
+            raise KeyError("source failed")
+
+        it = cls(boom())
+        assert next(it) == 1
+        with pytest.raises(KeyError, match="source failed"):
+            next(it)
+        before = threading.active_count()
+        with cls(iter(range(1000)), depth=1) as pf:  # abandoned early: close() joins the worker
+            assert next(pf) == 0
+        assert not pf._thread.is_alive() and pf._q.empty()
+        assert threading.active_count() <= before
