@@ -83,6 +83,16 @@ ATTN_F32_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 summation order and expf only
 # f32: summation order and expf only.
 ATTN_BWD_BF16_TOL = dict(floor=1e-2, rtol=1.6e-2)
 ATTN_BWD_F32_TOL = dict(floor=1e-5, rtol=1e-4)
+# what callers write into an additive mask for a dropped key besides finfo.min:
+# a sequence whose keys are all dropped must come out uniform for each (the
+# bf16 kernels turn the mask and the stored row max into base 2 and back)
+OTHER_DROPS = (-1e9, -1e30)
+# the attention rows' times before their redesign for wgmma and TMA (PERF.md
+# section 6, NVIDIA H100 80GB HBM3 at 700 W, the same shape and timing method),
+# quoted in a printed line beside this run's; the kernels line holds only what
+# this run measured (tools/attention_sweep.py --old-csrc times old and new in
+# one process)
+ATTN_EARLIER_MS = {"attention": 0.464, "attention_bwd": 1.453, "attention_bwd_nomask": 1.490}
 # served bf16 online scores vs the port's f32 CPU forward: 12 BERT layers and
 # the fusion round to bf16 at every step.  With random weights the cosines
 # of one mention's candidates spread by only ~5e-3, so the limit is absolute
@@ -161,6 +171,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: the sum over the kernels it
+    launches, from torch.profiler (the event-timed ``cuda_ms`` of a single
+    call also holds the host's time to reach the launch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps
+
+
 def host_ms(fn, reps: int = 10) -> float:
     """Median wall time of ``fn`` (which ends in a host copy), in ms."""
     fn()
@@ -180,9 +209,13 @@ def outside(got, want, atol, rtol) -> int:
 
 def excess_rel(got, want, floor, rtol):
     """|got - want| - rtol * |want| in units of floor * (max |want| over the
-    slice of the first dimension the value lies in): > 1 is outside."""
+    slice of the first dimension the value lies in): > 1 is outside.  A slice
+    whose ``want`` is 0 throughout (dq, dk and dmask of a sequence that keeps
+    one key: its softmax is constant) has no size of its own and is held to
+    the floor of the largest slice."""
     got, want = got.float(), want.float()
-    top = want.abs().reshape(want.shape[0], -1).amax(1).clamp_min(1e-30)
+    top = want.abs().reshape(want.shape[0], -1).amax(1)
+    top = top.masked_fill(top == 0, top.max().item()).clamp_min(1e-30)
     top = top.reshape((-1,) + (1,) * (want.ndim - 1))
     return ((got - want).abs() - rtol * want.abs()) / (floor * top)
 
@@ -335,12 +368,13 @@ def phase_gcn(torch, gcn):
     return result
 
 
-def _attn_inputs(torch, np, B, H, L, dt, seed, lens=None):
+def _attn_inputs(torch, np, B, H, L, dt, seed, lens=None, drop=None):
     """Unit-normal q, k, v as BERT hands them over: [B, H, L, 64] views of
     [B, L, H*64] projections.  At Dh=64 the logits q.k/8 then have unit
     spread (about +-4 over a row of 512 keys), so the softmax is far from
     uniform and a wrong key tile moves the output by O(1).  ``lens`` keeps a
-    prefix of each sequence's keys (0 = every key dropped)."""
+    prefix of each sequence's keys (0 = every key dropped); the mask holds
+    ``drop`` for a dropped key, ``finfo.min`` if None."""
     rng = np.random.default_rng(seed)
     mk = lambda: torch.from_numpy(rng.standard_normal((B, L, H * 64), dtype=np.float32)).to(
         "cuda", dt).reshape(B, L, H, 64).transpose(1, 2)
@@ -348,7 +382,8 @@ def _attn_inputs(torch, np, B, H, L, dt, seed, lens=None):
     mask = None
     if lens is not None:
         keep = torch.arange(L, device="cuda")[None] < torch.as_tensor(lens, device="cuda")[:, None]
-        mask = torch.zeros((B, L), dtype=dt, device="cuda").masked_fill(~keep, torch.finfo(dt).min)
+        mask = torch.zeros((B, L), dtype=dt, device="cuda").masked_fill(
+            ~keep, torch.finfo(dt).min if drop is None else drop)
     return q, k, v, mask
 
 
@@ -361,7 +396,7 @@ def phase_attention(torch, np, attn):
     # the main shape: one B=8 request's entity tower, [8*12, 12, 512, 64] bf16;
     # prefixes from under one key tile to all 512 keys, one sequence all dropped
     main_lens = rng.integers(9, 513, 96)
-    main_lens[:6] = [512, 40, 63, 64, 65, 0]
+    main_lens[:9] = [512, 40, 63, 64, 65, 0, 127, 128, 129]  # around the key tiles' edges
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("main", 96, 12, 512, bf16, main_lens),
              ("L=256", 16, 12, 256, bf16, rng.integers(1, 257, 16)),
@@ -370,10 +405,18 @@ def phase_attention(torch, np, attn):
              ("no mask", 16, 12, 512, bf16, None),
              ("f32", 4, 12, 512, f32, [512, 300, 17, 0]),
              ("f32 L=264 no mask", 2, 12, 264, f32, None),
-             ("B'=1", 1, 12, 512, bf16, [77])]
+             ("B'=1", 1, 12, 512, bf16, [77]),
+             # one block's rows exactly, one tile and eight rows, eight rows short of 512
+             ("L=128", 8, 12, 128, bf16, [128, 127, 65, 64, 63, 1, 0, 100]),
+             ("L=136 ragged", 8, 12, 136, bf16, [136, 129, 128, 127, 64, 8, 0, 135]),
+             ("L=504 ragged", 4, 12, 504, bf16, [504, 500, 129, 0]),
+             ("L=8", 2, 12, 8, bf16, [8, 3]),
+             ("L=256", 4, 12, 256, bf16, [256, 100, 0, 1])]
+    cases = [c + (None,) for c in cases] + [(f"{c[0]}, dropped keys at {drop:g}",) + c[1:] + (drop,)
+                                            for c in cases[-1:] for drop in OTHER_DROPS]
     result = None
-    for i, (name, B, H, L, dt, lens) in enumerate(cases):
-        q, k, v, mask = _attn_inputs(torch, np, B, H, L, dt, SEED + i, lens)
+    for i, (name, B, H, L, dt, lens, drop) in enumerate(cases):
+        q, k, v, mask = _attn_inputs(torch, np, B, H, L, dt, SEED + i, lens, drop)
         with torch.inference_mode():
             got = attn.fused_attention(q, k, v, mask)
             torch.cuda.synchronize()
@@ -412,6 +455,7 @@ def phase_attention(torch, np, attn):
         del faults, no_tail, v_rot, logits
         with torch.inference_mode():
             ms = cuda_ms(lambda: attn.fused_attention(q, k, v, mask))
+            dev_ms = device_ms(lambda: attn.fused_attention(q, k, v, mask))
             plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v, mask))
             lib_mask = mask[:, None, None, :]
             lib = F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask)
@@ -421,6 +465,8 @@ def phase_attention(torch, np, attn):
             lib_diff = (lib.float() - want.float()).abs().amax((1, 2, 3))
             lib_err, lib_err_dropped = lib_diff[~dropped].max().item(), lib_diff[dropped].max().item()
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask))
+            lib_dev_ms = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask))
         flops = 4 * L * L * 64 * B * H  # the two products
         moved = nbytes(q, k, v, mask, got)
         bound_ms, bound_by = bound(moved, flops)
@@ -429,8 +475,12 @@ def phase_attention(torch, np, attn):
               f"diff to plain {lib_err:.3g}, on the sequence with every key dropped "
               f"{lib_err_dropped:.3g}), bound {bound_ms:.4f} ms ({bound_by}: "
               f"{flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB)")
+        print(f"[attention]   device time alone (torch.profiler): kernel {dev_ms:.4f} ms, "
+              f"F.scaled_dot_product_attention {lib_dev_ms:.4f} ms; before the redesign the "
+              f"kernel took {ATTN_EARLIER_MS['attention']} ms (PERF.md), now {ms:.4f} ms")
         result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by, "library_ms": library_ms}
+                  "bound_by": bound_by, "library_ms": library_ms, "device_ms": dev_ms,
+                  "library_device_ms": lib_dev_ms}
     for bad, why in ((lambda q, k, v, m: (q.half(), k.half(), v.half(), None), "fp16"),
                      (lambda q, k, v, m: (q[..., :32], k[..., :32], v[..., :32], None), "Dh=32"),
                      (lambda q, k, v, m: (q, k, v, m.float()), "mask dtype")):
@@ -461,7 +511,8 @@ def phase_attention_bwd(torch, np, attn):
 
     rng = np.random.default_rng(SEED)
     main_lens = rng.integers(9, 513, 96)
-    main_lens[:6] = [512, 40, 63, 64, 65, 0]  # one sequence with every key dropped
+    # around the tiles' edges; one sequence with every key dropped
+    main_lens[:9] = [512, 40, 63, 64, 65, 0, 127, 128, 129]
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("main", 96, 12, 512, bf16, main_lens),
              ("main, no mask", 96, 12, 512, bf16, None),
@@ -471,11 +522,22 @@ def phase_attention_bwd(torch, np, attn):
              ("L=264 ragged, no mask", 4, 12, 264, bf16, None),
              ("f32", 4, 12, 512, f32, [512, 300, 17, 0]),
              ("f32 L=264 no mask", 2, 12, 264, f32, None),
-             ("B'=1", 1, 12, 512, bf16, [77])]
+             ("B'=1", 1, 12, 512, bf16, [77]),
+             # one block's rows exactly, one tile and eight rows, eight rows short of 512
+             # (the sequence that keeps one key has a constant softmax: its dq, dk and
+             # dmask are exactly 0 and are held to the floor of the batch's largest sequence)
+             ("L=128", 8, 12, 128, bf16, [128, 127, 65, 64, 63, 1, 0, 100]),
+             ("L=136 ragged", 8, 12, 136, bf16, [136, 129, 128, 127, 64, 8, 0, 135]),
+             ("L=136 ragged, no mask", 2, 12, 136, bf16, None),
+             ("L=504 ragged", 4, 12, 504, bf16, [504, 500, 129, 0]),
+             ("L=8", 2, 12, 8, bf16, [8, 3]),
+             ("L=256", 4, 12, 256, bf16, [256, 100, 0, 1])]
+    cases = [c + (None,) for c in cases] + [(f"{c[0]}, dropped keys at {drop:g}",) + c[1:] + (drop,)
+                                            for c in cases[-1:] for drop in OTHER_DROPS]
     names = ("dq", "dk", "dv", "dmask")
     results = {}
-    for i, (name, B, H, L, dt, lens) in enumerate(cases):
-        q, k, v, mask = _attn_inputs(torch, np, B, H, L, dt, SEED + i, lens)
+    for i, (name, B, H, L, dt, lens, drop) in enumerate(cases):
+        q, k, v, mask = _attn_inputs(torch, np, B, H, L, dt, SEED + i, lens, drop)
         # the gradient as BERT's backward hands it over: a [B, H, L, 64] view of [B, L, H*64]
         do = _attn_inputs(torch, np, B, H, L, dt, SEED + 100 + i)[0]
         before = (attn.bwd_launches, attn.bwd_nomask_launches)
@@ -490,6 +552,10 @@ def phase_attention_bwd(torch, np, attn):
             again = _attn_grads(torch, attn, q, k, v, mask, do.contiguous())
             for a, b in zip(again, got):
                 assert torch.equal(a, b), f"attention bwd {name}: contiguous dO != strided"
+        else:  # and the same inputs give the same bits again: no atomics, no order left open
+            again = _attn_grads(torch, attn, q, k, v, mask, do)
+            for a, b in zip(again, got):
+                assert torch.equal(a, b), f"attention bwd {name}: two runs differ"
         torch.cuda.synchronize()
         tol = ATTN_BWD_BF16_TOL if dt == bf16 else ATTN_BWD_F32_TOL
         assert len(got) == len(want) == (4 if mask is not None else 3)
@@ -539,11 +605,13 @@ def phase_attention_bwd(torch, np, attn):
         o, m, l = out.grad_fn.saved_tensors[4:7]
         with torch.no_grad():
             ms = cuda_ms(lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
+            dev_ms = device_ms(lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
             plain_ms = cuda_ms(lambda: attn.attention_backward_plain(q, k, v, mask, do), reps=5,
                                warmup=1)
         lib_mask = None if mask is None else mask[:, None, None, :]
         lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask)
         library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
+        lib_dev_ms = device_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
         lib = torch.autograd.grad(lib_out, leaves, do)
         kept = torch.ones(B, dtype=torch.bool, device="cuda") if lens is None else \
             torch.as_tensor(np.asarray(lens) > 0, device="cuda")
@@ -556,9 +624,14 @@ def phase_attention_bwd(torch, np, attn):
               f"F.scaled_dot_product_attention {library_ms:.4f} ms (yardstick only; max abs diff "
               f"to plain on the sequences that keep a key {lib_err:.3g}), bound {bound_ms:.4f} ms "
               f"({bound_by}: {flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB)")
-        results["attention_bwd" if mask is not None else "attention_bwd_nomask"] = {
+        row = "attention_bwd" if mask is not None else "attention_bwd_nomask"
+        print(f"[attention_bwd]   device time alone (torch.profiler): kernels {dev_ms:.4f} ms, "
+              f"autograd through F.scaled_dot_product_attention {lib_dev_ms:.4f} ms; before the "
+              f"redesign the kernels took {ATTN_EARLIER_MS[row]} ms (PERF.md), now {ms:.4f} ms")
+        results[row] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms}
         del lib_out, lib, out, leaves, o, m, l
     for bad, why in ((lambda q, k, v: (q.half(), k.half(), v.half()), "fp16"),
                      (lambda q, k, v: (q[..., :32], k[..., :32], v[..., :32]), "Dh=32"),

@@ -8,19 +8,34 @@
 //
 // What bounds it on the H100: at [96, 12, 512, 64] bf16 the two products are
 // 77 GFLOP (0.078 ms at the tensor cores' peak) over 302 MB of q, k, v and o
-// traffic (0.090 ms), so both limits are close and neither is near while the
-// products run through mma.sync.  The TPU kernel keeps all of K and V of one
-// (b, h) and a [block_q, L] f32 logits tile in fast memory and takes the exact
-// row softmax; here K and V at L=512 (128 KB) plus such a tile do not fit the
-// 227 KB a block may use, and a 16 x 512 f32 strip per warp does not fit in
-// registers.  So the bf16 kernel streams:
-//   * one block per (b, h, tile of 64 query rows), four warps of 16 rows;
-//   * K and V come through shared memory in tiles of 64 keys, double-buffered
-//     with cp.async (36 KB of static shared memory, four blocks per SM);
-//   * both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//     accumulators); the logits accumulator's register layout is the A
-//     operand's, so p goes from the first product to the second without
-//     touching shared memory; V's B operand comes through ldmatrix.trans;
+// traffic (0.090 ms), and the 302 M exponentials take about 0.08 ms of the
+// special-function units, so three limits lie close together: the products
+// have to run at wgmma's rate, the exponentials have to run under them and
+// not between them, and K and V must not be fetched more often than needed.
+// The TPU kernel keeps all of K and V of one (b, h) and a [block_q, L] f32
+// logits tile in fast memory and takes the exact row softmax; here such a
+// tile does not fit in registers, so the bf16 kernel streams:
+//   * one block per (b, h, kFwdWG * 64 query rows): kFwdWG warpgroups of 64
+//     rows each;
+//   * one elected thread keeps a ring of kFwdStages (K, V) tiles of 64
+//     keys in flight by TMA: a stage's "full" mbarrier counts the bytes that
+//     land, its "empty" mbarrier the warps that are done with it, and the
+//     thread refills the stage that was read one tile ago, so it hardly ever
+//     waits; no block-wide barrier inside the loop.  (A producer warp of its
+//     own costs a whole warpgroup's registers here: the compiler cuts a block
+//     of 288 threads down as if it had 384.);
+//   * both products are wgmma (bf16 in, f32 accumulators) with A from
+//     registers: q's fragments are loaded once per block, p is the logits'
+//     accumulator fragment rounded to bf16, and the tensor cores read K
+//     (K-major) and V (MN-major, as it lies) from the swizzled tiles;
+//   * while one warpgroup's products run, the other warpgroups (of this
+//     block and of the next one on the SM) take their exponentials.  Measured
+//     on the card, that overlap is partial: a tile's two products and its
+//     softmax are one dependent chain per warpgroup, and with both compiled
+//     out the loads, barriers and stores alone take over half of the kernel's
+//     time.  Turns between the warpgroups, a grid of resident blocks walking
+//     through the work, wider tiles and wider blocks were each built and
+//     measured slower than this plain form;
 //   * running row max and row sum in registers, the accumulator rescaled per
 //     key tile, one division at the end.
 // Same function as the TPU kernel within rounding; the one difference: p is
@@ -29,7 +44,10 @@
 //
 // The mask keeps its magnitude (about -3.4e38, finite), so all masked logits
 // of a row are equal and a row with every key masked gets the uniform softmax
-// of the reference.  Keys past L (the ragged last tile) get -inf; the running
+// of the reference.  The softmax is taken in base 2 (fill_mask_log2 in
+// attention_common.cuh): one FFMA, one FADD and one ex2 per logit, with the
+// mask cut off at -FLT_MAX so that mask * log2 e cannot overflow.  Keys past
+// L (the ragged last tile; TMA delivers zeros for them) get -inf; the running
 // max is finite from the first tile on (key 0 is always in range), so
 // (-inf) - (-inf) never forms.
 //
@@ -37,99 +55,126 @@
 // (64 query rows per block, two threads per row, tiles of 32 keys).
 //
 // Where a gradient will be asked for, both kernels also store the row max m
-// and the row sum l of exp(logit - m), [B, H, L] f32 each: the backward
-// (attention_bwd.cu) recomputes P = exp(S - m) / l from them.  Inference
-// passes null pointers and stores nothing.
+// and the row sum l of exp(logit - m), [B, H, L] f32 each, in natural units
+// (the bf16 kernel's m a float step or two below its own max where the
+// conversion from base 2 asks for it, natural_row_max in attention_common.cuh):
+// the backward (attention_bwd.cu) recomputes P = exp(S - m) / l from them.
+// Inference passes null pointers and stores nothing.
 
 #include "attention_common.cuh"
 
+// The compiled-in tile configuration (tools/attention_sweep.py builds the
+// others with -D and times them side by side).
+#ifndef DRIN_ATTN_FWD_STAGES
+#define DRIN_ATTN_FWD_STAGES 4   // (K, V) tiles in the ring
+#endif
+#ifndef DRIN_ATTN_FWD_WG
+#define DRIN_ATTN_FWD_WG 2       // warpgroups = 64-row query tiles per block
+#endif
+#ifndef DRIN_ATTN_FWD_BLOCKS
+#define DRIN_ATTN_FWD_BLOCKS 2   // blocks per SM the register budget is cut for
+#endif
+
 namespace {
 
-// grid: B * H * ceil(L / 64) blocks, the query tiles of one (b, h) adjacent
-// (their K and V then meet in L2); out is [B, L, H, 64] contiguous.  The
-// kernel waits on latency (dependent mma chains, two barriers per key tile),
-// so resident warps count: asking for four blocks per SM caps it at 128
-// registers (it would take 139, three blocks) at the price of 44 bytes of
-// spill stores and 36 of loads per thread.
-__global__ void __launch_bounds__(kThreads, 4)
-attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ mask,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-              Strides qs, Strides ks, Strides vs, long long mask_sb, int H, int L, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kBK][kRow];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kBK][kRow];
-  __shared__ float mask_s[kMaxL];
+constexpr int kFwdKT = 64;                                // keys per tile
+constexpr int kFwdStages = DRIN_ATTN_FWD_STAGES;
+constexpr int kFwdWG = DRIN_ATTN_FWD_WG;
+constexpr int kFwdRows = kFwdWG * 64;                     // query rows per block
+constexpr int kFwdThreads = kFwdWG * kWgThreads;
+constexpr int kFwdTileBytes = kFwdKT * kRowBytes;         // one K or V tile
+constexpr int kFwdStageBytes = 2 * kFwdTileBytes;
+// shared memory: q | ring | mask row | barriers (q_full, full[], empty[])
+constexpr int kFwdOffRing = kFwdRows * kRowBytes;
+constexpr int kFwdOffMask = kFwdOffRing + kFwdStages * kFwdStageBytes;
+constexpr int kFwdOffBars = kFwdOffMask + kMaxL * 4;
+constexpr int kFwdSmem = 1024 + kFwdOffBars + (1 + 2 * kFwdStages) * 8;
+static_assert(kFwdSmem <= 232448, "shared memory of one block");
 
-  const int n_qt = (L + kBQ - 1) / kBQ;
+// grid: B * H * ceil(L / kFwdRows) blocks, the query tiles of one (b, h)
+// adjacent (their K and V then meet in L2); out is [B, L, H, 64] contiguous.
+__global__ void __launch_bounds__(kFwdThreads, DRIN_ATTN_FWD_BLOCKS)
+attn_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, const __nv_bfloat16* __restrict__ mask,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+              long long mask_sb, int H, int L, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const uint32_t q_s = smem_u32(smem), ring = q_s + kFwdOffRing, bars = q_s + kFwdOffBars;
+  float* mask_s = reinterpret_cast<float*>(smem + kFwdOffMask);
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 + s * 8; };
+  auto empty = [&](int s) { return bars + 8 + (kFwdStages + s) * 8; };
+
+  const int n_qt = (L + kFwdRows - 1) / kFwdRows;
   const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
   const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const int q0 = qt * kBQ;
-  const __nv_bfloat16* qp = q + (size_t)b * qs.b + (size_t)h * qs.h;
-  const __nv_bfloat16* kp = k + (size_t)b * ks.b + (size_t)h * ks.h;
-  const __nv_bfloat16* vp = v + (size_t)b * vs.b + (size_t)h * vs.h;
-  const int n_kt = (L + kBK - 1) / kBK;
+  const int q0 = qt * kFwdRows;
+  const int n_kt = (L + kFwdKT - 1) / kFwdKT;
 
-  // the query tile is staged through K's second buffer
-  load_tile(k_s[1], qp, qs.l, q0, L);
-  cp_async_commit();
-  load_tile(k_s[0], kp, ks.l, 0, L);
-  load_tile(v_s[0], vp, vs.l, 0, L);
-  cp_async_commit();
-  fill_mask(mask_s, mask, mask_sb, b, L);
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[kDh / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
-    const __nv_bfloat16* r0 = &k_s[1][warp * 16 + g][kk * 16 + t * 2];
-    const __nv_bfloat16* r8 = &k_s[1][warp * 16 + g + 8][kk * 16 + t * 2];
-    qf[kk][0] = ld_u32(r0);
-    qf[kk][1] = ld_u32(r8);
-    qf[kk][2] = ld_u32(r0 + 8);
-    qf[kk][3] = ld_u32(r8 + 8);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kFwdWG * 4);  // one arrival per warp
+    }
+    mbar_fence_init();
   }
-  __syncthreads();  // the staged queries are read before tile 1 overwrites them
+  __syncthreads();
 
-  float o[kDh / 8][4];
+  // one thread: the (K, V) tile kt into its stage, once every warp has read what was there
+  auto produce = [&](int kt) {
+    const int s = kt % kFwdStages, use = kt / kFwdStages;
+    if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+    mbar_expect_tx(full(s), kFwdStageBytes);
+    tma_load_tile(ring + s * kFwdStageBytes, &tm_k, full(s), kt * kFwdKT, h, b);
+    tma_load_tile(ring + s * kFwdStageBytes + kFwdTileBytes, &tm_v, full(s), kt * kFwdKT, h, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, kFwdRows * kRowBytes);
+    for (int w = 0; w < kFwdWG; ++w) tma_load_tile(q_s + w * kTile64, &tm_q, q_full, q0 + w * 64, h, b);
+    for (int kt = 0; kt < kFwdStages && kt < n_kt; ++kt) produce(kt);
+  }
+
+  // warpgroup wg owns query rows q0 + 64 wg .. + 63, its warp wq 16 of them
+  const int wg = warp / 4, wq = warp % 4;
+  const int g = lane / 4, t = lane % 4;  // fragment coordinates
+  fill_mask_log2(mask_s, mask, mask_sb, b, L, threadIdx.x, kFwdThreads);
+  const float scale2 = scale * kLog2e;
+  mbar_wait(q_full, 0);
+  uint32_t qf[4][4];
+  load_a_frags(qf, q_s + wg * kTile64, wq * 16, lane);
+  __syncthreads();  // the mask row is written
+
+  float o[8][4];
 #pragma unroll
-  for (int j = 0; j < kDh / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // rows g and g + 8
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // rows g and g + 8, base 2
   float l_run[2] = {0.f, 0.f};                       // this thread's share of the row sums
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_kt) {
-      load_tile(k_s[buf ^ 1], kp, ks.l, (kt + 1) * kBK, L);
-      load_tile(v_s[buf ^ 1], vp, vs.l, (kt + 1) * kBK, L);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int st = kt % kFwdStages;
+    const uint32_t k_s = ring + st * kFwdStageBytes, v_s = k_s + kFwdTileBytes;
+    mbar_wait(full(st), (kt / kFwdStages) & 1);
 
-    // s = q . k^T for 16 rows x 64 keys
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) {
-        const __nv_bfloat16* kr = &k_s[buf][j * 8 + g][kk * 16 + t * 2];
-        mma_bf16(s[j], qf[kk], ld_u32(kr), ld_u32(kr + 8));
-      }
-    }
+    // s = q . k^T for 64 rows x kFwdKT keys
+    float s[kFwdKT / 8][4];
+    wgmma_fence();
+    mma_rows_of(s, qf, k_s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+
     // logits, tile row max (the four lanes of a quad share a row)
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      const float m0 = mask_s[kt * kBK + j * 8 + t * 2], m1 = mask_s[kt * kBK + j * 8 + t * 2 + 1];
-      s[j][0] = s[j][0] * scale + m0;
-      s[j][1] = s[j][1] * scale + m1;
-      s[j][2] = s[j][2] * scale + m0;
-      s[j][3] = s[j][3] * scale + m1;
+    for (int j = 0; j < kFwdKT / 8; ++j) {
+      const float2 mk = *reinterpret_cast<const float2*>(&mask_s[kt * kFwdKT + j * 8 + t * 2]);
+      s[j][0] = fmaf(s[j][0], scale2, mk.x);
+      s[j][1] = fmaf(s[j][1], scale2, mk.y);
+      s[j][2] = fmaf(s[j][2], scale2, mk.x);
+      s[j][3] = fmaf(s[j][3], scale2, mk.y);
       mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
       mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
     }
@@ -139,47 +184,38 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m_run[r], mx[r]);  // finite: tile 0 holds key 0
-      alpha[r] = __expf(m_run[r] - m_new);         // 0 on the first tile
+      alpha[r] = ex2(m_run[r] - m_new);            // 0 on the first tile
       m_run[r] = m_new;
       l_run[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = __expf(s[j][0] - m_run[0]);
-      s[j][1] = __expf(s[j][1] - m_run[0]);
-      s[j][2] = __expf(s[j][2] - m_run[1]);
-      s[j][3] = __expf(s[j][3] - m_run[1]);
+    for (int j = 0; j < kFwdKT / 8; ++j) {
+      s[j][0] = ex2(s[j][0] - m_run[0]);
+      s[j][1] = ex2(s[j][1] - m_run[0]);
+      s[j][2] = ex2(s[j][2] - m_run[1]);
+      s[j][3] = ex2(s[j][3] - m_run[1]);
       l_run[0] += s[j][0] + s[j][1];
       l_run[1] += s[j][2] + s[j][3];
     }
 #pragma unroll
-    for (int j = 0; j < kDh / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
       o[j][0] *= alpha[0];
       o[j][1] *= alpha[0];
       o[j][2] *= alpha[1];
       o[j][3] *= alpha[1];
     }
     // o += round(p) . v
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < kDh / 8; j += 2) {
-        // four transposed 8x8 blocks of V: keys kk*16 + {0..7, 8..15}, columns j*8 and (j+1)*8
-        uint32_t b0, b1, b2, b3;
-        const uint32_t addr = smem_u32(&v_s[buf][kk * 16 + (lane % 16)][j * 8 + (lane / 16) * 8]);
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                     : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-                     : "r"(addr));
-        mma_bf16(o[j], pa, b0, b1);
-        mma_bf16(o[j + 1], pa, b2, b3);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles on
+    uint32_t pa[kFwdKT / 16][4];
+    pack_a(pa, s);
+    wgmma_fence();
+    mma_over_rows(o, pa, v_s, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));  // this warp is done with the stage
+    // refill the stage of the tile before: the other warps have had a whole tile to leave it
+    if (threadIdx.x == 0 && kt >= 1 && kt - 1 + kFwdStages < n_kt) produce(kt - 1 + kFwdStages);
   }
 
 #pragma unroll
@@ -190,15 +226,15 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
+    const int row = q0 + wg * 64 + wq * 16 + g + r * 8;
     if (row >= L) continue;
-    if (m_out && t == 0) {  // the softmax residuals of the backward: row max and row sum
-      m_out[(size_t)bh * L + row] = m_run[r];
+    if (m_out && t == 0) {  // the softmax residuals of the backward: row max (natural units) and row sum
+      m_out[(size_t)bh * L + row] = natural_row_max(m_run[r]);
       l_out[(size_t)bh * L + row] = l_run[r];
     }
     __nv_bfloat16* op = out + (((size_t)b * L + row) * H + h) * kDh + t * 2;
 #pragma unroll
-    for (int j = 0; j < kDh / 8; ++j)
+    for (int j = 0; j < 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(op + j * 8) =
           __floats2bfloat162_rn(o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
   }
@@ -322,13 +358,18 @@ DRIN_EXPORT int drin_attention_fwd(int dtype, int B, int H, int L, int Dh, const
   const float scale = 0.125f;  // 64^-1/2
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BFLOAT16) {
-    const long long blocks = (long long)B * H * ((L + kBQ - 1) / kBQ);
+    const long long blocks = (long long)B * H * ((L + kFwdRows - 1) / kFwdRows);
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    attn_fwd_bf16<<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(mask),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(m_out), static_cast<float*>(l_out), qs,
-        ks, vs, mask_sb, H, L, scale);
+    CUtensorMap tm_q, tm_k, tm_v;
+    int err = tile_map(&tm_q, q, qs, B, H, L, 64);
+    if (!err) err = tile_map(&tm_k, k, ks, B, H, L, kFwdKT);
+    if (!err) err = tile_map(&tm_v, v, vs, B, H, L, kFwdKT);
+    if (err) return err;
+    static const cudaError_t opted = allow_smem(attn_fwd_bf16, kFwdSmem);
+    if (opted != cudaSuccess) return static_cast<int>(opted);
+    attn_fwd_bf16<<<(unsigned)blocks, kFwdThreads, kFwdSmem, s>>>(
+        tm_q, tm_k, tm_v, static_cast<const __nv_bfloat16*>(mask), static_cast<__nv_bfloat16*>(out),
+        static_cast<float*>(m_out), static_cast<float*>(l_out), mask_sb, H, L, scale);
   } else if (dtype == DT_FLOAT32) {
     const long long blocks = (long long)B * H * ((L + kFQ - 1) / kFQ);
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -340,4 +381,9 @@ DRIN_EXPORT int drin_attention_fwd(int dtype, int B, int H, int L, int Dh, const
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// blocks of the bf16 forward kernel that share one SM (for the sweep tool and the records)
+DRIN_EXPORT int drin_attention_fwd_blocks_per_sm() {
+  return blocks_per_sm(attn_fwd_bf16, kFwdThreads, kFwdSmem);
 }

@@ -11,7 +11,8 @@
 //
 // What bounds it on the H100: at [96, 12, 512, 64] bf16 the five products are
 // 193 GFLOP (0.195 ms at the tensor cores' peak) over ~0.6 GB of q, k, v, o,
-// dO, dq, dk and dv (0.18 ms): as in the forward both limits are close.
+// dO, dq, dk and dv (0.18 ms): as in the forward both limits are close, and
+// the exponentials of the recomputed P weigh as much as a product.
 //
 // The TPU kernel gives one (b, h) to one instance with three [L, L] f32 tiles
 // (~3 MB) in fast memory and recomputes the exact row softmax.  That does not
@@ -22,329 +23,374 @@
 //     m + log l would round back to m), so P = exp(S - m) / l needs no second
 //     softmax pass;
 //   * two launches, no atomics, the same result from run to run:
-//       dq kernel   one block per (b, h, 64 query rows): loops over key tiles
-//                   (K and V through shared memory, cp.async, double-buffered,
-//                   the forward's form), owns dQ, and stores delta for the
-//                   second launch;
-//       dkv kernel  one block per (b, h, 64 keys): loops over query tiles
-//                   (Q and dO through shared memory with their m, 1/l and
-//                   delta), works on the transposed tile S^T = K . Q^T so that
-//                   its warps own keys, and owns dK, dV and the column sums of
-//                   dS (dmask of that (b, h); the wrapper adds the heads);
-//     both recompute S and P;
-//   * bf16: all products on the tensor cores (mma.sync m16n8k16, f32
-//     accumulators); P and dS leave the accumulators as A operands without
-//     touching shared memory and are rounded to bf16 there (the TPU kernel
-//     keeps them f32); f32: plain-FMA kernels of the same two-launch form,
-//     nothing rounded.
+//       dq kernel   one block per (b, h, kDqWG * 64 query rows): loops over
+//                   key tiles, owns dQ, and stores each query's m (base 2), 1 / l
+//                   and delta for the second launch, in tiles of 64 queries padded
+//                   with (m = +inf, 0, 0) so that a query past L recomputes to
+//                   P = 0 without a test;
+//       dkv kernel  one block per (b, h, kDqWG * 64 keys): loops over query
+//                   tiles (Q, dO and the three statistics of 64 queries ride
+//                   in one ring stage), works on the transposed tile
+//                   S^T = K . Q^T so that its warps own keys, and owns dK, dV
+//                   and the column sums of dS (dmask of that (b, h); the
+//                   wrapper adds the heads);
+//     both recompute S and P, so seven products run for a function of five;
+//   * bf16: the forward's building blocks.  One elected thread keeps a ring
+//     of tiles in flight by TMA (mbarriers count the bytes that land and the
+//     warps that are done); every product is wgmma.  For S and dP the tensor
+//     cores read both operands from shared memory: the block's own rows (q
+//     and dO, or k and v, loaded once) as A and the streamed tile K-major as
+//     B, which leaves the registers to the accumulators.  P and dS leave the
+//     accumulators as A operands of dQ, dK and dV without touching shared
+//     memory and are rounded to bf16 there (the TPU kernel keeps them f32);
+//     their B is the streamed tile again, MN-major, as it lies;
+//     f32: plain-FMA kernels of the same two-launch form, nothing rounded.
 // Keys past L (ragged last tile) get -inf logits and so P = 0; query rows past
-// L get m = 0, 1/l = 0 and zero q, dO, so they add nothing.  The mask keeps
-// its magnitude, so an all-dropped row recomputes to the uniform P = 1 / L.
+// L arrive as zero q and dO.  The mask keeps its magnitude, so an all-dropped
+// row recomputes to the uniform P = 1 / L.  Like the forward, both kernels
+// take the exponent in base 2 (fill_mask_log2 in attention_common.cuh: one
+// FFMA, one FADD, one ex2 per logit) and cut it off at 0, because the stored
+// natural-unit m comes back into base 2 one rounding away from the forward's
+// (row_max_log2 there); the dq kernel also leaves 1 / l out of dS and scales
+// its finished rows by it instead.
 // The mask-free instantiation reads no mask and stores no dmask.
 
 #include "attention_common.cuh"
 
+// The compiled-in tile configuration (tools/attention_sweep.py builds the
+// others with -D and times them side by side).
+#ifndef DRIN_ATTN_DQ_WG
+#define DRIN_ATTN_DQ_WG 2        // dq kernel: warpgroups = 64-row query tiles per block
+#endif
+#ifndef DRIN_ATTN_DQ_STAGES
+#define DRIN_ATTN_DQ_STAGES 3    // dq kernel: (K, V) tiles in the ring
+#endif
+#ifndef DRIN_ATTN_DQ_BLOCKS
+#define DRIN_ATTN_DQ_BLOCKS 2    // dq kernel: blocks per SM the register budget is cut for
+#endif
+#ifndef DRIN_ATTN_DKV_WG
+#define DRIN_ATTN_DKV_WG 1       // dkv kernel: warpgroups = 64-key tiles per block
+#endif
+#ifndef DRIN_ATTN_DKV_STAGES
+#define DRIN_ATTN_DKV_STAGES 3   // dkv kernel: (Q, dO, statistics) tiles in the ring
+#endif
+#ifndef DRIN_ATTN_DKV_BLOCKS
+#define DRIN_ATTN_DKV_BLOCKS 3   // dkv kernel: blocks per SM the register budget is cut for
+#endif
+
 namespace {
 
-// delta for rows g and g + 8 of this warp's 16 query rows: each thread of a
-// quad sums 16 of the 64 columns of dO * o, the quad adds up
-template <typename T>
-__device__ __forceinline__ float row_dot64(const T* __restrict__ a, const T* __restrict__ b, int t) {
+// ------------------------------------------------------------------ bf16
+// delta of one row: each thread of a quad sums 16 of the 64 columns of
+// dO * o (two 16-byte loads of each), the quad adds up
+__device__ __forceinline__ float row_dot64(const __nv_bfloat16* __restrict__ a,
+                                           const __nv_bfloat16* __restrict__ b, int t) {
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc += to_f(a[t * 16 + i]) * to_f(b[t * 16 + i]);
+  for (int i = 0; i < 2; ++i) {
+    const uint4 x = *reinterpret_cast<const uint4*>(a + t * 16 + i * 8);
+    const uint4 y = *reinterpret_cast<const uint4*>(b + t * 16 + i * 8);
+    const uint32_t xw[4] = {x.x, x.y, x.z, x.w}, yw[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float2 fx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xw[w]));
+      const float2 fy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&yw[w]));
+      acc += fx.x * fy.x + fx.y * fy.y;
+    }
+  }
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   acc += __shfl_xor_sync(0xffffffffu, acc, 2);
   return acc;
 }
 
-// ------------------------------------------------------------------ bf16
-// grid: B * H * ceil(L / 64) blocks.  dq is [B, L, H, 64] contiguous; delta
-// [B, H, L] f32 is written for the dkv kernel.
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ mask,
-                 const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ m_in, const float* __restrict__ l_in,
-                 __nv_bfloat16* __restrict__ dq, float* __restrict__ delta_out, Strides qs, Strides ks,
-                 Strides vs, Strides os, Strides ds, long long mask_sb, int H, int L, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kBK][kRow];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kBK][kRow];
-  __shared__ float mask_s[kMaxL];
+constexpr int kBwdKT = 64;                          // keys (dq) or queries (dkv) per streamed tile
+constexpr int kStatTile = 3 * 64;                   // m, 1 / l, delta of 64 queries (floats)
 
-  const int n_qt = (L + kBQ - 1) / kBQ;
+// dq kernel, shared memory: q | dO | ring of (K, V) | mask row | barriers
+constexpr int kDqWG = DRIN_ATTN_DQ_WG, kDqStages = DRIN_ATTN_DQ_STAGES;
+constexpr int kDqRows = kDqWG * 64;                 // query rows a block owns
+constexpr int kDqThreads = kDqWG * kWgThreads;
+constexpr int kDqStageBytes = 2 * kTile64;
+constexpr int kDqOffDo = kDqRows * kRowBytes;
+constexpr int kDqOffRing = 2 * kDqRows * kRowBytes;
+constexpr int kDqOffMask = kDqOffRing + kDqStages * kDqStageBytes;
+constexpr int kDqOffBars = kDqOffMask + kMaxL * 4;
+constexpr int kDqSmem = 1024 + kDqOffBars + (1 + 2 * kDqStages) * 8;
+// dkv kernel: k | v | ring of (Q, dO, statistics) | barriers
+constexpr int kDkvWG = DRIN_ATTN_DKV_WG, kDkvStages = DRIN_ATTN_DKV_STAGES;
+constexpr int kDkvRows = kDkvWG * 64;               // keys a block owns
+constexpr int kDkvThreads = kDkvWG * kWgThreads;
+constexpr int kDkvStageBytes = 2 * kTile64 + 1024;  // the statistics take 768 of the last 1024
+constexpr int kDkvStageTx = 2 * kTile64 + kStatTile * 4;
+constexpr int kDkvOffV = kDkvRows * kRowBytes;
+constexpr int kDkvOffRing = 2 * kDkvRows * kRowBytes;
+constexpr int kDkvOffBars = kDkvOffRing + kDkvStages * kDkvStageBytes;
+constexpr int kDkvSmem = 1024 + kDkvOffBars + (1 + 2 * kDkvStages) * 8;
+static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448, "shared memory of one block");
+
+// grid: B * H * ceil(L / kDqRows) blocks.  dq is [B, L, H, 64] contiguous;
+// stats [B * H, ceil(L / 64), 3, 64] f32 is written for the dkv kernel.
+__global__ void __launch_bounds__(kDqThreads, DRIN_ATTN_DQ_BLOCKS)
+attn_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                 const __nv_bfloat16* __restrict__ mask, const __nv_bfloat16* __restrict__ o,
+                 const __nv_bfloat16* __restrict__ dout, const float* __restrict__ m_in,
+                 const float* __restrict__ l_in, __nv_bfloat16* __restrict__ dq, float* __restrict__ stats,
+                 Strides os, Strides ds, long long mask_sb, int H, int L, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const uint32_t q_s = smem_u32(smem), do_s = q_s + kDqOffDo, ring = q_s + kDqOffRing,
+                 bars = q_s + kDqOffBars;
+  float* mask_s = reinterpret_cast<float*>(smem + kDqOffMask);
+  const uint32_t own_full = bars;
+  auto full = [&](int s) { return bars + 8 + s * 8; };
+  auto empty = [&](int s) { return bars + 8 + (kDqStages + s) * 8; };
+
+  const int n_qt = (L + kDqRows - 1) / kDqRows;
   const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
   const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const int q0 = qt * kBQ;
-  const __nv_bfloat16* qp = q + (size_t)b * qs.b + (size_t)h * qs.h;
-  const __nv_bfloat16* kp = k + (size_t)b * ks.b + (size_t)h * ks.h;
-  const __nv_bfloat16* vp = v + (size_t)b * vs.b + (size_t)h * vs.h;
-  const __nv_bfloat16* op = o + (size_t)b * os.b + (size_t)h * os.h;
-  const __nv_bfloat16* dop = dout + (size_t)b * ds.b + (size_t)h * ds.h;
-  const int n_kt = (L + kBK - 1) / kBK;
+  const int q0 = qt * kDqRows;
+  const int n_kt = (L + kBwdKT - 1) / kBwdKT;
 
-  // the query tile and its dO are staged through the second K and V buffers
-  load_tile(k_s[1], qp, qs.l, q0, L);
-  load_tile(v_s[1], dop, ds.l, q0, L);
-  cp_async_commit();
-  load_tile(k_s[0], kp, ks.l, 0, L);
-  load_tile(v_s[0], vp, vs.l, 0, L);
-  cp_async_commit();
-  fill_mask(mask_s, mask, mask_sb, b, L);
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[kDh / 16][4], dof[kDh / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
-    const int r0 = warp * 16 + g, c = kk * 16 + t * 2;
-    qf[kk][0] = ld_u32(&k_s[1][r0][c]);
-    qf[kk][1] = ld_u32(&k_s[1][r0 + 8][c]);
-    qf[kk][2] = ld_u32(&k_s[1][r0][c + 8]);
-    qf[kk][3] = ld_u32(&k_s[1][r0 + 8][c + 8]);
-    dof[kk][0] = ld_u32(&v_s[1][r0][c]);
-    dof[kk][1] = ld_u32(&v_s[1][r0 + 8][c]);
-    dof[kk][2] = ld_u32(&v_s[1][r0][c + 8]);
-    dof[kk][3] = ld_u32(&v_s[1][r0 + 8][c + 8]);
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kDqWG * 4);  // one arrival per warp
+    }
+    mbar_fence_init();
   }
-  // per row: the forward's max and 1 / sum, and delta = rowsum(dO * o)
+  __syncthreads();
+
+  // one thread: the (K, V) tile kt into its stage, once every warp has read what was there
+  auto produce = [&](int kt) {
+    const int s = kt % kDqStages, use = kt / kDqStages;
+    if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+    mbar_expect_tx(full(s), kDqStageBytes);
+    tma_load_tile(ring + s * kDqStageBytes, &tm_k, full(s), kt * kBwdKT, h, b);
+    tma_load_tile(ring + s * kDqStageBytes + kTile64, &tm_v, full(s), kt * kBwdKT, h, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(own_full, 2 * kDqRows * kRowBytes);
+    for (int w = 0; w < kDqWG; ++w) {
+      tma_load_tile(q_s + w * kTile64, &tm_q, own_full, q0 + w * 64, h, b);
+      tma_load_tile(do_s + w * kTile64, &tm_do, own_full, q0 + w * 64, h, b);
+    }
+    for (int kt = 0; kt < kDqStages && kt < n_kt; ++kt) produce(kt);
+  }
+
+  // warpgroup wg owns query rows q0 + 64 wg .. + 63, its warp wq 16 of them
+  const int wg = warp / 4, wq = warp % 4;
+  const int g = lane / 4, t = lane % 4;  // fragment coordinates
+  fill_mask_log2(mask_s, mask, mask_sb, b, L, threadIdx.x, kDqThreads);
+  const float scale2 = scale * kLog2e;
+  // per row: the forward's max (base 2) and 1 / sum, and delta = rowsum(dO * o)
   float m_row[2], il_row[2], dl_row[2];
+  const int tile64 = qt * kDqWG + wg, n_t64 = (L + 63) / 64;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int lr = warp * 16 + g + r * 8, row = q0 + lr;
+    const int lr = wq * 16 + g + r * 8, row = q0 + wg * 64 + lr;
     const bool in = row < L;  // the same for the four threads of a quad
     const size_t at = (size_t)bh * L + (in ? row : 0);
-    m_row[r] = in ? m_in[at] : 0.f;
+    m_row[r] = in ? row_max_log2(m_in[at]) : 0.f;
     il_row[r] = in ? 1.f / l_in[at] : 0.f;
-    dl_row[r] = row_dot64(&v_s[1][lr][0], op + (size_t)(in ? row : 0) * os.l, t);
+    const size_t rr = in ? row : 0;
+    dl_row[r] = row_dot64(dout + (size_t)b * ds.b + (size_t)h * ds.h + rr * ds.l,
+                          o + (size_t)b * os.b + (size_t)h * os.h + rr * os.l, t);
     if (!in) dl_row[r] = 0.f;
-    if (in && t == 0) delta_out[at] = dl_row[r];
+    if (t == 0 && tile64 < n_t64) {
+      float* st = stats + ((size_t)bh * n_t64 + tile64) * kStatTile + lr;
+      st[0] = in ? m_row[r] : CUDART_INF_F;
+      st[64] = il_row[r];
+      st[128] = dl_row[r];
+    }
   }
-  __syncthreads();  // the staged tiles are read before tile 1 overwrites them
+  mbar_wait(own_full, 0);
+  const uint32_t qf = q_s + wg * kTile64, dof = do_s + wg * kTile64;  // read in place by the tensor cores
+  __syncthreads();  // the mask row is written
 
-  float acc[kDh / 8][4];
+  float acc[8][4];
 #pragma unroll
-  for (int j = 0; j < kDh / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_kt) {
-      load_tile(k_s[buf ^ 1], kp, ks.l, (kt + 1) * kBK, L);
-      load_tile(v_s[buf ^ 1], vp, vs.l, (kt + 1) * kBK, L);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int st = kt % kDqStages;
+    const uint32_t k_s = ring + st * kDqStageBytes, v_s = k_s + kTile64;
+    mbar_wait(full(st), (kt / kDqStages) & 1);
 
-    // s = q . k^T and dp = dO . v^T for 16 rows x 64 keys
-    float s[kBK / 8][4], dp[kBK / 8][4];
+    // s = q . k^T and dp = dO . v^T for 64 rows x kBwdKT keys
+    float s[kBwdKT / 8][4], dp[kBwdKT / 8][4];
+    wgmma_fence();
+    mma_rows_of(s, qf, k_s);
+    mma_rows_of(dp, dof, v_s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // l * ds = e * (dp - delta), e = exp(logit - m) = l * p, left in s: 1 / l is a factor
+    // of the whole row and is applied once, to the finished dq
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) {
-        const __nv_bfloat16* kr = &k_s[buf][j * 8 + g][kk * 16 + t * 2];
-        const __nv_bfloat16* vr = &v_s[buf][j * 8 + g][kk * 16 + t * 2];
-        mma_bf16(s[j], qf[kk], ld_u32(kr), ld_u32(kr + 8));
-        mma_bf16(dp[j], dof[kk], ld_u32(vr), ld_u32(vr + 8));
-      }
-    }
-    // ds = p * (dp - delta), p = exp(logit - m) / l, left in s
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      const float m0 = mask_s[kt * kBK + j * 8 + t * 2], m1 = mask_s[kt * kBK + j * 8 + t * 2 + 1];
-      const float p0 = __expf(s[j][0] * scale + m0 - m_row[0]) * il_row[0];
-      const float p1 = __expf(s[j][1] * scale + m1 - m_row[0]) * il_row[0];
-      const float p2 = __expf(s[j][2] * scale + m0 - m_row[1]) * il_row[1];
-      const float p3 = __expf(s[j][3] * scale + m1 - m_row[1]) * il_row[1];
+    for (int j = 0; j < kBwdKT / 8; ++j) {
+      const float2 mk = *reinterpret_cast<const float2*>(&mask_s[kt * kBwdKT + j * 8 + t * 2]);
+      const float p0 = exp2_le1(fmaf(s[j][0], scale2, mk.x) - m_row[0]);
+      const float p1 = exp2_le1(fmaf(s[j][1], scale2, mk.y) - m_row[0]);
+      const float p2 = exp2_le1(fmaf(s[j][2], scale2, mk.x) - m_row[1]);
+      const float p3 = exp2_le1(fmaf(s[j][3], scale2, mk.y) - m_row[1]);
       s[j][0] = p0 * (dp[j][0] - dl_row[0]);
       s[j][1] = p1 * (dp[j][1] - dl_row[0]);
       s[j][2] = p2 * (dp[j][2] - dl_row[1]);
       s[j][3] = p3 * (dp[j][3] - dl_row[1]);
     }
-    // dq += round(ds) . k
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < kDh / 8; j += 2) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, k_s[buf], kk * 16, j * 8, lane);
-        mma_bf16(acc[j], a, bfr[0], bfr[1]);
-        mma_bf16(acc[j + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles on
+    // dq * l += round(l * ds) . k
+    uint32_t a[kBwdKT / 16][4];
+    pack_a(a, s);
+    wgmma_fence();
+    mma_over_rows(acc, a, k_s, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));  // this warp is done with the stage
+    // refill the stage of the tile before: the other warps have had a whole tile to leave it
+    if (threadIdx.x == 0 && kt >= 1 && kt - 1 + kDqStages < n_kt) produce(kt - 1 + kDqStages);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
+    const int row = q0 + wg * 64 + wq * 16 + g + r * 8;
     if (row >= L) continue;
     __nv_bfloat16* dst = dq + (((size_t)b * L + row) * H + h) * kDh + t * 2;
 #pragma unroll
-    for (int j = 0; j < kDh / 8; ++j)
+    for (int j = 0; j < 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+          __floats2bfloat162_rn(acc[j][2 * r] * (scale * il_row[r]), acc[j][2 * r + 1] * (scale * il_row[r]));
   }
 }
 
-// grid: B * H * ceil(L / 64) blocks, one per key tile.  dk, dv are
+// grid: B * H * ceil(L / kDkvRows) blocks, one per kDkvRows keys.  dk, dv are
 // [B, L, H, 64] contiguous; dmask [B, H, L] f32 (kMask only, may be null).
 template <bool kMask>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ mask,
-                  const __nv_bfloat16* __restrict__ dout, const float* __restrict__ m_in,
-                  const float* __restrict__ l_in, const float* __restrict__ delta,
+__global__ void __launch_bounds__(kDkvThreads, DRIN_ATTN_DKV_BLOCKS)
+attn_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                  const __nv_bfloat16* __restrict__ mask, const float* __restrict__ stats,
                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                  float* __restrict__ dmask, Strides qs, Strides ks, Strides vs, Strides ds,
-                  long long mask_sb, int H, int L, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[2][kBQ][kRow];
-  __shared__ __align__(16) __nv_bfloat16 do_s[2][kBQ][kRow];
-  __shared__ float m_s[2][kBQ], il_s[2][kBQ], dl_s[2][kBQ];
+                  float* __restrict__ dmask, long long mask_sb, int H, int L, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const uint32_t k_s = smem_u32(smem), v_s = k_s + kDkvOffV, ring = k_s + kDkvOffRing,
+                 bars = k_s + kDkvOffBars;
+  const uint32_t own_full = bars;
+  auto full = [&](int s) { return bars + 8 + s * 8; };
+  auto empty = [&](int s) { return bars + 8 + (kDkvStages + s) * 8; };
 
-  const int n_kt = (L + kBK - 1) / kBK;
-  const int kt = blockIdx.x % n_kt, bh = blockIdx.x / n_kt;
+  const int n_kb = (L + kDkvRows - 1) / kDkvRows;
+  const int kb = blockIdx.x % n_kb, bh = blockIdx.x / n_kb;
   const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = kt * kBK;
-  const __nv_bfloat16* qp = q + (size_t)b * qs.b + (size_t)h * qs.h;
-  const __nv_bfloat16* kp = k + (size_t)b * ks.b + (size_t)h * ks.h;
-  const __nv_bfloat16* vp = v + (size_t)b * vs.b + (size_t)h * vs.h;
-  const __nv_bfloat16* dop = dout + (size_t)b * ds.b + (size_t)h * ds.h;
-  const int n_qt = (L + kBQ - 1) / kBQ;
+  const int k0 = kb * kDkvRows;
+  const int n_qt = (L + 63) / 64;
 
-  // per-query statistics of one query tile into buffer `buf`
-  auto load_stats = [&](int buf, int r0) {
-    if (threadIdx.x < kBQ) {
-      const int row = r0 + threadIdx.x;
-      const bool in = row < L;
-      const size_t at = (size_t)bh * L + (in ? row : 0);
-      m_s[buf][threadIdx.x] = in ? m_in[at] : 0.f;
-      il_s[buf][threadIdx.x] = in ? 1.f / l_in[at] : 0.f;
-      dl_s[buf][threadIdx.x] = in ? delta[at] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kDkvWG * 4);
     }
-  };
-
-  // this block's K and V tile is staged through the second Q and dO buffers
-  load_tile(q_s[1], kp, ks.l, k0, L);
-  load_tile(do_s[1], vp, vs.l, k0, L);
-  cp_async_commit();
-  load_tile(q_s[0], qp, qs.l, 0, L);
-  load_tile(do_s[0], dop, ds.l, 0, L);
-  cp_async_commit();
-  load_stats(0, 0);
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t kf[kDh / 16][4], vf[kDh / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
-    const int r0 = warp * 16 + g, c = kk * 16 + t * 2;
-    kf[kk][0] = ld_u32(&q_s[1][r0][c]);
-    kf[kk][1] = ld_u32(&q_s[1][r0 + 8][c]);
-    kf[kk][2] = ld_u32(&q_s[1][r0][c + 8]);
-    kf[kk][3] = ld_u32(&q_s[1][r0 + 8][c + 8]);
-    vf[kk][0] = ld_u32(&do_s[1][r0][c]);
-    vf[kk][1] = ld_u32(&do_s[1][r0 + 8][c]);
-    vf[kk][2] = ld_u32(&do_s[1][r0][c + 8]);
-    vf[kk][3] = ld_u32(&do_s[1][r0 + 8][c + 8]);
+    mbar_fence_init();
   }
-  // the additive mask of this thread's keys (rows g and g + 8); -inf past L
+  __syncthreads();
+
+  // one thread: Q, dO and the statistics of query tile qt into their stage, once it is free
+  auto produce = [&](int qt) {
+    const int s = qt % kDkvStages, use = qt / kDkvStages;
+    if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+    const uint32_t at = ring + s * kDkvStageBytes;
+    mbar_expect_tx(full(s), kDkvStageTx);
+    tma_load_tile(at, &tm_q, full(s), qt * 64, h, b);
+    tma_load_tile(at + kTile64, &tm_do, full(s), qt * 64, h, b);
+    bulk_load(at + 2 * kTile64, stats + ((size_t)bh * n_qt + qt) * kStatTile, kStatTile * 4, full(s));
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(own_full, 2 * kDkvRows * kRowBytes);
+    for (int w = 0; w < kDkvWG; ++w) {
+      tma_load_tile(k_s + w * kTile64, &tm_k, own_full, k0 + w * 64, h, b);
+      tma_load_tile(v_s + w * kTile64, &tm_v, own_full, k0 + w * 64, h, b);
+    }
+    for (int qt = 0; qt < kDkvStages && qt < n_qt; ++qt) produce(qt);
+  }
+
+  // warpgroup wg owns keys k0 + 64 wg .. + 63, its warp wq 16 of them
+  const int wg = warp / 4, wq = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  // the additive mask of this thread's keys (rows g and g + 8) in the base-2 form; -inf past L
+  const float scale2 = scale * kLog2e;
   float mk[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = k0 + warp * 16 + g + r * 8;
-    mk[r] = key < L ? (kMask ? to_f(mask[(size_t)b * mask_sb + key]) : 0.f) : -CUDART_INF_F;
+    const int key = k0 + wg * 64 + wq * 16 + g + r * 8;
+    mk[r] = key < L ? (kMask ? fmaxf(to_f(mask[(size_t)b * mask_sb + key]) * kLog2e, -kFltMax) : 0.f)
+                    : -CUDART_INF_F;
   }
-  __syncthreads();  // the staged tiles are read before tile 1 overwrites them
+  mbar_wait(own_full, 0);
+  const uint32_t kf = k_s + wg * kTile64, vf = v_s + wg * kTile64;  // read in place by the tensor cores
 
-  float dk_acc[kDh / 8][4], dv_acc[kDh / 8][4];
+  float dk_acc[8][4], dv_acc[8][4];
 #pragma unroll
-  for (int j = 0; j < kDh / 8; ++j) {
+  for (int j = 0; j < 8; ++j) {
     dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
     dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
   }
   float dm_acc[2] = {0.f, 0.f};  // this thread's share of the column sums of dS
 
   for (int qt = 0; qt < n_qt; ++qt) {
-    const int buf = qt & 1;
-    if (qt + 1 < n_qt) {
-      load_tile(q_s[buf ^ 1], qp, qs.l, (qt + 1) * kBQ, L);
-      load_tile(do_s[buf ^ 1], dop, ds.l, (qt + 1) * kBQ, L);
-      cp_async_commit();
-      load_stats(buf ^ 1, (qt + 1) * kBQ);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int st = qt % kDkvStages;
+    const uint32_t q_s = ring + st * kDkvStageBytes, do_s = q_s + kTile64;
+    const float* stat_s = reinterpret_cast<const float*>(smem + kDkvOffRing + st * kDkvStageBytes + 2 * kTile64);
+    mbar_wait(full(st), (qt / kDkvStages) & 1);
 
-    // the transposed tiles: st = k . q^T, dpt = v . dO^T, 16 keys x 64 queries
-    float st[kBQ / 8][4], dpt[kBQ / 8][4];
+    // the transposed tiles: st = k . q^T, dpt = v . dO^T, 64 keys x 64 queries
+    float sT[8][4], dpT[8][4];
+    wgmma_fence();
+    mma_rows_of(sT, kf, q_s);
+    mma_rows_of(dpT, vf, do_s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sT);
+    fence_acc(dpT);
+    // p^T into sT, ds^T into dpT; the queries are the columns here
 #pragma unroll
-    for (int j = 0; j < kBQ / 8; ++j) {
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) {
-        const __nv_bfloat16* qr = &q_s[buf][j * 8 + g][kk * 16 + t * 2];
-        const __nv_bfloat16* dr = &do_s[buf][j * 8 + g][kk * 16 + t * 2];
-        mma_bf16(st[j], kf[kk], ld_u32(qr), ld_u32(qr + 8));
-        mma_bf16(dpt[j], vf[kk], ld_u32(dr), ld_u32(dr + 8));
-      }
-    }
-    // p^T into st, ds^T into dpt; the queries are the columns here
-#pragma unroll
-    for (int j = 0; j < kBQ / 8; ++j) {
-      const int qa = j * 8 + t * 2, qb = qa + 1;
-      const float ma = m_s[buf][qa], mb = m_s[buf][qb];
-      const float ia = il_s[buf][qa], ib = il_s[buf][qb];
-      const float da = dl_s[buf][qa], db = dl_s[buf][qb];
-      st[j][0] = __expf(st[j][0] * scale + mk[0] - ma) * ia;
-      st[j][1] = __expf(st[j][1] * scale + mk[0] - mb) * ib;
-      st[j][2] = __expf(st[j][2] * scale + mk[1] - ma) * ia;
-      st[j][3] = __expf(st[j][3] * scale + mk[1] - mb) * ib;
-      dpt[j][0] = st[j][0] * (dpt[j][0] - da);
-      dpt[j][1] = st[j][1] * (dpt[j][1] - db);
-      dpt[j][2] = st[j][2] * (dpt[j][2] - da);
-      dpt[j][3] = st[j][3] * (dpt[j][3] - db);
-      dm_acc[0] += dpt[j][0] + dpt[j][1];
-      dm_acc[1] += dpt[j][2] + dpt[j][3];
+    for (int j = 0; j < 8; ++j) {
+      const int qa = j * 8 + t * 2;
+      const float2 mq = *reinterpret_cast<const float2*>(&stat_s[qa]);
+      const float2 iq = *reinterpret_cast<const float2*>(&stat_s[64 + qa]);
+      const float2 dq_ = *reinterpret_cast<const float2*>(&stat_s[128 + qa]);
+      sT[j][0] = exp2_le1(fmaf(sT[j][0], scale2, mk[0]) - mq.x) * iq.x;
+      sT[j][1] = exp2_le1(fmaf(sT[j][1], scale2, mk[0]) - mq.y) * iq.y;
+      sT[j][2] = exp2_le1(fmaf(sT[j][2], scale2, mk[1]) - mq.x) * iq.x;
+      sT[j][3] = exp2_le1(fmaf(sT[j][3], scale2, mk[1]) - mq.y) * iq.y;
+      dpT[j][0] = sT[j][0] * (dpT[j][0] - dq_.x);
+      dpT[j][1] = sT[j][1] * (dpT[j][1] - dq_.y);
+      dpT[j][2] = sT[j][2] * (dpT[j][2] - dq_.x);
+      dpT[j][3] = sT[j][3] * (dpT[j][3] - dq_.y);
+      dm_acc[0] += dpT[j][0] + dpT[j][1];
+      dm_acc[1] += dpT[j][2] + dpT[j][3];
     }
     // dv += round(p^T) . dO,  dk += round(ds^T) . q  (sums over the tile's queries)
-#pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-      pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-      pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      sa[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-      sa[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-      sa[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-      sa[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < kDh / 8; j += 2) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, do_s[buf], kk * 16, j * 8, lane);
-        mma_bf16(dv_acc[j], pa, bfr[0], bfr[1]);
-        mma_bf16(dv_acc[j + 1], pa, bfr[2], bfr[3]);
-        ldmatrix_x4_trans(bfr, q_s[buf], kk * 16, j * 8, lane);
-        mma_bf16(dk_acc[j], sa, bfr[0], bfr[1]);
-        mma_bf16(dk_acc[j + 1], sa, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles on
+    uint32_t pa[4][4], sa[4][4];
+    pack_a(pa, sT);
+    pack_a(sa, dpT);
+    wgmma_fence();
+    mma_over_rows(dv_acc, pa, do_s, 1);
+    mma_over_rows(dk_acc, sa, q_s, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dv_acc);
+    fence_acc(dk_acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+    if (threadIdx.x == 0 && qt >= 1 && qt - 1 + kDkvStages < n_qt) produce(qt - 1 + kDkvStages);
   }
 
 #pragma unroll
@@ -353,12 +399,12 @@ attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       dm_acc[r] += __shfl_xor_sync(0xffffffffu, dm_acc[r], 1);
       dm_acc[r] += __shfl_xor_sync(0xffffffffu, dm_acc[r], 2);
     }
-    const int key = k0 + warp * 16 + g + r * 8;
+    const int key = k0 + wg * 64 + wq * 16 + g + r * 8;
     if (key >= L) continue;
     if (kMask && dmask && t == 0) dmask[(size_t)bh * L + key] = dm_acc[r];
     const size_t at = (((size_t)b * L + key) * H + h) * kDh + t * 2;
 #pragma unroll
-    for (int j = 0; j < kDh / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + at + j * 8) =
           __floats2bfloat162_rn(dk_acc[j][2 * r] * scale, dk_acc[j][2 * r + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + at + j * 8) =
@@ -585,31 +631,39 @@ int launch_bwd(const BwdArgs& a) {
   const float* l = static_cast<const float*>(a.l);
   float* delta = static_cast<float*>(a.delta);
   float* dmask = static_cast<float*>(a.dmask);
-  const int tile = a.dtype == DT_BFLOAT16 ? kBQ : kGT;
-  const long long blocks = (long long)a.B * a.H * ((a.L + tile - 1) / tile);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto grid = [&](int rows) { return (unsigned)((long long)a.B * a.H * ((a.L + rows - 1) / rows)); };
+  if ((long long)a.B * a.H * ((a.L + kGT - 1) / kGT) > 0x7fffffffLL)  // the largest of the grids
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.dtype == DT_BFLOAT16) {
     using T = __nv_bfloat16;
-    attn_bwd_dq_bf16<<<(unsigned)blocks, kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.mask), static_cast<const T*>(a.o), static_cast<const T*>(a.dout), m, l,
-        static_cast<T*>(a.dq), delta, a.qs, a.ks, a.vs, a.os, a.ds, a.mask_sb, a.H, a.L, scale);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkv_bf16<kMask><<<(unsigned)blocks, kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.mask), static_cast<const T*>(a.dout), m, l, delta,
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), dmask, a.qs, a.ks, a.vs, a.ds, a.mask_sb, a.H,
-        a.L, scale);
+    CUtensorMap tm_q, tm_do, tm_k, tm_v;  // every tensor is read in tiles of 64 rows
+    int err = tile_map(&tm_q, a.q, a.qs, a.B, a.H, a.L, 64);
+    if (!err) err = tile_map(&tm_do, a.dout, a.ds, a.B, a.H, a.L, 64);
+    if (!err) err = tile_map(&tm_k, a.k, a.ks, a.B, a.H, a.L, 64);
+    if (!err) err = tile_map(&tm_v, a.v, a.vs, a.B, a.H, a.L, 64);
+    if (err) return err;
+    static const cudaError_t opted_dq = allow_smem(attn_bwd_dq_bf16, kDqSmem);
+    static const cudaError_t opted_dkv = allow_smem(attn_bwd_dkv_bf16<kMask>, kDkvSmem);
+    if (opted_dq != cudaSuccess) return static_cast<int>(opted_dq);
+    if (opted_dkv != cudaSuccess) return static_cast<int>(opted_dkv);
+    attn_bwd_dq_bf16<<<grid(kDqRows), kDqThreads, kDqSmem, a.stream>>>(
+        tm_q, tm_do, tm_k, tm_v, static_cast<const T*>(a.mask), static_cast<const T*>(a.o),
+        static_cast<const T*>(a.dout), m, l, static_cast<T*>(a.dq), delta, a.os, a.ds, a.mask_sb, a.H, a.L,
+        scale);
+    cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+    attn_bwd_dkv_bf16<kMask><<<grid(kDkvRows), kDkvThreads, kDkvSmem, a.stream>>>(
+        tm_k, tm_v, tm_q, tm_do, static_cast<const T*>(a.mask), delta, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), dmask, a.mask_sb, a.H, a.L, scale);
   } else if (a.dtype == DT_FLOAT32) {
     using T = float;
-    attn_bwd_dq_f32<<<(unsigned)blocks, kThreads, 0, a.stream>>>(
+    attn_bwd_dq_f32<<<grid(kGT), kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.mask), static_cast<const T*>(a.o), static_cast<const T*>(a.dout), m, l,
         static_cast<T*>(a.dq), delta, a.qs, a.ks, a.vs, a.os, a.ds, a.mask_sb, a.H, a.L, scale);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkv_f32<kMask><<<(unsigned)blocks, kThreads, 0, a.stream>>>(
+    attn_bwd_dkv_f32<kMask><<<grid(kGT), kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.mask), static_cast<const T*>(a.dout), m, l, delta,
         static_cast<T*>(a.dk), static_cast<T*>(a.dv), dmask, a.qs, a.ks, a.vs, a.ds, a.mask_sb, a.H,
@@ -627,8 +681,9 @@ int launch_bwd(const BwdArgs& a) {
 // contiguous, every row 16-byte aligned); m, l: [B, H, L] f32 from the forward;
 // mask: [B, L] in the compute type with row stride mask_sb.  Outputs: dq, dk,
 // dv [B, L, H, 64] contiguous (a view [B, H, L, 64] of each is the gradient);
-// dmask [B, H, L] f32 or null when the mask needs no gradient; delta
-// [B, H, L] f32 is workspace.
+// dmask [B, H, L] f32 or null when the mask needs no gradient; delta is
+// workspace of B * H * ceil(L / 64) * 192 floats (the f32 kernels keep delta
+// [B, H, L] in it, the bf16 kernels m, 1 / l and delta in tiles of 64 queries).
 DRIN_EXPORT int drin_attention_bwd(int dtype, int B, int H, int L, int Dh, const void* q,
                                    const void* k, const void* v, const void* mask, const void* o,
                                    const void* dout, const void* m, const void* l, void* dq, void* dk,
@@ -655,4 +710,11 @@ DRIN_EXPORT int drin_attention_bwd_nomask(int dtype, int B, int H, int L, int Dh
                   Strides{s[9], s[10], s[11]}, Strides{s[12], s[13], s[14]}, 0,
                   static_cast<cudaStream_t>(stream)};
   return launch_bwd<false>(a);
+}
+
+// blocks that share one SM: 0 the bf16 dq kernel, 1 the dkv kernel with a mask, 2 without
+DRIN_EXPORT int drin_attention_bwd_blocks_per_sm(int which) {
+  if (which == 0) return blocks_per_sm(attn_bwd_dq_bf16, kDqThreads, kDqSmem);
+  if (which == 1) return blocks_per_sm(attn_bwd_dkv_bf16<true>, kDkvThreads, kDkvSmem);
+  return blocks_per_sm(attn_bwd_dkv_bf16<false>, kDkvThreads, kDkvSmem);
 }

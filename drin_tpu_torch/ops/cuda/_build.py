@@ -42,19 +42,21 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` is (or will be) built."""
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+def library_path(name: str, defines: tuple = (), csrc: Path = CSRC) -> Path:
+    """Where the library for ``<csrc>/<name>.cu`` is (or will be) built;
+    ``defines`` are ``-D`` macros (``"NAME=value"``) of a variant build."""
+    h = hashlib.sha256(" ".join(FLAGS + tuple(defines)).encode())
+    for src in sorted(csrc.glob("*.cuh")) + [csrc / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(name: str, out: Path) -> None:
+def _compile(name: str, out: Path, defines: tuple = (), csrc: Path = CSRC) -> None:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+    proc = subprocess.run([_nvcc(), *FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+                           str(csrc / f"{name}.cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     nvcc_seconds[name] = time.perf_counter() - t0
     out.with_suffix(".log").write_text(proc.stdout)
@@ -63,20 +65,30 @@ def _compile(name: str, out: Path) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
-def build_all(names=KERNELS) -> list:
-    """Compile ``csrc/<name>.cu`` for every name whose library is missing:
-    one ``nvcc`` process per source, all started together.  Each process's
-    own time lands in ``nvcc_seconds``."""
-    outs = [library_path(name) for name in names]
-    missing = [(name, out) for name, out in zip(names, outs) if not out.exists()]
-    if missing:
+def build_variants(variants) -> list:
+    """Compile ``(name, defines, csrc)`` triples whose libraries are missing:
+    one ``nvcc`` process per source, all started together; returns the
+    library paths.  Each process's own time lands in ``nvcc_seconds``.  The
+    sweep tool's builds (other tile sizes by ``-D``, another source
+    directory) come here directly; the entry points go through
+    :func:`build_all`."""
+    variants = [(name, tuple(defines), Path(csrc)) for name, defines, csrc in variants]
+    outs = [library_path(*v) for v in variants]
+    todo = {out: v for out, v in zip(outs, variants) if not out.exists()}
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with ThreadPoolExecutor(len(missing)) as pool:
-            jobs = [pool.submit(_compile, name, out) for name, out in missing]
+        with ThreadPoolExecutor(len(todo)) as pool:
+            jobs = [pool.submit(_compile, name, out, defines, csrc)
+                    for out, (name, defines, csrc) in todo.items()]
         failed = [str(job.exception()) for job in jobs if job.exception()]
         if failed:
             raise RuntimeError("\n".join(failed))
     return outs
+
+
+def build_all(names=KERNELS) -> list:
+    """Compile ``csrc/<name>.cu`` for every name whose library is missing."""
+    return build_variants([(name, (), CSRC) for name in names])
 
 
 def build(name: str) -> Path:
@@ -97,7 +109,7 @@ def load(name: str) -> ctypes.CDLL:
 def entry(name: str, symbol: str, argtypes: list):
     """``(library, C function)`` with ``argtypes`` declared and an int
     (``cudaError_t``) result."""
-    lib = load(name)
+    lib = _libs.get(name) or load(name)  # on every launch's path: no lock once loaded
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -114,6 +126,10 @@ def check(status: int, lib: ctypes.CDLL, what: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # no Stream object built
+    if raw is not None and t.device.index is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -10,18 +10,31 @@ and its two backward bodies ``_attn_bwd_kernel`` / ``_attn_bwd_kernel_nomask``
 gradients with the [L, L] logits kept out of device memory in both
 directions.  On the H100 the work at the online model's shape
 ([96, 12, 512, 64] bf16: 77 GFLOP and 302 MB forward, 193 GFLOP and ~0.6 GB
-backward) sits where the tensor cores' and the memory's limits meet.  The TPU
-design, all of K and V of one (b, h) plus [L, L] f32 tiles in fast memory and
-an exact row softmax, does not fit 227 KB of shared memory, so the kernels
-stream: one block per (b, h, 64 rows), the other operand through shared
-memory in tiles of 64 rows (cp.async, double-buffered), every product on the
-tensor cores (``mma.sync`` bf16, f32 accumulators).  The forward keeps a
-running row max and sum and, when a gradient will be asked for, stores them
-(``m``, ``l``, [B, H, L] f32 each).  The backward recomputes
-``P = exp(S - m) / l`` from them in two launches without atomics: one owns dQ
-per query tile (and stores ``delta = rowsum(dO * o)``), one owns dK, dV and
-the mask cotangent per key tile.  float32 runs plain-FMA kernels of the same
-form.
+backward) sits where three limits meet: the tensor cores' rate, the memory's,
+and the special-function units' (302 M exponentials a pass).  The TPU design,
+all of K and V of one (b, h) plus [L, L] f32 tiles in fast memory and an
+exact row softmax, does not fit 227 KB of shared memory, so the kernels
+stream, and the bf16 ones are built from Hopper's own pieces: every product
+is ``wgmma`` (f32 accumulators) whose B operand the tensor cores read from
+128-byte-swizzled tiles in shared memory, K-major or MN-major as the product
+needs, so nothing is transposed there; the tiles arrive by TMA
+(``cp.async.bulk.tensor`` through 4-D tensor maps made from the tensors' own
+strides, rows past L as zeros) into a ring of stages guarded by mbarriers and
+fed by one elected thread; P and dS go from one product's accumulators into
+the next one's A operand in registers; the softmax is taken in base 2 (one
+FFMA, one FADD, one ``ex2`` per logit).  The forward holds 128 query rows a
+block (two warpgroups), a running row max and sum, and, when a gradient will
+be asked for, stores them (``m``, ``l``, [B, H, L] f32 each, natural units).
+The backward recomputes ``P = exp(S - m) / l`` from them (in base 2 again,
+the exponent cut off at 0, so that a row of equal logits gives 1 / L for any
+finite mask value whatever the conversion rounds) in two launches
+without atomics, so its results repeat bit for bit: one owns dQ per 128 query
+rows (and stores each query's ``m``, ``1 / l`` and ``delta = rowsum(dO * o)``
+in tiles of 64 for the second), one owns dK, dV and the mask cotangent per 64
+keys.  float32 runs plain-FMA kernels of the same streaming form.
+``drin_tpu_torch/tools/attention_sweep.py`` builds other tile sizes, ring
+depths and block shapes with ``-D`` and times them side by side; the winner
+is compiled in, there is no runtime switch.
 
 Rounding points follow ``_attn_kernel``: logits and softmax in float32, p
 rounded to ``v.dtype`` before the second product, float32 accumulation,
@@ -52,9 +65,17 @@ from typing import Optional
 
 import torch
 
+from drin_tpu_torch.ops.cuda import _build
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD_ARGS = [_I] * 5 + [_P] * 7 + [_S] * 10 + [_P]
+_BWD_ARGS = [_I] * 5 + [_P] * 13 + [ctypes.POINTER(_S), _S, _P]
+_BWD_NOMASK_ARGS = [_I] * 5 + [_P] * 11 + [ctypes.POINTER(_S), _P]
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_LEN = 512
+
+STATS_TILE = 64  # queries per tile of the backward's (m, 1 / l, delta) workspace
 
 launches = 0  # forward launches (CUDA path only), one per call
 bwd_launches = 0  # backward with a mask: one per call (its two kernels count as one)
@@ -72,39 +93,72 @@ def attention_plain(q, k, v, additive_mask: Optional[torch.Tensor] = None) -> to
     return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
 
 
+def _strides(t):
+    """Element strides of B, H and L of ``t`` [B, H, L, Dh] as the kernels get
+    them.  The bf16 kernels make a TMA tensor map from them: dimensions
+    ``(Dh, L, H, B)``, innermost first, and these strides in bytes, each a
+    multiple of 16 and below 2**40.  PyTorch leaves the stride of a dimension
+    of size 1 arbitrary (0 after ``expand``); no address depends on it, but a
+    tensor map checks it, so it is replaced by the packed one."""
+    B, H, L, Dh = t.shape
+    sb, sh, sl, _ = t.stride()
+    if H == 1:
+        sh = sl * L
+    if B == 1:
+        sb = max(sh * H, sl * L)
+    return sb, sh, sl
+
+
+_MAP_STRIDE_LIMIT = 2 ** 40  # bytes: what a tensor map's stride field holds
+
+
 def _check_cuda(q, k, v, additive_mask):
-    """Refuse what the kernel does not take; returns (B, H, L, Dh)."""
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"fused_attention takes float32 or bfloat16 on CUDA, got {q.dtype}")
+    """Refuse what the kernel does not take; returns (B, H, L, Dh).  On every
+    call's path, so it reads each tensor's attributes once."""
+    dt = q.dtype
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"fused_attention takes float32 or bfloat16 on CUDA, got {dt}")
     if q.ndim != 4:
         raise ValueError(f"q must be [B, H, L, Dh], got {tuple(q.shape)}")
-    B, H, L, Dh = q.shape
+    shape = tuple(q.shape)
+    B, H, L, Dh = shape
     if Dh != KERNEL_HEAD_DIM:
         raise ValueError(f"the kernel is written for Dh={KERNEL_HEAD_DIM}, got Dh={Dh}")
     if not 1 <= L <= KERNEL_MAX_LEN or L % 8:
         raise ValueError(f"the kernel takes L a multiple of 8 up to {KERNEL_MAX_LEN}, got L={L}")
     if B < 1 or H < 1:
         raise ValueError(f"fused_attention needs B >= 1 and H >= 1, got B={B} H={H}")
-    named = {"q": q, "k": k, "v": v}
-    if additive_mask is not None:
-        named["additive_mask"] = additive_mask
-    row = 16 // q.element_size()  # elements in 16 bytes
-    for name, t in named.items():
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} must be {q.dtype}, got {t.dtype}")
-        if name == "additive_mask":
-            if tuple(t.shape) != (B, L) or t.stride(1) != 1:
-                raise ValueError(f"additive_mask must be [{B}, {L}] with a contiguous last "
-                                 f"dimension, got {tuple(t.shape)} strides {t.stride()}")
-            continue
-        if tuple(t.shape) != (B, H, L, Dh):
-            raise ValueError(f"{name} must be {(B, H, L, Dh)}, got {tuple(t.shape)}")
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % row for s in t.stride()[:3]):
+    device = q.device
+    es = q.element_size()
+    row = 16 // es  # elements in 16 bytes
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name} must be on {device}, got {t.device}")
+        if t.dtype != dt:
+            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        sb, sh, sl, sd = t.stride()
+        if sd != 1 or t.data_ptr() % 16 or sb % row or sh % row or sl % row:
             raise ValueError(f"{name} needs a contiguous last dimension and 16-byte aligned "
                              f"rows (strides {t.stride()}); call .contiguous() first")
-    return B, H, L, Dh
+        # the bf16 kernels read through tensor maps: a dimension that is walked needs a
+        # stride the map can hold (an expanded tensor's 0 is not one)
+        if es == 2 and not (0 < sl * es < _MAP_STRIDE_LIMIT
+                            and (H == 1 or 0 < sh * es < _MAP_STRIDE_LIMIT)
+                            and (B == 1 or 0 < sb * es < _MAP_STRIDE_LIMIT)):
+            raise ValueError(f"{name}: strides {t.stride()} are outside what a tensor map "
+                             f"takes (positive, below 2**40 bytes); call .contiguous() first")
+    if additive_mask is not None:
+        t = additive_mask
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"additive_mask must be on {device}, got {t.device}")
+        if t.dtype != dt:
+            raise ValueError(f"additive_mask must be {dt}, got {t.dtype}")
+        if tuple(t.shape) != (B, L) or t.stride(1) != 1:
+            raise ValueError(f"additive_mask must be [{B}, {L}] with a contiguous last "
+                             f"dimension, got {tuple(t.shape)} strides {t.stride()}")
+    return shape
 
 
 def attention_backward_plain(q, k, v, additive_mask, do):
@@ -142,17 +196,12 @@ def _launch_forward(q, k, v, additive_mask, B, H, L, Dh, residuals: bool):
     if residuals:
         m = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
-
-    from drin_tpu_torch.ops.cuda import _build
-
-    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib, fn = _build.entry("attention", "drin_attention_fwd",
-                           [I] * 5 + [P] * 7 + [S] * 10 + [P])
+    lib, fn = _build.entry("attention", "drin_attention_fwd", _FWD_ARGS)
     status = fn(_DTYPE_CODE[q.dtype], B, H, L, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 additive_mask.data_ptr() if additive_mask is not None else None,
                 out.data_ptr(), m.data_ptr() if residuals else None,
                 l.data_ptr() if residuals else None,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *_strides(q), *_strides(k), *_strides(v),
                 additive_mask.stride(0) if additive_mask is not None else 0,
                 _build.stream_of(q))
     _build.check(status, lib, "attention launch")
@@ -164,7 +213,8 @@ def _kernel_rows(t):
     """``t`` as the kernels read it: a contiguous last dimension and 16-byte
     aligned rows (a copy only where the gradient arrives otherwise)."""
     row = 16 // t.element_size()
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % row for s in t.stride()[:3]):
+    if (t.stride(3) != 1 or t.data_ptr() % 16 or any(s % row for s in t.stride()[:3])
+            or any(not 0 < s * t.element_size() < _MAP_STRIDE_LIMIT for s in _strides(t))):
         return t.contiguous()
     return t
 
@@ -176,26 +226,22 @@ def _launch_backward(q, k, v, additive_mask, o, do, m, l, need_dmask: bool):
     B, H, L, Dh = q.shape
     do = _kernel_rows(do)
     dq, dk, dv = (torch.empty((B, L, H, Dh), dtype=q.dtype, device=q.device) for _ in range(3))
-    delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    # workspace of the two launches: delta [B, H, L] in f32; m, 1 / l and delta
+    # in padded tiles of 64 queries in bf16
+    delta = torch.empty((B, H, -(-L // STATS_TILE), 3, STATS_TILE), dtype=torch.float32,
+                        device=q.device)
     dmask = (torch.empty((B, H, L), dtype=torch.float32, device=q.device)
              if additive_mask is not None and need_dmask else None)
-
-    from drin_tpu_torch.ops.cuda import _build
-
-    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    strides = (S * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                       *do.stride()[:3])
+    strides = (_S * 15)(*_strides(q), *_strides(k), *_strides(v), *_strides(o), *_strides(do))
     head = (_DTYPE_CODE[q.dtype], B, H, L, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr())
     if additive_mask is not None:
-        lib, fn = _build.entry("attention_bwd", "drin_attention_bwd",
-                               [I] * 5 + [P] * 13 + [ctypes.POINTER(S), S, P])
+        lib, fn = _build.entry("attention_bwd", "drin_attention_bwd", _BWD_ARGS)
         status = fn(*head, additive_mask.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(),
                     l.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                     dmask.data_ptr() if dmask is not None else None, delta.data_ptr(), strides,
                     additive_mask.stride(0), _build.stream_of(q))
     else:
-        lib, fn = _build.entry("attention_bwd", "drin_attention_bwd_nomask",
-                               [I] * 5 + [P] * 11 + [ctypes.POINTER(S), P])
+        lib, fn = _build.entry("attention_bwd", "drin_attention_bwd_nomask", _BWD_NOMASK_ARGS)
         status = fn(*head, o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), strides,
                     _build.stream_of(q))

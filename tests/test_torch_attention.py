@@ -8,6 +8,9 @@ bf16 bound for this kernel: both sides round p and the output to bf16 (8
 bits).  The CUDA kernel is compared with the plain version on the card
 (chip_smoke.py)."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,3 +159,119 @@ def test_cuda_tensor_without_a_card_raises(monkeypatch):
     with torch.no_grad(), pytest.raises((RuntimeError, AssertionError), match="CUDA|nvcc"):
         tattn.fused_attention(q, k, v, None)
     assert tattn.launches == 0
+
+
+# sequence lengths around the kernels' 64- and 128-row tiles (a multiple of 8
+# each, as the kernels take them) with kept prefixes on both sides of a tile
+# edge, one key kept, and every key dropped
+EDGE_CASES = [(8, [8, 7, 1, 0]), (72, [72, 65, 64, 63]), (136, [129, 128, 127, 0]),
+              (264, [264, 257, 256, 255])]
+
+
+def _prefix_mask(L, lens):
+    return np.where(np.arange(L)[None] < np.asarray(lens)[:, None], 0.0,
+                    np.finfo(np.float32).min).astype(np.float32)
+
+
+@pytest.mark.parametrize("L,lens", EDGE_CASES, ids=[f"L{L}" for L, _ in EDGE_CASES])
+def test_plain_matches_pallas_interpret_at_the_tile_edges(L, lens):
+    shape = (len(lens), 2, L, 8)
+    q, k, v, _ = _inputs(shape, 20 + L, False)
+    mask = _prefix_mask(L, lens)
+    got = tattn.attention_plain(*map(torch.from_numpy, (q, k, v, mask))).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_fused(q, k, v, mask, 64, True)), **F32)
+    np.testing.assert_allclose(got, np.asarray(attention_reference(q, k, v, mask)), **F32)
+    for b, n in enumerate(lens):
+        if n == 0:  # every key dropped: the mean of V
+            np.testing.assert_allclose(got[b], np.broadcast_to(v[b].mean(-2, keepdims=True),
+                                                               v[b].shape), **F32)
+
+
+def test_tensor_map_layout_of_the_bert_views():
+    """The element strides of B, H and L that go into the tensor map of a
+    strided view (in bytes: multiples of 16 below 2**40); a dimension of size 1
+    gets the packed stride."""
+    B, H, L, hd = 3, 12, 384, 64
+    x = torch.zeros(B, L, H * hd, dtype=torch.bfloat16)
+    view = x.reshape(B, L, H, hd).transpose(1, 2)
+    assert tattn._strides(view) == (L * H * hd, hd, H * hd)
+    assert all(s * 2 % 16 == 0 and 0 < s * 2 < 2 ** 40 for s in tattn._strides(view))
+    assert tattn._strides(view.contiguous()) == (H * L * hd, L * hd, hd)
+    # PyTorch leaves a size-1 dimension's stride arbitrary (0 after expand)
+    one = torch.zeros(1, 1, 8, hd, dtype=torch.bfloat16).expand(1, 1, 8, hd)
+    assert tattn._strides(one) == (8 * hd, 8 * hd, hd)
+    assert tattn._strides(torch.zeros(1, 4, 16, hd)[:, ::2]) == (2 * 2 * 16 * hd, 2 * 16 * hd, hd)
+
+
+CSRC = Path(tattn.__file__).resolve().parents[2] / "csrc"
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use on the H100
+
+
+def _cu_constants(source, **overrides):
+    """The integer ``constexpr`` constants of ``csrc/attention_common.cuh`` and
+    ``csrc/<source>``, evaluated from the text of the sources, with the
+    ``#define DRIN_ATTN_*`` defaults (the knobs a ``-D`` build changes) or
+    constants replaced by ``overrides``."""
+    text = (CSRC / "attention_common.cuh").read_text() + (CSRC / source).read_text()
+    env = {name: int(value) for name, value in re.findall(r"#define (DRIN_ATTN_\w+) (\d+)", text)}
+    env.update(overrides)
+    for decl in re.findall(r"constexpr int ([^;]+);", text):
+        for part in decl.split(","):
+            name, expr = (x.strip() for x in part.split("=", 1))
+            if name not in overrides:
+                env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+    return env, text
+
+
+@pytest.mark.parametrize("kernel,key_tile,stages,warpgroups,want", [
+    ("fwd", 64, 4, 2, 1024 + 16384 + 4 * 16384 + 2048 + 72),  # the forward as shipped
+    ("dq", 64, 3, 2, 1024 + 2 * 16384 + 3 * 16384 + 2048 + 56),  # the backward as shipped
+    ("dkv", 64, 3, 1, 1024 + 2 * 8192 + 3 * 17408 + 56),
+    ("fwd", 128, 4, 4, None), ("fwd", 64, 8, 4, None), ("dq", 64, 4, 2, None),
+    ("dkv", 64, 4, 2, None)])
+def test_shared_memory_of_a_block_fits_the_card(kernel, key_tile, stages, warpgroups, want):
+    """The dynamic shared memory a block asks for, as the sources compute it
+    (``kFwdSmem``, ``kDqSmem``, ``kDkvSmem``), at the shipped knobs (where it
+    is also the figure the records quote) and at other knobs the sweep tool
+    builds: within what the card gives one block, which is the limit the
+    sources' own ``static_assert`` holds."""
+    source, knob, total = {"fwd": ("attention.cu", "FWD", "kFwdSmem"),
+                           "dq": ("attention_bwd.cu", "DQ", "kDqSmem"),
+                           "dkv": ("attention_bwd.cu", "DKV", "kDkvSmem")}[kernel]
+    shipped, text = _cu_constants(source)
+    if want is not None:  # the row holds the knobs compiled in
+        assert (shipped[f"DRIN_ATTN_{knob}_STAGES"], shipped[f"DRIN_ATTN_{knob}_WG"]) == (stages, warpgroups)
+        assert shipped[total] == want
+    tile = {"kFwdKT": key_tile} if kernel == "fwd" else {}
+    assert shipped["kFwdKT" if kernel == "fwd" else "kBwdKT"] == 64
+    env, _ = _cu_constants(source, **tile, **{f"DRIN_ATTN_{knob}_STAGES": stages,
+                                             f"DRIN_ATTN_{knob}_WG": warpgroups})
+    assert env[total] <= SMEM_PER_BLOCK
+    assert re.search(rf"static_assert\([^;]*{total} <= {SMEM_PER_BLOCK}", text)
+
+
+def test_shared_memory_refuses_an_unknown_kernel_and_an_oversized_ring_is_seen():
+    """A ring the card cannot hold shows in the sources' arithmetic (the build
+    would stop at the ``static_assert``); a constant the sources do not
+    define is an error, not a default."""
+    env, _ = _cu_constants("attention.cu", kFwdKT=128, DRIN_ATTN_FWD_STAGES=8)
+    assert env["kFwdSmem"] > SMEM_PER_BLOCK
+    with pytest.raises(KeyError):
+        _cu_constants("attention.cu")[0]["kBwdSmem"]
+
+
+@pytest.mark.parametrize("dtype,refused", [(torch.bfloat16, True), (torch.float32, False)],
+                         ids=["bf16", "f32"])
+def test_cuda_checks_on_an_expanded_tensor(dtype, refused):
+    """A stride of 0 over a dimension that is walked cannot go into a tensor
+    map (bf16); the float32 kernels address through the strides and take it."""
+    q, k = (_on_card(2, 2, 256, 64, dtype=dtype) for _ in range(2))
+    v = _OnCard(torch.zeros(1, 2, 256, 64, dtype=dtype).expand(2, 2, 256, 64))
+    if refused:
+        with pytest.raises(ValueError, match="tensor map"):
+            tattn._check_cuda(q, k, v, None)
+    else:
+        assert tattn._check_cuda(q, k, v, None) == (2, 2, 256, 64)
+    # a batch of one may carry any stride there
+    one = _OnCard(torch.zeros(1, 2, 256, 64, dtype=dtype).expand(1, 2, 256, 64))
+    assert tattn._check_cuda(one, one, one, None) == (1, 2, 256, 64)

@@ -20,7 +20,7 @@ import torch
 
 from drin_tpu.ops.pallas.attention import attention_reference, fused_attention as jax_fused
 from drin_tpu_torch.ops.cuda import attention as tattn
-from test_torch_attention import _inputs
+from test_torch_attention import EDGE_CASES, _inputs, _prefix_mask
 
 
 def _close(got, want, rel):
@@ -142,3 +142,38 @@ def test_function_under_activation_checkpointing():
         grads.append({n: p.grad.clone() for n, p in bert.named_parameters()})
     for n, g in grads[0].items():
         np.testing.assert_allclose(grads[1][n].numpy(), g.numpy(), rtol=1e-5, atol=1e-8, err_msg=n)
+
+
+@pytest.mark.parametrize("L,lens", EDGE_CASES, ids=[f"L{L}" for L, _ in EDGE_CASES])
+def test_backward_plain_matches_jax_grad_at_the_tile_edges(L, lens):
+    """Lengths around the kernels' 64- and 128-row tiles, kept prefixes on both
+    sides of a tile edge, and (L = 8, 136) a sequence with every key dropped:
+    its P is uniform and its mask cotangent live."""
+    shape = (len(lens), 2, L, 8)
+    q, k, v, _ = _inputs(shape, 30 + L, False)
+    mask = _prefix_mask(L, lens)
+    do = np.random.default_rng(31 + L).standard_normal(shape).astype(np.float32)
+    got = tattn.attention_backward_plain(*map(torch.from_numpy, (q, k, v, mask, do)))
+    pallas = _jax_grads(lambda *a: jax_fused(*a, 64, True), q, k, v, mask, do)
+    for g, a in zip(got, pallas):
+        assert g.shape == a.shape and np.isfinite(g.numpy()).all()
+        _close(g.numpy(), a, 2e-4)
+    for b, n in enumerate(lens):
+        if n == 0:  # uniform P = 1 / L: dV is the mean of dO over the queries, for every key
+            want = np.broadcast_to(do[b].mean(-2, keepdims=True), do[b].shape)
+            np.testing.assert_allclose(got[2][b].numpy(), want, rtol=2e-4, atol=1e-5)
+
+
+def test_backward_workspace_is_cut_in_tiles_of_64_queries():
+    """The wrapper allocates [B, H, ceil(L / STATS_TILE), 3, STATS_TILE] f32
+    for the two launches; the dq kernel writes, and the dkv kernel's ring
+    loads, tiles of ``kStatTile`` floats: the two sizes are one."""
+    from test_torch_attention import _cu_constants
+
+    env, text = _cu_constants("attention_bwd.cu")
+    assert env["kStatTile"] == 3 * tattn.STATS_TILE == 192
+    assert env["kBwdKT"] == tattn.STATS_TILE  # a streamed query tile and its statistics go together
+    # a ring stage of the dkv kernel: Q, dO and 1024 bytes that hold the statistics
+    assert env["kDkvStageBytes"] - 2 * env["kTile64"] >= env["kStatTile"] * 4
+    assert env["kDkvStageTx"] == 2 * env["kTile64"] + env["kStatTile"] * 4
+    assert "B * H * ceil(L / 64) * 192 floats" in text  # the C entry's contract for the workspace
