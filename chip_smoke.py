@@ -6,8 +6,9 @@
 
 Builds the CUDA kernels from ``drin_tpu_torch/csrc`` (one nvcc per source,
 started together, sm_90a), holds each against its plain PyTorch version on
-the card (gather+dequant, the GCN layer, the attention forward, the
-attention backward with and without a mask, the vertex update), then drives
+the card (gather+dequant, the GCN layer with its per-launch device times,
+the attention forward, the attention backward with and without a mask, the
+vertex update), then drives
 four paths at the full width of their models with seeded random weights.
 Served, through ``Ranker`` and ``serve_http``:
 
@@ -171,23 +172,35 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10) -> float:
-    """Device time of one call of ``fn``: the sum over the kernels it
-    launches, from torch.profiler (the event-timed ``cuda_ms`` of a single
-    call also holds the host's time to reach the launch)."""
-    import torch
+def kernel_device_ms(torch, fn, reps: int = 10) -> dict:
+    """Device time in ms per call of ``fn``, by kernel name, from torch.profiler.
+    A window in which the profiler saw no device activity at all (it happens
+    now and then on a repeated profile) is taken again, up to three times;
+    an empty result means "not measured", never 0 ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        if times:
+            return times
+    raise RuntimeError("torch.profiler saw no device activity in three windows: device time not measured")
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: the sum over the kernels it
+    launches, from torch.profiler (the event-timed ``cuda_ms`` of a single
+    call also holds the host's time to reach the launch)."""
+    import torch
+
+    return sum(kernel_device_ms(torch, fn, reps).values())
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -313,32 +326,81 @@ def _fold_faults(torch, weights, D):
     return faults
 
 
+# the launches of kernel 1's bf16 path by the template's mode (csrc/gcn_layer.cu RowsMode)
+GCN_LAUNCHES = {"gcn_rows_bf16<3": "A1 fold u.Ku", "gcn_rows_bf16<4": "A2 fold a.Kv",
+                "gcn_rows_bf16<0": "B entity rows", "gcn_rows_bf16<1": "C mention rows"}
+
+
+def by_launch(times: dict) -> dict:
+    out = {}
+    for key, ms in times.items():
+        label = next((v for k, v in GCN_LAUNCHES.items() if k in key), key[:40])
+        out[label] = round(out.get(label, 0.0) + ms, 5)
+    return out
+
+
+def _mention_faults(torch, gcn, vertexes, edges, weights, vact):
+    """The mention updates as a faulty launch B or C would give them, built on
+    the plain version: one tile's message slot dropped, the messages of one
+    (b, vertex set) segment given to its neighbour, the update skipped."""
+    mt, mi, et, ei = vertexes
+    B, C, D = et.shape
+    wh, bh, lns, lnb = weights[:4]
+    slots = gcn.slot_messages_plain(et, ei, edges)
+    bad = slots.clone()
+    bad[0, 1, 0] = 0  # set 0, tile 1 (rows 64..127), its first slot
+    out = {"one tile's message slot dropped": gcn.sum_slots_plain(bad, B, C)}
+    per_set = [gcn.sum_slots_plain(torch.stack([slots[s], torch.zeros_like(slots[s])]), B, C)
+               for s in range(2)]
+    moved = per_set[0].clone()
+    moved[:, 0] += moved[:, 1]  # (b=1, et)'s messages given to b=0
+    moved[:, 1] = 0
+    out["(b=1, et) segment given to b=0"] = moved + per_set[1]
+    faults = {name: gcn._mention_updates(mt, mi, msg[0] / C, msg[1] / C, wh, bh, lns, lnb, 1e-5, vact)
+              for name, msg in out.items()}
+    faults["mention update skipped"] = [mt, mi]
+    return faults
+
+
 def phase_gcn(torch, gcn):
-    """Kernel 1 against gcn_layer_plain, both on the card.  For dynamic edges
-    the check must also fail each planted fault of the fold."""
+    """Kernel 1 against gcn_layer_plain, both on the card.  The cases cover
+    the bf16 path's tiling: C=101 tiles that cross b boundaries, B*C under
+    one tile, B=1, C=1, C=64 and 65.  The check must also fail each planted
+    fault of the edge fold and of the message slots and mention rows."""
+    import torch.nn.functional as F
+
     from drin_tpu_torch.nn.layers import get_activation
 
-    cases = [(64, 101, 768, torch.bfloat16, "gelu", "sigmoid", True),   # the main path
-             (64, 101, 768, torch.bfloat16, "gelu", "sigmoid", False),
-             (8, 101, 768, torch.float32, "gelu", "sigmoid", True),
-             (4, 11, 32, torch.bfloat16, "relu", "tanh", True),
-             (4, 11, 32, torch.float32, "tanh", "identity", True),
-             (4, 11, 32, torch.float32, "sigmoid", "relu", False)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(64, 101, 768, bf16, "gelu", "sigmoid", True),   # the main path
+             (64, 101, 768, bf16, "gelu", "sigmoid", False),
+             (8, 101, 768, f32, "gelu", "sigmoid", True),
+             (4, 11, 128, bf16, "relu", "tanh", True),        # B*C = 44: under one tile
+             (1, 101, 768, bf16, "gelu", "sigmoid", True),    # B=1
+             (64, 1, 768, bf16, "gelu", "sigmoid", True),     # C=1: 64 segments in a tile
+             (3, 1, 128, bf16, "sigmoid", "identity", False),
+             (2, 64, 128, bf16, "tanh", "relu", True),        # tiles on the b boundaries
+             (5, 65, 128, bf16, "gelu", "sigmoid", True),
+             (4, 11, 32, f32, "tanh", "identity", True),
+             (4, 11, 32, f32, "sigmoid", "relu", False)]
     main_err = None
     for i, (B, C, D, dt, vact, eact, dyn) in enumerate(cases):
         vertexes, edges, weights = _gcn_inputs(torch, B, C, D, dt, SEED + i)
         kw = dict(vact=vact, eact=eact, dynamic=dyn)
         with torch.inference_mode():
             got_v, got_e = gcn.fused_gcn_layer(vertexes, edges, *weights, **kw)
+            again_v, again_e = gcn.fused_gcn_layer(vertexes, edges, *weights, **kw)
             want_v, want_e = gcn.gcn_layer_plain(vertexes, edges, *weights, **kw)
         torch.cuda.synchronize()
-        tol = GCN_BF16_TOL if dt == torch.bfloat16 else GCN_F32_TOL
+        for a, b in zip(got_v + got_e, again_v + again_e):  # no atomics, no order left open
+            assert torch.equal(a, b), f"gcn_layer B={B} C={C} D={D}: two runs differ"
+        tol = GCN_BF16_TOL if dt == bf16 else GCN_F32_TOL
         err = max(check_close(f"gcn_layer {n}", a, b, **tol)
                   for n, a, b in zip(("mt", "mi", "et", "ei", "tt", "ti", "it", "ii"),
                                      got_v + got_e, want_v + want_e))
         print(f"[gcn_layer] B={B} C={C} D={D} {str(dt)[6:]} {vact}/{eact} "
               f"{'dynamic' if dyn else 'static'}: max abs err {err:.3g} (tol {tol})")
-        if dyn:
+        if dyn and D > 64:
             ea = get_activation(eact)
             signal = max((b.float() - ea(e.float())).abs().max().item()
                          for b, e in zip(want_e, edges))
@@ -351,20 +413,62 @@ def phase_gcn(torch, gcn):
             print(f"[gcn_layer]   the fold moves edges by up to {signal:.3g}; edges a planted "
                   f"fault puts outside tol: {seen}")
         if i == 0:
-            main_err = err
             with torch.inference_mode():
-                ms = cuda_ms(lambda: gcn.fused_gcn_layer(vertexes, edges, *weights, **kw))
+                faults = _mention_faults(torch, gcn, vertexes, edges, weights, vact)
+            seen = {f: sum(outside(a, b, **tol) for a, b in zip(bad, want_v[:2]))
+                    for f, bad in faults.items()}
+            for f, n in seen.items():
+                assert n, f"gcn_layer: the mention check cannot see {f}"
+            print(f"[gcn_layer]   mention values a planted fault puts outside tol: {seen}")
+            main_err = err
+            layer = lambda: gcn.fused_gcn_layer(vertexes, edges, *weights, **kw)
+            with torch.inference_mode():
+                ms = cuda_ms(layer)
+                per_launch = by_launch(kernel_device_ms(torch, layer))
+                dev_ms = sum(per_launch.values())
                 plain_ms = cuda_ms(lambda: gcn.gcn_layer_plain(vertexes, edges, *weights, **kw))
-            # x.W_h^T over 2*B*C rows, the fold's two products over 2*B rows;
+                # the yardstick of the product part alone (the port never calls it):
+                # cuBLAS x . W_h^T over the 2BC entity rows and the 2B mention rows
+                rows = [vertexes[2].view(-1, D), vertexes[3].view(-1, D), torch.cat(vertexes[:2])]
+                product = lambda: [F.linear(x, weights[0]) for x in rows]
+                cublas_ms = cuda_ms(product)
+                cublas_dev_ms = device_ms(product)
+                # launch C against the torch route it replaced (the mention
+                # updates from the message sums, as the f32 path still runs them)
+                mt, mi, et, ei = vertexes
+                f = lambda t: t.float()
+                msg_mt = (torch.einsum("bc,bcd->bd", f(edges[0]), f(et))
+                          + torch.einsum("bc,bcd->bd", f(edges[1]), f(ei))) / C
+                msg_mi = (torch.einsum("bc,bcd->bd", f(edges[2]), f(et))
+                          + torch.einsum("bc,bcd->bd", f(edges[3]), f(ei))) / C
+                route = lambda: gcn._mention_updates(mt, mi, msg_mt, msg_mi, *weights[:4], 1e-5, vact)
+                route_ms = cuda_ms(route)
+                route_dev_ms = device_ms(route)
+            print(f"[gcn_layer]   the mention rows: launch C {per_launch['C mention rows']:.4f} ms of "
+                  f"device time; the torch route from the message sums {route_dev_ms:.4f} ms of device "
+                  f"time, {route_ms:.4f} ms event-timed")
+            # x.W_h^T over 2*B*C + 2*B rows, the fold's two products over 2*B rows;
             # et, ei read and written once, the mention rows, edges and weights once
-            flops = 2 * (2 * B * C) * D * D + 2 * 2 * (2 * B) * D * D
+            flops = 2 * (2 * B * C + 2 * B) * D * D + 2 * 2 * (2 * B) * D * D
             moved = nbytes(*vertexes, *edges, *weights) + nbytes(*got_v, *got_e)
             bound_ms, bound_by = bound(moved, flops)
-            print(f"[gcn_layer] B=64 C=101 D=768 bf16 layer call: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-                  f"{flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
+            print(f"[gcn_layer] B=64 C=101 D=768 bf16 layer call: kernel {ms:.4f} ms (device "
+                  f"{dev_ms:.4f}: {per_launch}), plain {plain_ms:.4f} ms, cuBLAS product alone "
+                  f"{cublas_ms:.4f} ms (device {cublas_dev_ms:.4f}; a yardstick, never called), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+                  f"{moved / 1e6:.1f} MB)")
             result = {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                      "device_ms": dev_ms, "device_ms_by_launch": per_launch,
+                      "cublas_product_ms": cublas_ms, "cublas_product_device_ms": cublas_dev_ms,
+                      "mention_torch_route_ms": route_ms, "mention_torch_route_device_ms": route_dev_ms}
+    for D, why in ((96, "D=96 bf16"), (256, "D=256 bf16")):
+        vertexes, edges, weights = _gcn_inputs(torch, 2, 5, D, bf16, SEED)
+        try:
+            gcn.fused_gcn_layer(vertexes, edges, *weights)
+            raise AssertionError(f"gcn_layer: {why} was accepted")
+        except ValueError:
+            pass
     return result
 
 
@@ -658,11 +762,14 @@ def _vertex_inputs(torch, B, C, D, dt, seed):
 def phase_vertex_update(torch, vu):
     """Kernel 4 against vertex_update_plain, both on the card; the check
     must also fail the plain version with e2*m2 left out."""
+    import torch.nn.functional as F
+
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(64, 101, 768, bf16, "gelu"),   # the WikiMEL width
              (64, 101, 768, f32, "gelu"),
-             (5, 11, 32, bf16, "relu"), (5, 11, 32, f32, "tanh"),
-             (5, 11, 32, bf16, "sigmoid"), (3, 33, 48, f32, "gelu")]
+             (5, 11, 128, bf16, "relu"), (5, 11, 32, f32, "tanh"),
+             (5, 11, 128, bf16, "sigmoid"), (3, 33, 48, f32, "gelu"),
+             (1, 1, 128, bf16, "gelu"), (1, 101, 768, bf16, "tanh"), (2, 64, 768, bf16, "gelu")]
     result = None
     for i, (B, C, D, dt, act) in enumerate(cases):
         args = _vertex_inputs(torch, B, C, D, dt, SEED + i)
@@ -679,19 +786,29 @@ def phase_vertex_update(torch, vu):
               f"(tol {tol}); values outside tol with e2*m2 left out: {seen} of {want.numel()}")
         if i:
             continue
+        call = lambda: vu.fused_vertex_update(*args, act=act)
         with torch.inference_mode():
-            ms = cuda_ms(lambda: vu.fused_vertex_update(*args, act=act))
+            ms = cuda_ms(call)
+            dev_ms = device_ms(call)
             plain_ms = cuda_ms(lambda: vu.vertex_update_plain(*args, act=act))
+            rows = args[0].view(-1, D)
+            cublas_ms = cuda_ms(lambda: F.linear(rows, args[5]))
+            cublas_dev_ms = device_ms(lambda: F.linear(rows, args[5]))
         flops = 2 * B * C * D * D
         moved = nbytes(*args, got)
         bound_ms, bound_by = bound(moved, flops)
-        print(f"[vertex_update] B=64 C=101 D=768 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
+        print(f"[vertex_update] B=64 C=101 D=768 bf16: kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, cuBLAS product alone {cublas_ms:.4f} ms (device "
+              f"{cublas_dev_ms:.4f}; a yardstick, never called), bound {bound_ms:.4f} ms "
+              f"({bound_by}: {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
         result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by, "library_ms": None}
-    args = _vertex_inputs(torch, 4, 11, 32, bf16, SEED)
+                  "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms,
+                  "cublas_product_ms": cublas_ms, "cublas_product_device_ms": cublas_dev_ms}
+    args = _vertex_inputs(torch, 4, 11, 128, bf16, SEED)
     for bad, exc, why in ((lambda a: [a[0].half()] + a[1:], ValueError, "fp16"),
-                          (lambda a: [a[0][:, :, :31]] + a[1:], ValueError, "shape"),
+                          (lambda a: [a[0][:, :, :127]] + a[1:], ValueError, "shape"),
+                          (lambda a: [x[..., :64] if x.shape[-1] == 128 else x for x in a],
+                           ValueError, "D=64"),
                           (lambda a: [a[0].requires_grad_(True)] + a[1:], RuntimeError, "grad")):
         try:
             vu.fused_vertex_update(*bad(list(args)))

@@ -4,16 +4,18 @@
 Kernel: ``csrc/gcn_layer.cu``, CUDA C++ for ``sm_90a``.  It replaces the
 TPU kernel ``fused_gcn_layer`` (``_layer_kernel``, ``gcn_layer.py:51``):
 from one read of the old entity vertices it produces et'/ei', the four
-folded dynamic scalar edges and the mention messages.  On the H100 the
-W_h products (~15 GFLOP per layer at B=64, C=101, D=768) bound it; the TPU
-design of a whole [C, D] tile plus W_h resident in fast memory does not fit
-227 KB of shared memory, so the kernel runs as launch A, the edge fold's
-two small products over all 2B mention rows in 16-row tiles on the tensor
-cores, then launch B, per (b, vertex set) a loop over candidate tiles that
-forms x, the messages and the edge dots from one read of the rows,
-multiplies x by W_h on the tensor cores (W_h stays in L2) and finishes
-bias, LayerNorm and the activation in shared memory.  The two [B, D] mention updates are finished here in plain
-torch, as the JAX wrapper finishes them in XLA.
+folded dynamic scalar edges, the mention messages and the two mention
+updates.  On the H100 the W_h products (~15 GFLOP per layer at B=64, C=101,
+D=768) bound it; the TPU design of a whole [C, D] tile plus W_h resident in
+fast memory does not fit 227 KB of shared memory.  In bf16 the layer is
+four launches of one kernel, rows x W^T on ``wgmma`` with W fed by a TMA
+ring and a row-wise epilogue (LayerNorm finished in registers): A1 and A2
+fold the edges over the 2B mention rows, B updates the 2BC entity rows in
+flat tiles of 64 (and writes the edge dots and per-tile message slots from
+the same read of the old rows), C sums the slots in a fixed order and
+updates the 2B mention rows.  The bf16 path takes D = 128 or 768.  The f32
+instantiation is plain FMA loops; its two mention updates are finished here
+in torch (:func:`_mention_updates`).
 
 Weights are in torch layout (``[out, in]``).  Rounding points follow
 ``gcn_layer_reference``: x is rounded to the compute dtype before the W_h
@@ -43,6 +45,8 @@ ACT_CODES = {"gelu": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "identity": 4}
 KERNEL_VERTEX_ACTS = ("gelu", "relu", "tanh", "sigmoid")
 KERNEL_EDGE_ACTS = ("sigmoid", "tanh", "relu", "identity")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BF16_WIDTHS = (128, 768)  # the widths the bf16 kernels are compiled for
+ROW_TILE = 64  # rows of one block of the bf16 kernels
 
 launches = 0  # kernel launches (CUDA path only), one per layer call
 
@@ -65,6 +69,46 @@ def _mention_updates(mt, mi, msg_mt, msg_mi, wh, bh, ln_scale, ln_bias, eps, vac
     dt = mt.dtype
     return [_update((u.float() + m).to(dt), wh, bh, ln_scale, ln_bias, eps, vact)
             for u, m in ((mt, msg_mt), (mi, msg_mi))]
+
+
+def message_slots(B: int, C: int):
+    """``(T, S)`` of the bf16 kernel's message slots: launch B tiles each
+    vertex set's B*C rows by 64 (T tiles, none crossing from et to ei), and a
+    tile's rows fall into at most S segments of C rows (one per b)."""
+    return -(-B * C // ROW_TILE), min(B, (ROW_TILE - 1) // C + 2)
+
+
+def slot_messages_plain(et, ei, edges):
+    """The message slots as launch B writes them, in plain torch: float32
+    [2 sets, T, S, 2 mentions, D]; slot s of tile t of a set holds the sum,
+    over the tile's rows of b = floor(64 t / C) + s, of e * v (mention t: tt,
+    ti; mention i: it, ii).  Slots past a tile's last segment hold zeros."""
+    B, C, D = et.shape
+    T, S = message_slots(B, C)
+    tt, ti, it, ii = edges
+    out = torch.zeros((2, T, S, 2, D), dtype=torch.float32, device=et.device)
+    r = torch.arange(B * C, device=et.device)
+    tile, slot = r // ROW_TILE, r // C - (r // ROW_TILE * ROW_TILE) // C
+    for vs, (v, e_t, e_i) in enumerate(((et, tt, it), (ei, ti, ii))):
+        v = v.reshape(B * C, D).float()
+        for m, e in enumerate((e_t, e_i)):
+            out[vs, :, :, m].index_put_((tile, slot), e.reshape(-1, 1).float() * v, accumulate=True)
+    return out
+
+
+def sum_slots_plain(slots, B: int, C: int):
+    """Launch C's reading of the slots: the message sums [2 mentions, B, D]
+    of each b, over set 0's tiles then set 1's in order."""
+    b = torch.arange(B, device=slots.device)
+    msg = torch.zeros((2, B, slots.shape[-1]), dtype=torch.float32, device=slots.device)
+    for vs in range(2):
+        for tile in range(slots.shape[1]):
+            first = tile * ROW_TILE // C
+            mine = (b * C // ROW_TILE <= tile) & (tile <= (b * C + C - 1) // ROW_TILE)
+            mine &= (b - first) < slots.shape[2]
+            got = slots[vs, tile, (b - first).clamp(0, slots.shape[2] - 1)]  # [B, 2, D]
+            msg += (got * mine[:, None, None]).transpose(0, 1)
+    return msg
 
 
 def gcn_layer_plain(vertexes, edges, wh, bh, ln_scale, ln_bias,
@@ -122,8 +166,10 @@ def _check_cuda(vertexes, edges, weights, dynamic):
                 wu=(D, D), bu=(D,), wv=(D, D), bv=(D,))
     if B < 1 or C < 1:
         raise ValueError(f"fused_gcn_layer needs B >= 1 and C >= 1, got B={B} C={C}")
-    if et.dtype == torch.bfloat16 and D % 16:
-        raise ValueError(f"the bf16 kernel needs D % 16 == 0, got D={D}")
+    if et.dtype == torch.bfloat16 and D not in BF16_WIDTHS:
+        raise ValueError(f"the bf16 kernel is built for D in {BF16_WIDTHS}, got D={D}")
+    if B * C >= 2 ** 31 // ROW_TILE:
+        raise ValueError(f"fused_gcn_layer takes B * C < {2 ** 31 // ROW_TILE}, got {B * C}")
     for k, t in named.items():
         if t is None:
             raise ValueError(f"dynamic edges need {k}")
@@ -135,15 +181,46 @@ def _check_cuda(vertexes, edges, weights, dynamic):
             raise ValueError(f"{k} must be {want[k]}, got {tuple(t.shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{k} must be contiguous and 16-byte aligned")
-    for k in ("wh", "wu", "wv"):  # tensor-core fragments load from these directly
-        if k in names and named[k].data_ptr() % 32:
-            raise ValueError(f"{k} must be 32-byte aligned")
     return B, C, D
+
+
+def workspace_layout(B: int, C: int, D: int):
+    """The bf16 layer's scratch as ``(name, byte offset, shape, dtype)``, each
+    part 256-byte aligned, and the total bytes: round(a) of the fold [2B, D]
+    (then launch C's x rows), its partial sums of s [2, B, D / 64], p
+    [B, 2, D], the message slots [2, T, S, 2, D] (:func:`message_slots`) and
+    launch B's count of finished tiles per b [B]."""
+    T, S = message_slots(B, C)
+    parts, off = [], 0
+    for name, shape, dt in (("ar", (2 * B, D), torch.bfloat16),
+                            ("s_part", (2, B, D // 64), torch.float32),
+                            ("p", (B, 2, D), torch.bfloat16),
+                            ("msg", (2, T, S, 2, D), torch.float32),
+                            ("count", (B,), torch.int32)):
+        parts.append((name, off, shape, dt))
+        n = dt.itemsize
+        for s in shape:
+            n *= s
+        off += -(-n // 256) * 256
+    return parts, off
+
+
+def _workspace(B, C, D, device):
+    """One allocation, cut into the views of :func:`workspace_layout`."""
+    parts, total = workspace_layout(B, C, D)
+    raw = torch.empty(total, dtype=torch.uint8, device=device)
+    views = {}
+    for name, off, shape, dt in parts:
+        n = dt.itemsize
+        for s in shape:
+            n *= s
+        views[name] = raw[off:off + n].view(dt).view(shape)
+    return views
 
 
 def _launch(vertexes, edges, wh, bh, ln_scale, ln_bias, wu, bu, wv, bv, vact, eact, eps,
             dynamic):
-    """Check the inputs and launch the kernel once."""
+    """Check the inputs and launch the kernel once (bf16: its four launches)."""
     global launches
     if vact not in KERNEL_VERTEX_ACTS or eact not in KERNEL_EDGE_ACTS:
         raise ValueError(f"the kernel implements vertex activations {KERNEL_VERTEX_ACTS} "
@@ -151,28 +228,38 @@ def _launch(vertexes, edges, wh, bh, ln_scale, ln_bias, wu, bu, wv, bv, vact, ea
     weights = (wh, bh, ln_scale, ln_bias) + ((wu, bu, wv, bv) if dynamic else ())
     B, C, D = _check_cuda(vertexes, edges, weights, dynamic)
     mt, mi, et, ei = vertexes
-    dt, dev = et.dtype, et.device
-    Bp = -(-B // 16) * 16  # the edge-fold products run in tiles of 16 mentions
-    a_ws = torch.empty((2, Bp, D), dtype=dt, device=dev)
-    sp_ws = torch.empty((2, Bp, -(-D // 64)), dtype=torch.float32, device=dev)
-    p_ws = torch.empty((B, 2, D), dtype=dt, device=dev)
-    s_ws = torch.empty((B, 2), dtype=torch.float32, device=dev)
-    et_o, ei_o = torch.empty_like(et), torch.empty_like(ei)
     new_edges = [torch.empty_like(e) for e in edges] if dynamic else list(edges)
-    msg = torch.empty((B, 2, 2, D), dtype=torch.float32, device=dev)
+    et_o, ei_o = torch.empty_like(et), torch.empty_like(ei)
 
     from drin_tpu_torch.ops.cuda import _build
 
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib, fn = _build.entry("gcn_layer", "drin_gcn_layer",
-                           [I, I, I, I, ctypes.c_float, I, I, I] + [P] * 28)
     ptr = lambda t: t.data_ptr() if t is not None else None
-    status = fn(_DTYPE_CODE[dt], B, C, D, float(eps), ACT_CODES[vact], ACT_CODES[eact],
-                int(dynamic), *map(ptr, vertexes), *map(ptr, edges),
-                *map(ptr, (wh, bh, ln_scale, ln_bias, wu, bu, wv, bv)),
-                a_ws.data_ptr(), sp_ws.data_ptr(), p_ws.data_ptr(), s_ws.data_ptr(),
-                et_o.data_ptr(), ei_o.data_ptr(),
-                *map(ptr, new_edges), msg.data_ptr(), _build.stream_of(et))
+    ins = (*map(ptr, vertexes), *map(ptr, edges),
+           *map(ptr, (wh, bh, ln_scale, ln_bias, wu, bu, wv, bv)))
+    opts = (B, C, D, float(eps), ACT_CODES[vact], ACT_CODES[eact], int(dynamic))
+    head = [I, I, I, ctypes.c_float, I, I, I] + [P] * 16
+    if et.dtype == torch.bfloat16:
+        ws = _workspace(B, C, D, et.device)
+        mt_o, mi_o = torch.empty_like(mt), torch.empty_like(mi)
+        lib, fn = _build.entry("gcn_layer", "drin_gcn_layer_bf16", head + [P] * 5 + [I] + [P] * 9)
+        status = fn(*opts, *ins, *(ws[k].data_ptr() for k in ("ar", "s_part", "p", "msg", "count")),
+                    ws["msg"].shape[2], mt_o.data_ptr(), mi_o.data_ptr(),
+                    et_o.data_ptr(), ei_o.data_ptr(), *map(ptr, new_edges), _build.stream_of(et))
+        _build.check(status, lib, "gcn_layer launch")
+        launches += 1
+        return [mt_o, mi_o, et_o, ei_o], new_edges
+    dt, dev = et.dtype, et.device
+    Bp = -(-B // 16) * 16  # the f32 fold runs in tiles of 16 mentions
+    a_ws = torch.empty((2, Bp, D), dtype=dt, device=dev)
+    sp_ws = torch.empty((2, Bp, -(-D // 64)), dtype=torch.float32, device=dev)
+    p_ws = torch.empty((B, 2, D), dtype=dt, device=dev)
+    s_ws = torch.empty((B, 2), dtype=torch.float32, device=dev)
+    msg = torch.empty((B, 2, 2, D), dtype=torch.float32, device=dev)
+    lib, fn = _build.entry("gcn_layer", "drin_gcn_layer_f32", head + [P] * 12)
+    status = fn(*opts, *ins, a_ws.data_ptr(), sp_ws.data_ptr(), p_ws.data_ptr(), s_ws.data_ptr(),
+                et_o.data_ptr(), ei_o.data_ptr(), *map(ptr, new_edges), msg.data_ptr(),
+                _build.stream_of(et))
     _build.check(status, lib, "gcn_layer launch")
     launches += 1
     # messages: (sum over et + sum over ei) / C, then the two mention updates

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """Fused entity-vertex update (port of ``drin_tpu/ops/pallas/gcn.py``).
 
-Kernel: ``vertex_update_kernel`` in ``csrc/gcn_layer.cu``, CUDA C++ for
+Kernel: ``gcn_rows_bf16`` (f32: ``vertex_update_kernel``) in ``csrc/gcn_layer.cu``, CUDA C++ for
 ``sm_90a``.  It replaces the TPU kernel ``fused_vertex_update``
 (``gcn.py:58``): ``y = act(LN((v + e1*m1 + e2*m2) . W + b))`` for the
 [B, C, D] entity vertices in one pass, the scalar-edge broadcasts, the
@@ -9,10 +9,11 @@ product, LayerNorm and the activation without a round trip through device
 memory.  On the H100 the product bounds it (7.6 GFLOP over ~21 MB at B=64,
 C=101, D=768).  The TPU design holds one sample's whole [C, D] block and W in
 fast memory; W alone (1.18 MB of bf16) does not fit 227 KB of shared memory,
-so the kernel is the GCN-layer kernel's launch B with the edge dots and
-message sums compiled out: a block per (b, tile of 32 candidates) forms x,
-multiplies it by W on the tensor cores (WMMA, W read from L2) into shared
-memory and finishes bias, LayerNorm and the activation there.
+so the bf16 kernel is the GCN-layer kernel's row piece over the B*C rows in
+flat tiles of 64: x formed in the K-slice's prologue, the product on
+``wgmma`` with W fed by a TMA ring, bias, LayerNorm and the activation
+finished in registers.  The bf16 path takes D = 128 or 768; the f32 form is
+plain FMA loops.
 
 The weight is in torch layout (``[out, in]``), as the GCN-layer kernel's.
 x is formed in float32 and rounded once to the compute dtype before the
@@ -30,8 +31,8 @@ import ctypes
 
 import torch
 
-from drin_tpu_torch.ops.cuda.gcn_layer import (ACT_CODES, KERNEL_VERTEX_ACTS, _DTYPE_CODE,
-                                               _norm_act)
+from drin_tpu_torch.ops.cuda.gcn_layer import (ACT_CODES, BF16_WIDTHS, KERNEL_VERTEX_ACTS,
+                                               ROW_TILE, _DTYPE_CODE, _norm_act)
 
 launches = 0  # kernel launches (CUDA path only), one per call
 
@@ -59,8 +60,10 @@ def _check_cuda(named: dict, act: str):
     B, C, D = v.shape
     if B < 1 or C < 1 or B > 65535:
         raise ValueError(f"fused_vertex_update needs 1 <= B <= 65535 and C >= 1, got B={B} C={C}")
-    if v.dtype == torch.bfloat16 and D % 16:
-        raise ValueError(f"the bf16 kernel needs D % 16 == 0, got D={D}")
+    if v.dtype == torch.bfloat16 and D not in BF16_WIDTHS:
+        raise ValueError(f"the bf16 kernel is built for D in {BF16_WIDTHS}, got D={D}")
+    if B * C >= 2 ** 31 // ROW_TILE:
+        raise ValueError(f"fused_vertex_update takes B * C < {2 ** 31 // ROW_TILE}, got {B * C}")
     want = dict(v=(B, C, D), e1=(B, C), e2=(B, C), m1=(B, D), m2=(B, D), w=(D, D), b=(D,),
                 scale=(D,), bias=(D,))
     for k, t in named.items():
@@ -75,8 +78,6 @@ def _check_cuda(named: dict, act: str):
         if torch.is_grad_enabled() and t.requires_grad:
             raise RuntimeError("fused_vertex_update is forward-only, as in the JAX package: "
                                f"{k} requires grad; run under torch.no_grad()")
-    if named["w"].data_ptr() % 32:  # tensor-core fragments load from it directly
-        raise ValueError("w must be 32-byte aligned")
     return B, C, D
 
 

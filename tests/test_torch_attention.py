@@ -208,11 +208,12 @@ SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use on the H100
 
 
 def _cu_constants(source, **overrides):
-    """The integer ``constexpr`` constants of ``csrc/attention_common.cuh`` and
-    ``csrc/<source>``, evaluated from the text of the sources, with the
-    ``#define DRIN_ATTN_*`` defaults (the knobs a ``-D`` build changes) or
-    constants replaced by ``overrides``."""
-    text = (CSRC / "attention_common.cuh").read_text() + (CSRC / source).read_text()
+    """The integer ``constexpr`` constants of ``csrc/hopper.cuh``,
+    ``csrc/attention_common.cuh`` (which includes it) and ``csrc/<source>``,
+    evaluated from the text of the sources, with the ``#define DRIN_ATTN_*``
+    defaults (the knobs a ``-D`` build changes) or constants replaced by
+    ``overrides``."""
+    text = "".join((CSRC / name).read_text() for name in ("hopper.cuh", "attention_common.cuh", source))
     env = {name: int(value) for name, value in re.findall(r"#define (DRIN_ATTN_\w+) (\d+)", text)}
     env.update(overrides)
     for decl in re.findall(r"constexpr int ([^;]+);", text):

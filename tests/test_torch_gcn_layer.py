@@ -21,6 +21,7 @@ from drin_tpu.models.drin import GCNLayer as JaxGCNLayer
 from drin_tpu.ops.pallas.gcn_layer import fused_gcn_layer as jax_fused, gcn_layer_reference
 from drin_tpu_torch.models.convert import drin_state_dict_from_jax
 from drin_tpu_torch.models.drin import GCNLayer
+from drin_tpu_torch.ops.cuda import gcn_layer as tgcn
 from drin_tpu_torch.ops.cuda.gcn_layer import _FusedGCNLayer, fused_gcn_layer, gcn_layer_plain
 
 F32 = dict(rtol=2e-4, atol=1e-6)
@@ -179,3 +180,104 @@ def test_function_gradients_match_jax_grad_of_the_reference(dynamic):
     direct = torch.autograd.grad(outs, live, [torch.from_numpy(c) for c in cot], allow_unused=True)
     for g, d in zip(got, direct):
         np.testing.assert_allclose(g.numpy(), d.numpy(), rtol=1e-6, atol=1e-7)
+
+
+# (B, C): C=101 tiles that cross b boundaries, B*C under one tile, B=1, C=1
+# (64 segments in a tile), C=64 and 65 around the tile's edge, C over two tiles
+SLOT_SHAPES = [(64, 101), (4, 11), (1, 101), (64, 1), (3, 1), (2, 64), (5, 65), (3, 150)]
+
+
+@pytest.mark.parametrize("B,C", SLOT_SHAPES, ids=["B%dC%d" % s for s in SLOT_SHAPES])
+def test_message_slots_hold_every_segment_and_sum_to_the_messages(B, C):
+    """Launch B's slot layout: every (tile, b) pair that shares rows has a
+    slot below S, and the slots summed as launch C reads them (set 0's tiles
+    then set 1's) give the plain version's message sums."""
+    T, S = tgcn.message_slots(B, C)
+    rows = np.arange(B * C)
+    tile = tgcn.ROW_TILE
+    assert T == -(-B * C // tile) and rows[-1] // tile == T - 1
+    for t in range(T):
+        segs = np.unique(rows[t * tile:(t + 1) * tile] // C)
+        assert segs[0] == t * tile // C and len(segs) <= S
+    rng = np.random.default_rng(B * 1000 + C)
+    et, ei = (torch.from_numpy(rng.standard_normal((B, C, 8)).astype(np.float32)) for _ in range(2))
+    edges = [torch.from_numpy(rng.uniform(0, 1, (B, C)).astype(np.float32)) for _ in range(4)]
+    slots = tgcn.slot_messages_plain(et, ei, edges)
+    assert tuple(slots.shape) == (2, T, S, 2, 8)
+    msg = tgcn.sum_slots_plain(slots, B, C)
+    tt, ti, it, ii = edges
+    want = [torch.einsum("bc,bcd->bd", a, et) + torch.einsum("bc,bcd->bd", b, ei)
+            for a, b in ((tt, ti), (it, ii))]
+    for got, w in zip(msg, want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+    # a slot that launch C reads is one launch B wrote: dropping any changes the sums
+    bad = slots.clone()
+    bad[1, T - 1, 0] = 0
+    assert not torch.allclose(tgcn.sum_slots_plain(bad, B, C), msg)
+
+
+@pytest.mark.parametrize("B,C,D", [(64, 101, 768), (1, 1, 128), (5, 65, 128)])
+def test_workspace_is_one_allocation_cut_into_aligned_disjoint_views(B, C, D):
+    parts, total = tgcn.workspace_layout(B, C, D)
+    T, S = tgcn.message_slots(B, C)
+    shapes = {name: shape for name, _, shape, _ in parts}
+    assert shapes == {"ar": (2 * B, D), "s_part": (2, B, D // 64), "p": (B, 2, D),
+                      "msg": (2, T, S, 2, D), "count": (B,)}
+    end = 0
+    for name, off, shape, dt in parts:
+        assert off % 256 == 0 and off >= end, name
+        end = off + int(np.prod(shape)) * dt.itemsize
+    assert end <= total < end + 256
+    views = tgcn._workspace(B, C, D, "cpu")
+    base = views["ar"].untyped_storage().data_ptr()
+    for name, off, shape, dt in parts:
+        v = views[name]
+        assert tuple(v.shape) == shape and v.dtype == dt and v.is_contiguous()
+        assert v.untyped_storage().data_ptr() == base and v.data_ptr() - base == off
+
+
+class _OnCard:
+    """A CPU tensor that claims to live on a CUDA device, for the wrapper's
+    argument checks (there is no card where these tests run)."""
+
+    def __init__(self, t):
+        self._t, self.device, self.is_cuda = t, torch.device("cuda:0"), True
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _fake_layer(B, C, D, dt, dynamic=True):
+    z = lambda *s: _OnCard(torch.zeros(s, dtype=dt))
+    vertexes = [z(B, D), z(B, D), z(B, C, D), z(B, C, D)]
+    edges = [z(B, C) for _ in range(4)]
+    weights = [z(D, D), z(D), z(D), z(D)] + ([z(D, D), z(D), z(D, D), z(D)] if dynamic else [])
+    return vertexes, edges, weights
+
+
+@pytest.mark.parametrize("case,match", [
+    ("fp16", "float32 or bfloat16"), ("D=96", "built for D in"), ("D=256", "built for D in"),
+    ("D=24", "built for D in"), ("shape", "tt must be"), ("strided", "contiguous"),
+    ("no wu", "dynamic edges need wu"), ("B=0", "B >= 1")])
+def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, match):
+    """The bf16 kernels are built for D = 128 and 768; every other width,
+    type, shape or layout is refused by name before a launch."""
+    dt = torch.float16 if case == "fp16" else torch.bfloat16
+    D = int(case[2:]) if case.startswith("D=") else 128
+    vertexes, edges, weights = _fake_layer(0 if case == "B=0" else 2, 5, D, dt)
+    if case == "shape":
+        edges[0] = _OnCard(torch.zeros(2, 6, dtype=dt))
+    elif case == "strided":
+        weights[0] = _OnCard(torch.zeros(D, 2 * D, dtype=dt)[:, ::2])
+    elif case == "no wu":
+        weights[4] = None
+    with pytest.raises(ValueError, match=match):
+        tgcn._check_cuda(vertexes, edges, weights, True)
+
+
+@pytest.mark.parametrize("dt,D", [(torch.bfloat16, 768), (torch.bfloat16, 128), (torch.float32, 24)])
+@pytest.mark.parametrize("dynamic", [True, False], ids=["dynamic", "static"])
+def test_cuda_checks_take_the_built_widths(dt, D, dynamic):
+    """bf16 at D = 128 and 768, float32 at any D (plain FMA loops)."""
+    vertexes, edges, weights = _fake_layer(3, 7, D, dt, dynamic)
+    assert tgcn._check_cuda(vertexes, edges, weights, dynamic) == (3, 7, D)

@@ -91,7 +91,7 @@ def test_package_data_lists_kernel_sources():
     assert '"drin_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
     assert sorted(p.name for p in (ROOT / "drin_tpu_torch" / "csrc").iterdir()) == [
         "attention.cu", "attention_bwd.cu", "attention_common.cuh", "common.cuh",
-        "gather_dequant.cu", "gcn_layer.cu"]
+        "gather_dequant.cu", "gcn_layer.cu", "hopper.cuh"]
     from drin_tpu_torch.ops.cuda import _build
 
     assert _build.KERNELS == ("gather_dequant", "gcn_layer", "attention", "attention_bwd")

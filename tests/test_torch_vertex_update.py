@@ -74,11 +74,15 @@ class _OnCard:
 
 @pytest.mark.parametrize("case,err,match", [
     ("fp16", ValueError, "float32 or bfloat16"), ("act", ValueError, "implements activations"),
-    ("shape", ValueError, "e1 must be"), ("D%16", ValueError, "D % 16"),
-    ("strided", ValueError, "contiguous"), ("grad", RuntimeError, "forward-only")])
+    ("shape", ValueError, "e1 must be"),
+    pytest.param("D%16", ValueError, "built for D in", id="D%16-ValueError-D % 16"),
+    ("width", ValueError, "built for D in"), ("strided", ValueError, "contiguous"),
+    ("grad", RuntimeError, "forward-only")])
 def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, err, match):
+    """The bf16 kernel is built for D = 128 and 768: 24 (not a multiple of
+    16) and 96 (a multiple of 16 and 32) are refused by name."""
     dt = torch.float16 if case == "fp16" else torch.bfloat16
-    B, C, D = 2, 5, 24 if case == "D%16" else 32
+    B, C, D = 2, 5, {"D%16": 24, "width": 96}.get(case, 128)
     names = ("v", "e1", "m1", "e2", "m2", "w", "b", "scale", "bias")
     shapes = ((B, C, D), (B, C), (B, D), (B, C), (B, D), (D, D), (D,), (D,), (D,))
     t = {n: torch.zeros(s, dtype=dt) for n, s in zip(names, shapes)}
@@ -94,3 +98,16 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, err, match):
     if case == "grad":  # under no_grad a weight that requires grad is fine
         with torch.no_grad():
             assert tvu._check_cuda(named, "gelu") == (B, C, D)
+
+
+def test_cuda_checks_take_any_width_in_float32():
+    """The f32 kernel (plain FMA loops) takes any D; only bf16 is tied to the
+    widths the wgmma kernel is built for."""
+    B, C, D = 2, 5, 24
+    names = ("v", "e1", "m1", "e2", "m2", "w", "b", "scale", "bias")
+    shapes = ((B, C, D), (B, C), (B, D), (B, C), (B, D), (D, D), (D,), (D,), (D,))
+    named = {n: _OnCard(torch.zeros(s)) for n, s in zip(names, shapes)}
+    assert tvu._check_cuda(named, "gelu") == (B, C, D)
+    named = {n: _OnCard(torch.zeros(s, dtype=torch.bfloat16)) for n, s in zip(names, shapes)}
+    with pytest.raises(ValueError, match="built for D in"):
+        tvu._check_cuda(named, "gelu")
