@@ -6,17 +6,23 @@
 
 Builds the CUDA kernels from ``drin_tpu_torch/csrc`` (one nvcc per source,
 started together, sm_90a), holds each against its plain PyTorch version on
-the card (gather+dequant, the GCN layer with its per-launch device times,
-the attention forward, the attention backward with and without a mask, the
-vertex update), then drives
-four paths at the full width of their models with seeded random weights.
+the card (gather+dequant at DRIN's and offline GHMFC's two packed layouts,
+the GCN layer with its per-launch device times, the attention forward, the
+attention backward with and without a mask, the vertex update), then drives
+nine paths at the full width of their models with seeded random weights.
 Served, through ``Ranker`` and ``serve_http``:
 
   * DRIN's rank stage at the WikiMEL width over an int8 fused store of
     32,768 synthetic entities (the gather+dequant and GCN-layer kernels);
   * GHMFC with online BERT at bert-base width: ``/rank`` requests of token
     ids, 101 candidates zipped into 12 sentences of 512 tokens (the fused
-    attention kernel, 12 launches per request).
+    attention kernel, 12 launches per request);
+  * offline GHMFC (multimodal fusion) over an int8 fused text-only store of
+    32,768 entities (the gather+dequant kernel, one launch per rank), then
+    the entity precompute and ``rank_rows``; and once with the 8-layer
+    transformer mention layer;
+  * MELHI on WikiDiverse (C=11), its thresholds set inside the run's own
+    cosines so that both image-gate states occur (no kernel).
 
 Trained, through ``Trainer`` and ``build_step_fns``:
 
@@ -25,10 +31,13 @@ Trained, through ``Trainer`` and ``build_step_fns``:
     BERT layer recomputed in the backward (the attention forward and backward
     kernels, 24 and 12 launches per step);
   * DRIN at B=64, C=101, D=768 over the device-resident entity tables (the
-    GCN-layer kernel in the forward, its backward through the plain version).
+    GCN-layer kernel in the forward, its backward through the plain version);
+  * offline GHMFC at B=64 over the float text-only store, and MELHI at B=64
+    (no kernel).
 
 It checks the answers against the port's float32 forward on the CPU, shows
-through the launch counters that each path ran its kernels, and
+through the launch counters that each path ran its kernels (and that the
+paths without one launched none), and
 prints times measured with CUDA events beside each kernel's bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
 peak rate of their type, whichever is larger).
@@ -138,6 +147,40 @@ TRAIN_LOSS2_ATOL = 2.5e-3
 # of the margin and switch on or off.  A layer's W_h gradient dropped in the
 # backward of the fused layer moves that tensor by its whole norm (1.0)
 TRAIN_DRIN_GRAD_REL = 0.2
+# offline GHMFC served in bf16 against the port's f32 CPU forward of the same
+# request over the same int8 rows: the fusion's cross attentions, LayerNorms
+# and gelu round to bf16 at every step.  At random weights one mention's
+# candidate cosines spread by ~3e-2, so the limit is absolute and the run
+# requires it to lie under that spread
+GHMFC_SCORE_ATOL = 1e-2
+# rank_rows against rank's full forward, both bf16 on the card: the entity
+# linear runs over 8,192-row chunks in one and [64*101]-row batches in the
+# other, so cuBLAS may round an output element to the neighbouring bf16, and
+# the cosine itself is a bf16 value (an ulp of 4.9e-4 at |cos| ~ 0.1): four
+# ulps.  A candidate rank_rows puts in its top-k must score, in the full
+# forward, no more than this under the full forward's k-th best
+RANK_ROWS_ATOL = 2e-3
+# MELHI served in bf16 against the port's f32 CPU forward, on the mentions
+# whose image gate agrees: 127 and 128 sequential LSTM steps in bf16 carry the
+# rounding of each step on in the cell state, which the forget gate keeps at
+# ~1% of max |h| at any length; the scores moved by 9e-4 on the H100.  The
+# LSTM with its input and forget gates swapped moves them by 2.5e-2
+MELHI_SCORE_ATOL = 5e-3
+# GHMFC with the 8-layer transformer mention layer in bf16 against f32 on the
+# CPU: eight post-LN layers each round their output to bf16
+TRANSFORMER_SCORE_ATOL = 1e-2
+# the offline baselines' first-step gradients, per parameter tensor,
+# |g - g_cpu|_2 / |g_cpu|_2 against the f32 CPU port.  In float32 on the card
+# the two differ by summation order only.  In bf16 some gradients are small
+# residues of thousands of cancelling terms: the entity linear's bias is a sum
+# over 64 x 101 cosine gradients whose norms differ by a few percent, and
+# the cosine's norms are bf16 values; GHMFC's attention q/k projections take
+# their gradient through the softmax's derivative, a difference of products.
+# bf16 rounding leaves up to ~0.4 of such a tensor's gradient (measured on
+# the H100: the entity bias 0.41, the q/k projections 0.21).  A gradient
+# dropped in the backward moves its tensors by their whole norm, 1.0
+TRAIN_BASELINE_F32_GRAD_REL = 1e-3
+TRAIN_BASELINE_BF16_GRAD_REL = 0.5
 # the card's published peaks (H100 SXM, dense): bytes/s and FLOP/s by type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -248,49 +291,63 @@ def check_close(name, got, want, atol, rtol) -> float:
     return err
 
 
+# kernel 2's packed layouts at the WikiMEL widths (D=768, Dr=2048): DRIN's
+# text | image | obj slab (44 of 48 sub-rows), offline GHMFC's text-only slab
+# (12 of 16) and its text | image slab (28 of 32)
+GATHER_LAYOUTS = {"drin": ((1536, 2), (2048, 1), (2048, 1)), "ghmfc_text": ((1536, 2),),
+                  "ghmfc_text_image": ((1536, 2), (2048, 1))}
+
+
 def phase_gather(torch, gather):
-    """Kernel 2 against gather_dequant_plain, both on the card, WikiMEL widths."""
-    chunks = ((1536, 2), (2048, 1), (2048, 1))
-    _, _, m = gather._slot_subrows(chunks)
+    """Kernel 2 against gather_dequant_plain, both on the card, at each
+    packed layout of GATHER_LAYOUTS; the DRIN layout's numbers lead."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    table = torch.randint(-127, 128, (N_ENTITIES, m, 128), generator=g, device="cuda",
-                          dtype=torch.int8)
-    scales = torch.rand((N_ENTITIES, m), generator=g, device="cuda") * 0.05 + 1e-3
     rows = torch.randint(0, N_ENTITIES, (64, 101), generator=g, device="cuda", dtype=torch.int32)
     rows[0, :4] = torch.tensor([-1, -N_ENTITIES, N_ENTITIES, N_ENTITIES + 99], dtype=torch.int32)
     rows[1, :2] = torch.tensor([-5 * N_ENTITIES, 2**31 - 1], dtype=torch.int32)
-    err = 0.0
-    for dt in (torch.bfloat16, torch.float32):
-        got = gather.gather_dequant(table, scales, rows, chunks, dt)
-        want = gather.gather_dequant_plain(table, scales, rows, chunks, dt)
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            assert a.shape == b.shape == (64, 101, a.shape[-1]), (a.shape, b.shape)
-            assert torch.equal(a, b), f"gather_dequant {dt}: kernel != plain"
-            err = max(err, (a.float() - b.float()).abs().max().item())
-    empty = gather.gather_dequant(table, scales, rows[:, :0], chunks, torch.bfloat16)
-    assert [tuple(e.shape) for e in empty] == [(64, 0, w) for w, _ in chunks]
-    try:
-        gather.gather_dequant(table, scales, rows.float(), chunks, torch.bfloat16)
-        raise AssertionError("float rows were accepted")
-    except TypeError:
-        pass
-    ms = cuda_ms(lambda: gather.gather_dequant(table, scales, rows, chunks, torch.bfloat16))
-    plain_ms = cuda_ms(lambda: gather.gather_dequant_plain(table, scales, rows, chunks,
-                                                           torch.bfloat16))
-    # bytes this run's rows need: each gathered packed row, its scales and
-    # its index read once, each output written once; the dequantisation's
-    # one multiply per element is far under the byte time
-    out = gather.gather_dequant(table, scales, rows, chunks, torch.bfloat16)
-    n_rows = rows.numel()
-    moved = n_rows * (m * 128 + m * 4 + 4) + nbytes(*out)
-    bound_ms, bound_by = bound(moved, sum(o.numel() for o in out))
-    print(f"[gather_dequant] N={N_ENTITIES} rows=[64,101] m={m}: bit-equal to plain "
-          f"(bf16, f32, bad indices, R=0); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB)")
-    del table, scales
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    results = {}
+    for name, chunks in GATHER_LAYOUTS.items():
+        _, m_data, m = gather._slot_subrows(chunks)
+        table = torch.randint(-127, 128, (N_ENTITIES, m, 128), generator=g, device="cuda",
+                              dtype=torch.int8)
+        scales = torch.rand((N_ENTITIES, m), generator=g, device="cuda") * 0.05 + 1e-3
+        err = 0.0
+        for dt in (torch.bfloat16, torch.float32):
+            got = gather.gather_dequant(table, scales, rows, chunks, dt)
+            want = gather.gather_dequant_plain(table, scales, rows, chunks, dt)
+            torch.cuda.synchronize()
+            assert len(got) == len(want) == len(chunks)
+            for a, b, (w, _) in zip(got, want, chunks):
+                assert a.shape == b.shape == (64, 101, w), (name, a.shape, b.shape)
+                assert torch.equal(a, b), f"gather_dequant {name} {dt}: kernel != plain"
+                err = max(err, (a.float() - b.float()).abs().max().item())
+        empty = gather.gather_dequant(table, scales, rows[:, :0], chunks, torch.bfloat16)
+        assert [tuple(e.shape) for e in empty] == [(64, 0, w) for w, _ in chunks]
+        try:
+            gather.gather_dequant(table, scales, rows.float(), chunks, torch.bfloat16)
+            raise AssertionError("float rows were accepted")
+        except TypeError:
+            pass
+        call = lambda: gather.gather_dequant(table, scales, rows, chunks, torch.bfloat16)
+        ms = cuda_ms(call)
+        dev_ms = device_ms(call)
+        plain_ms = cuda_ms(lambda: gather.gather_dequant_plain(table, scales, rows, chunks,
+                                                               torch.bfloat16))
+        # bytes this run's rows need: each gathered row's data sub-rows (the
+        # slab's pad sub-rows are never read), their scales and the row's
+        # index read once, each output written once; the dequantisation's
+        # one multiply per element is far under the byte time
+        out = call()
+        moved = rows.numel() * (m_data * 128 + m_data * 4 + 4) + nbytes(*out)
+        bound_ms, bound_by = bound(moved, sum(o.numel() for o in out))
+        print(f"[gather_dequant] {name} chunks={chunks} m={m} ({m_data} data sub-rows), "
+              f"N={N_ENTITIES} rows=[64,101]: bit-equal to plain (bf16, f32, bad indices, R=0); "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB)")
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms}
+        del table, scales, out
+    return dict(results["drin"], layouts=results)
 
 
 def _gcn_inputs(torch, B, C, D, dt, seed):
@@ -818,6 +875,19 @@ def phase_vertex_update(torch, vu):
     return result
 
 
+def post_rank(np, url, fields, feats, k=5, timeout=600):
+    """POST /rank with the named feature fields; (top-k scores, indices)."""
+    from drin_tpu_torch.serve import _encode_arrays
+
+    body = json.dumps({"features": _encode_arrays(dict(zip(fields, feats))), "k": k})
+    req = urllib.request.Request(url + "/rank", data=body.encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        assert resp.status == 200, resp.status
+        out = json.loads(resp.read())
+    return np.asarray(out["scores"]), np.asarray(out["indices"])
+
+
 def _tables(np, cfg, n):
     rng = np.random.default_rng(SEED)
     D, Dr, Te = cfg.bert_embed_dim, cfg.resnet_embed_dim, cfg.entity_object_topk
@@ -849,7 +919,7 @@ def phase_slice(torch, np, gather, gcn):
     """The rank stage through its entry points, at the full WikiMEL width."""
     from drin_tpu_torch import make_config
     from drin_tpu_torch.models.drin import DRIN
-    from drin_tpu_torch.serve import Ranker, _encode_arrays, rank_feat_fields, serve_http
+    from drin_tpu_torch.serve import Ranker, rank_feat_fields, serve_http
 
     cfg = make_config("drin", "wikimel", compute_dtype="bfloat16")
     weights = DRIN(cfg, generator=torch.Generator().manual_seed(SEED)).state_dict()
@@ -867,14 +937,7 @@ def phase_slice(torch, np, gather, gcn):
     server = serve_http(ranker, port=0, feat_fields=fields)
     url = f"http://127.0.0.1:{server.server_address[1]}"
 
-    def post(feats, k=5):
-        body = json.dumps({"features": _encode_arrays(dict(zip(fields, feats))), "k": k})
-        req = urllib.request.Request(url + "/rank", data=body.encode(),
-                                     headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=300) as resp:
-            assert resp.status == 200, resp.status
-            out = json.loads(resp.read())
-        return np.asarray(out["scores"]), np.asarray(out["indices"])
+    post = lambda feats, k=5: post_rank(np, url, fields, feats, k)
 
     try:
         with urllib.request.urlopen(url + "/health", timeout=60) as resp:
@@ -967,7 +1030,7 @@ def phase_online(torch, np, attn):
     from drin_tpu_torch import make_config
     from drin_tpu_torch.data.online import bucket_trim
     from drin_tpu_torch.models import get_model
-    from drin_tpu_torch.serve import Ranker, _encode_arrays, rank_feat_fields, serve_http
+    from drin_tpu_torch.serve import Ranker, rank_feat_fields, serve_http
 
     cfg = make_config("ghmfc", "wikimel", online_bert=True, finetune_bert=False,
                       compute_dtype="bfloat16")
@@ -995,14 +1058,7 @@ def phase_online(torch, np, attn):
     server = serve_http(ranker, port=0, feat_fields=fields)
     url = f"http://127.0.0.1:{server.server_address[1]}"
 
-    def post(feats, k=5):
-        body = json.dumps({"features": _encode_arrays(dict(zip(fields, feats))), "k": k})
-        req = urllib.request.Request(url + "/rank", data=body.encode(),
-                                     headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=600) as resp:
-            assert resp.status == 200, resp.status
-            out = json.loads(resp.read())
-        return np.asarray(out["scores"]), np.asarray(out["indices"])
+    post = lambda feats, k=5: post_rank(np, url, fields, feats, k)
 
     try:
         # the main path, counted: /rank at B=1 and B=8
@@ -1498,6 +1554,428 @@ def phase_train_drin(torch, np, gcn, vu):
     return {"gcn_layer": launches}, {"step_ms": step_ms}
 
 
+def launch_counts(kernels) -> dict:
+    """Every kernel wrapper's launch count; ``kernels`` = (gather, gcn,
+    attention, vertex_update) modules."""
+    gather, gcn, attn, vu = kernels
+    return {"gather_dequant": gather.launches, "gcn_layer": gcn.launches,
+            "attention": attn.launches, "attention_bwd": attn.bwd_launches,
+            "attention_bwd_nomask": attn.bwd_nomask_launches, "vertex_update": vu.launches}
+
+
+def zero_counts(kernels) -> None:
+    gather, gcn, attn, vu = kernels
+    gather.launches = gcn.launches = attn.launches = vu.launches = 0
+    attn.bwd_launches = attn.bwd_nomask_launches = 0
+
+
+def _text_tables(np, cfg, n):
+    """The pooled (projected, CLS) text table alone: GHMFC reads no other."""
+    rng = np.random.default_rng(SEED + 1)
+    return {"entity_text_feature": rng.standard_normal((n, 2, cfg.bert_embed_dim),
+                                                       dtype=np.float32)}
+
+
+def _baseline_rows(np, cfg, B, seed):
+    """A BaselineRowsBatch's five mention fields and [B, C] table rows."""
+    feats = _rows_batch(np, cfg, B, seed)
+    return feats[:5] + (feats[7],)
+
+
+def _wikidiverse_batch(np, cfg, B, seed):
+    """A WikiDiverse baseline batch (answer stripped): 128-token sentences
+    of 6 to 127 tokens, the first row with no left context (start = 1), the
+    last with no right one (end = its length), 49 image regions, C
+    mention-aligned candidate rows with their images."""
+    rng = np.random.default_rng(seed)
+    C, L, D = cfg.num_candidates_model, cfg.max_mention_sentence_len, cfg.bert_embed_dim
+    Dr = cfg.resnet_embed_dim
+    lens = rng.integers(6, L, size=B)
+    start = rng.integers(1, 4, size=B)
+    end = start + rng.integers(1, 3, size=B)
+    start[0], end[-1] = 1, lens[-1]
+    return (rng.standard_normal((B, L, D), dtype=np.float32),
+            (np.arange(L)[None] < lens[:, None]).astype(np.int64),
+            start.astype(np.int64), end.astype(np.int64),
+            rng.standard_normal((B, cfg.resnet_num_region, Dr), dtype=np.float32),
+            rng.standard_normal((B, C, D), dtype=np.float32), np.zeros((B,), np.int64),
+            rng.standard_normal((B, C, Dr), dtype=np.float32))
+
+
+def _split(np, values):
+    """A threshold in the widest gap between the middle half of ``values``:
+    both sides are taken, and no value lies near the threshold."""
+    v = np.sort(np.asarray(values, np.float64))
+    lo, hi = len(v) // 4, 3 * len(v) // 4
+    i = lo + int(np.argmax(np.diff(v[lo:hi + 1])))
+    return float((v[i] + v[i + 1]) / 2), float(v[i + 1] - v[i])
+
+
+def melhi_thresholds(torch, np, cfg, weights, batch):
+    """``cfg`` with thres_tmim and thres_imie set inside the batch's own
+    cosines (from the f32 model on the CPU), so that both gate states occur:
+    at random weights both cosines sit near 0, under the default 0.3."""
+    from drin_tpu_torch.models.melhi import MELHI
+
+    model = MELHI(cfg.replace(compute_dtype="float32"))
+    model.load_state_dict(weights)
+    with torch.inference_mode():
+        t = [torch.from_numpy(batch[i]) for i in (0, 4, 7)]
+        sim_tmim, sim_imie, _ = model.similarities(*t)
+    (tmim, gap_t), (imie, gap_i) = _split(np, sim_tmim.numpy()), _split(np, sim_imie.amax(-1).numpy())
+    print(f"[melhi] thresholds from the batch's own cosines: thres_tmim={tmim:.5f} (gap "
+          f"{gap_t:.2g}), thres_imie={imie:.5f} (gap {gap_i:.2g}); defaults 0.3 / 0.3 would "
+          f"close every gate (largest cosines {sim_tmim.max():.3f} / {sim_imie.max():.3f})")
+    return cfg.replace(thres_tmim=tmim, thres_imie=imie)
+
+
+def phase_serve_ghmfc(torch, np, kernels):
+    """Offline GHMFC (WikiMEL, multimodal-bi fusion) through Ranker and
+    serve_http at full width over a fused int8 text-only store: the rank
+    stage reads its candidate rows through kernel 2; then the entity
+    precompute and rank_rows."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.device_store import BaselineRowsBatch
+    from drin_tpu_torch.models.ghmfc import GHMFC
+    from drin_tpu_torch.serve import Ranker, rank_feat_fields, serve_http
+
+    gather = kernels[0]
+    cfg = make_config("ghmfc", "wikimel", compute_dtype="bfloat16")
+    assert (cfg.bert_embed_dim, cfg.resnet_embed_dim, cfg.max_mention_sentence_len,
+            cfg.resnet_num_region, cfg.num_candidates_model) == (768, 2048, 128, 49, 101)
+    assert (cfg.mention_final_layer_name, cfg.mention_multimodal_attention) == ("multimodal", "bi")
+    weights = GHMFC(cfg, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    tables = _text_tables(np, cfg, N_ENTITIES)
+    t0 = time.perf_counter()
+    ranker = Ranker(cfg, weights, tables, device="cuda", quantize_store=True, fused_gather=True)
+    torch.cuda.synchronize()
+    store = ranker.store
+    assert store.include == ("text",) and store._chunks == GATHER_LAYOUTS["ghmfc_text"]
+    print(f"[serve_ghmfc] Ranker(ghmfc, quantize_store, fused_gather) on cuda: text-only store "
+          f"N={store.n_rows}, packed {tuple(store.packed.shape)}, resident "
+          f"{store.nbytes / 2**20:.1f} MiB, built in {time.perf_counter() - t0:.1f} s")
+    reference = Ranker(cfg.replace(compute_dtype="float32"), weights, tables, device="cpu",
+                       quantize_store=True, fused_gather=True)
+    fields = rank_feat_fields(ranker)
+    assert fields == list(BaselineRowsBatch._fields[:-1]), fields
+    batches = {B: _baseline_rows(np, cfg, B, SEED + 40 + B) for B in (1, 64)}
+    server = serve_http(ranker, port=0, feat_fields=fields)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        # the main path, counted: /rank at B=1, Ranker.rank at B=64
+        zero_counts(kernels)
+        served = {1: post_rank(np, url, fields, batches[1]), 64: ranker.rank(batches[64], k=5)}
+        torch.cuda.synchronize()
+        counts = launch_counts(kernels)
+        print(f"[serve_ghmfc] launches over {len(served)} ranks: {counts}")
+        assert counts["gather_dequant"] == sum(counts.values()) == 2, counts
+        score_err = 0.0
+        for B, (s, i) in served.items():
+            assert s.shape == i.shape == (B, 5) and np.isfinite(s).all(), (B, s.shape)
+            full, want = ranker.score(batches[B]), reference.score(batches[B])
+            assert full.shape == want.shape == (B, cfg.num_candidates_model)
+            np.testing.assert_allclose(s, np.take_along_axis(full, i, -1), rtol=0, atol=1e-5)
+            err, spread = float(np.abs(full - want).max()), float(want.std(-1).min())
+            assert err <= GHMFC_SCORE_ATOL < spread, (B, err, GHMFC_SCORE_ATOL, spread)
+            score_err = max(score_err, err)
+            print(f"[serve_ghmfc] B={B}: top-5 {s.shape}, finite; scores vs the f32 CPU forward "
+                  f"over the same int8 rows: max abs err {err:.4g} (tol {GHMFC_SCORE_ATOL}, under "
+                  f"the candidates' spread {spread:.3g})")
+        ms_http = host_ms(lambda: post_rank(np, url, fields, batches[1]))
+        ms_b1 = host_ms(lambda: ranker.rank(batches[1], k=5))
+        ms_b64 = host_ms(lambda: ranker.rank(batches[64], k=5))
+        print(f"[serve_ghmfc] /rank B=1: {ms_http:.3f} ms per request (HTTP, median of 10); "
+              f"Ranker.rank B=1: {ms_b1:.3f} ms; Ranker.rank B=64: {ms_b64:.3f} ms, "
+              f"{64 * cfg.num_candidates_model / (ms_b64 / 1e3):.0f} pairs/s")
+        profile_rank(torch, ranker, batches[64], "offline GHMFC B=64")
+
+        # the entity precompute: the table encoded once, then mention
+        # encoding, a row gather and a cosine per request; no kernel 2 launch
+        t0 = time.perf_counter()
+        reprs = ranker.precompute_entity_reprs()
+        pre_s = time.perf_counter() - t0
+        assert reprs.shape == (N_ENTITIES, cfg.entity_final_output_dim) and np.isfinite(reprs).all()
+        before = gather.launches
+        rs, ri = ranker.rank_rows(batches[64][:5], batches[64][5], k=5)
+        assert gather.launches == before, "rank_rows gathered through kernel 2"
+        full = ranker.score(batches[64])
+        picked = np.take_along_axis(full, ri, -1)  # rank_rows' top-5 as the full forward scores them
+        rr_err = float(np.abs(rs - picked).max())
+        kth = -np.sort(-full, axis=-1)[:, 4:5]  # the full forward's 5th best
+        short = float((kth - picked).max())
+        same = int((np.sort(ri, -1) == np.sort(ranker.rank(batches[64], k=5)[1], -1)).all(-1).sum())
+        ms_rr = host_ms(lambda: ranker.rank_rows(batches[64][:5], batches[64][5], k=5))
+        print(f"[serve_ghmfc] precompute_entity_reprs: {N_ENTITIES} rows in {pre_s:.2f} s; "
+              f"rank_rows B=64 vs rank's full forward: max abs diff {rr_err:.3g} (tol "
+              f"{RANK_ROWS_ATOL}); its top-5 fall at most {short:.3g} under the full forward's 5th "
+              f"best, and equal rank's top-5 sets on {same} of 64 mentions (the rest differ by "
+              f"ties); rank_rows B=64 {ms_rr:.3f} ms against rank {ms_b64:.3f} ms")
+        assert rr_err <= RANK_ROWS_ATOL and short <= RANK_ROWS_ATOL, (rr_err, short)
+        profile_call(torch, lambda: ranker.rank_rows(batches[64][:5], batches[64][5], k=5),
+                     "offline GHMFC B=64 rank_rows")
+    finally:
+        server.shutdown()
+        server.server_close()
+    return {"gather_dequant": counts["gather_dequant"]}, score_err
+
+
+def phase_transformer(torch, np, kernels):
+    """One offline GHMFC forward at full width with the transformer mention
+    layer (8 post-LN layers, 8 heads, FFN 512) in bf16 on the card against
+    f32 on the CPU; the check must see the padding mask left out."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.models.ghmfc import GHMFC
+    from drin_tpu_torch.serve import Ranker
+
+    cfg = make_config("ghmfc", "wikimel", compute_dtype="bfloat16",
+                      mention_final_layer_name="transformer")
+    assert (cfg.transformer_num_layers, cfg.transformer_num_heads,
+            cfg.transformer_ffn_hidden_size) == (8, 8, 512)
+    weights = GHMFC(cfg, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    ranker = Ranker(cfg, weights, device="cuda")
+    reference = Ranker(cfg.replace(compute_dtype="float32"), weights, device="cpu")
+    B, C = 64, cfg.num_candidates_model
+    rng = np.random.default_rng(SEED + 50)
+    feats = _baseline_rows(np, cfg, B, SEED + 51)[:5] + (
+        rng.standard_normal((B, C, 2, cfg.bert_embed_dim), dtype=np.float32),
+        np.zeros((B,), np.int64), np.zeros((B, C, 1), np.float32))
+    zero_counts(kernels)
+    got = ranker.score(feats)
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels)
+    assert not any(counts.values()), counts
+    want = reference.score(feats)
+    err, spread = float(np.abs(got - want).max()), float(want.std(-1).min())
+    unmasked = list(feats)
+    unmasked[1] = np.ones_like(feats[1])
+    fault = float(np.abs(ranker.score(unmasked) - want).max())
+    print(f"[transformer] GHMFC with the transformer mention layer, B={B}: bf16 scores vs the "
+          f"f32 CPU forward: max abs err {err:.4g} (tol {TRANSFORMER_SCORE_ATOL}, under the "
+          f"candidates' spread {spread:.3g}); with the padding mask left out: {fault:.4g}")
+    assert np.isfinite(got).all() and err <= TRANSFORMER_SCORE_ATOL < spread, (err, spread)
+    assert fault > TRANSFORMER_SCORE_ATOL, "the transformer check cannot see the mask left out"
+    return {}, err
+
+
+def phase_serve_melhi(torch, np, kernels):
+    """MELHI (WikiDiverse, C=11) through Ranker and serve_http at full width:
+    the LSTM over 2B context rows of 128 steps, 2304 wide.  Thresholds are
+    set inside the run's own cosines so that both gate states occur; the
+    gates of the bf16 card run and the f32 reference are compared apart, and
+    the scores are held on the mentions whose gates agree."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.dataset import BaselineBatch
+    from drin_tpu_torch.models.melhi import MELHI
+    from drin_tpu_torch.serve import Ranker, rank_feat_fields, serve_http
+
+    cfg = make_config("melhi", "wikidiverse", compute_dtype="bfloat16")
+    assert (cfg.bert_embed_dim, cfg.resnet_embed_dim, cfg.max_mention_sentence_len,
+            cfg.num_candidates_model) == (768, 2048, 128, 11)
+    weights = MELHI(cfg, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    batches = {B: _wikidiverse_batch(np, cfg, B, SEED + 60 + B) for B in (1, 64)}
+    cfg = melhi_thresholds(torch, np, cfg, weights, batches[64])
+    ranker = Ranker(cfg, weights, device="cuda")
+    reference = Ranker(cfg.replace(compute_dtype="float32"), weights, device="cpu")
+    fields = rank_feat_fields(ranker)
+    assert ranker.store is None and fields == list(BaselineBatch._fields[:-1])
+    server = serve_http(ranker, port=0, feat_fields=fields)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        zero_counts(kernels)
+        served = {1: post_rank(np, url, fields, batches[1]), 64: ranker.rank(batches[64], k=5)}
+        torch.cuda.synchronize()
+        counts = launch_counts(kernels)
+        assert not any(counts.values()), counts
+        for B, (s, i) in served.items():
+            assert s.shape == i.shape == (B, 5) and np.isfinite(s).all(), (B, s.shape)
+            assert ((0 <= i) & (i < cfg.num_candidates_model)).all()
+        batch = batches[64]
+        with torch.inference_mode():
+            card_gate = ranker.model.gates(ranker._prepare(batch)).cpu().numpy()
+            ref_gate = reference.model.gates(reference._prepare(batch)).numpy()
+        assert ref_gate.any() and not ref_gate.all(), "the f32 run shows only one gate state"
+        assert card_gate.any() and not card_gate.all(), "the card run shows only one gate state"
+        agree = card_gate == ref_gate
+        full, want = ranker.score(batch), reference.score(batch)
+        np.testing.assert_allclose(served[64][0], np.take_along_axis(full, served[64][1], -1),
+                                   rtol=0, atol=1e-5)
+        err = float(np.abs(full - want)[agree].max())
+        spread = float(want.std(-1).min())
+        # the reach of the limit: the LSTM's input and forget gates swapped,
+        # and each context read one step short
+        lstm = ranker.model.mention_encoder.mention_lstm
+        sd = {k: v.clone() for k, v in lstm.state_dict().items()}
+        H = lstm.hidden
+        lstm.load_state_dict({k: torch.cat([v[H:2 * H], v[:H], v[2 * H:]]) for k, v in sd.items()})
+        swapped = float(np.abs(ranker.score(batch) - want)[agree].max())
+        lstm.load_state_dict(sd)
+        forward = lstm.forward
+        lstm.forward = lambda x, lengths: forward(x, lengths - 1)
+        try:
+            short = float(np.abs(ranker.score(batch) - want)[agree].max())
+        finally:
+            del lstm.forward
+        print(f"[serve_melhi] B=64: gates open on the card {int(card_gate.sum())}, in the f32 "
+              f"reference {int(ref_gate.sum())}, flipped {int((~agree).sum())}; scores on the "
+              f"{int(agree.sum())} agreeing mentions vs the f32 CPU forward: max abs err "
+              f"{err:.4g} (tol {MELHI_SCORE_ATOL}, candidates' spread >= {spread:.3g}); planted "
+              f"faults: i/f gates swapped {swapped:.4g}, last step one short {short:.4g}")
+        assert err <= MELHI_SCORE_ATOL, err
+        assert swapped > MELHI_SCORE_ATOL and short > MELHI_SCORE_ATOL, (swapped, short)
+        # bf16 error of the LSTM alone against f32 on the card, by length
+        x = torch.randn(64, 128, lstm.weight_ih_l0.shape[1], device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED))
+        lstm32 = type(lstm)(x.shape[-1], H).cuda()
+        lstm32.load_state_dict({k: v.float() for k, v in sd.items()})
+        by_len = {}
+        with torch.inference_mode():
+            for n in (1, 8, 32, 128):
+                lens = torch.full((64,), n, device="cuda")
+                ref_h = lstm32(x, lens)
+                by_len[n] = float((lstm(x.to(lstm.weight_ih_l0.dtype), lens).float()
+                                   - ref_h).abs().max() / ref_h.abs().max())
+        print(f"[serve_melhi] the LSTM alone, bf16 vs f32 on the card, max |h err| / max |h| by "
+              f"length: {by_len}")
+        ms_http = host_ms(lambda: post_rank(np, url, fields, batches[1]))
+        ms_b1 = host_ms(lambda: ranker.rank(batches[1], k=5))
+        ms_b64 = host_ms(lambda: ranker.rank(batches[64], k=5))
+        print(f"[serve_melhi] /rank B=1: {ms_http:.3f} ms per request (HTTP, median of 10); "
+              f"Ranker.rank B=1: {ms_b1:.3f} ms; Ranker.rank B=64: {ms_b64:.3f} ms, "
+              f"{64 * cfg.num_candidates_model / (ms_b64 / 1e3):.0f} pairs/s")
+        profile_rank(torch, ranker, batches[64], "MELHI B=64", reps=3)
+    finally:
+        server.shutdown()
+        server.server_close()
+    return {}, err
+
+
+def _train_baseline(torch, np, kernels, tag, cfg, build, rows, feats_fn_for, fault_module):
+    """Train steps of an offline baseline through Trainer / build_step_fns
+    at B = cfg.batch_size.  First-step gradients (dropout off) per tensor
+    against the f32 CPU port: the same model in float32 on the card within
+    summation order, the bf16 body within its rounding, and one gradient
+    dropped in the backward (the output of ``fault_module``) outside both;
+    the first loss within TRAIN_LOSS_RTOL.  Then five steps on the repeated
+    batch, whose eval loss must fall."""
+    import copy
+
+    from drin_tpu_torch.train import metrics as M
+    from drin_tpu_torch.train.trainer import Trainer
+
+    B, n_steps = cfg.batch_size, 5
+    model = build(cfg)
+    f32 = cfg.replace(compute_dtype="float32")
+    copies = [copy.deepcopy(model), copy.deepcopy(model)]
+    make = lambda c, m, device: Trainer(c, m, device=device, feats_fn=feats_fn_for(c, device),
+                                        log=lambda *a: None)
+    trainer, card32, cpu = make(cfg, model, "cuda"), make(f32, copies[0], "cuda"), \
+        make(f32, copies[1], "cpu")
+    ones = np.ones((B,), np.float32)
+    batch, valid = trainer._put(rows, ones)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[{tag}] Trainer({cfg.model_type}, {cfg.dataset_name}) on cuda: {n_params / 1e6:.2f} M "
+          f"float32 master parameters, body in {cfg.compute_dtype}, B={B}")
+
+    def grads(tr):
+        b, v = tr._put(rows, ones)
+        tr.state.model.zero_grad(set_to_none=True)
+        loss, _, _ = tr.fns.loss_and_metrics(b, v, M.init_state(cfg.metrics_topk, tr.device))
+        loss.backward()
+        got = {n: p.grad.float().cpu() for n, p in tr.state.model.named_parameters()
+               if p.grad is not None}
+        tr.state.model.zero_grad(set_to_none=True)
+        return float(loss.detach()), got
+
+    def drop_grad(module, args, out):  # no gradient flows back through the output
+        out.register_hook(torch.zeros_like)
+
+    (l_cpu, g_cpu), (l_32, g_32), (l_card, g_card) = grads(cpu), grads(card32), grads(trainer)
+    dropped = trainer.state.model.get_submodule(fault_module).register_forward_hook(drop_grad)
+    try:
+        _, g_fault = grads(trainer)
+    finally:
+        dropped.remove()
+    del card32, cpu, copies
+    assert set(g_card) == set(g_32) == set(g_cpu) and len(g_cpu) >= 4, sorted(g_card)
+    rel = lambda g: {n: float((g[n] - w).norm() / w.norm().clamp_min(1e-30))
+                     for n, w in g_cpu.items()}
+    largest = lambda r: [(n, float(f"{r[n]:.3g}")) for n in sorted(r, key=r.get, reverse=True)[:3]]
+    rel_32, rel_c, rel_f = rel(g_32), rel(g_card), rel(g_fault)
+    worst_f = max(rel_f, key=rel_f.get)
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    print(f"[{tag}] first-step loss {l_card:.6f} (f32 on the card {l_32:.6f}, f32 CPU port "
+          f"{l_cpu:.6f}: relative error {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); gradients "
+          f"(dropout off) vs the f32 CPU port, relative L2 per tensor ({len(g_cpu)} tensors), the "
+          f"largest: f32 on the card {largest(rel_32)} (limit {TRAIN_BASELINE_F32_GRAD_REL}), "
+          f"bf16 {largest(rel_c)} (limit {TRAIN_BASELINE_BF16_GRAD_REL}); with the gradient "
+          f"through {fault_module} dropped: {worst_f} {rel_f[worst_f]:.3g}")
+    assert all(torch.isfinite(g).all() for g in g_card.values())
+    assert max(rel_32.values()) <= TRAIN_BASELINE_F32_GRAD_REL, largest(rel_32)
+    assert max(rel_c.values()) <= TRAIN_BASELINE_BF16_GRAD_REL, largest(rel_c)
+    assert rel_f[worst_f] > TRAIN_BASELINE_BF16_GRAD_REL, "the check cannot see a dropped gradient"
+    assert loss_err <= TRAIN_LOSS_RTOL, loss_err
+    del g_cpu, g_32, g_card, g_fault
+
+    ev_before = float(trainer.fns.eval_step(batch, valid, M.init_state(cfg.metrics_topk, "cuda"))[0])
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    losses, times, mstate = _run_steps(torch, trainer, batch, valid, n_steps)
+    ev_loss, mstate, scores = trainer.fns.eval_step(batch, valid, mstate)
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert not any(counts.values()), counts
+    assert np.isfinite(losses).all() and float(ev_loss) < ev_before, (ev_before, float(ev_loss), losses)
+    assert tuple(scores.shape) == (B, cfg.num_candidates_model) and torch.isfinite(scores).all()
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    step_ms = statistics.median(times[1:])
+    print(f"[{tag}] {n_steps} train steps + 1 eval step, no kernel launched ({counts}): train "
+          f"losses {[round(x, 5) for x in losses]}, eval loss {ev_before:.5f} before and "
+          f"{float(ev_loss):.5f} after; {step_ms:.2f} ms per step (median of {n_steps - 1}; the "
+          f"first {times[0]:.1f} ms), {B * cfg.num_candidates_model / (step_ms / 1e3):.0f} "
+          f"pairs/s, peak memory {peak:.2f} GiB")
+    mstate0 = M.init_state(cfg.metrics_topk, "cuda")
+    profile_call(torch, lambda: trainer.fns.train_step(trainer.state, batch, valid, mstate0),
+                 f"{tag} train step B={B}", reps=3)
+    return {}, {"step_ms": step_ms, "peak_gib": peak}
+
+
+def phase_train_ghmfc(torch, np, kernels):
+    """Offline GHMFC trained over the float device store (text only, rows
+    gathered inside the step) at B=64, WikiMEL widths."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.device_store import DeviceEntityStore, include_for
+    from drin_tpu_torch.models.ghmfc import GHMFC
+
+    cfg = make_config("ghmfc", "wikimel", compute_dtype="bfloat16", batch_size=64)
+    tables = _text_tables(np, cfg, N_ENTITIES)
+    rows = _baseline_rows(np, cfg, 64, SEED + 70) + (_onehot_answers(np, cfg, 64, SEED + 71),)
+
+    def feats_fn_for(c, device):
+        store = DeviceEntityStore(c, tables, device=device, include=include_for("baseline"))
+        assert store.include == ("text",) and not store.quantized
+        return store.baseline_feats_fn()
+
+    build = lambda c: GHMFC(c, generator=torch.Generator().manual_seed(SEED))
+    return _train_baseline(torch, np, kernels, "train_ghmfc", cfg, build, rows, feats_fn_for,
+                           "entity_encoder.final_layer")
+
+
+def phase_train_melhi(torch, np, kernels):
+    """MELHI trained on the WikiDiverse baseline batch at B=64, full width,
+    thresholds inside the batch's cosines so both gate states train."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.models.melhi import MELHI
+
+    cfg = make_config("melhi", "wikidiverse", compute_dtype="bfloat16", batch_size=64)
+    feats = _wikidiverse_batch(np, cfg, 64, SEED + 80)
+    build = lambda c: MELHI(c, generator=torch.Generator().manual_seed(SEED))
+    cfg = melhi_thresholds(torch, np, cfg, build(cfg).state_dict(), feats)
+    rows = feats + (_onehot_answers(np, cfg, 64, SEED + 81),)
+    return _train_baseline(torch, np, kernels, "train_melhi", cfg, build, rows,
+                           lambda c, device: None, "mention_encoder.mention_lstm")
+
+
 def profile_rank(torch, ranker, feats, label: str, reps: int = 5):
     """Where a rank's time goes: host-side input preparation (numpy ->
     device copy and cast), device time by kernel and the device's idle
@@ -1587,21 +2065,33 @@ def main() -> int:
     measured.update(phase_attention_bwd(torch, np, attn))
     # each main path is driven with its kernels' counts set to 0 just before
     # and read just after; a kernel of a path that the path never launched fails
+    mods = (gather, gcn, attn, vu)
     paths = {}
     paths["serve_drin"], _ = phase_slice(torch, np, gather, gcn)
     paths["serve_online"] = {"attention": phase_online(torch, np, attn)[0]}
     paths["train_online"], _ = phase_train_online(torch, np, attn)
     paths["train_drin"], _ = phase_train_drin(torch, np, gcn, vu)
+    # the baselines: offline GHMFC reads its rows through kernel 2; MELHI, the
+    # transformer mention layer and the float store of training run no kernel
+    # (each of those phases fails if any kernel launched in it)
+    paths["serve_ghmfc"], _ = phase_serve_ghmfc(torch, np, mods)
+    paths["serve_ghmfc_transformer"], _ = phase_transformer(torch, np, mods)
+    paths["serve_melhi"], _ = phase_serve_melhi(torch, np, mods)
+    paths["train_ghmfc"], _ = phase_train_ghmfc(torch, np, mods)
+    paths["train_melhi"], _ = phase_train_melhi(torch, np, mods)
     assert {p: sorted(c) for p, c in paths.items()} == {
         "serve_drin": ["gather_dequant", "gcn_layer"], "serve_online": ["attention"],
-        "train_online": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"]}, paths
+        "train_online": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"],
+        "serve_ghmfc": ["gather_dequant"], "serve_ghmfc_transformer": [], "serve_melhi": [],
+        "train_ghmfc": [], "train_melhi": []}, paths
     for path, counts in paths.items():
         assert all(counts.values()), f"{path} never launched one of its kernels: {counts}"
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "drin_tpu"))
     assert not bad, f"the port imported {bad}"
 
     # name -> (source, the TPU kernel it replaces).  launches_by_path holds each
-    # main path's own count and launches is their sum.  The mask-free backward
+    # main path's own count and launches is their sum; gather_dequant's
+    # "layouts" holds its time at each packed layout (the DRIN one leads).  The mask-free backward
     # and the vertex update are on no model path, in this package as in the
     # JAX one (BERT always passes a mask; no model calls the vertex update):
     # their counts are 0 and the kernel phases above are what holds them

@@ -273,6 +273,22 @@ class MELFeatureDataset:
             answer=self.onehot[self.answer[idx]],
         )
 
+    def baseline_rows_batch(self, idx: np.ndarray):
+        """Offline baseline batch carrying [B, C] entity row indices instead
+        of gathered entity features (device-resident tables)."""
+        from drin_tpu_torch.data.device_store import BaselineRowsBatch
+
+        assert self.entity_row_idx is not None, "rows batches need the wikimel qid join"
+        return BaselineRowsBatch(
+            mention_text_feature=np.asarray(self.mention_text_feature[idx]),
+            mention_text_mask=np.asarray(self.mention_text_mask[idx]),
+            mention_start_pos=self.start_pos[idx] + 1,
+            mention_end_pos=self.end_pos[idx] + 1,
+            mention_image_feature=np.asarray(self.mention_image_feature[idx]),
+            entity_rows=self.entity_row_idx[idx],
+            answer=self.onehot[self.answer[idx]],
+        )
+
     def labels(self, idx: np.ndarray) -> np.ndarray:
         """Gold candidate index per mention (:func:`gold_labels`)."""
         return gold_labels(self.answer[idx], self.onehot.shape[0])
@@ -285,6 +301,7 @@ class MELFeatureDataset:
             "drin": self.drin_batch,
             "baseline": self.baseline_batch,
             "drin_rows": self.drin_rows_batch,
+            "baseline_rows": self.baseline_rows_batch,
         }[kind](idx)
 
     def batches(

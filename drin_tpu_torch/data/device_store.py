@@ -4,14 +4,17 @@ single device).
 
 The global WikiMEL entity tables are uploaded once to one device; a request
 carries only a [B, C] row-index matrix and the store rebuilds the model's
-entity features from it.  Three layouts:
+entity features from it (:meth:`DeviceEntityStore.drin_feats_fn` for DRIN,
+:meth:`DeviceEntityStore.baseline_feats_fn` for offline GHMFC).  ``include``
+names the tables the model reads (:func:`include_for`): DRIN all three,
+GHMFC the text table alone.  Three layouts:
 
   * float (bf16 or f32): the tables as they are, in the compute dtype;
   * int8 (``quantize=True``): one f32 max-abs scale per entity row (per
     (row, slot) for the pooled text table), dequantized after the gather;
-  * fused (``fused_gather=True``, with ``quantize``): the three int8 tables
-    packed into one [N, m, 128] table with the JAX package's byte layout,
-    read through the gather+dequant kernel (``ops/cuda/gather.py``).
+  * fused (``fused_gather=True``, with ``quantize``): the included int8
+    tables packed into one [N, m, 128] table with the JAX package's byte
+    layout, read through the gather+dequant kernel (``ops/cuda/gather.py``).
 
 Row indices follow the JAX package's indexing semantics in every layout:
 negatives wrap once, the rest clamp (``ops.cuda.gather.sanitize_rows``).
@@ -46,6 +49,19 @@ class DrinRowsBatch(NamedTuple):
     answer: np.ndarray
 
 
+class BaselineRowsBatch(NamedTuple):
+    """Offline baseline batch with the entity side replaced by table row
+    indices."""
+
+    mention_text_feature: np.ndarray
+    mention_text_mask: np.ndarray
+    mention_start_pos: np.ndarray
+    mention_end_pos: np.ndarray
+    mention_image_feature: np.ndarray
+    entity_rows: np.ndarray  # [B, C] int32
+    answer: np.ndarray
+
+
 def include_for(kind: str) -> tuple:
     """The entity tables a model kind reads: DRIN all three, the baselines
     only the text table."""
@@ -74,16 +90,20 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
 
 
 class DeviceEntityStore:
-    """Upload the global entity tables once to ``device``;
-    :meth:`drin_feats_fn` rebuilds the model's feature tuple from a rows
-    batch."""
+    """Upload the ``include``d global entity tables once to ``device``;
+    :meth:`drin_feats_fn` / :meth:`baseline_feats_fn` rebuild the model's
+    feature tuple from a rows batch."""
 
     def __init__(self, cfg: Config, tables: dict, *, device, dtype=None,
-                 quantize: bool = False, fused_gather: bool = False):
+                 quantize: bool = False, fused_gather: bool = False,
+                 include: tuple = ("text", "image", "obj")):
         assert cfg.entity_pooling_cached, (
             "the single-device store holds the pooled entity cache; token-level "
             "tables need the row-sharded store (ROADMAP: multi-device)")
-        self.include = include_for("drin")  # the baselines' narrowed stores are not ported
+        assert {"text"} <= set(include) <= {"text", "image", "obj"}, (
+            f"include must keep the text table, got {include}")
+        # canonical order: the fused slab's layout and _tables() are stable
+        self.include = tuple(n for n in ("text", "image", "obj") if n in include)
         self.device = torch.device(device)
         self.dtype = dt = dtype or getattr(torch, cfg.compute_dtype)
         self.quantized = bool(quantize)
@@ -125,14 +145,15 @@ class DeviceEntityStore:
                 q, s = quantize_entity_rows(x, per_slot=per_slot)
                 return put(q), put(s, cast=False)  # scales stay f32
 
-            self.text, self.text_scale = put_q(tables["entity_text_feature"], per_slot=True)
-            self.image, self.image_scale = put_q(tables["entity_image_feature"])
-            self.obj, self.obj_scale = put_q(tables["entity_object_feature"])
+            for name in self.include:
+                q, sc = put_q(tables[keys[name]], per_slot=name == "text")
+                setattr(self, name, q)
+                setattr(self, f"{name}_scale", sc)
         else:
-            self.text = put(tables["entity_text_feature"])  # [N, 2, D]
-            self.image = put(tables["entity_image_feature"])  # [N, 1, Dr]
-            self.obj = put(tables["entity_object_feature"])  # [N, Te, 1, Dr]
-        self.obj_score = put(tables["entity_object_score"])  # [N, Te]
+            for name in self.include:  # text [N, 2, D], image [N, 1, Dr], obj [N, Te, 1, Dr]
+                setattr(self, name, put(tables[keys[name]]))
+        self.obj_score = (put(tables["entity_object_score"])  # [N, Te]
+                          if "obj" in self.include else None)
         self.nbytes = sum(t.numel() * t.element_size() for t in self._tables())
 
     def _tables(self):
@@ -143,7 +164,7 @@ class DeviceEntityStore:
                   self.obj_scale, self.obj_score]
         else:
             ts = [self.text, self.image, self.obj, self.obj_score]
-        return tuple(ts)
+        return tuple(t for t in ts if t is not None)  # excluded tables are None
 
     def _qview(self, name: str, lo: int, hi: int):
         """Quantized ``(rows, scales)`` of ``table[lo:hi]`` in the per-table
@@ -188,6 +209,9 @@ class DeviceEntityStore:
         """``feats_fn(feats) -> feature tuple``: rows-batch features (the
         :class:`DrinRowsBatch` fields minus the answer, as tensors on the
         store's device) -> the 14-tensor DRIN batch."""
+        assert {"image", "obj"} <= set(self.include), (
+            "DRIN reads the entity image and object tables; this store was built "
+            f"with include={self.include} (a baseline layout)")
         dt, n = self.dtype, self.n_rows
 
         def etm_for(rows):
@@ -221,6 +245,56 @@ class DeviceEntityStore:
                 etf, eif, eof = take(self.text), take(self.image), take(self.obj)
             return (mtf, mtm, sp, ep, mif, mof, mos, etf, etm_for(rows), eif, eof,
                     take(self.obj_score), miet, mtei)
+
+        return feats_fn
+
+    def baseline_feats_fn(self):
+        """``feats_fn(feats) -> feature tuple``: rows-batch features (the
+        :class:`BaselineRowsBatch` fields minus the answer, as tensors on the
+        store's device) -> the 8-tensor offline baseline batch.  GHMFC's
+        entity tower reads the text table alone, so a text-only store fills
+        the entity-image slot with a [B, C, 1] zero placeholder; a fused
+        store reads its rows through the gather+dequant kernel."""
+        dt, n = self.dtype, self.n_rows
+        has_img = "image" in self.include
+
+        def finish(feats, rows, etf, eif):
+            mtf, mtm, sp, ep, mif = feats[:5]
+            B, C = rows.shape
+            if eif is None:  # the model never reads this slot
+                eif = torch.zeros((B, C, 1), dtype=dt, device=rows.device)
+            elif eif.ndim == 4:  # [B, C, 1, Dr] pooler rows -> [B, C, Dr]
+                eif = eif.reshape(B, C, -1)
+            etm = torch.zeros((B,), dtype=torch.int64, device=rows.device)
+            return (mtf, mtm, sp, ep, mif, etf, etm, eif)
+
+        if self.fused:
+            assert self.include in (("text",), ("text", "image")), (
+                "a fused baseline store packs the text (and image) tables only: "
+                f"an object chunk would be read and thrown away per row (include="
+                f"{self.include})")
+            chunks, tails = self._chunks, self._tails
+
+            def feats_fn(feats):
+                rows = feats[5]
+                got = gather_dequant(self.packed, self.packed_scales, rows, chunks, dt)
+                shape = tuple(rows.shape)
+                return finish(feats, rows, got[0].reshape(shape + tails[0]),
+                              got[1].reshape(shape + tails[1]) if has_img else None)
+
+            return feats_fn
+
+        def feats_fn(feats):
+            rows = feats[5]
+            shape = tuple(rows.shape)
+            flat = sanitize_rows(rows, n)
+            take = lambda t: t[flat].reshape(shape + tuple(t.shape[1:]))
+            if self.quantized:
+                etf = _dequantize(take(self.text), take(self.text_scale), dt)
+                eif = _dequantize(take(self.image), take(self.image_scale), dt) if has_img else None
+            else:
+                etf, eif = take(self.text), take(self.image) if has_img else None
+            return finish(feats, rows, etf, eif)
 
         return feats_fn
 

@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 """Model registry (port of ``drin_tpu/models/__init__.py``): DRIN, GHMFC over
-precomputed features and GHMFC with online BERT.  MELHI is not ported yet."""
+precomputed features, GHMFC with online BERT and MELHI."""
 
 from __future__ import annotations
 
@@ -41,5 +41,9 @@ def get_model(cfg: Config, generator: Optional[torch.Generator] = None,
 
         return GHMFC(cfg, generator), "baseline"
     if cfg.model_type == "melhi":
-        raise NotImplementedError("model_type='melhi' is not ported yet (ROADMAP: MELHI)")
+        if cfg.dataset_name != "wikidiverse":  # the JAX package's guard
+            raise NotImplementedError("melhi is only implemented for wikidiverse")
+        from drin_tpu_torch.models.melhi import MELHI
+
+        return MELHI(cfg, generator), "baseline"
     raise ValueError(f"unknown model_type: {cfg.model_type}")

@@ -34,9 +34,8 @@ def drin_state_dict_from_jax(params: Mapping, cfg: Config) -> Dict[str, torch.Te
     sd: Dict[str, torch.Tensor] = {}
     ve = params["vertex_encoder"]
     pre = "vertex_encoder."
-    if "mention_text_encoder" in ve and "final_layer" in ve["mention_text_encoder"]:
-        _dense(sd, pre + "mention_text_encoder.final_layer.linear",
-               ve["mention_text_encoder"]["final_layer"]["linear"]["Dense_0"])
+    if "mention_text_encoder" in ve:  # no parameters under "none"
+        _mention_encoder(sd, pre + "mention_text_encoder", ve["mention_text_encoder"], cfg)
     if "entity_text_encoder" in ve:
         _dense(sd, pre + "entity_text_encoder.final_layer",
                ve["entity_text_encoder"]["final_layer"]["Dense_0"])
@@ -110,6 +109,18 @@ def _cross_attention(sd: Dict, prefix: str, p: Mapping) -> None:
         _layernorm(sd, f"{prefix}.layernorms.{i}", p[f"ln{i}"])
 
 
+def _transformer(sd: Dict, prefix: str, p: Mapping, num_layers: int) -> None:
+    """Flax MultilayerTransformer -> the upstream ``nn.TransformerEncoder``
+    keys under ``prefix.transformer.layers.{i}``."""
+    for i in range(num_layers):
+        layer, pre = p[f"layer_{i}"], f"{prefix}.transformer.layers.{i}"
+        _mha(sd, pre + ".self_attn", layer["self_attn"])
+        for name in ("linear1", "linear2"):
+            _dense(sd, f"{pre}.{name}", layer[name])
+        for name in ("norm1", "norm2"):
+            _layernorm(sd, f"{pre}.{name}", layer[name])
+
+
 def _mention_encoder(sd: Dict, prefix: str, p: Mapping, cfg: Config) -> None:
     name = cfg.mention_final_layer_name
     if name == "linear":
@@ -122,8 +133,9 @@ def _mention_encoder(sd: Dict, prefix: str, p: Mapping, cfg: Config) -> None:
             _dense(sd, f"{pre}.{lin}", inter[lin]["Dense_0"])
     elif name == "multimodal":
         _cross_attention(sd, prefix + ".intermediate_layer", p["intermediate_layer"])
-    elif name != "none":
-        raise NotImplementedError(f"mention_final_layer_name={name!r} is not ported yet")
+    elif name == "transformer":
+        _transformer(sd, prefix + ".intermediate_layer", p["intermediate_layer"],
+                     cfg.transformer_num_layers)
 
 
 def ghmfc_state_dict_from_jax(params: Mapping, cfg: Config) -> Dict[str, torch.Tensor]:
@@ -145,4 +157,21 @@ def ghmfc_online_state_dict_from_jax(params: Mapping, cfg: Config,
     _mention_encoder(sd, "mention_encoder", params.get("mention_encoder", {}), cfg)
     if cfg.entity_final_layer_name == "linear":
         _dense(sd, "entity_final_layer", params["entity_final_layer"]["Dense_0"])
+    return sd
+
+
+def melhi_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax MELHI params -> a float32 state_dict for
+    ``drin_tpu_torch.models.melhi.MELHI(cfg)`` (the upstream names, which
+    ``drin_tpu.models.torch_import.melhi_params_from_torch`` reads back)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("image_map_text", "entity_final_map"):
+        _dense(sd, name, params[name]["Dense_0"])
+    me = params["mention_encoder"]
+    _dense(sd, "mention_encoder.mention_final_map", me["mention_final_map"]["Dense_0"])
+    lstm = me["mention_lstm"]
+    for flax_name, torch_name in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0")):
+        sd[f"mention_encoder.mention_lstm.{torch_name}"] = _t(np.asarray(lstm[flax_name]).T)
+    for flax_name, torch_name in (("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
+        sd[f"mention_encoder.mention_lstm.{torch_name}"] = _t(lstm[flax_name])
     return sd

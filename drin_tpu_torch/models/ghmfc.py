@@ -5,8 +5,7 @@ by cosine against pooled candidate entity text.
 
 :class:`MentionEncoder` and :class:`EntityEncoder` also give DRIN its text
 vertices.  :class:`GHMFC` runs over precomputed BERT features;
-:class:`GHMFCOnline` runs BERT inside the forward pass.  The ``transformer``
-mention layer is not ported yet and raises.
+:class:`GHMFCOnline` runs BERT inside the forward pass.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from torch import nn
 
 from drin_tpu_torch.common.config import Config
 from drin_tpu_torch.nn.layers import (Avg, AvgLinear, CrossAttention, Linear, MaxPool,
-                                      MultimodalFusion)
+                                      MultilayerTransformer, MultimodalFusion)
 from drin_tpu_torch.ops.core import (cosine_similarity, token_span_max, token_span_mean,
                                      unzip_entities)
 
@@ -27,8 +26,9 @@ class MentionEncoder(nn.Module):
     """Mention-side encoder over BERT features.  ``mention_final_layer_name``
     picks ``linear`` (span-average + projection), ``multimodal`` (gated
     text/image fusion when ``mention_multimodal_attention == "bi"``, else
-    text-only cross attention followed by the final representation) or
-    ``none`` (the final representation alone: max-pool or span-average)."""
+    text-only cross attention followed by the final representation),
+    ``transformer`` (the encoder stack followed by the final representation)
+    or ``none`` (the final representation alone: max-pool or span-average)."""
 
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -49,10 +49,11 @@ class MentionEncoder(nn.Module):
             self.intermediate_layer = CrossAttention(cfg.bert_embed_dim, cfg.resnet_embed_dim,
                                                      cfg.transformer_num_heads, generator,
                                                      cfg.transformer_dropout)
-        elif name != "none":
-            raise NotImplementedError(
-                f"mention_final_layer_name={name!r} is not ported yet (ROADMAP: "
-                "MultilayerTransformer); the port supports 'linear', 'multimodal' and 'none'")
+        elif name == "transformer":
+            self.intermediate_layer = MultilayerTransformer(
+                cfg.bert_embed_dim, cfg.transformer_num_layers, cfg.transformer_num_heads,
+                cfg.transformer_ffn_hidden_size, cfg.transformer_dropout,
+                cfg.transformer_ffn_activation, generator)
         self.final_repr = (MaxPool(dim=1)
                            if cfg.mention_final_representation == "max pool" else Avg())
 
@@ -68,6 +69,8 @@ class MentionEncoder(nn.Module):
         if name == "multimodal":  # text-only cross attention
             feature = self.intermediate_layer(sentence_feature, attention_mask, image_feature,
                                               None, deterministic, rng)
+        elif name == "transformer":
+            feature = self.intermediate_layer(sentence_feature, attention_mask, deterministic, rng)
         return self.final_repr(feature, begin, end)
 
 

@@ -1,7 +1,6 @@
 # -*- coding: utf-8 -*-
 """Encoder-layer library (port of ``drin_tpu/nn/layers.py``): pooling,
-attention and GHMFC's fusion.  ``TransformerEncoderLayer``,
-``MultilayerTransformer`` and ``LSTM`` are not ported yet.
+attention, the post-LN transformer encoder, GHMFC's fusion and MELHI's LSTM.
 
 Initialization follows torch defaults (Linear: U(-1/sqrt(fan_in), ..) for
 weight and bias; attention in-proj: Xavier-uniform with zero bias), drawn
@@ -157,6 +156,51 @@ class MultiheadAttention(nn.Module):
         return self.out_proj(out)
 
 
+class TransformerEncoderLayer(nn.Module):
+    """``torch.nn.TransformerEncoderLayer`` (post-LN, ``norm_first=False``,
+    batch first) written out: self-attention, dropout, add and ``norm1``;
+    ``linear1``, activation, dropout, ``linear2``, dropout, add and
+    ``norm2``.  ``key_padding_mask`` is True where a key is masked out."""
+
+    def __init__(self, embed_dim: int, num_heads: int, ffn_hidden: int, dropout: float = 0.1,
+                 activation: str = "gelu", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act, self.dropout = get_activation(activation), dropout
+        self.self_attn = MultiheadAttention(embed_dim, num_heads, generator=generator,
+                                            dropout=dropout)
+        self.linear1 = Linear(embed_dim, ffn_hidden, generator)
+        self.linear2 = Linear(ffn_hidden, embed_dim, generator)
+        self.norm1, self.norm2 = LayerNorm(embed_dim), LayerNorm(embed_dim)
+
+    def forward(self, x, key_padding_mask=None, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
+        drop = lambda t: dropout(t, self.dropout, deterministic, rng)
+        x = self.norm1(x + drop(self.self_attn(x, x, x, key_padding_mask, deterministic, rng)))
+        h = self.linear2(drop(self.act(self.linear1(x))))
+        return self.norm2(x + drop(h))
+
+
+class MultilayerTransformer(nn.Module):
+    """``num_layers`` encoder layers over BERT features with the key padding
+    mask ``mask == 0``.  The layers sit under ``transformer.layers.{i}``, the
+    upstream ``nn.TransformerEncoder``'s names."""
+
+    def __init__(self, embed_dim: int, num_layers: int, num_heads: int, ffn_hidden: int,
+                 dropout: float = 0.1, activation: str = "gelu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.transformer = nn.ModuleDict({"layers": nn.ModuleList(
+            TransformerEncoderLayer(embed_dim, num_heads, ffn_hidden, dropout, activation,
+                                    generator) for _ in range(num_layers))})
+
+    def forward(self, seq, mask, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
+        kpm = mask == 0
+        for layer in self.transformer["layers"]:
+            seq = layer(seq, kpm, deterministic, rng)
+        return seq
+
+
 class CrossAttention(nn.Module):
     """Bidirectional two-step cross-attention block: a attends to b, then
     the attended-b sequence attends back to a; four LayerNorms
@@ -213,3 +257,45 @@ class MultimodalFusion(nn.Module):
             self.score_linear(torch.cat([attended_text, attended_image], dim=1)), dim=-1)
         stacked = torch.stack([attended_text, attended_image], dim=1)  # [B, 2, D]
         return torch.einsum("bk,bkd->bd", score, stacked)
+
+
+# ---------------------------------------------------------------------------
+# LSTM (MELHI)
+
+
+class LSTM(nn.Module):
+    """Single-layer LSTM with ``torch.nn.LSTM``'s numerics and parameter
+    names (``weight_ih_l0`` [4H, In], ``weight_hh_l0`` [4H, H],
+    ``bias_ih_l0``, ``bias_hh_l0``; gates i, f, g, o), run over a padded
+    batch x [B, L, In] with per-row valid ``lengths``.  Returns the hidden
+    state at each row's last valid step: the state stops changing past
+    ``lengths``.  The carry keeps the input's dtype.  The input product of
+    all steps is one matrix product ahead of the loop, cut into steps by
+    ``unbind`` (whose backward stacks the steps' gradients once; indexing a
+    step would add a zero-filled full-size gradient per step)."""
+
+    def __init__(self, input_size: int, hidden: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden = hidden
+        bound = 1.0 / math.sqrt(hidden)
+        shapes = {"weight_ih_l0": (4 * hidden, input_size), "weight_hh_l0": (4 * hidden, hidden),
+                  "bias_ih_l0": (4 * hidden,), "bias_hh_l0": (4 * hidden,)}
+        for name, shape in shapes.items():
+            w = nn.Parameter(torch.empty(shape))
+            with torch.no_grad():
+                nn.init.uniform_(w, -bound, bound, generator=generator)
+            self.register_parameter(name, w)
+
+    def forward(self, x, lengths):
+        xs = F.linear(x, self.weight_ih_l0, self.bias_ih_l0)  # [B, L, 4H]
+        h = c = torch.zeros((x.shape[0], self.hidden), dtype=x.dtype, device=x.device)
+        for t, x_t in enumerate(xs.unbind(1)):
+            gates = x_t + h @ self.weight_hh_l0.T + self.bias_hh_l0
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h_new = torch.sigmoid(o) * torch.tanh(c_new)
+            valid = (t < lengths)[:, None]
+            h = torch.where(valid, h_new, h)
+            c = torch.where(valid, c_new, c)
+        return h

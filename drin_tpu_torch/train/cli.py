@@ -8,10 +8,12 @@ print the full config, seed, build datasets + model, then run
 
 Every config field is overridable as ``key=value``.  ``device`` (default
 ``cuda``) is explicit: ``device=cuda`` without CUDA raises, nothing falls
-back to the CPU.  Not ported yet, and refused by name: device meshes
+back to the CPU.  On WikiMEL with the pooled entity cache DRIN and offline
+GHMFC train over the device-resident entity tables (``device_entity_tables``,
+the default): each batch carries [B, C] row indices and the step gathers the
+rows on the device.  Not ported yet, and refused by name: device meshes
 (``mesh_data`` / ``mesh_model``), several processes, the raw-text online
-dataset, loading a pretrained BERT, and GHMFC over the device-resident
-entity tables.
+dataset and loading a pretrained BERT.
 """
 
 from __future__ import annotations
@@ -67,13 +69,11 @@ def main(argv=None) -> None:
     # gather on the device (data/device_store.py)
     if (cfg.device_entity_tables and cfg.dataset_name == "wikimel"
             and cfg.entity_pooling_cached):
-        if kind != "drin":
-            _not_ported("GHMFC over the device-resident entity tables (baseline_feats_fn; "
-                        "pass device_entity_tables=false)", "offline-GHMFC serving")
-        from drin_tpu_torch.data.device_store import DeviceEntityStore
+        from drin_tpu_torch.data.device_store import DeviceEntityStore, include_for
 
-        store = DeviceEntityStore(cfg, train_ds.tables, device=device)
-        feats_fn = store.drin_feats_fn()
+        # GHMFC reads the text table alone: the other tables are not uploaded
+        store = DeviceEntityStore(cfg, train_ds.tables, device=device, include=include_for(kind))
+        feats_fn = store.drin_feats_fn() if kind == "drin" else store.baseline_feats_fn()
         kind = kind + "_rows"
         print(f"device entity tables resident: {store.nbytes / 1e6:.0f} MB")
     n_params = sum(p.numel() for p in model.parameters())

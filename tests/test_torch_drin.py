@@ -52,6 +52,10 @@ CONFIGS = {
     "avg-none": ("wikidiverse", {"mention_final_layer_name": "none"}),
     "relu-tanh-3layers": ("wikimel", {"gcn_vertex_activation": "relu",
                                       "gcn_edge_activation": "tanh", "num_gcn_layers": 3}),
+    "transformer-avg": ("wikimel", {"mention_final_layer_name": "transformer",
+                                    "mention_final_representation": "avg"}),
+    "transformer-maxpool": ("wikidiverse", {"mention_final_layer_name": "transformer",
+                                            "mention_final_representation": "max pool"}),
 }
 
 
@@ -76,7 +80,8 @@ def test_drin_forward_matches_flax(name):
     if not cfg.entity_projected and cfg.gcn_edge_type == "dynamic":
         back = drin_params_from_torch({k: v.numpy() for k, v in model.state_dict().items()},
                                       cfg.num_gcn_layers,
-                                      edge_vector=cfg.gcn_edge_feature == "vector")
+                                      edge_vector=cfg.gcn_edge_feature == "vector",
+                                      transformer_num_layers=cfg.transformer_num_layers)
         assert jax.tree.structure(back) == jax.tree.structure(params)
         for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
             np.testing.assert_array_equal(a, b)
@@ -98,11 +103,16 @@ def test_upstream_parameter_names_and_seeded_init():
     assert a["gcn_layers.0.w_u.weight"].shape == (D, D)  # scalar mode: [D, D]
 
 
-@pytest.mark.parametrize("kw", [{"mention_final_layer_name": "transformer"},
-                                {"model_type": "melhi"},
-                                {"model_type": "ghmfc", "online_bert": True,
-                                 "bert_checkpoint": "some/dir"}])
+# the transformer mention layer and MELHI are ported: what get_model still
+# refuses is MELHI off WikiDiverse (as the JAX package does), a pretrained
+# BERT checkpoint (ROADMAP) and an unknown model
+@pytest.mark.parametrize("kw", [({"model_type": "melhi"}, NotImplementedError, "wikidiverse"),
+                                ({"model_type": "ghmfc", "online_bert": True,
+                                  "bert_checkpoint": "some/dir"}, NotImplementedError, "ROADMAP"),
+                                ({"model_type": "nope"}, ValueError, "unknown model_type")])
 def test_unported_branches_raise(kw):
-    cfg = tiny_config("wikimel", "drin", preprocess_dir="/tmp/unused-torch-drin").replace(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    overrides, error, match = kw
+    cfg = tiny_config("wikimel", "drin", preprocess_dir="/tmp/unused-torch-drin").replace(
+        **overrides)
+    with pytest.raises(error, match=match):
         get_model(cfg)

@@ -129,6 +129,11 @@ OFFLINE = {
     "wikidiverse-linear": ("wikidiverse", "rows", {"mention_final_layer_name": "linear"}),
     "wikimel-none-nolinear": ("wikimel", "pooled", {"mention_final_layer_name": "none",
                                                     "entity_final_layer_name": "none"}),
+    "wikimel-transformer-avg": ("wikimel", "pooled", {"mention_final_layer_name": "transformer",
+                                                      "mention_final_representation": "avg"}),
+    "wikidiverse-transformer-maxpool": ("wikidiverse", "rows", {
+        "mention_final_layer_name": "transformer", "mention_final_representation": "max pool",
+        "transformer_num_layers": 3, "transformer_ffn_activation": "relu"}),
 }
 
 
@@ -217,11 +222,18 @@ def test_get_model_registry_and_what_is_not_ported():
     assert not pinned.bert.encoder.layer[0].attention.self.takes_kernel(torch.device("cuda"), 512)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_model(cfg.replace(bert_checkpoint="some/dir"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_model(tiny_config("wikidiverse", "melhi", preprocess_dir="unused"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_model(tiny_config("wikimel", "ghmfc", preprocess_dir="unused",
-                              mention_final_layer_name="transformer"))
+    # MELHI and the transformer mention layer are ported; MELHI keeps the
+    # JAX package's WikiDiverse-only guard
+    from drin_tpu_torch.models.melhi import MELHI
+    from drin_tpu_torch.nn.layers import MultilayerTransformer
+
+    assert isinstance(get_model(tiny_config("wikidiverse", "melhi", preprocess_dir="unused"))[0],
+                      MELHI)
+    with pytest.raises(NotImplementedError, match="only implemented for wikidiverse"):
+        get_model(tiny_config("wikimel", "melhi", preprocess_dir="unused"))
+    ghmfc, _ = get_model(tiny_config("wikimel", "ghmfc", preprocess_dir="unused",
+                                     mention_final_layer_name="transformer"))
+    assert isinstance(ghmfc.mention_encoder.intermediate_layer, MultilayerTransformer)
     with pytest.raises(ValueError, match="unknown model_type"):
         get_model(cfg.replace(model_type="nope"))
 

@@ -113,3 +113,59 @@ def test_attention_init_follows_torch_and_a_seed_fixes_it():
     ref = torch.nn.MultiheadAttention(E, 2, kdim=24, vdim=24, batch_first=True)
     assert {k: v.shape for k, v in sep.state_dict().items()} == {
         k: v.shape for k, v in ref.state_dict().items()}
+
+
+def _transformer_sd(params, num_layers):
+    sd = {}
+    convert._transformer(sd, "t", params, num_layers)
+    return {key[len("t."):]: val for key, val in sd.items()}
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "masked"])
+def test_transformer_encoder_layer_matches_flax(act, masked):
+    rng = np.random.default_rng(6)
+    x, mask = _seq(rng, 3, 7, 32)
+    kpm = (mask == 0) if masked else None
+    jm = jl.TransformerEncoderLayer(32, 4, 48, 0.0, act)
+    params = _perturb_biases(_init(jm, x, kpm), 7)
+    want = jax.jit(jm.apply)({"params": params}, x, kpm)
+    tm = tl.TransformerEncoderLayer(32, 4, 48, 0.0, act).eval()
+    sd = _transformer_sd({"layer_0": params}, 1)
+    tm.load_state_dict({key[len("transformer.layers.0."):]: val for key, val in sd.items()})
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x), None if kpm is None else torch.from_numpy(kpm))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_multilayer_transformer_matches_flax_and_a_fully_masked_row_stays_finite():
+    """Three layers over a batch with one row whose every key is masked:
+    ``finfo.min`` fills its logits, so its attention is uniform, not NaN."""
+    rng = np.random.default_rng(8)
+    x, mask = _seq(rng, 4, 6, 32)
+    mask[3] = 0
+    jm = jl.MultilayerTransformer(32, 3, 2, 40, 0.0, "gelu")
+    params = _perturb_biases(_init(jm, x, mask), 9)
+    want = np.asarray(jax.jit(jm.apply)({"params": params}, x, mask))
+    tm = tl.MultilayerTransformer(32, 3, 2, 40, 0.0, "gelu").eval()
+    sd = _transformer_sd(params, 3)
+    assert set(sd) == set(tm.state_dict())
+    tm.load_state_dict(sd)
+    for dt in (torch.float32, torch.bfloat16):
+        with torch.inference_mode():
+            got = tm.to(dt)(torch.from_numpy(x).to(dt), torch.from_numpy(mask)).float().numpy()
+        assert np.isfinite(got).all()
+        if dt == torch.float32:
+            np.testing.assert_allclose(got, want, **F32)
+
+
+def test_transformer_init_follows_torch_and_dropout_draws_from_the_generator():
+    ref = torch.nn.TransformerEncoderLayer(32, 4, 48, batch_first=True)
+    tm = tl.TransformerEncoderLayer(32, 4, 48, 0.5, generator=torch.Generator().manual_seed(1))
+    assert {k: v.shape for k, v in tm.state_dict().items()} == {
+        k: v.shape for k, v in ref.state_dict().items()}
+    assert not tm.self_attn.out_proj.bias.any()
+    x = torch.randn(2, 5, 32, generator=torch.Generator().manual_seed(2))
+    run = lambda seed: tm(x, None, deterministic=False, rng=torch.Generator().manual_seed(seed))
+    assert torch.equal(run(3), run(3)) and not torch.equal(run(3), run(4))
+    assert not torch.equal(tm(x), run(3))  # eval (deterministic) keeps every unit

@@ -213,11 +213,13 @@ def test_synthetic_store_and_datasets_equal_the_jax_package(tmp_path, ds):
     import numpy as np
 
     from drin_tpu.data import dataset as jdata, synthetic as jsyn
+    from drin_tpu.data.device_store import BaselineRowsBatch as JaxBaselineRows
     from drin_tpu.data.device_store import DrinRowsBatch as JaxRows
     from drin_tpu_torch.data import dataset as tdata, synthetic as tsyn
-    from drin_tpu_torch.data.device_store import DrinRowsBatch
+    from drin_tpu_torch.data.device_store import BaselineRowsBatch, DrinRowsBatch
 
     assert DrinRowsBatch._fields == JaxRows._fields
+    assert BaselineRowsBatch._fields == JaxBaselineRows._fields
     kw = dict(entity_text_type="name") if ds == "wikidiverse" else {}
     for model_type in ("drin", "ghmfc"):
         assert dataclasses.asdict(tsyn.tiny_config(ds, model_type, preprocess_dir="x", **kw)) == \
@@ -243,7 +245,8 @@ def test_synthetic_store_and_datasets_equal_the_jax_package(tmp_path, ds):
         for jsplit, tsplit in zip(jdata.create_datasets(jcfg), tdata.create_datasets(tcfg)):
             assert len(jsplit) == len(tsplit)
             idx = np.array([2, 0, 1])
-            kinds = ["drin", "baseline"] + (["drin_rows"] if ds == "wikimel" else [])
+            kinds = ["drin", "baseline"] + (["drin_rows", "baseline_rows"] if ds == "wikimel"
+                                            else [])
             for kind in kinds:
                 jb, tb = jsplit.make_batch(idx, kind), tsplit.make_batch(idx, kind)
                 assert type(jb)._fields == type(tb)._fields

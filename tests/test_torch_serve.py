@@ -303,27 +303,202 @@ def test_online_ranker_with_tables_installs_no_rows_feats_fn(online, wm128):
     np.testing.assert_array_equal(tr.score(batch), before)
 
 
-def test_offline_ghmfc_ranker(wm128):
-    """GHMFC over precomputed features serves full batches; with device
-    entity tables it needs baseline_feats_fn, which is not ported."""
+@pytest.fixture(scope="module")
+def ghmfc128(wm128):
+    """Offline GHMFC (multimodal-bi fusion) over the wm128 store:
+    (cfg, flax module, params, dense batch, rows batch)."""
     from drin_tpu.models.ghmfc import GHMFC as JaxGHMFC
-    from drin_tpu_torch.data.dataset import BaselineBatch
-    from drin_tpu_torch.models.convert import ghmfc_state_dict_from_jax
-    from tests.test_torch_ghmfc import _baseline_batch
 
     dcfg, tables, _, _ = wm128
     cfg = dcfg.replace(model_type="ghmfc", mention_final_layer_name="multimodal",
                        transformer_num_heads=2)
-    batch = _baseline_batch(cfg, 3, 2, "pooled")
+    ds = MELFeatureDataset(cfg, "train", tables)
+    dense = ds.baseline_batch(np.arange(6))
     jmodel = JaxGHMFC(cfg)
-    params = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0), batch)["params"])
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.key(4), dense[:-1])["params"])
+    return cfg, jmodel, params, dense, ds.baseline_rows_batch(np.arange(6))
+
+
+def test_offline_ghmfc_ranker(wm128, ghmfc128):
+    """GHMFC over precomputed features serves full batches without tables,
+    and rows batches over device entity tables, text-only as in JAX."""
+    from drin_tpu_torch.data.dataset import BaselineBatch
+    from drin_tpu_torch.data.device_store import BaselineRowsBatch
+    from drin_tpu_torch.models.convert import ghmfc_state_dict_from_jax
+
+    _, tables, _, _ = wm128
+    cfg, jmodel, params, dense, rows = ghmfc128
     sd = ghmfc_state_dict_from_jax(params, cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Ranker(cfg, sd, tables, device="cpu")
     tr = Ranker(cfg, sd, device="cpu")
     assert tr.kind == "baseline" and rank_feat_fields(tr) == list(BaselineBatch._fields[:-1])
-    np.testing.assert_allclose(tr.score(batch), np.asarray(jmodel.apply({"params": params}, batch)),
-                               rtol=F32_RTOL, atol=1e-5)
+    want = np.asarray(jmodel.apply({"params": params}, dense[:-1]))
+    np.testing.assert_allclose(tr.score(dense[:-1]), want, rtol=F32_RTOL, atol=1e-5)
+    stored = Ranker(cfg, sd, tables, device="cpu")
+    assert stored.store.include == ("text",) and stored._tables is None
+    assert rank_feat_fields(stored) == list(BaselineRowsBatch._fields[:-1])
+    np.testing.assert_allclose(stored.score(rows[:-1]), want, rtol=F32_RTOL, atol=1e-5)
+    with pytest.raises(ValueError, match="entity_rows must be"):
+        stored.score(rows[:5] + (rows.entity_rows[:, 0],))
+
+
+@pytest.mark.parametrize("layout", ["float", "int8", "fused"])
+def test_offline_ghmfc_store_ranker_matches_jax_ranker(wm128, ghmfc128, layout):
+    from drin_tpu_torch.models.convert import ghmfc_state_dict_from_jax
+
+    _, tables, _, _ = wm128
+    cfg, _, params, _, rows = ghmfc128
+    kw = {"float": {}, "int8": dict(quantize_store=True),
+          "fused": dict(quantize_store=True, fused_gather=True)}[layout]
+    jr = JaxRanker(cfg, params=params, entity_tables=tables, **kw)
+    tr = Ranker(cfg, ghmfc_state_dict_from_jax(params, cfg), tables, device="cpu", **kw)
+    assert tr.store.include == jr.store.include == ("text",)
+    assert tr.store.fused == (layout == "fused") and tr.store.nbytes == jr.store.nbytes
+    want = jr.score(rows[:-1])
+    tgather.launches = 0
+    got = tr.score(rows[:-1])
+    assert tgather.launches == 0
+    np.testing.assert_allclose(got, want, rtol=F32_RTOL, atol=1e-5)
+    ts, ti = tr.rank(rows[:-1], k=3)
+    js, ji = jr.rank(rows[:-1], k=3)
+    np.testing.assert_allclose(ts, js, rtol=F32_RTOL, atol=1e-5)
+    _assert_topk_equal_away_from_ties(want, ti, ji, 3)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["float", "fused"])
+def test_entity_precompute_and_rank_rows_match_jax(wm128, ghmfc128, fused):
+    """precompute_entity_reprs encodes the table in uneven chunks through
+    float_rows; rank_rows (mention encoding, row gather, cosine) gives the
+    full forward's top-k, as the JAX Ranker's does."""
+    from drin_tpu_torch.data.device_store import DeviceEntityStore
+    from drin_tpu_torch.models.convert import ghmfc_state_dict_from_jax
+
+    _, tables, _, _ = wm128
+    cfg, _, params, _, rows = ghmfc128
+    kw = dict(quantize_store=True, fused_gather=True) if fused else {}
+    jr = JaxRanker(cfg, params=params, entity_tables=tables, **kw)
+    tr = Ranker(cfg, ghmfc_state_dict_from_jax(params, cfg), tables, device="cpu", **kw)
+    with pytest.raises(AssertionError, match="precompute_entity_reprs"):
+        tr.rank_rows(rows[:5], rows.entity_rows)
+    want_reprs = np.asarray(jr.precompute_entity_reprs(chunk=7))
+    reprs = tr.precompute_entity_reprs(chunk=7)
+    assert reprs.shape == want_reprs.shape == (tr.store.n_rows, cfg.entity_final_output_dim)
+    np.testing.assert_allclose(reprs, want_reprs, rtol=F32_RTOL, atol=1e-5)
+    js, ji = jr.rank_rows(rows[:5], rows.entity_rows, k=3)
+    ts, ti = tr.rank_rows(rows[:5], rows.entity_rows, k=3)
+    np.testing.assert_allclose(ts, js, rtol=F32_RTOL, atol=1e-5)
+    full = tr.score(rows[:-1])
+    _assert_topk_equal_away_from_ties(full, ti, ji, 3)
+    # the fast path ranks like the full forward: same top-k, same scores
+    fs, fi = tr.rank(rows[:-1], k=3)
+    np.testing.assert_allclose(ts, fs, rtol=1e-5, atol=1e-6)
+    _assert_topk_equal_away_from_ties(full, ti, fi, 3)
+    # out-of-range rows follow the store's rule (wrap once, clamp)
+    oob = rows.entity_rows.copy()
+    oob[0, 0], oob[1, 1] = -1, 10 * tr.store.n_rows
+    clamp = oob.copy()
+    clamp[0, 0], clamp[1, 1] = tr.store.n_rows - 1, tr.store.n_rows - 1
+    np.testing.assert_array_equal(tr.rank_rows(rows[:5], oob, k=3)[0],
+                                  tr.rank_rows(rows[:5], clamp, k=3)[0])
+    with pytest.raises(ValueError, match="k must be"):
+        tr.rank_rows(rows[:5], rows.entity_rows, k=99)
+    # a new store drops the representations encoded from the old one
+    tr.set_store(DeviceEntityStore(cfg, tables, device="cpu", include=("text",)))
+    with pytest.raises(AssertionError, match="precompute_entity_reprs"):
+        tr.rank_rows(rows[:5], rows.entity_rows)
+
+
+def test_entity_precompute_refuses_what_jax_refuses(online, wm128):
+    from drin_tpu_torch.data.device_store import DeviceEntityStore
+
+    dcfg, tables, params, _ = wm128
+    _, tr = _rankers(wm128)
+    with pytest.raises(AssertionError, match="GHMFC fast path"):
+        tr.precompute_entity_reprs()
+    on = _online_ranker(online)
+    with pytest.raises(AssertionError, match="needs device entity tables"):
+        on.precompute_entity_reprs()
+    on.set_store(DeviceEntityStore(dcfg, tables, device="cpu", include=("text",)))
+    with pytest.raises(NotImplementedError, match="offline GHMFC"):
+        on.precompute_entity_reprs()
+
+
+def test_serve_main_offline_ghmfc_fused_with_precompute(wm128, ghmfc128, tmp_path):
+    """The CLI starts offline GHMFC over a fused text-only store, encodes the
+    entity table (``precompute_entities``), and /rank keeps its contract."""
+    from drin_tpu_torch.models.convert import ghmfc_state_dict_from_jax
+
+    dcfg, tables, _, _ = wm128
+    cfg, _, params, _, rows = ghmfc128
+    sd = ghmfc_state_dict_from_jax(params, cfg)
+    torch.save(sd, tmp_path / "params.pt")
+    argv = ["model_type=ghmfc", "dataset_name=wikimel", f"preprocess_dir={cfg.preprocess_dir}",
+            f"checkpoint_dir={tmp_path}", "compute_dtype=float32", "port=0", "device=cpu",
+            "quantize_store=true", "fused_gather=true", "precompute_entities=true",
+            "mention_final_layer_name=multimodal", "transformer_num_heads=2",
+            "bert_embed_dim=128", "resnet_embed_dim=128", "entity_final_output_dim=128",
+            "mention_final_output_dim=128", f"num_candidates_data={cfg.num_candidates_data}",
+            f"max_mention_sentence_len={cfg.max_mention_sentence_len}",
+            f"resnet_num_region={cfg.resnet_num_region}"]
+    server = main(argv)
+    try:
+        fields = list(type(rows)._fields[:-1])
+        body = json.dumps({"features": _encode_arrays(
+            {n: np.asarray(v) for n, v in zip(fields, rows[:-1])}), "k": 2}).encode()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        req = urllib.request.Request(url + "/rank", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            out = json.loads(resp.read())
+        with urllib.request.urlopen(url + "/stats", timeout=10) as resp:
+            assert json.loads(resp.read())["entity_rows"] == len(tables["entity_text_feature"])
+        want = Ranker(cfg, sd, tables, device="cpu", quantize_store=True, fused_gather=True)
+        np.testing.assert_array_equal(np.asarray(out["scores"]), want.rank(rows[:-1], k=2)[0])
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_melhi_ranker_and_cli_match_jax(tmp_path):
+    """MELHI (WikiDiverse) is served from the full 8-field baseline batch,
+    with no store, by Ranker and by the CLI."""
+    from drin_tpu.data.synthetic import tiny_config as jtiny
+    from drin_tpu.models.melhi import MELHI as JaxMELHI
+    from drin_tpu_torch.data.dataset import BaselineBatch
+    from drin_tpu_torch.models.convert import melhi_state_dict_from_jax
+    from tests.test_torch_melhi import melhi_batch
+
+    cfg = jtiny("wikidiverse", "melhi", preprocess_dir=str(tmp_path),
+                thres_tmim=-0.1, thres_imie=0.1).replace(compute_dtype="float32")
+    batch = melhi_batch(cfg, 4, 8)
+    jmodel = JaxMELHI(cfg)
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.key(5), batch)["params"])
+    jr = JaxRanker(cfg, params=params)
+    sd = melhi_state_dict_from_jax(params)
+    tr = Ranker(cfg, sd, device="cpu")
+    assert tr.kind == "baseline" and tr.store is None
+    assert rank_feat_fields(tr) == list(BaselineBatch._fields[:-1])
+    np.testing.assert_allclose(tr.score(batch), jr.score(batch), rtol=F32_RTOL, atol=1e-5)
+    torch.save(sd, tmp_path / "params.pt")
+    argv = ["model_type=melhi", "dataset_name=wikidiverse", f"checkpoint_dir={tmp_path}",
+            "compute_dtype=float32", "port=0", "device=cpu", "thres_tmim=-0.1",
+            "thres_imie=0.1", "bert_embed_dim=16", "resnet_embed_dim=24",
+            f"num_candidates_data={cfg.num_candidates_data}",
+            f"max_mention_sentence_len={cfg.max_mention_sentence_len}",
+            f"resnet_num_region={cfg.resnet_num_region}"]
+    with pytest.raises(SystemExit, match="not ported"):
+        main(argv + ["micro_batch=true"])
+    server = main(argv)
+    try:
+        fields = rank_feat_fields(tr)
+        body = json.dumps({"features": _encode_arrays(dict(zip(fields, batch))), "k": 3}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/rank",
+                                     data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            out = json.loads(resp.read())
+        np.testing.assert_array_equal(np.asarray(out["scores"]), tr.rank(batch, k=3)[0])
+    finally:
+        server.shutdown()
+        server.server_close()
 
 
 def test_serve_main_online(online, tmp_path, monkeypatch):

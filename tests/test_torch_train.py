@@ -22,18 +22,19 @@ from drin_tpu.data.synthetic import make_synthetic_store, tiny_config
 from drin_tpu.encoders.bert import BertConfig as JaxBertConfig
 from drin_tpu.models.drin import DRIN as JaxDRIN
 from drin_tpu.models.ghmfc import GHMFC as JaxGHMFC, GHMFCOnline as JaxGHMFCOnline
+from drin_tpu.models.melhi import MELHI as JaxMELHI
 from drin_tpu.train import metrics as JM
 from drin_tpu.train.loss import triplet_loss as jax_triplet_loss
 from drin_tpu.train.trainer import build_step_fns as jax_build_step_fns
 from drin_tpu.train.trainer import create_train_state as jax_create_train_state
 from drin_tpu_torch.common.config import make_config
 from drin_tpu_torch.data import dataset as tdataset
-from drin_tpu_torch.data.device_store import DeviceEntityStore
+from drin_tpu_torch.data.device_store import DeviceEntityStore, include_for
 from drin_tpu_torch.encoders.bert import BertConfig
 from drin_tpu_torch.models import get_model
 from drin_tpu_torch.models.convert import (bert_state_dict_from_jax, drin_state_dict_from_jax,
                                            ghmfc_online_state_dict_from_jax,
-                                           ghmfc_state_dict_from_jax)
+                                           ghmfc_state_dict_from_jax, melhi_state_dict_from_jax)
 from drin_tpu_torch.train import metrics as TM
 from drin_tpu_torch.train.cli import main as train_main
 from drin_tpu_torch.train.loss import triplet_loss
@@ -222,6 +223,57 @@ def test_ghmfc_offline_trajectory_matches_jax(stores):
     tl, tmu, _, _ = _torch_steps(model, pcfg, batches, valids)
     np.testing.assert_allclose(tl, jl, **F32)
     _assert_mu(tmu, ghmfc_state_dict_from_jax(jmu, pcfg))
+
+
+@pytest.mark.parametrize("mention_layer", ["multimodal", "transformer"])
+def test_ghmfc_store_trajectory_matches_jax(stores, mention_layer):
+    """Offline GHMFC trained over the device store (a text-only store,
+    ``baseline_rows`` batches, rows gathered inside the step) follows the
+    JAX steps on the dense baseline batches."""
+    cfg = tiny_config("wikimel", "ghmfc", preprocess_dir=stores["wikimel"],
+                      mention_final_layer_name=mention_layer).replace(transformer_dropout=0.0)
+    train = jdataset.create_datasets(cfg)[0]
+    idx = [np.arange(4), np.arange(4, 8), np.array([8, 9, 8, 8])]
+    valids = [np.ones(4, np.float32), np.ones(4, np.float32), np.array([1, 1, 0, 0], np.float32)]
+    jbatches = [train.make_batch(i, "baseline") for i in idx]
+    jmodel = JaxGHMFC(cfg)
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0), jbatches[0][:-1])["params"])
+    jl, jmu, _, jms = _jax_steps(jmodel, params, cfg, jbatches, valids)
+    pcfg = _port_cfg(cfg)
+    ptrain = tdataset.create_datasets(pcfg)[0]
+    model, kind = get_model(pcfg)
+    model.load_state_dict(ghmfc_state_dict_from_jax(params, pcfg))
+    store = DeviceEntityStore(pcfg, ptrain.tables, device="cpu", include=include_for(kind))
+    assert store.include == ("text",) and store.image is None and store.obj_score is None
+    tl, tmu, _, tms = _torch_steps(model, pcfg, [ptrain.make_batch(i, "baseline_rows") for i in idx],
+                                   valids, store.baseline_feats_fn())
+    np.testing.assert_allclose(tl, jl, **F32)
+    _assert_mu(tmu, ghmfc_state_dict_from_jax(jmu, pcfg))
+    for k in jms:
+        np.testing.assert_allclose(float(tms[k]), float(jms[k]), rtol=2e-4)
+
+
+def test_melhi_trajectory_matches_jax(stores):
+    """MELHI on the WikiDiverse baseline batch, gates open (thresholds
+    under every cosine), so the image mapping takes gradients too."""
+    cfg = tiny_config("wikidiverse", "melhi", preprocess_dir=stores["wikidiverse"],
+                      thres_tmim=-2.0, thres_imie=-2.0)
+    train = jdataset.create_datasets(cfg)[0]
+    idx = [np.arange(4), np.arange(4, 8)]
+    valids = [np.ones(4, np.float32), np.array([1, 1, 1, 0], np.float32)]
+    batches = [train.make_batch(i, "baseline") for i in idx]
+    jmodel = JaxMELHI(cfg)
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.key(2), batches[0][:-1])["params"])
+    jl, jmu, _, _ = _jax_steps(jmodel, params, cfg, batches, valids)
+    pcfg = _port_cfg(cfg)
+    model, kind = get_model(pcfg)
+    assert kind == "baseline"
+    model.load_state_dict(melhi_state_dict_from_jax(params))
+    tl, tmu, _, _ = _torch_steps(model, pcfg, [tdataset.create_datasets(pcfg)[0].make_batch(
+        i, "baseline") for i in idx], valids)
+    np.testing.assert_allclose(tl, jl, **F32)
+    _assert_mu(tmu, melhi_state_dict_from_jax(jmu))
+    assert tmu["image_map_text.weight"].abs().max() > 0  # the open gate passes gradient
 
 
 def _online_case(zipped, finetune, remat=False, B=3):
@@ -452,7 +504,8 @@ def _entry_args(cfg, d, **extra):
 
 
 @pytest.mark.parametrize("model_type,ds", [("drin", "wikimel"), ("drin", "wikidiverse"),
-                                           ("ghmfc", "wikidiverse")])
+                                           ("ghmfc", "wikidiverse"), ("ghmfc", "wikimel"),
+                                           ("melhi", "wikidiverse")])
 def test_train_entry_runs_fit_and_test_rounds(stores, capsys, model_type, ds):
     cfg = tiny_config(ds, model_type, preprocess_dir=stores[ds])
     train_main(_entry_args(cfg, stores[ds]))
@@ -471,7 +524,6 @@ def test_train_entry_refuses_by_name(stores):
             train_main(args(device="cuda"))
     for kw, what in ((dict(mesh_data=2), "mesh_data=2"), (dict(num_processes=2), "num_processes=2"),
                      (dict(model_type="ghmfc", online_bert="true"), "OnlineMELDataset"),
-                     (dict(model_type="ghmfc"), "baseline_feats_fn"),
                      (dict(profiling="true"), "profiling")):
         with pytest.raises(NotImplementedError, match="not ported yet") as err:
             train_main(args(**kw))
