@@ -169,6 +169,16 @@ MELHI_SCORE_ATOL = 5e-3
 # GHMFC with the 8-layer transformer mention layer in bf16 against f32 on the
 # CPU: eight post-LN layers each round their output to bf16
 TRANSFORMER_SCORE_ATOL = 1e-2
+# a reply of the micro-batched DRIN server (its rows coalesced with other
+# requests' and padded to a bucket) against the same request ranked alone on
+# the card: cuBLAS may take another algorithm for another row count, and a
+# bf16 score then rounds to a neighbouring value (an ulp is 2^-8 = 3.9e-3 at
+# 0.5-1): two ulps.  Measured on the H100: 0, bit-equal at every bucket
+BATCHED_ATOL = 8e-3
+# a retrieved score against the float32 cosine of the query with the returned
+# row: the table and the query are normalized into bf16 and the product is
+# rounded to bf16 (half an ulp below 1.0 is 2^-9 = 1.95e-3)
+RETRIEVE_SCORE_ATOL = 2e-3
 # the offline baselines' first-step gradients, per parameter tensor,
 # |g - g_cpu|_2 / |g_cpu|_2 against the f32 CPU port.  In float32 on the card
 # the two differ by summation order only.  In bf16 some gradients are small
@@ -975,7 +985,341 @@ def phase_slice(torch, np, gather, gcn):
     finally:
         server.shutdown()
         server.server_close()
-    return launches, score_err
+    return launches, score_err, {"ranker": ranker, "reference": reference}
+
+
+def _concurrent(fns, timeout=600):
+    """Run each callable on a thread of its own, released together by a
+    barrier; their results in order (an exception is raised here)."""
+    import concurrent.futures as cf
+    import threading
+
+    bar = threading.Barrier(len(fns))
+
+    def run(fn):
+        bar.wait(timeout=120)
+        return fn()
+
+    with cf.ThreadPoolExecutor(len(fns)) as ex:
+        return [f.result(timeout=timeout) for f in [ex.submit(run, fn) for fn in fns]]
+
+
+def _post_json(url, path, obj, timeout=600):
+    req = urllib.request.Request(url + path, data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        assert resp.status == 200, resp.status
+        return json.loads(resp.read())
+
+
+def _get_json(url, path):
+    with urllib.request.urlopen(url + path, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def phase_serve_batched(torch, np, kernels, drin):
+    """DRIN's rank stage as a deployment: phase_slice's ranker (the fused
+    int8 store of 32,768 entities) saved as a bundle, served by the CLI
+    behind the micro-batching front, and 32 HTTP clients of B=1-4 sending
+    two requests each at once.  Each reply must lie within the DRIN limit of
+    the f32 CPU forward and within BATCHED_ATOL of the same request ranked
+    alone; /stats must show fewer device calls than requests."""
+    import tempfile
+
+    from drin_tpu_torch import serve as tserve
+    from drin_tpu_torch.serve import rank_feat_fields
+
+    src, reference = drin["ranker"], drin["reference"]
+    cfg = src.cfg
+    with tempfile.TemporaryDirectory() as bundle:
+        t0 = time.perf_counter()
+        src.save_bundle(bundle)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(bundle, tserve.BUNDLE_STATE))
+        t0 = time.perf_counter()
+        server = tserve.main([f"bundle={bundle}", "quantize_store=true", "fused_gather=true",
+                              "micro_batch=true", "device=cuda", "port=0"])
+        load_s = time.perf_counter() - t0
+    front = server.front
+    ranker = front.ranker
+    moved = int((ranker.store.packed != src.store.packed).sum())
+    print(f"[serve_batched] bundle of {size / 2**20:.1f} MiB saved in {save_s:.1f} s, served by "
+          f"main(bundle=..., quantize_store, fused_gather, micro_batch) in {load_s:.1f} s; int8 "
+          f"codes that moved in the dequantize / re-quantize round trip: {moved} of "
+          f"{ranker.store.packed.numel()}")
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    fields = rank_feat_fields(front)
+    clients, rounds = 32, 2
+    reqs = [_rows_batch(np, cfg, 1 + i % 4, SEED + 500 + i) for i in range(clients * rounds)]
+    warm = [_rows_batch(np, cfg, 1, SEED + 499)] * 2
+    wall = {}
+
+    def client(c):
+        out = []
+        for r in range(rounds):
+            feats = reqs[c * rounds + r]
+            t = time.perf_counter()
+            out.append(post_rank(np, url, fields, feats))
+            wall[c * rounds + r] = (time.perf_counter() - t) * 1e3
+        return out
+
+    try:
+        # the main path, counted: two requests one after the other, then the
+        # 32 clients at once; the counts are read after the server and the
+        # front have shut down (the flushes launch from the front's threads)
+        zero_counts(kernels)
+        for feats in warm:
+            post_rank(np, url, fields, feats)
+        t0 = time.perf_counter()
+        replies = [rep for per in _concurrent([lambda c=c: client(c) for c in range(clients)])
+                   for rep in per]
+        burst_s = time.perf_counter() - t0
+        stats = _get_json(url, "/stats")
+    finally:
+        server.shutdown()
+        server.server_close()
+        front.close()
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels)
+    sent = len(warm) + len(reqs)
+    print(f"[serve_batched] {sent} requests ({len(warm)} alone, then {clients} clients x {rounds} "
+          f"of B=1-4, {sum(r[0].shape[0] for r in reqs)} rows, in {burst_s:.2f} s): "
+          f"batches_run {stats['batches_run']}, rows_run {stats['rows_run']}, batch_buckets "
+          f"{stats['batch_buckets']}, the front's latency {stats['latency']}; launches {counts}")
+    assert stats["micro_batched"] and stats["rows_run"] == 2 + sum(r[0].shape[0] for r in reqs)
+    assert stats["batches_run"] < sent, (stats["batches_run"], sent)
+    assert counts["gather_dequant"] == stats["batches_run"], counts
+    assert counts["gcn_layer"] == cfg.num_gcn_layers * stats["batches_run"], counts
+    assert sum(counts.values()) == counts["gather_dequant"] + counts["gcn_layer"], counts
+    lat = sorted(wall.values())
+    print(f"[serve_batched] client-side /rank latency over the {len(lat)} concurrent requests: "
+          f"p50 {lat[len(lat) // 2]:.2f} ms, p99 {lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.2f} "
+          f"ms, max {lat[-1]:.2f} ms")
+    # every reply against the f32 CPU forward (rows are scored one by one, so
+    # one call over all of them is the same forward) and against the same
+    # request ranked alone on the card
+    want = reference.score(tuple(np.concatenate(col) for col in zip(*reqs)))
+    to_ref = to_alone = 0.0
+    off = 0
+    for feats, (s, i) in zip(reqs, replies):
+        B = feats[0].shape[0]
+        assert s.shape == i.shape == (B, 5) and np.isfinite(s).all(), (B, s.shape)
+        to_ref = max(to_ref, float(np.abs(s - np.take_along_axis(want[off:off + B], i, -1)).max()))
+        off += B
+        alone = ranker.score(feats)
+        order = -np.sort(-alone, axis=-1)
+        to_alone = max(to_alone, float(np.abs(s - order[:, :5]).max()))
+        for b in range(B):  # indices agree wherever the gap to the next score is wider
+            gaps = order[b, :5] - order[b, 1:6]
+            apart = np.concatenate([[True], gaps[:-1] > BATCHED_ATOL]) & (gaps > BATCHED_ATOL)
+            mine = np.argsort(-alone[b], kind="stable")[:5]
+            assert (i[b][apart] == mine[apart]).all(), (b, i[b], mine, gaps)
+    print(f"[serve_batched] replies vs the f32 CPU forward: max abs err {to_ref:.4g} (tol "
+          f"{SCORE_ATOL}); vs the same request ranked alone on the card: max abs diff "
+          f"{to_alone:.4g} (tol {BATCHED_ATOL})")
+    assert to_ref <= SCORE_ATOL and to_alone <= BATCHED_ATOL, (to_ref, to_alone)
+    return ({"gather_dequant": counts["gather_dequant"], "gcn_layer": counts["gcn_layer"]},
+            {"ranker": ranker, "fields": fields})
+
+
+def phase_retrieve(torch, np, kernels, served):
+    """Stage-1 retrieval over the served DRIN store's text table (32,768 x
+    768, dequantized from the fused int8 store, row-normalized in bf16),
+    through /retrieve behind the micro-batching front and through
+    Ranker.retrieve, in the three modes; no kernel may launch."""
+    from drin_tpu_torch.serve import BatchingRanker, _encode_arrays, serve_http
+
+    ranker = served["ranker"]
+    source = ranker._retrieval_source().float().cpu().numpy()
+    N, D = source.shape
+    unit = source / np.linalg.norm(source, axis=-1, keepdims=True)
+    rng = np.random.default_rng(SEED + 600)
+    own = np.array([3, N // 2 + 5, N - 1])
+    q16 = np.concatenate([source[own], rng.standard_normal((13, D), dtype=np.float32)])
+    qn = q16 / np.linalg.norm(q16, axis=-1, keepdims=True)
+    k = 10
+    front = BatchingRanker(ranker)
+    server = serve_http(front, port=0, feat_fields=served["fields"])
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    got = {}
+    try:
+        zero_counts(kernels)
+        for mode in ("exact", "approx", "int8"):
+            for B in (1, 16):
+                out = _post_json(url, "/retrieve", {"query": _encode_arrays({"q": q16[:B]}),
+                                                    "k": k, "mode": mode})
+                got["http", mode, B] = (np.asarray(out["scores"], np.float32),
+                                        np.asarray(out["indices"]))
+                got["ranker", mode, B] = ranker.retrieve(q16[:B], k=k, mode=mode)
+    finally:
+        server.shutdown()
+        server.server_close()
+        front.close()
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels)
+    assert not any(counts.values()), f"retrieval launched a kernel: {counts}"
+    worst = 0.0
+    for (how, mode, B), (s, i) in got.items():
+        assert s.shape == i.shape == (B, k) and np.isfinite(s).all() and (i < N).all()
+        assert (i[:len(own[:B]), 0] == own[:B]).all(), (how, mode, B, i[:3, 0])
+        recompute = np.einsum("bd,bkd->bk", qn[:B], unit[i])
+        err = float(np.abs(s - recompute).max())
+        assert err <= RETRIEVE_SCORE_ATOL, (how, mode, B, err)
+        worst = max(worst, err)
+    # recall@k over the 13 random queries, against the exact mode (whose own
+    # bf16 scores tie now and then) and against the float32 brute force
+    f32_top = np.argsort(-(qn[3:] @ unit.T), axis=-1)[:, :k]
+    recall = lambda got_i, want_i: float(np.mean([len(set(a) & set(b)) / k
+                                                  for a, b in zip(got_i, want_i)]))
+    exact = got["ranker", "exact", 16][1][3:]
+    vs_exact = {m: recall(got["ranker", m, 16][1][3:], exact) for m in ("approx", "int8")}
+    vs_f32 = {m: recall(got["ranker", m, 16][1][3:], f32_top) for m in ("exact", "approx", "int8")}
+    print(f"[retrieve] N={N}, D={D}: /retrieve and Ranker.retrieve at B=1 and B=16, k={k}, in "
+          f"the three modes: each table row finds itself first; scores vs the f32 recompute of "
+          f"the returned rows: max abs err {worst:.3g} (tol {RETRIEVE_SCORE_ATOL}); recall@{k} "
+          f"over 13 random queries against the exact mode {vs_exact}, against the float32 "
+          f"brute force {vs_f32}; launches {counts}")
+    for mode in ("exact", "approx", "int8"):
+        t = {B: host_ms(lambda B=B: ranker.retrieve(q16[:B], k=k, mode=mode)) for B in (1, 16)}
+        dev = device_ms(lambda: ranker.retrieve(q16, k=k, mode=mode))
+        print(f"[retrieve] {mode}: Ranker.retrieve B=1 {t[1]:.3f} ms, B=16 {t[16]:.3f} ms (host "
+              f"clock, median of 10); B=16 device {dev:.4f} ms")
+        profile_call(torch, lambda: ranker.retrieve(q16, k=k, mode=mode), f"retrieve {mode} B=16",
+                     top=8)
+    return {}, {"recall": vs_f32}
+
+
+def _write_vocab(np, path, n=28996):
+    """A WordPiece vocabulary of exactly ``n`` seeded entries with
+    bert-base-cased's special ids ([PAD] 0, [UNK] 100, [CLS] 101, [SEP]
+    102, [MASK] 103): punctuation, 2,000 "##" pieces and letter words.
+    Returns (whole words, pieces)."""
+    rng = np.random.default_rng(SEED + 700)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                   "[MASK]"]
+    vocab += list(".,;:()'-")
+    seen = set(vocab)
+    pieces, words = [], []
+    while len(vocab) < n:
+        w = "".join(rng.choice(letters, rng.integers(2, 4) if len(pieces) < 2000 else
+                               rng.integers(3, 11)))
+        if len(pieces) < 2000:
+            w = "##" + w
+        elif rng.random() < 0.3:
+            w = w.capitalize()
+        if w not in seen:
+            seen.add(w)
+            vocab.append(w)
+            (pieces if w.startswith("##") else words).append(w)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    return words, [p[2:] for p in pieces]
+
+
+def _raw_request(np, B, seed, words, pieces, C=101):
+    """B sentences of 20-40 words with the mention's character span, and C
+    candidate texts of 30-40 words each (a tenth of the words carry a "##"
+    piece): 9 candidates zipped to a sentence land in a bucket of 256 or more
+    tokens."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        ws = [words[j] + (pieces[rng.integers(len(pieces))] if rng.random() < 0.1 else "")
+              for j in rng.integers(0, len(words), n)]
+        return ws
+
+    sentences, spans, cands = [], [], []
+    for _ in range(B):
+        ws = text(int(rng.integers(20, 41)))
+        m = int(rng.integers(0, len(ws)))
+        start = len(" ".join(ws[:m])) + (1 if m else 0)
+        sentences.append(" ".join(ws) + ".")
+        spans.append((start, start + len(ws[m])))
+        cands.append([" ".join(text(int(rng.integers(30, 41)))) for _ in range(C)])
+    return sentences, spans, cands
+
+
+def phase_serve_text(torch, np, attn):
+    """GHMFC with online BERT from raw text at bert-base width: /rank_text at
+    B=1 over HTTP and Ranker.rank_text at B=8, a vocabulary file of 28,996
+    seeded entries, 101 candidate texts per mention zipped into 12 sentences
+    of 256 or more tokens (so the entity tower runs the attention kernel)."""
+    import tempfile
+
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.online import assemble_online_feats
+    from drin_tpu_torch.models import get_model
+    from drin_tpu_torch.serve import Ranker, serve_http
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab_path = os.path.join(tmp, "vocab.txt")
+        words, pieces = _write_vocab(np, vocab_path)
+        cfg = make_config("ghmfc", "wikimel", online_bert=True, finetune_bert=False,
+                          compute_dtype="bfloat16", bert_vocab=vocab_path)
+        with torch.device("meta"):
+            skeleton, _ = get_model(cfg)
+        assert skeleton.bert.cfg.vocab_size == 28996
+        weights = _online_weights(torch, np, skeleton)
+        ranker = Ranker(cfg, weights, device="cuda")
+        reference = Ranker(cfg.replace(compute_dtype="float32"), weights, device="cpu")
+        tok = ranker._ensure_tokenizer()  # reads the file while it exists
+    assert len(tok.vocab) == 28996 and (tok.cls_id, tok.sep_id) == (101, 102)
+    text = {B: _raw_request(np, B, SEED + 800 + B, words, pieces) for B in (1, 8)}
+    images = np.random.default_rng(SEED + 801).standard_normal(
+        (8, cfg.resnet_num_region, cfg.resnet_embed_dim), dtype=np.float32)
+    feats = {1: assemble_online_feats(cfg, tok, *text[1]),
+             8: assemble_online_feats(cfg, tok, *text[8], images)}
+    for B, f in feats.items():
+        unk = int((f[5] == 100).sum())
+        assert f[5].shape[-1] >= 256 and f[0].shape[-1] == cfg.max_mention_sentence_len, (
+            B, f[0].shape, f[5].shape)
+        print(f"[serve_text] B={B}: mention ids {f[0].shape}, entity ids {f[5].shape} (bucket "
+              f"{f[5].shape[-1]} of {cfg.max_bert_len}), [UNK] in entity text: {unk}")
+    server = serve_http(ranker, port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    body = {"sentences": text[1][0], "spans": [list(s) for s in text[1][1]],
+            "candidates": text[1][2], "k": 5}
+    try:
+        # the main path, counted: /rank_text at B=1, Ranker.rank_text at B=8
+        attn.launches = 0
+        out = _post_json(url, "/rank_text", body)
+        served = {1: (np.asarray(out["scores"], np.float32), np.asarray(out["indices"])),
+                  8: ranker.rank_text(*text[8], k=5, mention_images=images)}
+        torch.cuda.synchronize()
+        launches = attn.launches
+        layers = skeleton.bert.cfg.num_hidden_layers
+        print(f"[serve_text] attention launches over /rank_text B=1 and rank_text B=8: "
+              f"{launches} ({layers} per entity-tower BERT call, 0 for the 128-token mention "
+              f"tower)")
+        assert launches == layers * len(served), launches
+        for B, (s, i) in served.items():
+            assert s.shape == i.shape == (B, 5) and np.isfinite(s).all() and (i < 101).all()
+            ws, wi = ranker.rank(feats[B], k=5)
+            assert np.array_equal(s, ws) and np.array_equal(i, wi), (
+                f"B={B}: rank_text differs from rank on assemble_online_feats")
+        full = ranker.score(feats[1])
+        t0 = time.perf_counter()
+        want = reference.score(feats[1])
+        cpu_s = time.perf_counter() - t0
+        err, spread = float(np.abs(full - want).max()), float(want.std(-1).min())
+        print(f"[serve_text] scores bit-equal to Ranker.rank on the assembled request at B=1 and "
+              f"B=8; B=1 vs the f32 CPU forward ({cpu_s:.1f} s): max abs err {err:.4g} (tol "
+              f"{ONLINE_SCORE_ATOL}, under the candidates' spread {spread:.3g})")
+        assert err <= ONLINE_SCORE_ATOL < spread, (err, spread)
+        tok_ms = {B: host_ms(lambda B=B: assemble_online_feats(cfg, tok, *text[B]), reps=r)
+                  for B, r in ((1, 10), (8, 3))}
+        ms_http = host_ms(lambda: _post_json(url, "/rank_text", body))
+        ms_b8 = host_ms(lambda: ranker.rank_text(*text[8], k=5, mention_images=images), reps=3)
+        ms_rank8 = host_ms(lambda: ranker.rank(feats[8], k=5), reps=5)
+        print(f"[serve_text] /rank_text B=1: {ms_http:.3f} ms per request (HTTP, median of 10), "
+              f"of which tokenization and assembly on the host {tok_ms[1]:.3f} ms; "
+              f"Ranker.rank_text B=8: {ms_b8:.3f} ms (tokenization {tok_ms[8]:.3f} ms, "
+              f"Ranker.rank on the assembled request {ms_rank8:.3f} ms)")
+    finally:
+        server.shutdown()
+        server.server_close()
+    return {"attention": launches}, err
 
 
 def _online_weights(torch, np, model):
@@ -2030,6 +2374,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; the port has no CPU fallback",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
@@ -2066,21 +2411,38 @@ def main() -> int:
     # each main path is driven with its kernels' counts set to 0 just before
     # and read just after; a kernel of a path that the path never launched fails
     mods = (gather, gcn, attn, vu)
-    paths = {}
-    paths["serve_drin"], _ = phase_slice(torch, np, gather, gcn)
-    paths["serve_online"] = {"attention": phase_online(torch, np, attn)[0]}
-    paths["train_online"], _ = phase_train_online(torch, np, attn)
-    paths["train_drin"], _ = phase_train_drin(torch, np, gcn, vu)
+    paths, seconds = {}, {}
+
+    def timed(path, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[path] = round(time.perf_counter() - t, 1)
+        return out
+
+    paths["serve_drin"], _, drin = timed("serve_drin", phase_slice, torch, np, gather, gcn)
+    # the DRIN store as a deployment: a bundle served behind the micro-batching
+    # front, then stage-1 retrieval over its text table (no kernel)
+    paths["serve_batched"], served = timed("serve_batched", phase_serve_batched, torch, np,
+                                           mods, drin)
+    paths["retrieve"], _ = timed("retrieve", phase_retrieve, torch, np, mods, served)
+    del drin, served
+    paths["serve_online"] = {"attention": timed("serve_online", phase_online, torch, np, attn)[0]}
+    paths["serve_text"], _ = timed("serve_text", phase_serve_text, torch, np, attn)
+    paths["train_online"], _ = timed("train_online", phase_train_online, torch, np, attn)
+    paths["train_drin"], _ = timed("train_drin", phase_train_drin, torch, np, gcn, vu)
     # the baselines: offline GHMFC reads its rows through kernel 2; MELHI, the
     # transformer mention layer and the float store of training run no kernel
     # (each of those phases fails if any kernel launched in it)
-    paths["serve_ghmfc"], _ = phase_serve_ghmfc(torch, np, mods)
-    paths["serve_ghmfc_transformer"], _ = phase_transformer(torch, np, mods)
-    paths["serve_melhi"], _ = phase_serve_melhi(torch, np, mods)
-    paths["train_ghmfc"], _ = phase_train_ghmfc(torch, np, mods)
-    paths["train_melhi"], _ = phase_train_melhi(torch, np, mods)
+    for path, phase in (("serve_ghmfc", phase_serve_ghmfc),
+                        ("serve_ghmfc_transformer", phase_transformer),
+                        ("serve_melhi", phase_serve_melhi), ("train_ghmfc", phase_train_ghmfc),
+                        ("train_melhi", phase_train_melhi)):
+        paths[path], _ = timed(path, phase, torch, np, mods)
+    print(f"seconds by path: {seconds}")
     assert {p: sorted(c) for p, c in paths.items()} == {
         "serve_drin": ["gather_dequant", "gcn_layer"], "serve_online": ["attention"],
+        "serve_batched": ["gather_dequant", "gcn_layer"], "retrieve": [],
+        "serve_text": ["attention"],
         "train_online": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"],
         "serve_ghmfc": ["gather_dequant"], "serve_ghmfc_transformer": [], "serve_melhi": [],
         "train_ghmfc": [], "train_melhi": []}, paths
@@ -2105,6 +2467,7 @@ def main() -> int:
     assert set(kernels) == set(measured)
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in kernels}
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"drin_tpu_torch/csrc/{src}", "replaces": tpu,
          "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],

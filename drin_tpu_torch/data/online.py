@@ -1,9 +1,9 @@
 # -*- coding: utf-8 -*-
-"""Online-BERT request layout (the numpy-only part of
-``drin_tpu/data/online.py``): the batch NamedTuple, the zipped entity
-packing and the length-bucket trim.  What a caller needs to build a valid
-token-id ``/rank`` request; the tokenizer-bound assembly from raw text is
-not ported yet.
+"""Online-BERT request layout (port of ``drin_tpu/data/online.py``, the
+serving part): the batch NamedTuple, the zipped entity packing, the
+length-bucket trim, and the assembly of a request from raw strings
+(:func:`assemble_online_feats`, behind ``Ranker.rank_text``).  The online
+training dataset is not ported yet.
 
 Two entity batching modes:
 
@@ -81,3 +81,106 @@ def bucket_trim(ids: np.ndarray, mask: np.ndarray, bucket: int, floor: int = 1,
     L = ids.shape[-1]
     new_len = min(L, max(floor, ((max(int(used), 1) + bucket - 1) // bucket) * bucket))
     return ids[..., :new_len], mask[..., :new_len]
+
+
+def extract_mention(tokens: np.ndarray, start: int, end: int, max_len: int,
+                    cls_id: int, sep_id: int):
+    """Mention tokens -> standalone [CLS mention SEP] sentence."""
+    ids = np.zeros((max_len,), np.int64)
+    ids[0] = cls_id
+    ids[1 : end - start + 1] = tokens[start + 1 : end + 1]
+    ids[end - start + 1] = sep_id
+    mask = np.zeros((max_len,), np.int64)
+    mask[: end - start + 2] = 1
+    return ids, mask, 1, end - start + 1
+
+
+def assemble_online_feats(cfg, tokenizer, sentences, char_spans, candidate_texts,
+                          mention_images=None):
+    """Serving-time batch assembly from raw strings, no feature store.
+
+    ``char_spans``: per-mention (start, end) CHARACTER offsets into the
+    sentence, converted to token positions as the prepare stage does
+    (``MentionPositionProcessor``).  ``candidate_texts``: per-mention list
+    of candidate strings, padded with empty strings or truncated to
+    ``num_candidates_model``.  ``mention_images``: [B, R, Dr] region
+    features when the mention encoder is multimodal (zeros otherwise).
+    Returns the model feature tuple (``OnlineBatch`` minus the answer)."""
+    from drin_tpu_torch.preprocess.prepare import MentionPositionProcessor
+
+    B = len(sentences)
+    C = cfg.num_candidates_model
+    sentences = [str(s) for s in sentences]
+    starts = [int(s) for s, _ in char_spans]
+    ends = [int(e) for _, e in char_spans]
+    s_tok, e_tok = MentionPositionProcessor(tokenizer)(sentences, starts, ends)
+
+    mention_ids, mention_mask, start_pos, end_pos = mention_tokens(
+        cfg, tokenizer, sentences, s_tok, e_tok, cfg.online_length_buckets)
+    cands = [list(map(str, row))[:C] + [""] * max(0, C - len(row))
+             for row in candidate_texts]
+    ids, mask, sep = entity_tokens(cfg, tokenizer, cands, cfg.online_length_buckets)
+
+    if mention_images is not None:
+        mi = np.asarray(mention_images, np.float32)
+    elif cfg.mention_final_layer_name == "multimodal":
+        mi = np.zeros((B, cfg.resnet_num_region, cfg.resnet_embed_dim), np.float32)
+    else:
+        mi = np.zeros((B,), np.float32)
+    return (mention_ids, mention_mask, start_pos, end_pos, mi,
+            ids, mask, sep, np.zeros((B,), np.float32))
+
+
+def mention_tokens(cfg, tokenizer, sentences, starts_tok, ends_tok, bucket: int):
+    """Mention-side token assembly: tokenize padded to ``max_bert_len``,
+    CLS-shift the raw token positions, optionally re-pack as standalone
+    ``[CLS mention SEP]`` sentences (``pre_extract_mention``), then
+    length-bucket."""
+    B = len(sentences)
+    enc = tokenizer(sentences, padding="max_length", truncation=True,
+                    max_length=cfg.max_bert_len)
+    ids, mask = enc["input_ids"], enc["attention_mask"]
+    start = np.asarray(starts_tok, np.int64) + 1
+    end = np.asarray(ends_tok, np.int64) + 1
+    if cfg.pre_extract_mention:
+        new_ids = np.zeros_like(ids)
+        new_mask = np.zeros_like(mask)
+        s = np.ones((B,), np.int64)
+        e = np.ones((B,), np.int64)
+        for b in range(B):
+            new_ids[b], new_mask[b], s[b], e[b] = extract_mention(
+                ids[b], int(starts_tok[b]), int(ends_tok[b]),
+                cfg.max_bert_len, tokenizer.cls_id, tokenizer.sep_id)
+        ids, mask, start, end = new_ids, new_mask, s, e
+    # floor: the model slices the mention tower to max_mention_sentence_len
+    ids, mask = bucket_trim(ids, mask, bucket, floor=cfg.max_mention_sentence_len)
+    return ids, mask, start, end
+
+
+def entity_tokens(cfg, tokenizer, texts_rows, bucket: int):
+    """Entity-side token assembly: zipped candidate sentences
+    (:func:`zip_entities` + length bucket) when ``num_entity_sentence`` is
+    set, else direct per-candidate ``[B, C, Le]`` batches tokenized at
+    ``max_bert_len``; :func:`bucket_trim` then drops all-padding columns."""
+    B = len(texts_rows)
+    C = cfg.num_candidates_model
+    if cfg.num_entity_sentence:
+        S = cfg.num_entity_sentence
+        per = (C + S - 1) // S
+        ids = np.zeros((B, S, cfg.max_bert_len), np.int64)
+        mask = np.zeros((B, S, cfg.max_bert_len), np.int64)
+        sep = np.zeros((B, S, per), np.int64)
+        for b in range(B):
+            ids[b], mask[b], sep[b] = zip_entities(
+                tokenizer.encode_batch(texts_rows[b], truncation=True), S,
+                cfg.max_bert_len, tokenizer.cls_id)
+        ids, mask = bucket_trim(ids, mask, bucket)
+    else:
+        flat = [str(t) for row in texts_rows for t in row]
+        e = tokenizer(flat, padding="max_length", truncation=True,
+                      max_length=cfg.max_bert_len)
+        ids = e["input_ids"].reshape(B, C, -1)
+        mask = e["attention_mask"].reshape(B, C, -1)
+        ids, mask = bucket_trim(ids, mask, bucket)
+        sep = np.zeros((B,), np.int64)
+    return ids, mask, sep

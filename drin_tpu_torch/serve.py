@@ -1,35 +1,49 @@
 # -*- coding: utf-8 -*-
-"""Serving, the rank stage (port of ``drin_tpu/serve.py``).
+"""Serving (port of ``drin_tpu/serve.py``, its one-device surface).
 
   * :class:`Ranker` scores a request and returns top-k, for every model
     family: DRIN and offline GHMFC (a rows batch, mention features + [B, C]
     candidate row indices, against device-resident entity tables, or the
     full batch), MELHI (the full 8-field baseline batch) and GHMFC with
-    online BERT (the nine token-id fields of an ``OnlineBatch``: BERT runs
-    inside the request).  Offline GHMFC can also encode the whole entity
-    table once (:meth:`Ranker.precompute_entity_reprs`) and then rank by
-    mention encoding, row gather and cosine (:meth:`Ranker.rank_rows`).
+    online BERT (the nine token-id fields of an ``OnlineBatch``, or raw
+    strings through :meth:`Ranker.rank_text`: BERT runs inside the
+    request).  Offline GHMFC can also encode the whole entity table once
+    (:meth:`Ranker.precompute_entity_reprs`) and then rank by mention
+    encoding, row gather and cosine (:meth:`Ranker.rank_rows`).
+    :meth:`Ranker.retrieve` is stage-1 retrieval, the cosine top-k of a
+    mention vector over the whole entity table (modes ``exact``, ``approx``,
+    ``int8``).  :meth:`Ranker.save_bundle` / :meth:`Ranker.from_bundle`
+    write and read a self-contained deployable directory.
+  * :class:`BatchingRanker` is the micro-batching front: concurrent callers'
+    requests coalesce into one device call.
   * :func:`serve_http` is the stdlib JSON-over-HTTP wrapper: POST /rank,
-    GET /health and /stats, with the JAX server's status-code rules.
+    /rank_text, /retrieve, GET /health and /stats, with the JAX server's
+    status-code rules.
   * :func:`main` is the CLI, ``python -m drin_tpu_torch.serve``.
 
 Everything runs under ``torch.inference_mode()``.  On CUDA the scalar-edge
 GCN layer always runs the fused layer kernel, a fused store reads its int8
 tables through the gather+dequant kernel and BERT's self-attention runs the
 fused attention kernel from 256 tokens on; ``use_pallas`` and
-``pallas_block_b`` are not read.  Not ported yet (ROADMAP): raw-text serving
-(``rank_text``, ``/rank_text``), ``BatchingRanker``, retrieval and bundles.
+``pallas_block_b`` are not read.  Retrieval's scans are library products
+(``torch.matmul``, ``torch._int_mm``), as the JAX package's are XLA's, and
+its shortlist is an exact top-k at every table size (the JAX package takes
+an approximate one from 4096 rows).  Not ported yet (ROADMAP: multi-device):
+``shard_retrieval``.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import io
 import json
 import os
 import sys
 import threading
-from typing import Mapping, Optional
+import time
+from collections import Counter, deque
+from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,7 +52,7 @@ from drin_tpu_torch.common.config import Config
 from drin_tpu_torch.data.dataset import BaselineBatch, DrinBatch
 from drin_tpu_torch.data.device_store import (BaselineRowsBatch, DeviceEntityStore,
                                               DrinRowsBatch, include_for, project_drin_tables)
-from drin_tpu_torch.data.online import OnlineBatch
+from drin_tpu_torch.data.online import OnlineBatch, assemble_online_feats
 from drin_tpu_torch.models import get_model
 from drin_tpu_torch.ops.core import cosine_similarity
 from drin_tpu_torch.ops.cuda.gather import sanitize_rows
@@ -52,6 +66,110 @@ def _check_device(device) -> torch.device:
     return device
 
 
+# ---------------------------------------------------------------------------
+# stage-1 retrieval: plain torch on tensors, on the tensors' device
+
+
+def quantize_rows(t: torch.Tensor):
+    """Per-row max-abs int8 quantization of a [N, D] table.
+
+    Returns ``(q, scale)`` with ``q`` int8 and ``scale`` float32 [N, 1] such
+    that ``q * scale ~= t``.  Zero rows get scale 1 so they dequantize to
+    zero instead of NaN."""
+    s = t.abs().amax(-1, keepdim=True).float()
+    s = torch.where(s == 0, 1.0, s)
+    q = torch.clamp(torch.round(t.float() / s * 127.0), -127, 127)
+    return q.to(torch.int8), s / 127.0
+
+
+def _shortlist(scores: torch.Tensor, kc: int) -> torch.Tensor:
+    """Shortlist indices [B, kc] for the rescore pass: an exact top-kc at
+    every table size.  (The JAX package takes an approximate one from 4096
+    columns on; an exact shortlist is a superset of what that one
+    guarantees.)"""
+    return torch.topk(scores, kc, dim=-1).indices
+
+
+def _rescore_topk(qn, table, cand, k):
+    """Gather the shortlist rows and rescore them at the table's precision;
+    the returned top-k scores/order are exact over the shortlist."""
+    rows = table[cand]                                      # [B, kc, D]
+    exact = torch.einsum("bd,bkd->bk", qn.to(table.dtype), rows)
+    s2, i2 = torch.topk(exact.float(), k, dim=-1)
+    return s2, torch.gather(cand, 1, i2)
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def _unit_rows(t: torch.Tensor) -> torch.Tensor:
+    """Rows over their L2 norm, taken in float32 and cast back to ``t``'s
+    dtype.  Zero rows (an entity without text) keep norm 1, so they score 0
+    instead of NaN, which ``torch.topk`` would rank first."""
+    tf = t.float()
+    nrm = torch.linalg.vector_norm(tf, dim=-1, keepdim=True)
+    return (tf / torch.where(nrm == 0, 1.0, nrm)).to(t.dtype)
+
+
+def retrieve_rescored(q, table, k: int, kc: int):
+    """Scan in the table's dtype + shortlist of ``kc`` + exact rescore.
+    ``q`` [B, D] float32, ``table`` the row-normalized [N, D] table."""
+    qn = _unit(q)
+    scores = qn.to(table.dtype) @ table.T                   # [B, N]
+    return _rescore_topk(qn, table, _shortlist(scores, kc), k)
+
+
+def _normalize_quantize_query(qn):
+    """Max-abs int8 quantization of row-normalized queries ``qn`` [B, D];
+    returns ``(qq int8, qscale f32 [B, 1])`` with ``qq * qscale ~= qn``."""
+    qs = qn.abs().amax(-1, keepdim=True)
+    qs = torch.where(qs == 0, 1.0, qs)
+    qq = torch.clamp(torch.round(qn / qs * 127.0), -127, 127).to(torch.int8)
+    return qq, qs / 127.0
+
+
+def _int8_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` [M, K] int8 times ``b`` [N, K] int8 transposed, accumulated in
+    int32: [M, N], through ``torch._int_mm``.  On CUDA that takes M > 16 and
+    K, N multiples of 8, so ``a`` gets zero rows up to 17 and both get zero
+    columns (which add nothing to a dot product) up to a multiple of 8,
+    ``b`` zero rows likewise; the padding is sliced off.  A table whose row
+    count or width is not a multiple of 8 is copied per call."""
+    M, K = a.shape
+    N = b.shape[0]
+    pk = -K % 8
+    a = torch.nn.functional.pad(a, (0, pk, 0, max(0, 17 - M)))
+    if pk or N % 8:
+        b = torch.nn.functional.pad(b, (0, pk, 0, -N % 8))
+    return torch._int_mm(a, b.T)[:M, :N]
+
+
+def _coarse_int8(qn, qt, scales):
+    """int8 coarse scores [B, N] of row-normalized queries ``qn`` against
+    the quantized table ``qt``/``scales`` (:func:`quantize_rows`): int32
+    accumulation, then ``acc * qscale * scale`` in bfloat16, rounded left to
+    right as the JAX package does (the int8 error, ~1e-2 on unit vectors,
+    dwarfs bf16 rounding)."""
+    qq, qscale = _normalize_quantize_query(qn)
+    acc = _int8_product(qq, qt)
+    bf = torch.bfloat16
+    return acc.to(bf) * qscale.to(bf) * scales[:, 0][None, :].to(bf)
+
+
+def retrieve_quantized(q, qt, scales, table, k: int, kc: int):
+    """int8 coarse scan + shortlist of ``kc`` + exact rescore.  ``qt`` /
+    ``scales`` from :func:`quantize_rows` over the row-normalized [N, D]
+    retrieval table; ``table`` is that table at full precision.  Final
+    scores/order are exact over the shortlist."""
+    qn = _unit(q).float()
+    coarse = _coarse_int8(qn, qt, scales)
+    return _rescore_topk(qn, table, _shortlist(coarse, kc), k)
+
+
+BUNDLE_STATE = "state.pt"
+
+
 class Ranker:
     """Mention-candidate ranking service over a port model (DRIN, GHMFC
     offline or with online BERT, MELHI).
@@ -60,7 +178,8 @@ class Ranker:
     the weights come from ``<checkpoint_dir>/params.pt`` (``torch.save``
     of a state_dict).  Parameters are cast to ``cfg.compute_dtype`` on
     ``device``.  ``bert_cfg`` overrides the online model's bert-base
-    dimensions."""
+    dimensions.  An online model with entity tables keeps them in a store
+    for :meth:`retrieve` alone: its requests carry token ids, never rows."""
 
     def __init__(self, cfg: Config, params: Optional[Mapping] = None,
                  entity_tables: Optional[dict] = None, checkpoint_dir: Optional[str] = None,
@@ -76,6 +195,11 @@ class Ranker:
         self.store = None
         self._feats_fn = None
         self._entity_reprs = None
+        self._tokenizer = None
+        # stage-1 retrieval caches, built on first use from the store
+        self._retrieval_table = None
+        self._retrieval_q = None
+        self._retrieval_expand = 4
         # the raw host tables are kept only for DRIN's
         # precompute_entity_projection; any other kind would pin them for
         # the server's lifetime
@@ -122,6 +246,11 @@ class Ranker:
         self._feats_fn = self._feats_fn_for(store)
         self._tables = entity_tables if self.kind == "drin" else None
         self._entity_reprs = None  # encoded from the old tables: rank_rows must refuse
+        self._drop_retrieval_caches()
+
+    def _drop_retrieval_caches(self):
+        self._retrieval_table = None
+        self._retrieval_q = None
 
     def _feats_fn_for(self, store: DeviceEntityStore):
         """Rows batch -> model batch for DRIN and the offline baselines.  The
@@ -149,6 +278,7 @@ class Ranker:
                                        fused_gather=self.store is not None and self.store.fused)
         self._feats_fn = self.store.drin_feats_fn()
         self._tables = proj
+        self._drop_retrieval_caches()  # the retrieval source is now slot 1
 
     def precompute_entity_reprs(self, chunk: int = 8192) -> np.ndarray:
         """Offline GHMFC's serving fast path: its entity tower reads only the
@@ -170,6 +300,7 @@ class Ranker:
             self._entity_reprs = torch.cat([
                 encode(self.store.float_rows("text", lo, lo + chunk)[None], None)[0]
                 for lo in range(0, self.store.n_rows, chunk)])
+            self._drop_retrieval_caches()  # retrieval moves to the model's space
             return self._entity_reprs.float().cpu().numpy()
 
     def rank_rows(self, mention_feats, rows, k: int = 5):
@@ -245,6 +376,446 @@ class Ranker:
             vals, idx = torch.topk(s, k, dim=-1)
             return vals.cpu().numpy(), idx.cpu().numpy()
 
+    # ------------------------------------------------------------------
+    def rank_text(self, sentences, char_spans, candidate_texts, k: int = 5,
+                  mention_images=None, tokenizer=None):
+        """Raw-text ranking for the online model: sentences + character
+        mention spans + per-mention candidate strings -> (top-k scores,
+        candidate indices).  Tokenization and span conversion run on the
+        calling thread (:func:`~drin_tpu_torch.data.online.assemble_online_feats`);
+        the tokenizer reads ``cfg.bert_vocab`` unless one is passed."""
+        return self.rank(self._text_feats(sentences, char_spans, candidate_texts,
+                                          mention_images, tokenizer), k)
+
+    def _text_feats(self, sentences, char_spans, candidate_texts, mention_images, tokenizer):
+        if not self.cfg.online_bert:
+            raise ValueError("rank_text needs the online-BERT model (online_bert=true)")
+        return assemble_online_feats(self.cfg, tokenizer or self._ensure_tokenizer(), sentences,
+                                     char_spans, candidate_texts, mention_images)
+
+    def _ensure_tokenizer(self):
+        if self._tokenizer is None:
+            from drin_tpu_torch.text.wordpiece import BertTokenizer
+
+            if not self.cfg.bert_vocab:
+                raise RuntimeError("raw-text serving needs cfg.bert_vocab (a WordPiece vocab.txt)")
+            self._tokenizer = BertTokenizer(vocab_file=self.cfg.bert_vocab, do_lower_case=False,
+                                            model_max_length=self.cfg.max_bert_len)
+        return self._tokenizer
+
+    def _retrieval_source(self) -> torch.Tensor:
+        """The [N, D] vectors stage-1 retrieval scans, sliced to the store's
+        row count: GHMFC's precomputed representations when there are some,
+        else the store's pooled text.  After the DRIN projection slot 0
+        holds the projected text and queries are raw BERT vectors, so
+        retrieval reads slot 1, the raw CLS."""
+        if self.store is None:
+            # the server was built without tables: its fault, not the
+            # request's (the HTTP layer answers 500)
+            raise RuntimeError("retrieve() needs device entity tables: this Ranker was built "
+                               "without entity_tables/entity_pooling_cached")
+        n = self.store.n_rows
+        if self._entity_reprs is not None:
+            return self._entity_reprs[:n]
+        return self.store.float_rows("text", 0, n, slot=1 if self.cfg.entity_projected else 0)
+
+    def _ensure_retrieval_table(self) -> torch.Tensor:
+        if self._retrieval_table is None:
+            with torch.inference_mode():
+                self._retrieval_table = _unit_rows(self._retrieval_source())
+        return self._retrieval_table
+
+    def quantize_retrieval(self, expand: int = 4):
+        """Build the int8 retrieval cache (mode ``"int8"``): the
+        row-normalized table quantized once per row (:func:`quantize_rows`),
+        half the bytes of a bf16 scan.  Each query scans it in int8,
+        shortlists ``k * expand`` rows and rescores them against the
+        full-precision table.  Dropped by ``set_store`` and the
+        ``precompute_*`` fast paths."""
+        if expand < 1:
+            raise ValueError(f"expand must be >= 1, got {expand}")
+        table = self._ensure_retrieval_table()
+        with torch.inference_mode():
+            quant = quantize_rows(table)
+        self._retrieval_expand = int(expand)
+        # published last: concurrent callers test this field for the cache
+        self._retrieval_q = quant
+
+    def retrieve(self, mention_repr, k: int = 100, mode: Optional[str] = None,
+                 expand: Optional[int] = None):
+        """Stage-1 retrieval: cosine top-k of ``mention_repr`` [B, D] over the
+        whole entity table (:meth:`_retrieval_source`), row-normalized once
+        on first use and kept on the device.  ``k`` is clamped to the row
+        count in every mode.  Returns (scores float32 [B, k], indices).
+
+        ``mode``: ``"exact"``, a scan in the table's dtype + exact top-k
+        (the query is cast to that dtype before it is normalized);
+        ``"approx"``, the same scan, a shortlist of ``k * expand`` and an
+        exact rescore (the port's shortlist is exact, so this mode returns
+        what ``exact`` does up to the rescore's rounding); ``"int8"``, an
+        int8 scan of the cache that :meth:`quantize_retrieval` builds (here
+        on demand), the shortlist and the rescore; ``None``, ``"int8"`` once
+        that cache exists, else ``"exact"``.  ``expand`` overrides the
+        shortlist width for this call (default: the cache's, or 4)."""
+        table = self._ensure_retrieval_table()
+        if expand is not None and expand < 1:
+            raise ValueError(f"expand must be >= 1, got {expand}")
+        k = int(k)
+        if k < 0:
+            raise ValueError(f"k must be >= 0, got {k}")
+        q = np.asarray(mention_repr, np.float32)
+        if q.ndim != 2 or q.shape[1] != table.shape[1]:
+            raise ValueError(f"the query must be [B, {table.shape[1]}], got {q.shape}")
+        if mode is None:
+            mode = "int8" if self._retrieval_q is not None else "exact"
+        if mode not in ("exact", "approx", "int8"):
+            raise ValueError(f"unknown retrieval mode {mode!r} (exact | approx | int8)")
+        with torch.inference_mode():
+            q = torch.from_numpy(q).to(self.device)
+            n = table.shape[0]
+            if mode == "int8":
+                if self._retrieval_q is None:
+                    self.quantize_retrieval(expand if expand is not None else 4)
+                qt, scales = self._retrieval_q
+                exp = expand if expand is not None else self._retrieval_expand
+                kc = min(k * exp, n)
+                scores, idx = retrieve_quantized(q, qt, scales, table, min(k, kc), kc)
+            elif mode == "approx":
+                kc = min(k * (expand if expand is not None else 4), n)
+                scores, idx = retrieve_rescored(q, table, min(k, kc), kc)
+            else:
+                qn = _unit(q.to(table.dtype).float()).to(table.dtype)
+                scores, idx = torch.topk((qn @ table.T).float(), min(k, n), dim=-1)
+            return scores.cpu().numpy(), idx.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def save_bundle(self, path: str):
+        """Write a self-contained deployable directory, reloadable with
+        :meth:`from_bundle`: ``config.json`` (the Config as JSON) and
+        ``state.pt``, a ``torch.save`` of ``{"params": state_dict,
+        "tables": float32 tensors}``.  A quantized store persists its
+        dequantized floats, so the bundle loads into any store layout; a
+        narrowed store (GHMFC, online: text alone) persists what it holds."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(self.cfg), f, indent=1)
+        payload = {"params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()}}
+        if self.store is not None:
+            n = self.store.n_rows
+            names = {"text": "entity_text_feature", "image": "entity_image_feature",
+                     "obj": "entity_object_feature"}
+            tables = {names[t]: self.store.float_table(t)[:n].float().cpu()
+                      for t in self.store.include}
+            if "obj" in self.store.include:
+                tables["entity_object_score"] = self.store.obj_score[:n].float().cpu()
+            payload["tables"] = tables
+        # written beside and renamed: refreshing a bundle in place never
+        # leaves a torn file
+        tmp = os.path.join(path, BUNDLE_STATE + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, os.path.join(path, BUNDLE_STATE))
+
+    @classmethod
+    def from_bundle(cls, path: str, *, device, quantize_store: bool = False,
+                    fused_gather: bool = False, bert_cfg=None) -> "Ranker":
+        """A Ranker from a :meth:`save_bundle` directory.  ``quantize_store``
+        / ``fused_gather`` load the bundled float tables into the int8 or
+        fused store; ``bert_cfg`` as in the constructor."""
+        with open(os.path.join(path, "config.json")) as f:
+            raw = json.load(f)
+        # JSON turns tuples into lists; restore the tuple-typed fields
+        cfg = Config(**{k: tuple(v) if isinstance(v, list) else v for k, v in raw.items()})
+        state = torch.load(os.path.join(path, BUNDLE_STATE), map_location="cpu",
+                           weights_only=True)
+        tables = state.get("tables")
+        if tables is not None:
+            tables = {k: v.numpy() for k, v in tables.items()}
+        return cls(cfg, state["params"], tables, device=device, quantize_store=quantize_store,
+                   fused_gather=fused_gather, bert_cfg=bert_cfg)
+
+
+# ---------------------------------------------------------------------------
+# micro-batching front
+
+
+class _Req(NamedTuple):
+    kind: str       # "rank" | "retrieve"
+    feats: tuple    # feature fields ("retrieve": the single [B, D] query)
+    k: int
+    extra: object   # "retrieve": (mode, expand); "rank": unused
+    fut: object
+    t0: float       # enqueue time (monotonic) for the latency ring
+
+
+class _DaemonFlushPool:
+    """A fixed pool of daemon flush workers.
+
+    Not ``concurrent.futures.ThreadPoolExecutor``: that joins its workers at
+    interpreter exit, so one flush stuck in a device call would keep the
+    process alive after a bounded ``close()`` returned.  Daemon workers let
+    it exit.  The lock orders submit against shutdown: a job never lands
+    behind a shutdown sentinel, so ``BatchingRanker._dispatch``'s inline
+    flush of a closed pool always fires instead."""
+
+    def __init__(self, n: int):
+        import queue
+
+        self._jobs: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._open = True
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._work, daemon=True) for _ in range(n)]
+        for t in self._threads:
+            t.start()
+
+    def _work(self):
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            job()
+
+    def submit(self, fn):
+        with self._lock:
+            if not self._open:
+                raise RuntimeError("flush pool is shut down")
+            self._jobs.put(fn)
+
+    def shutdown(self, wait: bool = False):
+        with self._lock:
+            if self._open:
+                self._open = False
+                for _ in self._threads:
+                    self._jobs.put(None)
+        if wait:
+            for t in self._threads:
+                t.join()
+
+
+class BatchingRanker:
+    """Micro-batching front: concurrent ``rank`` / ``retrieve`` /
+    ``rank_text`` calls coalesce into one device call.
+
+    A dispatcher thread collects requests for up to ``wait_ms`` (or until
+    ``max_batch`` rows), groups them by (kind, k, extra, trailing shapes),
+    concatenates each group, pads it to the next bucket size by repeating
+    row 0, runs one ``ranker.rank`` or ``ranker.retrieve`` and splits the
+    results back.  A group that fails is retried request by request, so a
+    malformed request fails only its own caller.  ``pipeline_depth`` flushes
+    may be in flight at once; the ranker's host-to-device copies are
+    pageable and share one stream, so on CUDA they are not expected to
+    overlap another flush's compute."""
+
+    def __init__(self, ranker: Ranker, max_batch: int = 64, wait_ms: float = 2.0,
+                 buckets: tuple = (1, 2, 4, 8, 16, 32, 64), pipeline_depth: int = 2):
+        import queue
+
+        self.ranker = ranker
+        self.cfg = ranker.cfg
+        self.max_batch = max_batch
+        self.wait_s = wait_ms / 1e3
+        self.buckets = tuple(sorted(set(buckets) | {max_batch}))
+        self._q: "queue.Queue" = queue.Queue()
+        # observability counters, bumped from the flush threads under the lock
+        self._batches_run = 0
+        self._rows_run = 0
+        self._batch_buckets: Counter = Counter()   # (kind, padded bucket) -> calls
+        self._latencies: deque = deque(maxlen=2048)  # seconds, enqueue -> result
+        self._stats_lock = threading.Lock()
+        self._stop = False
+        self._close_lock = threading.Lock()  # orders _submit against close()
+        self._flush_pool = _DaemonFlushPool(pipeline_depth) if pipeline_depth > 1 else None
+        self._inflight = threading.Semaphore(max(pipeline_depth, 1))
+        self._thread = threading.Thread(target=self._dispatch, daemon=True)
+        self._thread.start()
+
+    def close(self, timeout: float = 10.0):
+        """Stop the dispatcher; bounded by ~2x ``timeout``.  In-flight
+        flushes are not awaited: they resolve their callers' futures when
+        the device answers.  A window the dispatcher has taken but not yet
+        submitted is flushed inline, so no future is stranded; a request
+        that raced past the stop check fails with ``RuntimeError``."""
+        import queue
+
+        with self._close_lock:
+            self._stop = True
+            self._q.put(None)
+        self._thread.join(timeout=timeout)
+        if self._flush_pool is not None:
+            # closes the pool to new submits at once, without waiting on
+            # in-flight flushes; a dispatcher blocked in _inflight.acquire()
+            # wakes, meets the closed pool and flushes its window inline
+            self._flush_pool.shutdown(wait=False)
+            if self._thread.is_alive():
+                self._thread.join(timeout=timeout)
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None and not item.fut.done():
+                item.fut.set_exception(RuntimeError("BatchingRanker closed"))
+
+    # -- caller side ---------------------------------------------------
+    def _submit(self, kind, feats, k, extra):
+        import concurrent.futures as cf
+
+        # checked here, on the caller's thread: the dispatcher reads each
+        # request's batch size, and a field without one would stop it
+        if not feats or any(f.ndim == 0 for f in feats):
+            raise ValueError("every feature field needs a leading batch dim, got "
+                             f"{[f.shape for f in feats]}")
+        fut: "cf.Future" = cf.Future()
+        with self._close_lock:
+            if self._stop:
+                raise RuntimeError("BatchingRanker is closed")
+            self._q.put(_Req(kind, feats, int(k), extra, fut, time.monotonic()))
+        return fut.result()
+
+    def latency_quantiles(self) -> dict:
+        """p50/p95/p99 end-to-end request latency (enqueue -> result) in ms
+        over the most recent completed requests (bounded ring)."""
+        with self._stats_lock:
+            lats = sorted(self._latencies)
+        if not lats:
+            return {"count": 0}
+        q = lambda p: lats[min(len(lats) - 1, int(p * len(lats)))] * 1e3
+        return {"count": len(lats), "p50_ms": round(q(0.50), 3),
+                "p95_ms": round(q(0.95), 3), "p99_ms": round(q(0.99), 3)}
+
+    def batch_trace(self) -> dict:
+        """The device calls so far: ``{"<kind>:<bucket>": count}`` (bucket =
+        the padded batch size dispatched; pad waste = sum(bucket * count) -
+        rows_run)."""
+        with self._stats_lock:
+            return {f"{kind}:{bucket}": int(c)
+                    for (kind, bucket), c in sorted(self._batch_buckets.items())}
+
+    def rank(self, feats, k: int = 5):
+        """Same contract as :meth:`Ranker.rank`; blocks until the coalesced
+        device call of this request's flush completes."""
+        return self._submit("rank", tuple(np.asarray(x) for x in feats), k, None)
+
+    def retrieve(self, mention_repr, k: int = 100, mode: Optional[str] = None,
+                 expand: Optional[int] = None):
+        """Same contract as :meth:`Ranker.retrieve`; concurrent queries with
+        the same k / mode / expand coalesce into one scan of the table."""
+        return self._submit("retrieve", (np.asarray(mention_repr, np.float32),), k,
+                            (mode, expand))
+
+    def rank_text(self, sentences, char_spans, candidate_texts, k: int = 5,
+                  mention_images=None, tokenizer=None):
+        """Tokenize on the calling thread, coalesce the resulting feature
+        batches on the device."""
+        return self.rank(self.ranker._text_feats(sentences, char_spans, candidate_texts,
+                                                 mention_images, tokenizer), k)
+
+    # -- dispatcher side -----------------------------------------------
+    def _take_window(self):
+        """Block for the first request, then drain for up to wait_ms /
+        max_batch rows."""
+        import queue
+
+        first = self._q.get()
+        if first is None:
+            return None
+        items = [first]
+        rows = first.feats[0].shape[0]
+        deadline = time.monotonic() + self.wait_s
+        while rows < self.max_batch:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                break
+            try:
+                it = self._q.get(timeout=timeout)
+            except queue.Empty:
+                break
+            if it is None:
+                self._q.put(None)  # re-signal stop after this flush
+                break
+            items.append(it)
+            rows += it.feats[0].shape[0]
+        return items
+
+    def _call(self, kind, batch, k, extra):
+        if kind == "retrieve":
+            mode, expand = extra
+            return self.ranker.retrieve(batch[0], k, mode=mode, expand=expand)
+        return self.ranker.rank(batch, k)
+
+    def _count(self, kind, bucket, rows):
+        with self._stats_lock:
+            self._batches_run += 1
+            self._rows_run += rows
+            self._batch_buckets[(kind, bucket)] += 1
+
+    def _done(self, req, result):
+        req.fut.set_result(result)
+        with self._stats_lock:
+            self._latencies.append(time.monotonic() - req.t0)
+
+    def _flush(self, items):
+        # concatenation needs matching field shapes beyond the batch dim:
+        # rank_text requests of different length buckets get calls of their own
+        groups: dict = {}
+        for req in items:
+            key = (req.kind, req.k, req.extra, tuple(f.shape[1:] for f in req.feats))
+            groups.setdefault(key, []).append(req)
+        for (kind, k, extra, _), group in groups.items():
+            sizes = [r.feats[0].shape[0] for r in group]
+            try:
+                n = sum(sizes)
+                bucket = next(b for b in self.buckets if b >= n) if n <= self.max_batch else n
+                batch = tuple(np.concatenate(col, axis=0) for col in zip(*[r.feats for r in group]))
+                if bucket > n:  # pad by repeating row 0; sliced off below
+                    batch = tuple(np.concatenate([c, np.repeat(c[:1], bucket - n, axis=0)])
+                                  for c in batch)
+                scores, idx = self._call(kind, batch, k, extra)
+                self._count(kind, bucket, n)
+                off = 0
+                for req, sz in zip(group, sizes):
+                    self._done(req, (scores[off : off + sz], idx[off : off + sz]))
+                    off += sz
+            except Exception:
+                # retry one by one so that each future gets its own outcome;
+                # requests the batched call already resolved are skipped, and
+                # a future that cannot take its outcome must not strand the
+                # window's other groups
+                for req in group:
+                    if req.fut.done():
+                        continue
+                    try:
+                        out = self._call(kind, req.feats, k, extra)
+                        self._count(kind, req.feats[0].shape[0], req.feats[0].shape[0])
+                        self._done(req, out)
+                    except Exception as e:
+                        try:
+                            req.fut.set_exception(e)
+                        except Exception:
+                            pass
+
+    def _dispatch(self):
+        while not self._stop:
+            items = self._take_window()
+            if items is None:
+                return
+            if self._flush_pool is None:
+                self._flush(items)
+                continue
+            self._inflight.acquire()  # at most pipeline_depth flushes in flight
+
+            def run(items=items):
+                try:
+                    self._flush(items)
+                finally:
+                    self._inflight.release()
+
+            try:
+                self._flush_pool.submit(run)
+            except RuntimeError:
+                # the pool was shut down by close() while this window was
+                # taken: flush inline so its futures still resolve
+                run()
+
 
 # ---------------------------------------------------------------------------
 # minimal HTTP wrapper
@@ -269,26 +840,39 @@ def _batch_type(ranker: Ranker):
     return BaselineRowsBatch if ranker.store is not None else BaselineBatch
 
 
-def rank_feat_fields(ranker: Ranker) -> list:
+def rank_feat_fields(ranker) -> list:
     """The positional feature-field names a ``/rank`` request carries for
-    this ranker (its batch NamedTuple minus ``answer``)."""
-    return list(_batch_type(ranker)._fields[:-1])
+    this ranker, a :class:`Ranker` or a :class:`BatchingRanker` front (its
+    batch NamedTuple minus ``answer``)."""
+    return list(_batch_type(getattr(ranker, "ranker", ranker))._fields[:-1])
 
 
-def serve_http(ranker: Ranker, host: str = "127.0.0.1", port: int = 8787,
+def serve_http(ranker, host: str = "127.0.0.1", port: int = 8787,
                feat_fields: Optional[list] = None):
     """Start a JSON-over-HTTP server on a daemon thread.
 
-    POST /rank   {"features": <b64 npz of the batch feature fields>, "k": 5}
-                 -> {"scores": [[...]], "indices": [[...]]}
-    GET  /health -> {"status": "ok", "model": ...}
-    GET  /stats  -> deployment facts
+    POST /rank      {"features": <b64 npz of the batch feature fields>, "k": 5}
+    POST /rank_text {"sentences": [...], "spans": [[start, end], ...],
+                     "candidates": [[...], ...], "k": 5}  (online model only;
+                     character spans, one candidate list per sentence)
+    POST /retrieve  {"query": <b64 npz {"q": [B, D]}>, "k": 100,
+                     "mode": "exact" | "approx" | "int8", "expand": 4}
+                    (stage-1 retrieval over the whole entity table)
+                    -> {"scores": [[...]], "indices": [[...]]} for all three
+    GET  /health    -> {"status": "ok", "model": ...}
+    GET  /stats     -> deployment facts; behind a :class:`BatchingRanker`
+                       also batches_run, rows_run, batch_buckets, latency
 
-    A malformed request gets 400, a server fault 500.  Returns the server
-    object (call ``.shutdown()`` from another thread)."""
+    ``ranker`` is a :class:`Ranker` or a :class:`BatchingRanker` (``/rank``,
+    ``/rank_text`` and ``/retrieve`` all coalesce there).  A malformed
+    request gets 400; a fault of the server (a ``RuntimeError`` such as no
+    entity tables or a closed batcher, a device fault) gets 500.  Returns the
+    server object, its front as ``server.front`` (call ``.shutdown()`` from
+    another thread, then close the front)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     fields = feat_fields
+    base = getattr(ranker, "ranker", ranker)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -306,54 +890,79 @@ def serve_http(ranker: Ranker, host: str = "127.0.0.1", port: int = 8787,
             if self.path == "/health":
                 self._reply(200, {"status": "ok", "model": ranker.cfg.model_type})
             elif self.path == "/stats":
-                self._reply(200, {"model": ranker.cfg.model_type,
-                                  "dataset": ranker.cfg.dataset_name,
-                                  "micro_batched": False,
-                                  "entity_rows": (ranker.store.n_rows
-                                                  if ranker.store is not None else None),
-                                  "sharded_retrieval": False,
-                                  "device": str(ranker.device)})
+                out = {"model": ranker.cfg.model_type,
+                       "dataset": ranker.cfg.dataset_name,
+                       "micro_batched": base is not ranker,
+                       "entity_rows": base.store.n_rows if base.store is not None else None,
+                       "sharded_retrieval": False,
+                       "device": str(base.device)}
+                if base is not ranker:
+                    out["batches_run"] = ranker._batches_run
+                    out["rows_run"] = ranker._rows_run
+                    out["batch_buckets"] = ranker.batch_trace()
+                    out["latency"] = ranker.latency_quantiles()
+                self._reply(200, out)
             else:
                 self._reply(404, {"error": "unknown path"})
 
         def do_POST(self):
-            if self.path != "/rank":
+            if self.path not in ("/rank", "/rank_text", "/retrieve"):
                 self._reply(404, {"error": "unknown path"})
                 return
             try:
                 # parse phase: any failure here is a malformed request, 400
                 length = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(length))
-                arrays = _decode_arrays(req["features"])
-                order = fields or sorted(arrays)
-                feats = tuple(arrays[name] for name in order)
-                k = int(req.get("k", 5))
+                k = int(req.get("k", 100 if self.path == "/retrieve" else 5))
+                if self.path == "/rank_text":
+                    sentences, spans, cands = req["sentences"], req["spans"], req["candidates"]
+                    call = lambda: ranker.rank_text(sentences, spans, cands, k)
+                elif self.path == "/retrieve":
+                    q = _decode_arrays(req["query"])["q"]
+                    mode, expand = req.get("mode"), req.get("expand")
+                    expand = int(expand) if expand is not None else None
+                    call = lambda: ranker.retrieve(q, k, mode=mode, expand=expand)
+                else:
+                    arrays = _decode_arrays(req["features"])
+                    order = fields or sorted(arrays)
+                    feats = tuple(arrays[name] for name in order)
+                    call = lambda: ranker.rank(feats, k)
             except Exception as e:
                 self._reply(400, {"error": f"{type(e).__name__}: {e}"})
                 return
             try:
-                scores, idx = ranker.rank(feats, k)
+                scores, idx = call()
                 self._reply(200, {"scores": scores.tolist(), "indices": idx.tolist()})
             except (KeyError, ValueError, TypeError, AssertionError, IndexError) as e:
-                # bad shapes/dtypes in a well-formed payload: the request's fault
+                # bad shapes, dtypes, modes or spans in a well-formed payload:
+                # the request's fault
                 self._reply(400, {"error": f"{type(e).__name__}: {e}"})
             except Exception as e:  # serving must not die on a failed request
                 self._reply(500, {"error": f"{type(e).__name__}: {e}"})
 
-    server = ThreadingHTTPServer((host, port), Handler)
+    class Server(ThreadingHTTPServer):
+        # the listen backlog (socketserver's default is 5): clients that
+        # connect at once beyond it are reset before a thread can accept them
+        request_queue_size = 128
+
+    server = Server((host, port), Handler)
+    server.front = ranker
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     return server
 
 
-_NOT_PORTED = ("bundle", "micro_batch", "wait_ms", "max_batch", "quantize_retrieval",
-               "shard_retrieval", "retrieve_expand")
+# multi-device retrieval (ShardedRetrieval) waits for torch.distributed
+_NOT_PORTED = ("shard_retrieval",)
 
 
 def main(argv=None):
     """Deployment CLI: ``python -m drin_tpu_torch.serve`` stands up the HTTP
-    ranking service from a port checkpoint (``<checkpoint_dir>/params.pt``)::
+    service from a bundle (:meth:`Ranker.save_bundle`) or a port checkpoint
+    (``<checkpoint_dir>/params.pt``)::
 
+        python -m drin_tpu_torch.serve bundle=/path/to/bundle micro_batch=true \\
+            device=cuda port=8787
         python -m drin_tpu_torch.serve model_type=drin dataset_name=wikimel \\
             checkpoint_dir=ckpt preprocess_dir=data/wikimel \\
             quantize_store=true fused_gather=true device=cuda port=8787
@@ -361,15 +970,21 @@ def main(argv=None):
             checkpoint_dir=ckpt preprocess_dir=data/wikimel \\
             quantize_store=true fused_gather=true device=cuda
         python -m drin_tpu_torch.serve model_type=ghmfc dataset_name=wikimel \\
-            online_bert=true checkpoint_dir=ckpt device=cuda
+            online_bert=true bert_vocab=vocab.txt checkpoint_dir=ckpt \\
+            preprocess_dir=data/wikimel device=cuda
         python -m drin_tpu_torch.serve model_type=melhi dataset_name=wikidiverse \\
             checkpoint_dir=ckpt device=cuda
 
-    Serving keys: ``host``/``port``, ``device`` (default ``cuda``; raises
-    when CUDA is absent), ``quantize_store``, ``fused_gather``,
+    Serving keys: ``host``/``port``; ``device`` (default ``cuda``; raises
+    when CUDA is absent); ``bundle`` (takes no Config overrides);
+    ``micro_batch=true`` with ``wait_ms`` and ``max_batch`` (the
+    :class:`BatchingRanker` front); ``quantize_store``, ``fused_gather``;
     ``project_entities`` (DRIN) and ``precompute_entities`` (offline GHMFC:
-    :meth:`Ranker.precompute_entity_reprs`); every other key is a Config
-    override.  Returns the server object; the ``__main__`` path blocks until
+    :meth:`Ranker.precompute_entity_reprs`); ``quantize_retrieval=true`` and
+    ``retrieve_expand=N`` (the int8 retrieval cache).  Every other key is a
+    Config override.  A WikiMEL server with the pooled entity cache loads
+    the entity text table for an online model too: ``/retrieve`` scans it.
+    Returns the server object; the ``__main__`` path blocks until
     interrupted."""
     from drin_tpu_torch.common.cli import parse_overrides
     from drin_tpu_torch.common.config import make_config
@@ -377,35 +992,52 @@ def main(argv=None):
     overrides = parse_overrides(argv if argv is not None else sys.argv[1:])
     unported = sorted(k for k in overrides if k in _NOT_PORTED)
     if unported:
-        raise SystemExit(f"not ported yet: {', '.join(unported)} (ROADMAP: BatchingRanker, "
-                         "retrieval, bundles, raw-text serving; ported: DRIN, GHMFC offline "
-                         "and with online BERT, and MELHI behind /rank)")
+        raise SystemExit(f"not ported yet: {', '.join(unported)} (ROADMAP: multi-device, "
+                         "ShardedRetrieval); one-device retrieval is /retrieve")
+    bundle = overrides.pop("bundle", None)
     host = overrides.pop("host", "127.0.0.1")
     port = int(overrides.pop("port", 8787))
     device = _check_device(overrides.pop("device", "cuda"))
+    micro = overrides.pop("micro_batch", False)
+    wait_ms = float(overrides.pop("wait_ms", 2.0))
+    max_batch = int(overrides.pop("max_batch", 64))
     project = overrides.pop("project_entities", False)
     precompute = overrides.pop("precompute_entities", False)
-    quantize_store = overrides.pop("quantize_store", False)
-    fused_gather = overrides.pop("fused_gather", False)
-    model_type = overrides.pop("model_type", "drin")
-    dataset_name = overrides.pop("dataset_name", "wikidiverse")
-    cfg = make_config(model_type, dataset_name, **overrides)
-    tables = None
-    # the online model reads entity text from the request, not from tables
-    if cfg.dataset_name == "wikimel" and cfg.entity_pooling_cached and not cfg.online_bert:
-        from drin_tpu_torch.data.dataset import load_wikimel_entity_tables
+    quant = overrides.pop("quantize_retrieval", False)
+    expand = int(overrides.pop("retrieve_expand", 4))
+    quantize_store = bool(overrides.pop("quantize_store", False))
+    fused_gather = bool(overrides.pop("fused_gather", False))
+    if bundle is not None:
+        if overrides:
+            raise SystemExit("bundle mode takes no config overrides, got: "
+                             + ", ".join(sorted(overrides)))
+        ranker = Ranker.from_bundle(bundle, device=device, quantize_store=quantize_store,
+                                    fused_gather=fused_gather)
+    else:
+        model_type = overrides.pop("model_type", "drin")
+        dataset_name = overrides.pop("dataset_name", "wikidiverse")
+        cfg = make_config(model_type, dataset_name, **overrides)
+        tables = None
+        if cfg.dataset_name == "wikimel" and cfg.entity_pooling_cached:
+            # an online model never reads the tables in its forward, but
+            # /retrieve scans the pooled text table
+            from drin_tpu_torch.data.dataset import load_wikimel_entity_tables
 
-        kind = "drin" if cfg.model_type == "drin" else "baseline"
-        tables = load_wikimel_entity_tables(cfg, include=include_for(kind))
-    ranker = Ranker(cfg, entity_tables=tables, device=device,
-                    quantize_store=bool(quantize_store), fused_gather=bool(fused_gather))
+            kind = "drin" if cfg.model_type == "drin" else "baseline"
+            tables = load_wikimel_entity_tables(cfg, include=include_for(kind))
+        ranker = Ranker(cfg, entity_tables=tables, device=device,
+                        quantize_store=quantize_store, fused_gather=fused_gather)
     if project:
         ranker.precompute_entity_projection()
     if precompute:
         ranker.precompute_entity_reprs()
-    server = serve_http(ranker, host=host, port=port, feat_fields=rank_feat_fields(ranker))
-    print(f"serving {cfg.model_type}/{cfg.dataset_name} on {device} at "
-          f"http://{host}:{server.server_address[1]}", flush=True)
+    if quant:
+        ranker.quantize_retrieval(expand=expand)
+    front = BatchingRanker(ranker, max_batch=max_batch, wait_ms=wait_ms) if micro else ranker
+    server = serve_http(front, host=host, port=port, feat_fields=rank_feat_fields(front))
+    print(f"serving {ranker.cfg.model_type}/{ranker.cfg.dataset_name} on {device} at "
+          f"http://{host}:{server.server_address[1]}" + (" (micro-batched)" if micro else ""),
+          flush=True)
     return server
 
 

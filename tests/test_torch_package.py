@@ -28,6 +28,12 @@ def _imports(path: Path):
             yield node.module
 
 
+def test_the_scan_covers_every_port_subpackage():
+    scanned = {p.parent.name for p in PORT_FILES}
+    packages = {p.parent.name for p in (ROOT / "drin_tpu_torch").rglob("__init__.py")}
+    assert packages <= scanned and {"text", "preprocess", "data", "ops"} <= packages
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     for mod in _imports(path):
@@ -307,3 +313,33 @@ def test_prefetcher_equals_the_jax_package():
             assert next(pf) == 0
         assert not pf._thread.is_alive() and pf._q.empty()
         assert threading.active_count() <= before
+
+
+def test_text_copies_equal_the_jax_package():
+    """The tokenizer's rules and the span conversion are the JAX package's
+    code line for line (the port leaves out only its native fast path), and
+    ``BertTokenizer`` gives the same ids on a few strings of each kind."""
+    import inspect
+
+    import numpy as np
+
+    from drin_tpu.preprocess import prepare as jprep
+    from drin_tpu.text import wordpiece as jwp
+    from drin_tpu_torch.preprocess import prepare as tprep
+    from drin_tpu_torch.text import wordpiece as twp
+
+    same = [lambda m: m._is_whitespace, lambda m: m._is_control, lambda m: m._is_punctuation,
+            lambda m: m._is_chinese_char, lambda m: m.BasicTokenizer,
+            lambda m: m.WordPieceTokenizer.tokenize, lambda m: m.BertTokenizer.tokenize]
+    for get in same:
+        assert inspect.getsource(get(twp)) == inspect.getsource(get(jwp)), get(twp)
+    assert inspect.getsource(tprep.MentionPositionProcessor.__call__) == inspect.getsource(
+        jprep.MentionPositionProcessor.__call__)
+    texts = ["Café naïve", "東京 x", "a\x00b\u3000c", "x" * 101, "", "end."]
+    vocab = jwp.build_tiny_vocab(texts)
+    assert twp.build_tiny_vocab(texts) == vocab
+    ours = twp.BertTokenizer(vocab=vocab, model_max_length=4)
+    theirs = jwp.BertTokenizer(vocab=vocab, model_max_length=4)
+    for kw in (dict(), dict(padding="max_length", truncation=True)):
+        np.testing.assert_array_equal(ours(texts, **kw)["input_ids"],
+                                      theirs(texts, **kw)["input_ids"])

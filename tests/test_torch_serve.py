@@ -9,6 +9,7 @@ orders)."""
 
 import json
 import urllib.error
+from dataclasses import asdict
 import urllib.request
 
 import jax
@@ -180,8 +181,8 @@ def test_serve_main_checkpoint_mode_and_device_guard(wm128, tmp_path, monkeypatc
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(common)
-    with pytest.raises(SystemExit, match="not ported"):
-        main(common + ["micro_batch=true", "device=cpu"])
+    with pytest.raises(SystemExit, match="not ported yet: shard_retrieval"):
+        main(common + ["shard_retrieval=true", "device=cpu"])
     server = main(common + ["device=cpu"])
     try:
         fields = list(type(batch)._fields[:-1])
@@ -485,8 +486,8 @@ def test_melhi_ranker_and_cli_match_jax(tmp_path):
             f"num_candidates_data={cfg.num_candidates_data}",
             f"max_mention_sentence_len={cfg.max_mention_sentence_len}",
             f"resnet_num_region={cfg.resnet_num_region}"]
-    with pytest.raises(SystemExit, match="not ported"):
-        main(argv + ["micro_batch=true"])
+    with pytest.raises(SystemExit, match="not ported yet: shard_retrieval"):
+        main(argv + ["shard_retrieval=true"])
     server = main(argv)
     try:
         fields = rank_feat_fields(tr)
@@ -501,10 +502,11 @@ def test_melhi_ranker_and_cli_match_jax(tmp_path):
         server.server_close()
 
 
-def test_serve_main_online(online, tmp_path, monkeypatch):
+def test_serve_main_online(online, wm128, tmp_path, monkeypatch):
     """The CLI stands up the online model from a checkpoint; bert-base dims
-    are its default, so the tiny checkpoint is refused loudly, and the
-    unported serving keys still are."""
+    are its default, so the tiny checkpoint is refused loudly, and the one
+    unported serving key still is.  The server loads the WikiMEL text table
+    for /retrieve, as the JAX CLI does."""
     from drin_tpu_torch import serve as tserve
     from drin_tpu_torch.models.convert import ghmfc_online_state_dict_from_jax
 
@@ -512,14 +514,15 @@ def test_serve_main_online(online, tmp_path, monkeypatch):
     torch.save(ghmfc_online_state_dict_from_jax(params, cfg, bert_cfg), tmp_path / "params.pt")
     argv = ["model_type=ghmfc", "dataset_name=wikimel", "online_bert=true", "finetune_bert=false",
             f"checkpoint_dir={tmp_path}", "compute_dtype=float32", "port=0", "device=cpu",
+            f"preprocess_dir={wm128[0].preprocess_dir}",
             f"num_candidates_data={cfg.num_candidates_data}", "num_entity_sentence=3",
             f"max_bert_len={cfg.max_bert_len}", f"bert_embed_dim={cfg.bert_embed_dim}",
             f"resnet_embed_dim={cfg.resnet_embed_dim}", "transformer_num_heads=2",
             f"mention_final_output_dim={cfg.mention_final_output_dim}",
             f"entity_final_output_dim={cfg.entity_final_output_dim}",
             f"max_mention_sentence_len={cfg.max_mention_sentence_len}"]
-    with pytest.raises(SystemExit, match="not ported"):
-        main(argv + ["bundle=some.bundle"])
+    with pytest.raises(SystemExit, match="not ported yet: shard_retrieval"):
+        main(argv + ["shard_retrieval=true"])
     with pytest.raises(RuntimeError, match="size mismatch"):
         main(argv)  # a bert-base model does not load the tiny checkpoint
     real = tserve.Ranker
@@ -535,6 +538,363 @@ def test_serve_main_online(online, tmp_path, monkeypatch):
             out = json.loads(resp.read())
         np.testing.assert_array_equal(np.asarray(out["scores"]),
                                       _online_ranker(online).rank(batch, k=2)[0])
+        text = wm128[1]["entity_text_feature"]
+        assert server.front.store.include == ("text",) and server.front._feats_fn is None
+        assert _get(f"http://127.0.0.1:{server.server_address[1]}", "/stats")[
+            "entity_rows"] == len(text)
+        q = np.asarray(text[[1, 6], 0], np.float32)
+        code, out = _post(f"http://127.0.0.1:{server.server_address[1]}", "/retrieve",
+                          {"query": _encode_arrays({"q": q}), "k": 2})
+        assert code == 200 and [r[0] for r in out["indices"]] == [1, 6]
     finally:
         server.shutdown()
         server.server_close()
+
+
+# ---------------------------------------------------------------------------
+# the micro-batching front, raw text and retrieval over HTTP, bundles
+
+
+def _concurrently(fns, timeout=120):
+    """Run the callables on their own threads, released together by a
+    barrier (thread start-up alone can outlast a flush window); their
+    results, or the exceptions they raised, in order."""
+    import concurrent.futures as cf
+    import threading
+
+    bar = threading.Barrier(len(fns))
+
+    def run(fn):
+        bar.wait(timeout=60)
+        return fn()
+
+    with cf.ThreadPoolExecutor(len(fns)) as ex:
+        futs = [ex.submit(run, fn) for fn in fns]
+        cf.wait(futs, timeout=timeout)
+        return [f.exception(timeout=0) or f.result(timeout=0) for f in futs]
+
+
+def test_batching_ranker_coalesces_and_matches_alone(wm128):
+    """Concurrent rank() calls of 1-3 rows coalesce into fewer device calls,
+    each caller gets the rows of its own request, equal to the request
+    ranked alone; the batch trace accounts for every call."""
+    from drin_tpu_torch.serve import BatchingRanker
+
+    cfg, tables, params, batch = wm128
+    _, tr = _rankers(wm128)
+    front = BatchingRanker(tr, max_batch=16, wait_ms=150.0)
+    reqs = [tuple(np.asarray(x)[i % 5 : i % 5 + 1 + i % 3] for x in batch[:-1])
+            for i in range(12)]
+    alone = [tr.rank(f, k=3) for f in reqs]
+    try:
+        got = _concurrently([lambda f=f: front.rank(f, k=3) for f in reqs])
+        for (gs, gi), (ws, wi), f in zip(got, alone, reqs):
+            np.testing.assert_allclose(gs, ws, rtol=F32_RTOL, atol=F32_ATOL)
+            _assert_topk_equal_away_from_ties(tr.score(f), gi, wi, 3)
+        assert front._rows_run == sum(f[0].shape[0] for f in reqs)
+        assert front._batches_run < len(reqs), front.batch_trace()
+        trace = front.batch_trace()
+        assert sum(trace.values()) == front._batches_run and all(k.startswith("rank:") for k in trace)
+        assert sum(int(k.split(":")[1]) * c for k, c in trace.items()) >= front._rows_run
+        assert front.latency_quantiles()["count"] == len(reqs)
+    finally:
+        front.close()
+
+
+def test_batching_ranker_mixed_k_bad_requests_and_retrieves(wm128):
+    """Requests with another k are grouped apart, a malformed request fails
+    only its own caller, and retrieves coalesce beside ranks in one window."""
+    from drin_tpu_torch.serve import BatchingRanker
+
+    cfg, tables, params, batch = wm128
+    _, tr = _rankers(wm128)
+    one = tuple(np.asarray(x)[:1] for x in batch[:-1])
+    table = np.asarray(tables["entity_text_feature"][:, 0])
+    want = [tr.retrieve(table[[i]], k=3, mode="exact") for i in range(8)]
+    front = BatchingRanker(tr, max_batch=32, wait_ms=150.0)
+    try:
+        calls = [lambda: front.rank(one, 2), lambda: front.rank(one, 5),
+                 lambda: front.rank(one[:3], 2),                       # wrong arity
+                 lambda: front.rank(one[:9] + (one[9][:, :2],), 2)]    # ragged [B, C]
+        calls += [lambda i=i: front.retrieve(table[[i]], 3, "exact") for i in range(8)]
+        out = _concurrently(calls)
+        assert out[0][1].shape == (1, 2) and out[1][1].shape == (1, 5)
+        assert isinstance(out[2], ValueError) and isinstance(out[3], ValueError)
+        for i, ((gs, gi), (ws, wi)) in enumerate(zip(out[4:], want)):
+            assert gi[0, 0] == i
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_allclose(gs, ws, rtol=F32_RTOL, atol=F32_ATOL)
+        assert front._batches_run < len(calls)
+        assert any(k.startswith("retrieve:") for k in front.batch_trace())
+        # the dispatcher survives the failed group
+        np.testing.assert_array_equal(front.rank(one, 2)[0], out[0][0])
+        with pytest.raises(ValueError, match="leading batch dim"):
+            front.rank((np.float32(1.0),) * 10, 2)  # refused on the caller's thread
+    finally:
+        front.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        front.rank(one, 2)
+
+
+def test_batching_ranker_close_resolves_taken_window(wm128):
+    """close() must not strand a window the dispatcher has taken but not yet
+    submitted: with both pipeline slots held by blocked flushes, the
+    dispatcher holds window 3; close() shuts the pool and the window is
+    flushed inline, so every caller's future resolves."""
+    import concurrent.futures as cf
+    import threading
+    import time
+    import types
+
+    from drin_tpu_torch.serve import BatchingRanker
+
+    release = threading.Event()
+    started = []
+
+    def rank(feats, k):
+        started.append(None)
+        release.wait(timeout=30)
+        b = feats[0].shape[0]
+        return np.zeros((b, k), np.float32), np.zeros((b, k), np.int64)
+
+    dummy = types.SimpleNamespace(cfg=wm128[0], rank=rank)
+    br = BatchingRanker(dummy, max_batch=1, wait_ms=1.0, buckets=(1,), pipeline_depth=2)
+    feats = (np.zeros((1, 3), np.float32),)
+
+    def wait_for(cond, what, deadline=20.0):
+        t0 = time.monotonic()
+        while not cond():
+            assert time.monotonic() - t0 < deadline, f"waiting for {what}"
+            time.sleep(0.01)
+
+    with cf.ThreadPoolExecutor(3) as ex:
+        futs = [ex.submit(br.rank, feats, 2)]
+        wait_for(lambda: len(started) >= 1, "flush 1 in flight")
+        futs.append(ex.submit(br.rank, feats, 2))
+        wait_for(lambda: len(started) >= 2, "flush 2 in flight")
+        futs.append(ex.submit(br.rank, feats, 2))
+        wait_for(br._q.empty, "window 3 taken by the dispatcher")
+        t = threading.Timer(0.5, release.set)
+        t.start()
+        try:
+            br.close(timeout=0.2)
+            for f in futs:
+                s, i = f.result(timeout=30)
+                assert s.shape == (1, 2)
+        finally:
+            t.cancel()
+            release.set()
+    assert not br._thread.is_alive()
+
+
+def _text_server_ranker(tables, tmp_path, buckets=8):
+    """A tiny online model with the port's own random weights, a vocabulary
+    file written from the request strings and length buckets of 8 tokens:
+    (ranker, sentences, spans, candidates)."""
+    from drin_tpu.text.wordpiece import build_tiny_vocab
+    from drin_tpu_torch.encoders.bert import BertConfig
+    from drin_tpu_torch.models import get_model
+    from tests.test_torch_ghmfc import BERT_DIMS, online_cfg
+
+    sentences = ["Alpha beta gamma delta", "Epsilon zeta eta theta"]
+    spans = [(0, 5), (8, 12)]
+    cands = [["Alpha thing", "beta thing", "gamma"], ["zeta item", "eta item", "theta"]]
+    vocab = build_tiny_vocab(sentences + [c for row in cands for c in row] + ["iota " * 3])
+    path = tmp_path / "vocab.txt"
+    inv = {i: w for w, i in vocab.items()}
+    path.write_text("".join(inv[i] + "\n" for i in range(len(inv))), encoding="utf-8")
+    cfg = online_cfg(zipped=True, online_length_buckets=buckets).replace(bert_vocab=str(path))
+    bert_cfg = BertConfig(**BERT_DIMS)
+    torch.manual_seed(0)
+    weights = get_model(cfg, bert_cfg=bert_cfg)[0].state_dict()
+    return (Ranker(cfg, weights, tables, device="cpu", bert_cfg=bert_cfg),
+            sentences, spans, cands)
+
+
+def _post(url, path, obj, timeout=60):
+    """(status, reply) of a JSON POST."""
+    req = urllib.request.Request(url + path, data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _get(url, path):
+    with urllib.request.urlopen(url + path, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def test_http_rank_text_retrieve_and_stats_through_the_batcher(wm128, tmp_path):
+    """/rank_text, /retrieve and /stats behind a BatchingRanker answer as the
+    ranker does; requests of another length bucket get their own device
+    call; 400 for the request's faults, 500 for the server's."""
+    from drin_tpu_torch.serve import BatchingRanker
+
+    _, tables, _, _ = wm128
+    tr, sentences, spans, cands = _text_server_ranker(tables, tmp_path)
+    want_s, want_i = tr.rank_text(sentences, spans, cands, k=2)
+    q = np.asarray(tables["entity_text_feature"][[4, 11], 0], np.float32)
+    want_r = tr.retrieve(q, k=3, mode="int8")
+    front = BatchingRanker(tr, wait_ms=150.0)
+    server = serve_http(front, port=0, feat_fields=rank_feat_fields(front))
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        assert server.front is front and rank_feat_fields(front) == rank_feat_fields(tr)
+        body = {"sentences": sentences, "spans": [list(s) for s in spans], "candidates": cands,
+                "k": 2}
+        code, out = _post(url, "/rank_text", body)
+        assert code == 200
+        np.testing.assert_array_equal(np.asarray(out["scores"], np.float32), want_s)
+        np.testing.assert_array_equal(np.asarray(out["indices"]), want_i)
+        longer = "iota iota iota " + sentences[0] + " iota iota iota iota"
+        calls = [lambda b=b: front.rank_text([sentences[b]], [spans[b]], [cands[b]], 2)
+                 for b in (0, 1)]
+        calls.append(lambda: front.rank_text([longer], [(15, 20)], [cands[0]], 2))
+        out3 = _concurrently(calls)
+        for b in (0, 1):
+            np.testing.assert_allclose(out3[b][0][0], want_s[b], rtol=F32_RTOL, atol=F32_ATOL)
+            np.testing.assert_array_equal(out3[b][1][0], want_i[b])
+        assert out3[2][0].shape == (1, 2)
+        code, out = _post(url, "/retrieve", {"query": _encode_arrays({"q": q}), "k": 3,
+                                             "mode": "int8", "expand": 2})
+        assert code == 200
+        np.testing.assert_array_equal(np.asarray(out["indices"]), want_r[1])
+        assert [row[0] for row in out["indices"]] == [4, 11]
+        stats = _get(url, "/stats")
+        assert stats["micro_batched"] and not stats["sharded_retrieval"]
+        assert stats["entity_rows"] == tr.store.n_rows and stats["device"] == "cpu"
+        assert stats["rows_run"] >= 7 and sum(stats["batch_buckets"].values()) == \
+            stats["batches_run"]
+        assert stats["latency"]["count"] >= 5 and stats["latency"]["p50_ms"] > 0
+        # the request's faults
+        for path, bad in (("/rank_text", dict(body, spans=[[0]] * 2)),
+                          ("/rank_text", {"sentences": sentences}),
+                          ("/retrieve", {"query": _encode_arrays({"q": q}), "mode": "fuzzy"}),
+                          ("/retrieve", {"query": _encode_arrays({"q": q[:, :7]})}),
+                          ("/retrieve", {"query": _encode_arrays({"q": q}), "expand": 0}),
+                          ("/retrieve", {"query": "!!!"})):
+            code, out = _post(url, path, bad)
+            assert code == 400 and "error" in out, (path, bad, code, out)
+    finally:
+        server.shutdown()
+        server.server_close()
+        front.close()
+    # the server's faults: a closed batcher, a ranker without tables or vocab
+    server = serve_http(front, port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    bare, *_ = _text_server_ranker(None, tmp_path)
+    bare.cfg = bare.cfg.replace(bert_vocab="")
+    server2 = serve_http(bare, port=0)
+    url2 = f"http://127.0.0.1:{server2.server_address[1]}"
+    try:
+        code, out = _post(url, "/rank_text", body)
+        assert code == 500 and "closed" in out["error"]
+        code, out = _post(url2, "/retrieve", {"query": _encode_arrays({"q": q})})
+        assert code == 500 and "entity tables" in out["error"]
+        code, out = _post(url2, "/rank_text", body)
+        assert code == 500 and "bert_vocab" in out["error"]
+    finally:
+        for s in (server, server2):
+            s.shutdown()
+            s.server_close()
+    # raw text on a model that does not take it is the request's fault
+    _, dr = _rankers(wm128)
+    server = serve_http(dr, port=0)
+    try:
+        code, out = _post(f"http://127.0.0.1:{server.server_address[1]}", "/rank_text", body)
+        assert code == 400 and "online" in out["error"]
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+@pytest.mark.parametrize("kind", ["float", "quantized", "online"])
+def test_bundle_round_trip(wm128, tmp_path, kind):
+    """save_bundle -> from_bundle reproduces the ranker: float and fused int8
+    DRIN stores (a quantized store persists its dequantized floats, and
+    re-quantized reloads score as it did), and an online ranker with its
+    text-only retrieval store."""
+    from drin_tpu_torch.serve import Ranker as TRanker
+
+    cfg, tables, params, batch = wm128
+    d = str(tmp_path / "bundle")
+    if kind == "online":
+        src, *_ = _text_server_ranker({"entity_text_feature": tables["entity_text_feature"]},
+                                      tmp_path)
+        src.save_bundle(d)
+        back = TRanker.from_bundle(d, device="cpu", bert_cfg=src._bert_cfg)
+        assert asdict(back.cfg) == asdict(src.cfg)
+        assert back._feats_fn is None and back.store.include == ("text",)
+        q = np.asarray(tables["entity_text_feature"][[4, 9], 0], np.float32)
+        for mode in ("exact", "int8"):
+            s1, i1 = src.retrieve(q, k=3, mode=mode)
+            s2, i2 = back.retrieve(q, k=3, mode=mode)
+            np.testing.assert_array_equal(i2, i1)
+            np.testing.assert_array_equal(s2, s1)
+        sd, sd2 = src.model.state_dict(), back.model.state_dict()
+        assert all(torch.equal(sd[k], sd2[k]) for k in sd)
+        return
+    kw = dict(quantize_store=True, fused_gather=True) if kind == "quantized" else {}
+    src = TRanker(cfg, drin_state_dict_from_jax(params, cfg), tables, device="cpu", **kw)
+    want = src.score(batch[:-1])
+    src.save_bundle(d)
+    src.save_bundle(d)  # refreshing in place overwrites
+    back = TRanker.from_bundle(d, device="cpu", **kw)
+    assert asdict(back.cfg) == asdict(src.cfg) and back.store.fused == (kind == "quantized")
+    np.testing.assert_array_equal(back.score(batch[:-1]), want)
+    if kind == "quantized":
+        as_float = TRanker.from_bundle(d, device="cpu")
+        assert not as_float.store.quantized
+        np.testing.assert_allclose(as_float.score(batch[:-1]), want, rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(as_float.store.text.numpy(),
+                                      src.store.float_table("text").numpy())
+    # a projected bundle stays projected: projecting again changes nothing
+    src.precompute_entity_projection()
+    want = src.score(batch[:-1])
+    src.save_bundle(d)
+    back = TRanker.from_bundle(d, device="cpu", **kw)
+    assert back.cfg.entity_projected
+    back.precompute_entity_projection()
+    np.testing.assert_allclose(back.score(batch[:-1]), want, rtol=1e-6, atol=1e-7)
+
+
+def test_serve_main_from_bundle_micro_batched(wm128, tmp_path):
+    """The CLI serves a bundle behind the micro-batching front: /rank with
+    named fields, /retrieve over the int8 cache, /stats; bundle mode takes
+    no config overrides and shard_retrieval is refused by name."""
+    from drin_tpu_torch.serve import Ranker as TRanker
+
+    cfg, tables, params, batch = wm128
+    src = TRanker(cfg, drin_state_dict_from_jax(params, cfg), tables, device="cpu")
+    src.save_bundle(str(tmp_path / "b"))
+    argv = [f"bundle={tmp_path / 'b'}", "micro_batch=true", "device=cpu", "port=0"]
+    with pytest.raises(SystemExit, match="no config overrides"):
+        main(argv + ["batch_size=4"])
+    with pytest.raises(SystemExit, match="shard_retrieval"):
+        main(argv + ["shard_retrieval=true"])
+    server = main(argv + ["quantize_store=true", "fused_gather=true", "quantize_retrieval=true",
+                          "retrieve_expand=3", "wait_ms=5", "max_batch=8"])
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        front = server.front
+        assert front.max_batch == 8 and front.ranker.store.fused
+        assert front.ranker._retrieval_q is not None and front.ranker._retrieval_expand == 3
+        fields = rank_feat_fields(front)
+        code, out = _post(url, "/rank", {"features": _encode_arrays(
+            {n: np.asarray(v) for n, v in zip(fields, batch[:-1])}), "k": 3})
+        assert code == 200  # padded to the bucket of 8: not bit-equal to B=6 alone
+        np.testing.assert_allclose(np.asarray(out["scores"]), front.ranker.rank(batch[:-1], k=3)[0],
+                                   rtol=F32_RTOL, atol=F32_ATOL)
+        q = np.asarray(tables["entity_text_feature"][[2, 9], 0], np.float32)
+        code, out = _post(url, "/retrieve", {"query": _encode_arrays({"q": q}), "k": 3})
+        assert code == 200 and [r[0] for r in out["indices"]] == [2, 9]
+        stats = _get(url, "/stats")
+        assert stats["micro_batched"] and stats["entity_rows"] == src.store.n_rows
+        assert set(stats["batch_buckets"]) == {"rank:8", "retrieve:2"}
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.front.close()
