@@ -9,7 +9,7 @@ started together, sm_90a), holds each against its plain PyTorch version on
 the card (gather+dequant at DRIN's and offline GHMFC's two packed layouts,
 the GCN layer with its per-launch device times, the attention forward, the
 attention backward with and without a mask, the vertex update), then drives
-nine paths at the full width of their models with seeded random weights.
+thirteen paths at the full width of their models with seeded random weights.
 Served, through ``Ranker`` and ``serve_http``:
 
   * DRIN's rank stage at the WikiMEL width over an int8 fused store of
@@ -30,6 +30,12 @@ Trained, through ``Trainer`` and ``build_step_fns``:
     sentences of 512 tokens each, a bf16 body over float32 masters, every
     BERT layer recomputed in the backward (the attention forward and backward
     kernels, 24 and 12 launches per step);
+  * the same model trained from raw text through the training entry point
+    (``python -m drin_tpu_torch.train``'s ``main``): a seeded bert-base
+    checkpoint and vocabulary file, a WikiMEL store of raw strings tokenized
+    by the native tokenizer in pools of spawn workers, two fit chunks with
+    checkpoints and profiler windows (the attention kernels, 24 and 12
+    launches per train step, 12 per eval step);
   * DRIN at B=64, C=101, D=768 over the device-resident entity tables (the
     GCN-layer kernel in the forward, its backward through the plain version);
   * offline GHMFC at B=64 over the float text-only store, and MELHI at B=64
@@ -112,6 +118,12 @@ ONLINE_SCORE_ATOL = 2e-3
 # version in the kernel's place: the two attentions differ by one bf16 step,
 # which reaches a score of ~0.03 as a few of its bf16 steps (2^-13 each)
 ONLINE_SWAP_ATOL = 8e-4
+# the trained online model's scores against the f32 CPU forward (train_text):
+# eight steps on the random store move every cosine of the request to about
+# -0.505, where one bf16 ulp is 3.9e-3 (an H100 read 3.84e-3, the
+# candidates' spread 3.7e-4), so the limit is two ulps there; the online
+# limit holds at the weights the run starts from
+TRAINED_SCORE_ATOL = 8e-3
 ONLINE_F32_ATOL = 1e-4  # float32 on the card vs float32 on the CPU: summation order
 # first-step gradients of the fine-tuned online model, the kernels against the
 # same bf16 model on the card with the plain attention (and autograd through
@@ -1759,6 +1771,294 @@ def phase_train_online(torch, np, attn):
     return counts, {"step_ms": step_ms, "peak_gib": peak}
 
 
+def _write_text_store(np, d, cfg, tok, words, pieces, splits):
+    """A WikiMEL intermediate store of raw strings (the files the prepare
+    stage writes for the online path): per split the mention sentences with
+    their token spans, C candidate qids per mention, the gold index (100 =
+    the answer is not among them) and the 49 image regions of each
+    mention; beside it qid2ne / qid2abs over 400 entities whose attribute
+    texts fill the 128 characters WikiMEL keeps of "name. attr", so that 9
+    candidates zipped to a sentence pass 128 ids and the bucket is 256."""
+    from drin_tpu_torch.common import npy_io
+    from drin_tpu_torch.preprocess.prepare import MentionPositionProcessor
+
+    rng = np.random.default_rng(SEED + 900)
+    n_ent, C = 400, cfg.num_candidates_model
+
+    def text(n):
+        return " ".join(words[j] + (pieces[rng.integers(len(pieces))] if rng.random() < 0.1
+                                    else "") for j in rng.integers(0, len(words), n))
+
+    qids = [f"Q{i}" for i in range(n_ent)]
+    with open(cfg.qid2entity_path, "w") as f:
+        json.dump({q: text(int(rng.integers(1, 4))).title() for q in qids}, f)
+    with open(cfg.qid2attr_path, "w") as f:
+        json.dump({q: text(int(rng.integers(25, 36))) + "." for q in qids}, f)
+    for split, n in splits.items():
+        sentences, spans, _ = _raw_request(np, n, int(rng.integers(1 << 30)), words, pieces, C=1)
+        starts, ends = MentionPositionProcessor(tok)(sentences, [s for s, _ in spans],
+                                                     [e for _, e in spans])
+        npy_io.save_field(d, "mention_text_raw", np.asarray(sentences), split)
+        npy_io.save_field(d, "start_pos", np.asarray(starts, np.int64), split)
+        npy_io.save_field(d, "end_pos", np.asarray(ends, np.int64), split)
+        npy_io.save_field(d, "entity_name_raw", np.asarray(qids)[rng.integers(0, n_ent, n * C)],
+                          split)
+        answer = rng.integers(0, cfg.num_candidates_data, n)
+        answer[rng.random(n) < 0.1] = cfg.num_candidates_data  # the answer-absent sentinel
+        npy_io.save_field(d, "answer", answer.astype(np.int64), split)
+        npy_io.save_field(d, "mention_image_feature", rng.standard_normal(
+            (n, cfg.resnet_num_region, cfg.resnet_embed_dim), dtype=np.float32), split)
+
+
+def _trace_summary(path):
+    """(device busy ms, wall ms, kernel names) of one torch.profiler Chrome
+    trace: busy is the sum of the kernels', copies' and memsets' durations,
+    wall the span of every timed event in it."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e["dur"] for e in device) / 1e3
+    wall = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    return busy, wall, {e["name"] for e in device if e.get("cat") == "kernel"}
+
+
+def phase_train_text(torch, np, attn):
+    """GHMFC with online BERT trained from raw text through the training
+    entry point, ``drin_tpu_torch.train.cli.main``, on the card at bert-base
+    width: a 28,996-entry vocabulary file, a seeded bert-base checkpoint as an
+    HF-style directory, a WikiMEL store of raw strings (C=101; 32 train, 8
+    valid and 8 test mentions with their image regions), ``finetune_bert``,
+    ``bert_remat``, a bf16 body, B=8, two fit chunks with checkpoints and
+    profiler windows, and the tokenizer pools of four spawn workers."""
+    import glob
+    import tempfile
+
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.online import OnlineMELDataset
+    from drin_tpu_torch.models import get_model
+    from drin_tpu_torch.train import cli
+    from drin_tpu_torch.train import metrics as M
+    from drin_tpu_torch.train import trainer as trainer_module
+
+    B, splits, workers = 8, {"train": 32, "valid": 8, "test": 8}, 4
+    n_train, n_eval = 2 * splits["train"] // B, 2 * (splits["valid"] + splits["test"]) // B
+    with tempfile.TemporaryDirectory() as tmp:
+        store, bert_dir = os.path.join(tmp, "store"), os.path.join(tmp, "bert-base")
+        os.makedirs(store)
+        os.makedirs(bert_dir)
+        vocab_path = os.path.join(tmp, "vocab.txt")
+        words, pieces = _write_vocab(np, vocab_path)
+        overrides = dict(
+            model_type="ghmfc", dataset_name="wikimel", preprocess_dir=store,
+            dataset_root=os.path.join(tmp, "raw"), online_bert=True, finetune_bert=True,
+            bert_remat=True, bert_checkpoint=bert_dir, bert_vocab=vocab_path,
+            compute_dtype="bfloat16", batch_size=B, learning_rate=1e-4, num_epoch=2,
+            test_epoch_interval=1, enable_checkpointing=True,
+            checkpoint_dir=os.path.join(tmp, "checkpoints"), keep_checkpoints=1, profiling=True,
+            profile_dir=os.path.join(tmp, "profile"), profile_active=2,
+            dataloader_workers=workers, qid2entity_path=os.path.join(store, "qid2ne.json"),
+            qid2attr_path=os.path.join(store, "qid2abs.json"))
+        cfg = make_config(**overrides)
+        assert (cfg.num_candidates_model, cfg.num_entity_sentence, cfg.max_bert_len,
+                cfg.max_entity_attr_char_len, cfg.mention_final_layer_name) == (
+            101, 12, 512, 128, "multimodal")
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            skeleton, _ = get_model(cfg.replace(bert_checkpoint=""))
+        bert = {k[len("bert."):]: v for k, v in _online_weights(torch, np, skeleton).items()
+                if k.startswith("bert.")}
+        torch.save(bert, os.path.join(bert_dir, "pytorch_model.bin"))
+        b = skeleton.bert.cfg
+        with open(os.path.join(bert_dir, "config.json"), "w") as f:
+            json.dump({"model_type": "bert", "vocab_size": b.vocab_size,
+                       "hidden_size": b.hidden_size, "num_hidden_layers": b.num_hidden_layers,
+                       "num_attention_heads": b.num_attention_heads,
+                       "intermediate_size": b.intermediate_size,
+                       "max_position_embeddings": b.max_position_embeddings,
+                       "type_vocab_size": b.type_vocab_size, "layer_norm_eps": b.layer_norm_eps},
+                      f)
+        layers = b.num_hidden_layers
+        from drin_tpu_torch.text.wordpiece import BertTokenizer
+
+        tok = BertTokenizer(vocab_file=vocab_path, model_max_length=cfg.max_bert_len)
+        assert tok._native is not None, "the native tokenizer was not taken"
+        _write_text_store(np, store, cfg, tok, words, pieces, splits)
+        print(f"[train_text] vocab.txt {len(tok.vocab)} entries, bert-base checkpoint "
+              f"{os.path.getsize(os.path.join(bert_dir, 'pytorch_model.bin')) / 2 ** 20:.0f} MiB "
+              f"(HF-style directory), raw-text store {splits}, written in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # the datasets' tokenization, outside the counted run: the pool's batch
+        # against the in-process one, and each path's time per batch of 8
+        local = OnlineMELDataset(cfg.replace(dataloader_workers=0), "train", tokenizer=tok)
+        pooled = OnlineMELDataset(cfg, "train")
+        try:
+            idx = np.arange(B)
+            want = local.online_batch(idx)
+            got = pooled.online_batch(idx)
+            for name, x, y in zip(want._fields, got, want):
+                assert x.dtype == y.dtype and np.array_equal(x, y), f"pool differs in {name}"
+            ent_len, men_len = want.entity_ids.shape[-1], want.mention_ids.shape[-1]
+            assert ent_len >= 256 and men_len == cfg.max_mention_sentence_len < 256, (
+                ent_len, men_len)
+            tok_ms = {"native": host_ms(lambda: local.online_batch(idx), reps=5),
+                      f"native, pool of {workers}": host_ms(lambda: pooled.online_batch(idx),
+                                                            reps=5)}
+            local.tokenizer = BertTokenizer(vocab=tok.vocab, model_max_length=cfg.max_bert_len)
+            local.tokenizer._native = None
+            python = local.online_batch(idx)
+            assert all(np.array_equal(x, y) for x, y in zip(python, want))
+            tok_ms["python"] = host_ms(lambda: local.online_batch(idx), reps=3)
+        finally:
+            pooled.close()
+        print(f"[train_text] batch of {B} from raw text: the pool's arrays bit-equal to the "
+              f"in-process ones (native and Python); entity ids {want.entity_ids.shape} (bucket "
+              f"{ent_len} of {cfg.max_bert_len}), mention ids {want.mention_ids.shape}; "
+              f"tokenization and assembly ms per batch (host clock, median): "
+              f"{ {k: round(v, 3) for k, v in tok_ms.items()} }")
+
+        # the main path, counted: the training entry point, two fit/test chunks
+        seen, spans = {}, []
+        real_fit = trainer_module.Trainer.fit
+        valid_ds = OnlineMELDataset(cfg.replace(dataloader_workers=0), "valid", tokenizer=tok)
+        one = valid_ds.make_batch(np.array([0]))  # the first eval batch's first mention
+
+        def scores_of(trainer):
+            batch, valid = trainer._put(one, np.ones((1,), np.float32))
+            out = trainer.fns.eval_step(batch, valid, M.init_state(cfg.metrics_topk, "cuda"))[2]
+            return out.float().cpu().numpy()
+
+        def fit(self, *args, **kw):
+            if not seen:  # before step 1: BERT on the card is the checkpoint file's
+                seen["trainer"] = self
+                on_card = self.state.model.bert.state_dict()
+                seen["bert_equal"] = all(torch.equal(on_card[k].cpu(), v) for k, v in bert.items())
+                # the B=1 scores at the weights the run starts from; their 12
+                # forward launches are a check beside the main path: not counted
+                counted = attn.launches
+                seen["scores0"] = scores_of(self)
+                attn.launches = counted
+                seen["weights0"] = {k: v.detach().cpu().clone()
+                                    for k, v in self.state.model.state_dict().items()}
+                steps = self.fns.train_step
+
+                def timed(*a):  # CUDA events around each step: no synchronise added
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = steps(*a)
+                    end.record()
+                    spans.append((start, end))
+                    return out
+
+                self.fns = self.fns._replace(train_step=timed)
+            t = time.perf_counter()
+            out = real_fit(self, *args, **kw)
+            seen.setdefault("fit_s", []).append(time.perf_counter() - t)
+            return out
+
+        trainer_module.Trainer.fit = fit
+        argv = [f"{k}={v}" for k, v in overrides.items()] + ["device=cuda"]
+        try:
+            attn.launches = attn.bwd_launches = attn.bwd_nomask_launches = 0
+            t0 = time.perf_counter()
+            trainer = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {"attention": attn.launches, "attention_bwd": attn.bwd_launches}
+            nomask = attn.bwd_nomask_launches
+        finally:
+            trainer_module.Trainer.fit = real_fit
+        assert seen["trainer"] is trainer and seen["bert_equal"], \
+            "BERT on the card is not the checkpoint's before the first step"
+        print(f"[train_text] cli.main({len(argv)} key=value arguments, device=cuda): "
+              f"{n_train} train steps and {n_eval} eval steps in {wall:.1f} s; fit chunks "
+              f"{[round(s, 1) for s in seen['fit_s']]} s; forward launches "
+              f"{counts['attention']} ({2 * layers} per train step, {layers} per eval step), "
+              f"backward launches {counts['attention_bwd']} ({layers} per train step), without "
+              f"mask {nomask}; BERT on the card bit-equal to the checkpoint file before step 1")
+        assert counts == {"attention": 2 * layers * n_train + layers * n_eval,
+                          "attention_bwd": layers * n_train} and nomask == 0, (counts, nomask)
+        assert trainer.state.step == n_train and trainer.epoch == 2
+        step_ms = [s.elapsed_time(e) for s, e in spans]
+        per_chunk = n_train // 2
+        steady = step_ms[1:per_chunk] + step_ms[per_chunk + 1:]
+        print(f"[train_text] ms per train step on the device's timeline (CUDA events around "
+              f"each step, no synchronise added): median {statistics.median(steady):.1f} over "
+              f"{len(steady)} (each chunk's first left out: "
+              f"{[round(step_ms[0], 1), round(step_ms[per_chunk], 1)]}); "
+              f"{B * cfg.num_candidates_model / (statistics.median(steady) / 1e3):.0f} pairs/s")
+
+        # the profiler's cycles: each traced two train steps on the card
+        cycles = sorted(os.listdir(cfg.profile_dir))
+        assert cycles == ["cycle0", "cycle1"], cycles
+        for cycle in cycles:
+            (trace,) = glob.glob(os.path.join(cfg.profile_dir, cycle, "*.pt.trace.json"))
+            busy, span, names = _trace_summary(trace)
+            for kernel in ("attn_fwd_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkv_bf16"):
+                assert any(kernel in n for n in names), (cycle, kernel)
+            print(f"[train_text] {cycle}: {os.path.getsize(trace) / 2 ** 20:.1f} MiB trace of "
+                  f"{cfg.profile_active} train steps, {len(names)} kernel names (the attention "
+                  f"kernels among them); {span:.1f} ms wall, {busy:.1f} ms device busy, idle "
+                  f"share {1 - busy / span:.3f}")
+
+        # the checkpoint: its size, the save's blocking time, a restore bit for bit
+        (ckpt,) = os.listdir(cfg.checkpoint_dir)
+        assert ckpt == f"step_{n_train}.pt", ckpt
+        t0 = time.perf_counter()
+        trainer.save(wait=False)
+        blocking = time.perf_counter() - t0
+        trainer.wait_until_finished()
+        total = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(cfg.checkpoint_dir, ckpt))
+        with torch.device("meta"):
+            fresh, _ = get_model(cfg)
+        fresh.to_empty(device="cuda")
+        restored = trainer_module.Trainer(cfg, fresh, device="cuda", log=lambda *a: None)
+        assert restored.state.step == trainer.state.step and restored.epoch == 2
+        for (k, a), b2 in zip(trainer.state.model.state_dict().items(),
+                              restored.state.model.state_dict().values()):
+            assert torch.equal(a, b2), f"restored {k} differs"
+        ours, theirs = trainer.state.optimizer.state_dict(), restored.state.optimizer.state_dict()
+        assert ours["state"].keys() == theirs["state"].keys()
+        for i, s in ours["state"].items():
+            for name, v in s.items():
+                assert torch.equal(v.cpu(), theirs["state"][i][name].cpu()), (i, name)
+        print(f"[train_text] checkpoint {ckpt}: {size / 2 ** 30:.2f} GiB (float32 masters and "
+              f"Adam's two moments); save(wait=False) blocked {blocking:.3f} s (the host copy), "
+              f"written in {total:.2f} s in all; a fresh Trainer restored it bit for bit")
+        del restored, fresh
+        torch.cuda.empty_cache()
+
+        # the first eval batch at B=1 against the float32 forward on the CPU: at
+        # the weights the run started from (the online limit), and after the
+        # eight steps, which move the cosines to where one bf16 ulp is 3.9e-3
+        with torch.device("meta"):
+            reference, _ = get_model(cfg.replace(compute_dtype="float32"))
+        for when, weights, got, atol in (
+                ("before step 1", seen["weights0"], seen["scores0"], ONLINE_SCORE_ATOL),
+                ("after training", {k: v.cpu() for k, v in trainer.state.model.state_dict().items()},
+                 scores_of(trainer), TRAINED_SCORE_ATOL)):
+            reference.load_state_dict(weights, assign=True)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                want = reference(tuple(torch.from_numpy(np.ascontiguousarray(x))
+                                       for x in one[:-1])).numpy()
+            cpu_s = time.perf_counter() - t0
+            err, spread = float(np.abs(got - want).max()), float(want.std(-1).min())
+            print(f"[train_text] first eval batch at B=1 (bucket {one.entity_ids.shape[-1]}), "
+                  f"{when}: scores in [{want.min():.4f}, {want.max():.4f}], vs the f32 CPU "
+                  f"forward ({cpu_s:.1f} s) max abs err {err:.4g} (tol {atol}; the candidates' "
+                  f"spread {spread:.3g})")
+            assert got.shape == (1, cfg.num_candidates_model) and np.isfinite(got).all()
+            assert err <= atol, (when, err)
+            if when == "before step 1":
+                assert atol < spread, (when, spread)
+        del trainer, reference
+        torch.cuda.empty_cache()
+    return counts, {"step_ms": statistics.median(steady), "save_blocking_s": blocking}
+
+
 def phase_train_drin(torch, np, gcn, vu):
     """DRIN train steps through Trainer / build_step_fns at the full WikiMEL
     width: B=64, C=101, D=768, bf16 body over float32 masters, the
@@ -2429,6 +2729,7 @@ def main() -> int:
     paths["serve_online"] = {"attention": timed("serve_online", phase_online, torch, np, attn)[0]}
     paths["serve_text"], _ = timed("serve_text", phase_serve_text, torch, np, attn)
     paths["train_online"], _ = timed("train_online", phase_train_online, torch, np, attn)
+    paths["train_text"], _ = timed("train_text", phase_train_text, torch, np, attn)
     paths["train_drin"], _ = timed("train_drin", phase_train_drin, torch, np, gcn, vu)
     # the baselines: offline GHMFC reads its rows through kernel 2; MELHI, the
     # transformer mention layer and the float store of training run no kernel
@@ -2443,7 +2744,8 @@ def main() -> int:
         "serve_drin": ["gather_dequant", "gcn_layer"], "serve_online": ["attention"],
         "serve_batched": ["gather_dequant", "gcn_layer"], "retrieve": [],
         "serve_text": ["attention"],
-        "train_online": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"],
+        "train_online": ["attention", "attention_bwd"],
+        "train_text": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"],
         "serve_ghmfc": ["gather_dequant"], "serve_ghmfc_transformer": [], "serve_melhi": [],
         "train_ghmfc": [], "train_melhi": []}, paths
     for path, counts in paths.items():

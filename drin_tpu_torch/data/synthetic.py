@@ -12,9 +12,8 @@ to look like the real features (BERT activations ~N(0,1), CLIP logits ~[0,40],
 detector scores in [0,1] descending).
 
 The port's own copy of ``drin_tpu/data/synthetic.py``: the same seed writes
-the same files byte for byte.  The raw-text online store
-(``make_synthetic_online_store``) needs the tokenizer and comes with the
-raw-text slice.
+the same files byte for byte, the raw-text online store
+(``make_synthetic_online_store``) included.
 """
 
 from __future__ import annotations
@@ -159,6 +158,61 @@ def make_synthetic_store(cfg: Config, n_mentions: dict | int = 12, n_entities: i
         with open(os.path.join(d, "qid2idx.json"), "w") as f:
             json.dump({f"Q{i}": i for i in range(n_entities)}, f)
     return d
+
+
+def make_synthetic_online_store(preprocess_dir: str, n: int = 8, C: int = 3,
+                                max_len: int = 32, write: bool = True, **cfg_kw):
+    """Tiny ONLINE intermediate store (raw mention texts + qid candidates,
+    the fields OnlineMELDataset reads) plus a matching config + tokenizer.
+
+    Deterministic: a second process can rebuild the identical cfg/tokenizer
+    with ``write=False`` against a store another process already wrote (the
+    multi-process bucketing tests rely on this).  Splits: train = ``n``
+    mentions, valid/test = max(2, n // 3).  The same arguments write the same
+    files and return the same config and tokenizer as the JAX package's."""
+    import json
+
+    from drin_tpu_torch.common import npy_io
+    from drin_tpu_torch.text.wordpiece import BertTokenizer, build_tiny_vocab
+
+    words = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
+             "theta", "iota", "kappa"]
+    vocab = build_tiny_vocab(words + ["name", "attr", "text"]
+                             + [f"Q{i}" for i in range(4)])
+    tok = BertTokenizer(vocab=vocab, model_max_length=max_len)
+    rng = np.random.default_rng(11)
+    splits = {"train": n, "valid": max(2, n // 3), "test": max(2, n // 3)}
+    if write:
+        os.makedirs(preprocess_dir, exist_ok=True)
+        for split, ns in splits.items():
+            sentences = [" ".join(rng.choice(words, size=int(rng.integers(3, 9))))
+                         for _ in range(ns)]
+            npy_io.save_field(preprocess_dir, "mention_text_raw",
+                              np.asarray(sentences), split)
+            npy_io.save_field(preprocess_dir, "start_pos", np.ones(ns, np.int64), split)
+            npy_io.save_field(preprocess_dir, "end_pos", np.full(ns, 2, np.int64), split)
+            answers = (np.arange(ns) % (C - 1)).astype(np.int64)
+            if ns > 1:
+                # one answer-absent sentinel per split (index C-1 -> the
+                # all-zero one-hot row) — common in real wikimel data
+                # (first-stage retrieval misses); the reference's online
+                # loader handles it through the same one-hot lookup
+                # (baselines/data.py:132)
+                answers[-1] = C - 1
+            npy_io.save_field(preprocess_dir, "answer", answers, split)
+            npy_io.save_field(preprocess_dir, "entity_name_raw",
+                              np.asarray([f"Q{i % 4}" for i in range(ns * C)]), split)
+        with open(os.path.join(preprocess_dir, "qid2ne.json"), "w") as f:
+            json.dump({f"Q{i}": f"name Q{i}" + " attr" * i for i in range(4)}, f)
+        with open(os.path.join(preprocess_dir, "qid2abs.json"), "w") as f:
+            json.dump({f"Q{i}": "attr text" * (i + 1) for i in range(4)}, f)
+    cfg = tiny_config("wikimel", "ghmfc", preprocess_dir=preprocess_dir).replace(
+        num_candidates_data=C - 1, online_bert=True, max_bert_len=max_len,
+        num_entity_sentence=2, online_length_buckets=4,
+        mention_final_layer_name="linear", entity_final_layer_name="linear",
+        qid2entity_path=os.path.join(preprocess_dir, "qid2ne.json"),
+        qid2attr_path=os.path.join(preprocess_dir, "qid2abs.json"), **cfg_kw)
+    return cfg, tok
 
 
 def tiny_config(dataset_name: str = "wikidiverse", model_type: str = "drin", preprocess_dir: str = "/tmp/drin-synth", **kw) -> Config:

@@ -19,7 +19,9 @@ def get_model(cfg: Config, generator: Optional[torch.Generator] = None,
     'baseline' the 9-tensor offline batch, 'online' the token-id
     ``OnlineBatch``.  The model may be moved to any device afterwards: the
     online model picks its attention path from where its input lies.
-    ``bert_cfg`` overrides the bert-base dimensions."""
+    BERT's dimensions are ``bert_cfg``'s, else ``cfg.bert_checkpoint``'s
+    (its weights are loaded by the caller: ``encoders.checkpoints.load_bert``),
+    else bert-base's."""
     if cfg.model_type == "drin":
         from drin_tpu_torch.models.drin import DRIN
 
@@ -29,12 +31,11 @@ def get_model(cfg: Config, generator: Optional[torch.Generator] = None,
             from drin_tpu_torch.encoders.bert import BertConfig
             from drin_tpu_torch.models.ghmfc import GHMFCOnline
 
-            if cfg.bert_checkpoint:
-                raise NotImplementedError(
-                    f"bert_checkpoint={cfg.bert_checkpoint!r}: loading a pretrained BERT is "
-                    "not ported yet (ROADMAP: encoders/checkpoints.py); pass the weights in "
-                    "the state_dict")
-            if bert_cfg is None:
+            if bert_cfg is None and cfg.bert_checkpoint:  # dims from the checkpoint
+                from drin_tpu_torch.encoders.checkpoints import load_bert
+
+                bert_cfg, _ = load_bert(cfg.bert_checkpoint)
+            elif bert_cfg is None:
                 bert_cfg = BertConfig(max_position_embeddings=cfg.max_bert_len)
             return GHMFCOnline(cfg, bert_cfg, generator), "online"
         from drin_tpu_torch.models.ghmfc import GHMFC

@@ -1,12 +1,15 @@
 # -*- coding: utf-8 -*-
-"""Pure-Python BERT tokenizer (BasicTokenizer + WordPiece), compatible with
-HF ``BertTokenizer`` given the same ``vocab.txt`` (the port's copy of
-``drin_tpu/text/wordpiece.py``, its Python path).
+"""BERT tokenizer (BasicTokenizer + WordPiece), compatible with HF
+``BertTokenizer`` given the same ``vocab.txt`` (the port's copy of
+``drin_tpu/text/wordpiece.py``).
 
-Raw-text serving tokenizes on the host: sentences and candidate texts become
-the token-id fields of an ``OnlineBatch`` (``data/online.py``), and
-``MentionPositionProcessor`` counts tokens with attention-mask sums, so token
-counts must match HF's exactly."""
+Raw-text serving and training tokenize on the host: sentences and candidate
+texts become the token-id fields of an ``OnlineBatch`` (``data/online.py``),
+and ``MentionPositionProcessor`` counts tokens with attention-mask sums, so
+token counts must match HF's exactly.  Without lowercasing, ``BertTokenizer``
+encodes through the native library (``drin_tpu_torch/native``, built at
+first use; a failed build raises), and each text the native pass cannot
+express through the Python rules below: the same ids either way."""
 
 from __future__ import annotations
 
@@ -164,6 +167,16 @@ class BertTokenizer:
         self.cls_id = vocab[cls_token]
         self.sep_id = vocab[sep_token]
         self.pad_id = vocab[pad_token]
+        # the native pass (one foreign call per batch of texts, bert-base-cased
+        # semantics); a lowercasing tokenizer, or a vocab whose ids are not
+        # 0..n-1, takes the Python path
+        self._native = None
+        if not do_lower_case:
+            from drin_tpu_torch import native
+
+            buffer = native.vocab_buffer(vocab)
+            if buffer is not None:
+                self._native = native.BertEncodeNative(buffer, unk_id=vocab[unk_token])
 
     def tokenize(self, text: str) -> List[str]:
         out: List[str] = []
@@ -171,9 +184,20 @@ class BertTokenizer:
             out.extend(self.wordpiece.tokenize(word))
         return out
 
-    def _word_ids(self, text: str) -> List[int]:
+    def _py_word_ids(self, text: str) -> List[int]:
         # tokenize() only emits vocab tokens or [UNK]
         return [self.vocab[t] for t in self.tokenize(text)]
+
+    def _word_id_rows(self, texts) -> List[List[int]]:
+        """Vocab ids of tokenize(text) per text: the native pass where it
+        can express the text, the Python rules where it cannot."""
+        texts = [str(t) for t in texts]
+        rows = (self._native.encode_ids_batch(texts) if self._native is not None
+                else [None] * len(texts))
+        return [self._py_word_ids(t) if ids is None else ids for t, ids in zip(texts, rows)]
+
+    def _word_ids(self, text: str) -> List[int]:
+        return self._word_id_rows([text])[0]
 
     def encode(self, text: str, truncation: bool = False) -> List[int]:
         ids = [self.cls_id] + self._word_ids(str(text)) + [self.sep_id]
@@ -182,8 +206,15 @@ class BertTokenizer:
         return ids
 
     def encode_batch(self, texts, truncation: bool = False) -> List[List[int]]:
-        """``encode`` for many texts."""
-        return [self.encode(t, truncation) for t in texts]
+        """``encode`` for many texts in one native call (per-call overhead
+        dominates short candidate strings)."""
+        out = []
+        for ids in self._word_id_rows(texts):
+            ids = [self.cls_id] + ids + [self.sep_id]
+            if truncation and len(ids) > self.model_max_length:
+                ids = ids[: self.model_max_length - 1] + [self.sep_id]
+            out.append(ids)
+        return out
 
     def __call__(self, texts, padding=True, truncation: bool = False,
                  max_length: Optional[int] = None):
@@ -191,8 +222,8 @@ class BertTokenizer:
             texts = [texts]
         cap = max_length or self.model_max_length
         seqs = []
-        for t in texts:
-            ids = [self.cls_id] + self._word_ids(str(t)) + [self.sep_id]
+        for ids in self._word_id_rows(texts):
+            ids = [self.cls_id] + ids + [self.sep_id]
             if truncation and len(ids) > cap:
                 ids = ids[: cap - 1] + [self.sep_id]
             seqs.append(ids)

@@ -9,11 +9,13 @@
     come back as float32, and the gradients land in the masters (this is
     what the JAX step does; ``torch.autocast`` is a different thing),
   * checkpoints keyed by global step (``torch.save``) behind
-    ``cfg.enable_checkpointing``.
+    ``cfg.enable_checkpointing``; ``fit``'s per-epoch saves are written by a
+    background thread from a host copy taken at the step boundary, and
+    SIGTERM / SIGINT during ``fit`` save at the next step boundary and stop,
+  * ``torch.profiler`` traces in step windows behind ``cfg.profiling``
+    (:class:`WindowedProfiler`).
 
-Not ported yet: the profiler windows (``cfg.profiling``), the
-SIGTERM/SIGINT handling of ``fit``, asynchronous checkpoint writes, and
-everything multi-device.
+Not ported yet: everything multi-device.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import datetime
 import os
 import re
 import sys
+import threading
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -133,6 +136,94 @@ def _now() -> str:
 _CKPT = re.compile(r"^step_(\d+)\.pt$")
 
 
+def _host_copy(obj):
+    """A copy on the host of every tensor in ``obj`` (nested dicts, lists
+    and tuples); other leaves as they are."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+class WindowedProfiler:
+    """Step-windowed ``torch.profiler`` traces, stepped once per train batch
+    with the reference's schedule(wait=1, warmup=1, active=3, repeat=2).
+    Each cycle skips ``wait + warmup`` steps, traces ``active`` steps into
+    its own ``cycle{n}`` directory (a Chrome trace, ``*.pt.trace.json``), and
+    the schedule ends after ``repeat`` cycles.  ``active == 0`` or
+    ``repeat == 0`` traces the whole fit into ``profile_dir`` itself.  One
+    instance serves a run: its cycles continue across fit chunks."""
+
+    def __init__(self, cfg: Config, device):
+        from torch.profiler import ProfilerActivity
+
+        self.dir = cfg.profile_dir
+        os.makedirs(self.dir, exist_ok=True)
+        self.skip = max(cfg.profile_wait, 0) + max(cfg.profile_warmup, 0)
+        self.active = cfg.profile_active
+        self.repeat = cfg.profile_repeat
+        self.windowed = self.active > 0 and self.repeat > 0
+        self.activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if torch.device(device).type == "cuda" else [])
+        self._prof = None
+        self.pos = 0
+        self.cycles = 0
+        self.tracing = False
+        if not self.windowed:
+            self._start_trace(self.dir)
+            self.tracing = True
+
+    def _start_trace(self, path: str):
+        from torch.profiler import profile, tensorboard_trace_handler
+
+        self._prof = profile(activities=self.activities,
+                             on_trace_ready=tensorboard_trace_handler(path))
+        self._prof.start()
+
+    def _stop_trace(self):
+        self._prof.stop()  # writes the trace into the directory it was started for
+        self._prof = None
+
+    def before_step(self):
+        if not self.windowed or self.tracing or self.cycles >= self.repeat:
+            return
+        if self.pos >= self.skip:
+            self._start_trace(os.path.join(self.dir, f"cycle{self.cycles}"))
+            self.tracing = True
+
+    def after_step(self):
+        if not self.windowed:
+            return
+        self.pos += 1
+        if self.tracing and self.pos >= self.skip + self.active:
+            self._stop_trace()
+            self.tracing = False
+            self.cycles += 1
+            self.pos = 0
+
+    def begin_fit(self):
+        """Re-entry for the next fit chunk: windowed cycles go on counting
+        (``repeat`` bounds the run's traces, not a chunk's); whole-fit mode
+        starts its trace again."""
+        if not self.windowed and not self.tracing:
+            self._start_trace(self.dir)
+            self.tracing = True
+
+    def stop(self):
+        if self.tracing:
+            self._stop_trace()
+            self.tracing = False
+            if self.windowed:
+                # a chunk that ends inside an active window closes that cycle:
+                # it counts toward `repeat`, and the next chunk starts a fresh
+                # wait / warmup into its own cycle directory
+                self.cycles += 1
+                self.pos = 0
+
+
 class Trainer:
     """Epoch-loop harness with the reference's logging/eval protocol."""
 
@@ -152,6 +243,10 @@ class Trainer:
         self.fns = build_step_fns(self.state.model, cfg, feats_fn)
         self.epoch = 0
         self._test_result_path = output_test_result_path
+        self._profiler = None
+        self._interrupted = {}  # set by fit()'s signal handler
+        self._writer = None  # the background checkpoint write in flight
+        self._writer_error = None
         self._ckpt_dir = os.path.abspath(cfg.checkpoint_dir) if cfg.enable_checkpointing else None
         if self._ckpt_dir is not None:
             os.makedirs(self._ckpt_dir, exist_ok=True)
@@ -167,19 +262,50 @@ class Trainer:
         steps = self._steps() if self._ckpt_dir is not None else []
         return steps[-1] if steps else None
 
-    def save(self):
+    def save(self, wait: bool = True):
         """Checkpoint the train state, keyed by global step; the newest
-        ``cfg.keep_checkpoints`` are kept.  A no-op without checkpointing."""
+        ``cfg.keep_checkpoints`` are kept.  A no-op without checkpointing.
+
+        The model's and the optimizer's state are copied to the host before
+        ``save`` returns: the next step's ``optimizer.step()`` updates the
+        parameters in place.  ``wait=False`` writes the copy in a background
+        thread (``fit``'s per-epoch saves, so that the next epoch's compute
+        hides the write); a second save, ``restore`` and the end of ``fit``
+        wait for it (:meth:`wait_until_finished`)."""
         if self._ckpt_dir is None:
             return
-        payload = {"params": self.state.model.state_dict(),
-                   "opt_state": self.state.optimizer.state_dict(),
+        self.wait_until_finished()
+        payload = {"params": _host_copy(self.state.model.state_dict()),
+                   "opt_state": _host_copy(self.state.optimizer.state_dict()),
                    "step": self.state.step, "epoch": self.epoch}
-        path = os.path.join(self._ckpt_dir, f"step_{self.state.step}.pt")
+        if wait:
+            self._write(payload)
+            return
+
+        def write():
+            try:
+                self._write(payload)
+            except Exception as e:  # raised where the write is waited for
+                self._writer_error = e
+
+        self._writer = threading.Thread(target=write, name="checkpoint-writer")
+        self._writer.start()
+
+    def _write(self, payload):
+        path = os.path.join(self._ckpt_dir, f"step_{payload['step']}.pt")
         torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)  # never a half-written checkpoint under its name
         for old in self._steps()[: -max(self.cfg.keep_checkpoints, 1)]:
             os.remove(os.path.join(self._ckpt_dir, f"step_{old}.pt"))
+
+    def wait_until_finished(self):
+        """Wait for a background checkpoint write; raise what it raised."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        err, self._writer_error = self._writer_error, None
+        if err is not None:
+            raise RuntimeError("writing the checkpoint failed") from err
 
     def restore(self, step: Optional[int] = None):
         if self._ckpt_dir is None:
@@ -187,6 +313,7 @@ class Trainer:
                 "restore() needs checkpointing: construct the Trainer with "
                 "enable_checkpointing=true (save() silently no-ops without "
                 "it, but restoring from nowhere is always a caller error)")
+        self.wait_until_finished()  # a save of this trainer may still be in flight
         if step is not None:
             try:
                 step = int(step)
@@ -228,6 +355,10 @@ class Trainer:
             yield idx, valid
 
     def _assemble(self, dataset, kind: str, idx: np.ndarray, valid: np.ndarray):
+        if getattr(dataset, "accepts_bucket_idx", False):
+            # online datasets take the length bucket from the global batch's
+            # indices (one process: the batch's own)
+            return self._put(dataset.make_batch(idx, kind, bucket_idx=idx), valid)
         return self._put(dataset.make_batch(idx, kind), valid)
 
     def _run_epoch(self, dataset, split: str, train: bool, kind: str):
@@ -243,12 +374,23 @@ class Trainer:
         # it on the host only at the status-line refreshes
         log_every = 1 if cfg.debug else max(cfg.log_interval_steps, 1)
         assemble = lambda args: self._assemble(dataset, kind, *args)
+        profiler = self._profiler if train else None
+        # the context manager closes the worker thread and drops its queued
+        # batches on an exception or on the break of a preemption
         with Prefetcher(source, assemble, depth=cfg.prefetch_depth) as pf:
             for batch, valid in pf:
                 if train:
+                    if profiler is not None:
+                        profiler.before_step()
                     self.state, _, mstate = self.fns.train_step(self.state, batch, valid, mstate)
+                    if profiler is not None:
+                        profiler.after_step()
                 else:
                     _, mstate, _ = self.fns.eval_step(batch, valid, mstate)
+                if self._interrupted:
+                    # preemption grace windows are seconds: stop at this step
+                    # boundary, train or eval; fit() saves right after
+                    break
                 n_batches += 1
                 if n_batches % log_every == 0:
                     accs = M.compute(mstate, cfg.metrics_topk, correction)
@@ -274,18 +416,66 @@ class Trainer:
 
     def fit(self, train_ds, valid_ds, num_epochs: int, kind: str = "drin"):
         """One fit chunk: ``num_epochs`` epochs of train + valid, a
-        checkpoint after each epoch when checkpointing is on."""
+        checkpoint after each epoch when checkpointing is on.
+
+        With checkpointing on, SIGTERM / SIGINT during ``fit`` stop at the
+        next train step boundary (or eval step boundary during validation),
+        save a checkpoint keyed by the global step at once, and raise
+        ``KeyboardInterrupt``; a restore re-runs the interrupted epoch from
+        its start with the saved weights.  The handlers go in only on the
+        main thread and the previous ones come back on the way out."""
+        import signal
+
         cfg = self.cfg
         results = []
         if cfg.reset_optimizer_per_fit:
             # reference semantics: a fresh optimizer per chunk restarts
             # Adam's moments and step count
             self.state.optimizer = make_optimizer(self.state.model, cfg)
-        for _ in range(num_epochs):
-            self._run_epoch(train_ds, "train", True, kind)
-            results.append(self._run_epoch(valid_ds, "valid", False, kind))
-            self.epoch += 1
-            self.save()
+        if cfg.profiling:
+            # one profiler for the run: windowed cycles continue across chunks
+            if self._profiler is None:
+                self._profiler = WindowedProfiler(cfg, self.device)
+            else:
+                self._profiler.begin_fit()
+
+        interrupted = self._interrupted = {}
+        prev_handlers = {}
+
+        def _on_signal(signum, frame):
+            interrupted["signum"] = signum
+
+        in_main = threading.current_thread() is threading.main_thread()
+        if self._ckpt_dir is not None and in_main:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev_handlers[sig] = signal.signal(sig, _on_signal)
+        try:
+            for _ in range(num_epochs):
+                self._run_epoch(train_ds, "train", True, kind)
+                if interrupted:
+                    # stopped at a step boundary: save the mid-epoch state
+                    # under its global step and stop before the valid pass
+                    self.save()
+                    self.log(f"signal {interrupted['signum']} received: checkpoint saved at "
+                             f"step {self.state.step} (epoch {self.epoch}), stopping")
+                    raise KeyboardInterrupt
+                results.append(self._run_epoch(valid_ds, "valid", False, kind))
+                if interrupted:
+                    # during validation the train state is at the epoch's end
+                    self.save()
+                    self.log(f"signal {interrupted['signum']} received during validation: "
+                             f"checkpoint saved at step {self.state.step} (epoch {self.epoch}), "
+                             f"stopping")
+                    raise KeyboardInterrupt
+                self.epoch += 1
+                self.save(wait=False)  # the next epoch's compute hides the write
+        finally:
+            self._interrupted = {}
+            for sig, h in prev_handlers.items():
+                signal.signal(sig, h)
+            self.wait_until_finished()  # a returned (or raising) fit leaves every save written
+            if self._profiler is not None:
+                self._profiler.stop()  # the instance stays: cycles span chunks
         return results
 
     def test(self, test_ds, kind: str = "drin"):

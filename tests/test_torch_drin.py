@@ -103,12 +103,13 @@ def test_upstream_parameter_names_and_seeded_init():
     assert a["gcn_layers.0.w_u.weight"].shape == (D, D)  # scalar mode: [D, D]
 
 
-# the transformer mention layer and MELHI are ported: what get_model still
-# refuses is MELHI off WikiDiverse (as the JAX package does), a pretrained
-# BERT checkpoint (ROADMAP) and an unknown model
+# the transformer mention layer, MELHI and pretrained BERT checkpoints are
+# ported: what get_model still refuses is MELHI off WikiDiverse (as the JAX
+# package does), a BERT checkpoint that is not there (it reads the dims from
+# it, as the JAX package does) and an unknown model
 @pytest.mark.parametrize("kw", [({"model_type": "melhi"}, NotImplementedError, "wikidiverse"),
                                 ({"model_type": "ghmfc", "online_bert": True,
-                                  "bert_checkpoint": "some/dir"}, NotImplementedError, "ROADMAP"),
+                                  "bert_checkpoint": "some/dir"}, FileNotFoundError, "some/dir"),
                                 ({"model_type": "nope"}, ValueError, "unknown model_type")])
 def test_unported_branches_raise(kw):
     overrides, error, match = kw

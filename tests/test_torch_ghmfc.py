@@ -220,7 +220,9 @@ def test_get_model_registry_and_what_is_not_ported():
     assert attention.takes_kernel(torch.device("cuda", 0), 512)
     assert not attention.takes_kernel(torch.device("cpu"), 512)
     assert not pinned.bert.encoder.layer[0].attention.self.takes_kernel(torch.device("cuda"), 512)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # BERT's dims come from a named checkpoint (tests/test_torch_checkpoints.py):
+    # one that is not there raises
+    with pytest.raises(FileNotFoundError, match="some/dir"):
         get_model(cfg.replace(bert_checkpoint="some/dir"))
     # MELHI and the transformer mention layer are ported; MELHI keeps the
     # JAX package's WikiDiverse-only guard

@@ -52,7 +52,8 @@ def test_import_builds_nothing_and_pulls_in_no_jax(tmp_path):
         "for m in pkgutil.walk_packages(drin_tpu_torch.__path__, 'drin_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from drin_tpu_torch.ops.cuda import _build\n"
-        "assert not _build._libs, _build._libs\n"
+        "from drin_tpu_torch import native\n"
+        "assert not _build._libs and native._lib is None, (_build._libs, native._lib)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -101,6 +102,15 @@ def test_package_data_lists_kernel_sources():
     from drin_tpu_torch.ops.cuda import _build
 
     assert _build.KERNELS == ("gather_dequant", "gcn_layer", "attention", "attention_bwd")
+    # the native tokenizer's source is the port's own copy, built from its
+    # own directory, and includes nothing but the C++ standard library
+    assert '"drin_tpu_torch.native" = ["src/*.cpp"]' in text
+    from drin_tpu_torch import native
+
+    assert native.SRC.parent == ROOT / "drin_tpu_torch" / "native" / "src"
+    assert sorted(p.name for p in native.SRC.parent.iterdir()) == ["wordpiece.cpp"]
+    includes = [ln for ln in native.SRC.read_text().splitlines() if ln.startswith("#include")]
+    assert includes and all(ln.split()[1].startswith("<") for ln in includes), includes
 
 
 def test_no_library_attention_in_the_port():
@@ -317,8 +327,9 @@ def test_prefetcher_equals_the_jax_package():
 
 def test_text_copies_equal_the_jax_package():
     """The tokenizer's rules and the span conversion are the JAX package's
-    code line for line (the port leaves out only its native fast path), and
-    ``BertTokenizer`` gives the same ids on a few strings of each kind."""
+    code line for line (its native fast path is held id for id in
+    tests/test_torch_native.py), and ``BertTokenizer`` gives the same ids on
+    a few strings of each kind."""
     import inspect
 
     import numpy as np

@@ -522,9 +522,7 @@ def test_train_entry_refuses_by_name(stores):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_main(args(device="cuda"))
-    for kw, what in ((dict(mesh_data=2), "mesh_data=2"), (dict(num_processes=2), "num_processes=2"),
-                     (dict(model_type="ghmfc", online_bert="true"), "OnlineMELDataset"),
-                     (dict(profiling="true"), "profiling")):
+    for kw, what in ((dict(mesh_data=2), "mesh_data=2"), (dict(num_processes=2), "num_processes=2")):
         with pytest.raises(NotImplementedError, match="not ported yet") as err:
             train_main(args(**kw))
         assert what in str(err.value)
