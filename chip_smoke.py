@@ -9,7 +9,7 @@ started together, sm_90a), holds each against its plain PyTorch version on
 the card (gather+dequant at DRIN's and offline GHMFC's two packed layouts,
 the GCN layer with its per-launch device times, the attention forward, the
 attention backward with and without a mask, the vertex update), then drives
-thirteen paths at the full width of their models with seeded random weights.
+fourteen paths at the full width of their models with seeded random weights.
 Served, through ``Ranker`` and ``serve_http``:
 
   * DRIN's rank stage at the WikiMEL width over an int8 fused store of
@@ -40,6 +40,14 @@ Trained, through ``Trainer`` and ``build_step_fns``:
     GCN-layer kernel in the forward, its backward through the plain version);
   * offline GHMFC at B=64 over the float text-only store, and MELHI at B=64
     (no kernel).
+
+Preprocessed, through ``python -m drin_tpu_torch.preprocess all``'s ``main``:
+
+  * a seeded WikiMEL raw corpus (64 mentions a split, 1,024 entities, JPEG
+    images) into the feature store with seeded bert-base, ResNet-152 and CLIP
+    ViT-B/32 checkpoints at WikiMEL's widths (the attention kernel in float32
+    in BERT's buckets of 256-512, 12 launches a chunk), then DRIN evaluated
+    over that store through the training entry point (the GCN-layer kernel).
 
 It checks the answers against the port's float32 forward on the CPU, shows
 through the launch counters that each path ran its kernels (and that the
@@ -2620,6 +2628,509 @@ def phase_train_melhi(torch, np, kernels):
                            lambda c, device: None, "mention_encoder.mention_lstm")
 
 
+# --- the offline preprocessing pipeline (preprocess) -------------------------
+
+PRE_MENTIONS = 64  # per split
+PRE_ENTITIES = 1024
+PRE_IMAGES = 64  # distinct image files; the mentions and entities link to them
+# BertStage's features on the card (kernel 3 from a bucket of 256, float32)
+# against the port's f32 CPU forward of the same strings, ResNet-152's region
+# features and CLIP's miet rows likewise: max |got - want| / max |want|.
+# f32 on both sides with TF32 off; the products sum in another order.  The
+# first run on the H100 read 1.3e-6 (BERT, bucket 512 through the kernel),
+# 1.5e-6 (bucket 128), 1.8e-6 (ResNet-152) and 2.0e-6 (CLIP); the limits are
+# about ten times that.  The planted faults read 0.16 (BERT's mask left out
+# of the kernel), 0.99 (the regions scrambled) and 0.18 (CLIP pooled at the
+# last position)
+PRE_BERT_REL = 1e-5
+PRE_RESNET_REL = 2e-5
+PRE_CLIP_REL = 2e-5
+# every file the JAX stages write for WikiMEL, by shape (N mentions per
+# split, E entities; the widths are make_config("drin", "wikimel")'s)
+PRE_FILES = {
+    "mention-text-raw_{s}.npy": "N", "entity-name-raw_{s}.npy": "N*C",
+    "start-pos_{s}.npy": "N", "end-pos_{s}.npy": "N", "answer_{s}.npy": "N",
+    "mention-text-feature_{s}.npy": "N,Lm,D", "mention-text-mask_{s}.npy": "N,Lm",
+    "mention-image-feature_{s}.npy": "N,R,Dr", "mention-object-score_{s}.npy": "N,Km",
+    "mention-object-feature_{s}.npy": "N,Km,1,Dr",
+    "similarity-miet_{s}.npy": "N,C", "similarity-eimt_{s}.npy": "N,C",
+    "entity-attr-feature.npy": "E,Le,D", "entity-attr-mask.npy": "E,Le",
+    "entity-image-feature_all.npy": "E,1,Dr", "entity-object-score_all.npy": "E,Ke",
+    "entity-object-feature_all.npy": "E,Ke,1,Dr", "qid2idx.json": "E"}
+
+
+def _pre_text(rng, words, pieces, n):
+    """n words of the vocabulary, a tenth with a "##" piece, a comma after
+    about one in twelve and a period after about one in fourteen (the
+    entity pass turns an abstract's periods into ";"): ~1.25 ids a word."""
+    out = []
+    for _ in range(n):
+        w = words[rng.integers(len(words))]
+        if rng.random() < 0.1:
+            w += pieces[rng.integers(len(pieces))]
+        r = rng.random()
+        out.append(w + ("," if r < 0.08 else "." if r < 0.15 else ""))
+    return " ".join(out).rstrip(",.") + "."
+
+
+def _write_raw_wikimel(np, root, words, pieces):
+    """A WikiMEL raw corpus (the reference's raw layout): 64 mentions a split
+    (sentences of 30-60 words, the mention one of them), a candidates TSV of
+    100 qids a mention (the answer among them for ~90%), qid2ne / qid2abs
+    over 1,024 entities, and image files.  The first 256 abstracts run 10-40
+    words; the rest 150-350 words like Wikipedia abstracts, in chunks of 64
+    that land in BERT buckets of 256, 384 and 512 in turn."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 1100)
+    for sub in ("images", "mimg", "eimg"):
+        os.makedirs(os.path.join(root, sub))
+    # distinct non-square images of 180-640 px: a seeded 12x12 pattern scaled up
+    # plus noise; the mention and entity files are links to them
+    for k in range(PRE_IMAGES + 1):
+        w, h = (int(v) for v in rng.integers(180, 641, 2))
+        while w == h:
+            h = int(rng.integers(180, 641))
+        base = Image.fromarray(rng.integers(0, 255, (12, 12, 3), dtype=np.uint8)).resize((w, h))
+        arr = np.clip(np.asarray(base, np.int16) + rng.integers(-20, 21, (h, w, 3)), 0, 255)
+        name = "default.jpg" if k == PRE_IMAGES else f"images/img{k}.jpg"
+        Image.fromarray(arr.astype(np.uint8)).save(os.path.join(root, name), quality=90)
+    qids = [f"Q{i}" for i in range(PRE_ENTITIES)]
+    names, abstracts = {}, {}
+    long_ranges = ((150, 181), (220, 271), (290, 351))
+    for i, q in enumerate(qids):
+        names[q] = " ".join(words[j] for j in rng.integers(0, len(words), rng.integers(1, 4))).title()
+        lo, hi = (10, 41) if i < 256 else long_ranges[(i - 256) // 64 % 3]
+        abstracts[q] = _pre_text(rng, words, pieces, int(rng.integers(lo, hi)))
+        if i % 8 != 7:  # every eighth entity image missing: the default stands in
+            os.symlink(os.path.join(root, "images", f"img{rng.integers(PRE_IMAGES)}.jpg"),
+                       os.path.join(root, "eimg", f"{q}.jpg"))
+    with open(os.path.join(root, "qid2ne.json"), "w") as f:
+        json.dump(names, f)
+    with open(os.path.join(root, "qid2abs.json"), "w") as f:
+        json.dump(abstracts, f)
+    lines = []
+    for split in ("train", "valid", "test"):
+        mentions = {}
+        for i in range(PRE_MENTIONS):
+            mid = f"{split}{i:03d}"
+            sentence = _pre_text(rng, words, pieces, int(rng.integers(30, 61)))
+            toks = sentence.split()
+            surface = toks[rng.integers(len(toks))].rstrip(",.")
+            cands = [qids[j] for j in rng.choice(PRE_ENTITIES, 100, replace=False)]
+            answer = cands[rng.integers(100)] if rng.random() < 0.9 else qids[
+                int(rng.integers(PRE_ENTITIES))]
+            mentions[f"{mid}-0"] = {"sentence": sentence, "mentions": surface, "answer": answer}
+            lines.append("\t".join([f"{mid}-0"] + cands))
+            os.symlink(os.path.join(root, "images", f"img{rng.integers(PRE_IMAGES)}.jpg"),
+                       os.path.join(root, "mimg", f"{mid}.jpg"))
+        with open(os.path.join(root, f"WIKIMEL_{split}.json"), "w") as f:
+            json.dump(mentions, f)
+    with open(os.path.join(root, "cands.tsv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _write_clip_bpe(np, d, words):
+    """A CLIP BPE vocabulary of 49,408 entries and its 48,894 merges: the 256
+    byte symbols and their word-end forms, merges that build the corpus's
+    words left to right (then seeded letter strings), <|startoftext|> at
+    49406 and <|endoftext|> at 49407, the largest id, where CLIP pools."""
+    from drin_tpu_torch.text.clip_bpe import bytes_to_unicode
+
+    rng = np.random.default_rng(SEED + 1200)
+    b2u = bytes_to_unicode()
+    symbols = [b2u[b] for b in range(256)]
+    vocab = {s: i for i, s in enumerate(symbols + [s + "</w>" for s in symbols])}
+    n_merges = 49152 - 256 - 2
+    merges = []
+    pool = sorted({w.lower() for w in words})
+    rng.shuffle(pool)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(merges) < n_merges:
+        w = pool.pop() if pool else "".join(rng.choice(letters, rng.integers(3, 12)))
+        parts = list(w)
+        parts[-1] += "</w>"
+        while len(parts) > 1 and len(merges) < n_merges:
+            new = parts[0] + parts[1]
+            if new not in vocab:
+                vocab[new] = len(vocab)
+                merges.append(f"{parts[0]} {parts[1]}")
+            parts = [new] + parts[2:]
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    assert len(vocab) == 49408 and vocab["<|endoftext|>"] == 49407 == max(vocab.values())
+    with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+
+
+def _save_hf(torch, d, sd, config):
+    os.makedirs(d)
+    torch.save(sd, os.path.join(d, "pytorch_model.bin"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config, f)
+
+
+def _write_encoders(torch, d):
+    """Seeded bert-base, ResNet-152 and CLIP ViT-B/32 as HF-style
+    directories.  BERT and CLIP as HF initialises them (linears and
+    embeddings N(0, 0.02), LayerNorm 1 / 0, biases 0, logit scale
+    log(1 / 0.07)); ResNet-152's convolutions He-normal over their fan-in,
+    running statistics near 0 / 1 and each bottleneck's last BatchNorm
+    scaled to 0.2, so that 50 residual blocks keep the activations O(1)."""
+    import math
+
+    from drin_tpu_torch.encoders.bert import BertConfig, BertModel
+    from drin_tpu_torch.encoders.clip import CLIPConfig, CLIPModel
+    from drin_tpu_torch.encoders.resnet import ResNetConfig, ResNetModel
+
+    g = torch.Generator().manual_seed(SEED + 1300)
+    normal = lambda t, std: torch.randn(t.shape, generator=g) * std
+    with torch.device("meta"):
+        models = {"bert": BertModel(BertConfig()), "resnet": ResNetModel(ResNetConfig()),
+                  "clip": CLIPModel(CLIPConfig())}
+    sds = {}
+    for name, model in models.items():
+        sd = {}
+        for k, t in model.state_dict().items():
+            norm = any(s in k for s in ("LayerNorm", "layer_norm", "layrnorm", "layernorm"))
+            if name == "resnet":
+                if k.endswith("convolution.weight"):
+                    sd[k] = normal(t, math.sqrt(2.0 / t[0].numel()))
+                elif k.endswith("running_var"):
+                    sd[k] = 1 + 0.1 * torch.rand(t.shape, generator=g)
+                elif k.endswith("running_mean") or k.endswith("bias"):
+                    sd[k] = normal(t, 0.05)
+                else:  # BatchNorm scale
+                    sd[k] = torch.full(t.shape, 0.2 if ".layer.2." in k else 1.0)
+            elif norm:
+                sd[k] = torch.ones(t.shape) if k.endswith("weight") else torch.zeros(t.shape)
+            elif k == "logit_scale":
+                sd[k] = torch.tensor(math.log(1 / 0.07))
+            elif k.endswith("bias"):
+                sd[k] = torch.zeros(t.shape)
+            else:
+                sd[k] = normal(t, 0.02)
+        sds[name] = sd
+    b = models["bert"].cfg
+    _save_hf(torch, os.path.join(d, "bert-base-cased"), sds["bert"], dict(
+        model_type="bert", vocab_size=b.vocab_size, hidden_size=b.hidden_size,
+        num_hidden_layers=b.num_hidden_layers, num_attention_heads=b.num_attention_heads,
+        intermediate_size=b.intermediate_size, max_position_embeddings=b.max_position_embeddings,
+        type_vocab_size=b.type_vocab_size, layer_norm_eps=b.layer_norm_eps))
+    r = models["resnet"].cfg
+    _save_hf(torch, os.path.join(d, "resnet-152"), sds["resnet"], dict(
+        model_type="resnet", embedding_size=r.embedding_size, hidden_sizes=list(r.hidden_sizes),
+        depths=list(r.depths), downsample_in_first_stage=False, downsample_in_bottleneck=False))
+    t, v = models["clip"].cfg.text, models["clip"].cfg.vision
+    _save_hf(torch, os.path.join(d, "clip-vit-base-patch32"), sds["clip"], dict(
+        model_type="clip", projection_dim=models["clip"].cfg.projection_dim,
+        text_config=dict(vocab_size=t.vocab_size, hidden_size=t.hidden_size,
+                         num_hidden_layers=t.num_layers, num_attention_heads=t.num_heads,
+                         intermediate_size=t.intermediate_size,
+                         max_position_embeddings=t.max_position_embeddings),
+        vision_config=dict(hidden_size=v.hidden_size, num_hidden_layers=v.num_layers,
+                           num_attention_heads=v.num_heads, intermediate_size=v.intermediate_size,
+                           image_size=v.image_size, patch_size=v.patch_size)))
+    return {name: sum(x.numel() for x in sd.values()) for name, sd in sds.items()}
+
+
+def _rel_err(np, got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
+
+
+def _shape_of(spec: str, dims: dict) -> tuple:
+    """"N,C" or "N*C" -> the tuple of sizes those names have in ``dims``."""
+    out = []
+    for part in spec.split(","):
+        n = 1
+        for name in part.split("*"):
+            n *= dims[name] if name in dims else int(name)
+        out.append(n)
+    return tuple(out)
+
+
+def phase_preprocess(torch, np, attn, gcn):
+    """The offline preprocessing pipeline on the card at make_config("drin",
+    "wikimel")'s widths, through its entry point: ``python -m
+    drin_tpu_torch.preprocess all ... device=cuda`` (``__main__.main``) over
+    a seeded WikiMEL raw corpus with seeded bert-base, ResNet-152 and CLIP
+    ViT-B/32 checkpoints, then ``drin_tpu_torch.train.cli.main`` evaluating
+    DRIN (test_only) over the store it wrote.  Kernel 3 runs in float32 in
+    BertStage's buckets of 256 and more, kernel 1 in the eval."""
+    import tempfile
+
+    import PIL
+    import torch.nn.functional as F
+
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.encoders import checkpoints
+    from drin_tpu_torch.encoders.bert import BertModel
+    from drin_tpu_torch.encoders.clip import CLIPModel
+    from drin_tpu_torch.encoders.resnet import ResNetModel
+    from drin_tpu_torch.preprocess import __main__ as pre_cli
+    from drin_tpu_torch.preprocess import images, stages
+    from drin_tpu_torch.train import cli
+
+    print(f"[preprocess] image decode: Pillow {PIL.__version__} on the card (real JPEG files)")
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, store, enc = (os.path.join(tmp, s) for s in ("raw", "store", "encoders"))
+        os.makedirs(enc)
+        t0 = time.perf_counter()
+        words, pieces = _write_vocab(np, os.path.join(enc, "vocab.txt"))
+        _write_raw_wikimel(np, raw, words, pieces)
+        _write_clip_bpe(np, enc, words)
+        n_params = _write_encoders(torch, enc)
+        print(f"[preprocess] raw corpus ({3 * PRE_MENTIONS} mentions, {PRE_ENTITIES} entities, "
+              f"{PRE_IMAGES} distinct images + default), vocabularies and checkpoints "
+              f"({ {k: f'{v / 1e6:.1f} M' for k, v in n_params.items()} } parameters) written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        overrides = dict(
+            model_type="drin", dataset_name="wikimel", preprocess_dir=store,
+            dataset_root=raw, mention_text_path=os.path.join(raw, "WIKIMEL_%s.json"),
+            candidate_path=os.path.join(raw, "cands.tsv"),
+            qid2entity_path=os.path.join(raw, "qid2ne.json"),
+            qid2attr_path=os.path.join(raw, "qid2abs.json"),
+            mention_image_dir=os.path.join(raw, "mimg"),
+            entity_image_dir=os.path.join(raw, "eimg"),
+            default_image=os.path.join(raw, "default.jpg"),
+            bert_checkpoint=os.path.join(enc, "bert-base-cased"),
+            bert_vocab=os.path.join(enc, "vocab.txt"),
+            resnet_checkpoint=os.path.join(enc, "resnet-152"),
+            clip_checkpoint=os.path.join(enc, "clip-vit-base-patch32"),
+            clip_vocab=os.path.join(enc, "vocab.json"), clip_merges=os.path.join(enc, "merges.txt"))
+        cfg = make_config(**overrides)
+        assert (cfg.bert_embed_dim, cfg.resnet_embed_dim, cfg.resnet_num_region,
+                cfg.num_candidates_model, cfg.preprocess_batch_size, cfg.max_bert_len,
+                cfg.max_entity_attr_token_len, cfg.max_mention_sentence_len) == (
+            768, 2048, 49, 101, 64, 512, 64, 128)
+        argv = [f"{k}={v}" for k, v in overrides.items()] + ["device=cuda"]
+
+        # the main path, counted: the preprocessing CLI, then the DRIN eval
+        attn.launches = gcn.launches = 0
+        t0 = time.perf_counter()
+        ran = pre_cli.main(["all"] + argv)
+        torch.cuda.synchronize()
+        pre_wall = time.perf_counter() - t0
+        counts["attention"], pre_gcn = attn.launches, gcn.launches
+        eval_dir = os.path.join(tmp, "eval")
+        os.makedirs(eval_dir)
+        cwd = os.getcwd()
+        os.chdir(eval_dir)  # the eval writes test-result.txt into its working directory
+        try:
+            t0 = time.perf_counter()
+            cli.main([f"{k}={v}" for k, v in overrides.items()] + [
+                "test_only=true", "output_test_result=true", "compute_dtype=bfloat16",
+                "checkpoint_dir=" + os.path.join(eval_dir, "checkpoints"), "device=cuda"])
+            torch.cuda.synchronize()
+            eval_wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        counts["gcn_layer"] = gcn.launches
+        eval_attention = attn.launches - counts["attention"]
+
+        # what the stages launched: 12 forward launches per BERT chunk at a
+        # bucket of 256 or more, none at 128 (every mention chunk)
+        bert, resnet, clip = ran["bert"], ran["resnet"], ran["clip"]
+        layers = bert.bert_cfg.num_hidden_layers
+
+        def buckets(texts):
+            out = []
+            for i in range(0, len(texts), cfg.preprocess_batch_size):
+                enc_ = bert.tokenizer([str(t) for t in texts[i:i + cfg.preprocess_batch_size]],
+                                      padding=True, truncation=True, max_length=cfg.max_bert_len)
+                out.append(bert.bucket(enc_["input_ids"], enc_["attention_mask"])[0].shape[1])
+            return out
+
+        from drin_tpu_torch.common import npy_io
+
+        mention_buckets = [b for s in ("train", "valid", "test")
+                           for b in buckets(npy_io.load_field(store, "mention_text_raw", s))]
+        entity_texts, _ = stages.wikimel_entity_texts(cfg)
+        entity_buckets = buckets(entity_texts)
+        kernel_chunks = sum(b >= 256 for b in entity_buckets)
+        print(f"[preprocess] BERT buckets: mention pass {mention_buckets}, entity pass "
+              f"{entity_buckets}; attention launches {counts['attention']} (= {layers} x "
+              f"{kernel_chunks} chunks at 256+), gcn_layer launches in the stages {pre_gcn}, "
+              f"in the eval {counts['gcn_layer']}, attention launches in the eval "
+              f"{eval_attention}")
+        assert set(mention_buckets) == {128} and {128, 256, 384, 512} <= set(entity_buckets)
+        assert counts["attention"] == layers * kernel_chunks and pre_gcn == 0, counts
+        n_eval = -(-PRE_MENTIONS // cfg.batch_size)
+        assert counts["gcn_layer"] == cfg.num_gcn_layers * n_eval and eval_attention == 0
+
+        # every file the JAX stages write, with the shapes the config gives
+        dims = dict(N=PRE_MENTIONS, C=cfg.num_candidates_model, E=PRE_ENTITIES,
+                    Lm=cfg.max_mention_sentence_len, Le=cfg.max_entity_attr_token_len,
+                    D=cfg.bert_embed_dim, R=cfg.resnet_num_region, Dr=cfg.resnet_embed_dim,
+                    Km=cfg.mention_object_topk, Ke=cfg.entity_object_topk)
+        written = set(os.listdir(store))
+        for pattern, shape in PRE_FILES.items():
+            want = _shape_of(shape, dims)
+            for split in (("train", "valid", "test") if "{s}" in pattern else ("",)):
+                name = pattern.format(s=split)
+                assert name in written, f"{name} was not written"
+                path = os.path.join(store, name)
+                if name.endswith(".json"):
+                    with open(path) as f:
+                        got = (len(json.load(f)),)
+                else:
+                    arr = np.load(path, mmap_mode="r")
+                    got = arr.shape
+                    if "feature" in name or "similarity" in name or "score" in name:
+                        assert arr.dtype == np.float32, (name, arr.dtype)
+                assert got == want, (name, got, want)
+        print(f"[preprocess] {len(written)} files in the store, each with the shape the config "
+              f"gives ({len(PRE_FILES)} kinds)")
+        with open(os.path.join(eval_dir, "test-result.txt")) as f:
+            rows = [line.split("|")[0].split() for line in f]
+        scores = np.asarray(rows, np.float64)
+        assert scores.shape == (PRE_MENTIONS, cfg.num_candidates_model), scores.shape
+        assert np.isfinite(scores).all()
+        print(f"[preprocess] DRIN eval (test_only, bf16) over the written store: "
+              f"{scores.shape[0]} mentions x {scores.shape[1]} scores, all finite, in "
+              f"[{scores.min():.4f}, {scores.max():.4f}]; {eval_wall:.1f} s")
+
+        # per stage: wall seconds, rate, host (tokenization / decode) and encoder seconds
+        for name, stage, unit in (("bert", bert, "texts"), ("resnet", resnet, "images"),
+                                  ("clip", clip, "texts and images")):
+            c = stage.clock
+            print(f"[preprocess] {name}: {c.seconds['wall']:.2f} s wall, "
+                  f"{c.items / c.seconds['wall']:.1f} {unit}/s over {c.items} in {c.chunks} "
+                  f"chunks; host {c.seconds['host']:.2f} s ({1e3 * c.seconds['host'] / c.chunks:.2f} "
+                  f"ms per chunk), encoder {c.seconds['encoder']:.2f} s")
+        print(f"[preprocess] preprocess all: {pre_wall:.1f} s wall (checkpoint loading included)")
+
+        # the three card-against-CPU checks, each with a planted fault
+        cpu = {}
+        cfg_b, sd = checkpoints.load_bert(cfg.bert_checkpoint)
+        with torch.device("meta"):
+            m = BertModel(cfg_b)
+        cpu["bert"] = stages._frozen(m, sd, "cpu")
+        stored = np.load(os.path.join(store, "entity-attr-feature.npy"), mmap_mode="r")
+        B_ = cfg.preprocess_batch_size
+        errs = {}
+        for bucket in (512, 128):
+            chunk = entity_buckets.index(bucket)
+            rows = [chunk * B_ + j for j in (0, 1, 2)]
+            enc_ = bert.tokenizer([entity_texts[r] for r in range(chunk * B_, (chunk + 1) * B_)],
+                                  padding=True, truncation=True, max_length=cfg.max_bert_len)
+            ids, mask = bert.bucket(enc_["input_ids"], enc_["attention_mask"])
+            ids, mask = torch.from_numpy(ids[:3]), torch.from_numpy(mask[:3])
+            assert ids.shape[1] == bucket and int(mask.sum(1).min()) < bucket
+            with torch.inference_mode():
+                want = cpu["bert"](ids, mask)[0][:, :cfg.max_entity_attr_token_len].numpy()
+                err = _rel_err(np, np.asarray(stored[rows]), want)
+                fault = None
+                if bucket >= 256:  # fault: the additive mask left out of the kernel calls
+                    bad = bert.model(ids.cuda(), None)[0][:, :cfg.max_entity_attr_token_len]
+                    fault = _rel_err(np, bad.cpu().numpy(), want)
+            errs[f"bert {bucket}"] = err
+            print(f"[preprocess] BertStage rows {rows} (bucket {bucket}, "
+                  f"{'kernel 3, f32' if bucket >= 256 else 'no kernel'}) vs the f32 CPU forward: "
+                  f"relative err {err:.3g} (limit {PRE_BERT_REL})"
+                  + (f"; the mask left out of the kernel: {fault:.3g}" if fault is not None else ""))
+            assert err <= PRE_BERT_REL, (bucket, err)
+            if fault is not None:
+                assert fault > PRE_BERT_REL, f"the check cannot see the mask left out: {fault}"
+        del cpu["bert"]
+
+        cfg_r, sd = checkpoints.load_resnet(cfg.resnet_checkpoint)
+        with torch.device("meta"):
+            m = ResNetModel(cfg_r)
+        cpu_resnet = stages._frozen(m, sd, "cpu")
+        paths = stages.wikimel_mention_images(cfg, "test")[:2]
+        x = np.stack([images.resnet_preprocess(
+            images.load_image(p, cfg.default_image, cfg.min_image_size), cfg.image_input_size,
+            cfg.resnet_crop_pct, cfg.resnet_resample) for p in paths])
+        with torch.inference_mode():
+            want = cpu_resnet(torch.from_numpy(x).permute(0, 3, 1, 2))[0].numpy()
+            fmap = resnet.model.feature_map(torch.from_numpy(x).cuda().permute(0, 3, 1, 2))
+            bad = fmap.reshape(2, -1, fmap.shape[1]).cpu().numpy()  # NCHW without the permute
+        got = np.load(os.path.join(store, "mention-image-feature_test.npy"), mmap_mode="r")[:2]
+        err, fault = _rel_err(np, got, want), _rel_err(np, bad, want)
+        errs["resnet"] = err
+        print(f"[preprocess] ResNet-152 regions of test mentions 0-1 {want.shape} vs the f32 CPU "
+              f"forward: relative err {err:.3g} (limit {PRE_RESNET_REL}); the NCHW map "
+              f"flattened without the permute: {fault:.3g}")
+        assert err <= PRE_RESNET_REL and fault > PRE_RESNET_REL, (err, fault)
+        del cpu_resnet
+
+        cfg_c, sd = checkpoints.load_clip(cfg.clip_checkpoint)
+        with torch.device("meta"):
+            m = CLIPModel(cfg_c)
+        cpu_clip = stages._frozen(m, sd, "cpu")
+        mention_images, ent_texts, _ = clip._wikimel_sources("test")
+        pix = np.stack([images.clip_preprocess(images.load_image(
+            p, cfg.default_image, cfg.min_image_size), cfg_c.vision.image_size)
+            for p in mention_images[:2]])
+        ids = torch.from_numpy(clip.text_ids(ent_texts[:2].reshape(-1)))
+        norm = lambda t: t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+        scale = clip.logit_scale()
+        with torch.inference_mode():
+            v = norm(cpu_clip.get_image_features(torch.from_numpy(pix).permute(0, 3, 1, 2)))
+            t = norm(cpu_clip.get_text_features(ids)).reshape(2, cfg.num_candidates_model, -1)
+            want = scale * torch.einsum("np,ncp->nc", v, t).numpy()
+            card = clip.model
+            v_card = norm(card.get_image_features(torch.from_numpy(pix).cuda().permute(0, 3, 1, 2)))
+            last = card.text_model.hidden_states(ids.cuda())[:, -1]  # fault: the last position
+            t_bad = norm(card.text_projection(last)).reshape(2, cfg.num_candidates_model, -1)
+            bad = (scale * torch.einsum("np,ncp->nc", v_card, t_bad)).cpu().numpy()
+        got = np.load(os.path.join(store, "similarity-miet_test.npy"))[:2]
+        err, fault = _rel_err(np, got, want), _rel_err(np, bad, want)
+        errs["clip"] = err
+        print(f"[preprocess] CLIP similarity-miet rows of test mentions 0-1 {want.shape} vs the "
+              f"f32 CPU forward: relative err {err:.3g} (limit {PRE_CLIP_REL}); pooled at the "
+              f"last position instead of argmax(input_ids): {fault:.3g}")
+        assert err <= PRE_CLIP_REL and fault > PRE_CLIP_REL, (err, fault)
+        del cpu_clip
+
+        # one dispatch of each encoder under the profiler
+        ids512 = torch.randint(1000, 28000, (B_, 512), device="cuda")
+        mask512 = torch.ones_like(ids512)
+        mask512[1::2, 300:] = 0
+        pix224 = torch.randn(B_, 3, 224, 224, device="cuda")
+        ids77 = torch.from_numpy(clip.text_ids(ent_texts[0][:B_])).cuda()
+        for label, fn in (("BertStage [64, 512]", lambda: bert.model(ids512, mask512)),
+                          ("ResnetStage [64, 3, 224, 224]", lambda: resnet.model(pix224)),
+                          ("ClipStage text [64, 77]", lambda: clip.model.get_text_features(ids77)),
+                          ("ClipStage image [64, 3, 224, 224]",
+                           lambda: clip.model.get_image_features(pix224))):
+            with torch.inference_mode():
+                profile_call(torch, fn, f"[preprocess] {label}, one dispatch", reps=3, top=6)
+
+        # kernel 3's float32 form at BertStage's shape, masked
+        lens = np.random.default_rng(SEED + 1400).integers(200, 513, B_)
+        lens[0] = 512
+        q, k, v, mask = _attn_inputs(torch, np, B_, 12, 512, torch.float32, SEED + 1401, lens)
+        with torch.inference_mode():
+            got = attn.fused_attention(q, k, v, mask)
+            want_t = attn.attention_plain(q, k, v, mask)
+            f32_err = check_close("attention f32 [64,12,512,64]", got, want_t, **ATTN_F32_TOL)
+            ms = cuda_ms(lambda: attn.fused_attention(q, k, v, mask))
+            dev = device_ms(lambda: attn.fused_attention(q, k, v, mask))
+            plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v, mask))
+            lib_mask = mask[:, None, None, :]
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask))
+        flops = 4 * 512 * 512 * 64 * B_ * 12
+        moved = nbytes(q, k, v, mask, got)
+        bound_ms, bound_by = bound(moved, flops, "float32")
+        print(f"[preprocess] kernel 3, float32 form, [64,12,512,64] masked: kernel {ms:.4f} ms "
+              f"(device {dev:.4f}), plain {plain_ms:.4f} ms, F.scaled_dot_product_attention f32 "
+              f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP "
+              f"over the f32 non-tensor peak {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s, "
+              f"{moved / 1e6:.1f} MB over 3.35 TB/s); max abs err vs plain {f32_err:.3g}")
+        f32 = {"shape": [B_, 12, 512, 64], "max_abs_err": f32_err, "ms": ms, "device_ms": dev,
+               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        del q, k, v, mask, got, want_t, ran, bert, resnet, clip
+        torch.cuda.empty_cache()
+    return counts, {"errors": errs, "f32": f32, "preprocess_s": pre_wall, "eval_s": eval_wall}
+
+
 def profile_rank(torch, ranker, feats, label: str, reps: int = 5):
     """Where a rank's time goes: host-side input preparation (numpy ->
     device copy and cast), device time by kernel and the device's idle
@@ -2739,6 +3250,10 @@ def main() -> int:
                         ("serve_melhi", phase_serve_melhi), ("train_ghmfc", phase_train_ghmfc),
                         ("train_melhi", phase_train_melhi)):
         paths[path], _ = timed(path, phase, torch, np, mods)
+    # the offline preprocessing pipeline writes a store and DRIN evaluates it:
+    # kernel 3 in float32 in BertStage, kernel 1 in the eval
+    paths["preprocess"], pre = timed("preprocess", phase_preprocess, torch, np, attn, gcn)
+    measured["attention"]["f32_bert_stage"] = pre["f32"]
     print(f"seconds by path: {seconds}")
     assert {p: sorted(c) for p, c in paths.items()} == {
         "serve_drin": ["gather_dequant", "gcn_layer"], "serve_online": ["attention"],
@@ -2747,7 +3262,7 @@ def main() -> int:
         "train_online": ["attention", "attention_bwd"],
         "train_text": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"],
         "serve_ghmfc": ["gather_dequant"], "serve_ghmfc_transformer": [], "serve_melhi": [],
-        "train_ghmfc": [], "train_melhi": []}, paths
+        "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer"]}, paths
     for path, counts in paths.items():
         assert all(counts.values()), f"{path} never launched one of its kernels: {counts}"
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "drin_tpu"))

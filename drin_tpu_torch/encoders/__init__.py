@@ -1,2 +1,4 @@
-"""Encoders that run inside the forward pass (port of ``drin_tpu/encoders``):
-BERT.  The preprocessing encoders and checkpoint loading are not ported yet."""
+"""Encoders (port of ``drin_tpu/encoders``): BERT, which also runs inside
+the online forward pass, and the frozen preprocessing encoders ResNet and
+CLIP, with checkpoint loading for all three.  The Faster R-CNN detector is
+not ported yet (ROADMAP item 8)."""

@@ -175,3 +175,70 @@ def melhi_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     for flax_name, torch_name in (("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
         sd[f"mention_encoder.mention_lstm.{torch_name}"] = _t(lstm[flax_name])
     return sd
+
+
+def _conv(sd: Dict, key: str, kernel) -> None:
+    """A flax conv kernel [kh, kw, in, out] (HWIO) -> a torch OIHW weight."""
+    sd[key] = _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def _batchnorm(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+    sd[prefix + ".running_mean"] = _t(p["mean"])
+    sd[prefix + ".running_var"] = _t(p["var"])
+
+
+def resnet_state_dict_from_jax(params: Mapping, resnet_cfg) -> Dict[str, torch.Tensor]:
+    """Flax ``ResNetModel`` params -> a float32 state_dict with the HF
+    ``ResNetModel`` keys (the inverse of
+    ``drin_tpu.encoders.resnet.resnet_params_from_torch``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    emb = params["embedder"]
+    _conv(sd, "embedder.embedder.convolution.weight", emb["conv"]["kernel"])
+    _batchnorm(sd, "embedder.embedder.normalization", emb["bn"])
+    for si, depth in enumerate(resnet_cfg.depths):
+        for li in range(depth):
+            layer, p = params[f"stage{si}_layer{li}"], f"encoder.stages.{si}.layers.{li}"
+            if "shortcut_conv" in layer:
+                _conv(sd, p + ".shortcut.convolution.weight", layer["shortcut_conv"]["kernel"])
+                _batchnorm(sd, p + ".shortcut.normalization", layer["shortcut_bn"])
+            for ci in range(3):
+                conv = layer[f"conv{ci}"]
+                _conv(sd, f"{p}.layer.{ci}.convolution.weight", conv["conv"]["kernel"])
+                _batchnorm(sd, f"{p}.layer.{ci}.normalization", conv["bn"])
+    return sd
+
+
+def _clip_layers(sd: Dict, prefix: str, p: Mapping, n: int) -> None:
+    for i in range(n):
+        layer, pre = p[f"layer_{i}"], f"{prefix}.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(sd, f"{pre}.self_attn.{name}", layer["self_attn"][name])
+        _layernorm(sd, pre + ".layer_norm1", layer["layer_norm1"])
+        _layernorm(sd, pre + ".layer_norm2", layer["layer_norm2"])
+        _dense(sd, pre + ".mlp.fc1", layer["fc1"])
+        _dense(sd, pre + ".mlp.fc2", layer["fc2"])
+
+
+def clip_state_dict_from_jax(params: Mapping, clip_cfg) -> Dict[str, torch.Tensor]:
+    """Flax ``CLIPModel`` params -> a float32 state_dict with the HF
+    ``CLIPModel`` keys (the inverse of
+    ``drin_tpu.encoders.clip.clip_params_from_torch``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    text, vision = params["text_model"], params["vision_model"]
+    sd["text_model.embeddings.token_embedding.weight"] = _t(text["token_embedding"])
+    sd["text_model.embeddings.position_embedding.weight"] = _t(text["position_embedding"])
+    _clip_layers(sd, "text_model.encoder", text, clip_cfg.text.num_layers)
+    _layernorm(sd, "text_model.final_layer_norm", text["final_layer_norm"])
+    sd["vision_model.embeddings.class_embedding"] = _t(vision["class_embedding"])
+    _conv(sd, "vision_model.embeddings.patch_embedding.weight",
+          vision["patch_embedding"]["kernel"])
+    sd["vision_model.embeddings.position_embedding.weight"] = _t(vision["position_embedding"])
+    _layernorm(sd, "vision_model.pre_layrnorm", vision["pre_layrnorm"])
+    _clip_layers(sd, "vision_model.encoder", vision, clip_cfg.vision.num_layers)
+    _layernorm(sd, "vision_model.post_layernorm", vision["post_layernorm"])
+    for name in ("visual_projection", "text_projection"):
+        sd[name + ".weight"] = _t(np.asarray(params[name]["kernel"]).T)
+    sd["logit_scale"] = _t(params["logit_scale"])
+    return sd
