@@ -45,16 +45,21 @@ Preprocessed, through ``python -m drin_tpu_torch.preprocess all``'s ``main``:
 
   * a seeded WikiMEL raw corpus (64 mentions a split, 1,024 entities, JPEG
     images) into the feature store with seeded bert-base, ResNet-152 and CLIP
-    ViT-B/32 checkpoints at WikiMEL's widths (the attention kernel in float32
-    in BERT's buckets of 256-512, 12 launches a chunk), then DRIN evaluated
-    over that store through the training entry point (the GCN-layer kernel).
+    ViT-B/32 checkpoints at WikiMEL's widths (the attention kernel in float32,
+    split-precision TF32 on the tensor cores, in BERT's buckets of 256-512,
+    12 launches a chunk), under PyTorch's default TF32 settings as a user's
+    process has them (the stages hold their encoders to full float32), then
+    DRIN evaluated over that store through the training entry point (the
+    GCN-layer kernel).
 
 It checks the answers against the port's float32 forward on the CPU, shows
 through the launch counters that each path ran its kernels (and that the
 paths without one launched none), and
 prints times measured with CUDA events beside each kernel's bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
-peak rate of their type, whichever is larger).
+peak rate of their type, whichever is larger; float32-accurate products by
+the tensor cores' route, three TF32 products each, with the bound on the f32
+units printed beside it).
 
 Without CUDA, or without the repository around it, it exits non-zero and
 prints no result.  The last line is
@@ -67,6 +72,7 @@ in the JAX package: their counts are 0 and their kernel phases hold them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -91,7 +97,12 @@ SCORE_ATOL = 5e-2
 # order; outputs near 0 (cancelling v) keep the absolute error of their
 # terms, 2^-9 * sum(p |v|) <~ 2e-3 per rounding, floor 1e-2
 ATTN_BF16_TOL = dict(atol=1e-2, rtol=1.6e-2)
-ATTN_F32_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 summation order and expf only
+# f32: the kernel takes both products in split-precision TF32 (three TF32
+# products per product, float32 accumulators: a few f32 roundings, ~1.5e-6 at
+# unit-normal inputs by the CPU emulation of tests/test_torch_attention_f32.py)
+# and its exponentials with ex2.approx; one TF32 pass (the planted fault)
+# moves outputs by ~1e-3
+ATTN_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # kernels 3b/3c vs attention_backward_plain.  The gradients' size depends on
 # the sequence: with every key kept p ~ 1/512 and |dq|, |dk|, |dv| ~ 0.1; with
 # a prefix of 9 kept keys p ~ 1/9 and they reach ~10.  So the floor is
@@ -114,9 +125,13 @@ OTHER_DROPS = (-1e9, -1e30)
 # the attention rows' times before their redesign for wgmma and TMA (PERF.md
 # section 6, NVIDIA H100 80GB HBM3 at 700 W, the same shape and timing method),
 # quoted in a printed line beside this run's; the kernels line holds only what
-# this run measured (tools/attention_sweep.py --old-csrc times old and new in
-# one process)
-ATTN_EARLIER_MS = {"attention": 0.464, "attention_bwd": 1.453, "attention_bwd_nomask": 1.490}
+# this run measured, and the bounds (bound_ms, and fma_bound_ms for float32)
+# worked out from this run's inputs (tools/attention_sweep.py --old-csrc times
+# old and new in one process)
+ATTN_EARLIER_MS = {"attention": 0.464, "attention_bwd": 1.453, "attention_bwd_nomask": 1.490,
+                   # the f32 forward at BertStage's [64, 12, 512, 64] masked,
+                   # plain FMA before its split-TF32 redesign (PERF.md section 6)
+                   "attention_f32": 2.952}
 # served bf16 online scores vs the port's f32 CPU forward: 12 BERT layers and
 # the fusion round to bf16 at every step.  With random weights the cosines
 # of one mention's candidates spread by only ~5e-3, so the limit is absolute
@@ -213,7 +228,7 @@ TRAIN_BASELINE_F32_GRAD_REL = 1e-3
 TRAIN_BASELINE_BF16_GRAD_REL = 0.5
 # the card's published peaks (H100 SXM, dense): bytes/s and FLOP/s by type
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 
 def bound(nbytes: float, flops: float, dtype: str = "bfloat16"):
@@ -221,6 +236,21 @@ def bound(nbytes: float, flops: float, dtype: str = "bfloat16"):
     operations over the peak rate of their type."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by, fma_ms) of float32-accurate products: the least
+    time is the tensor cores' route, three TF32 products per product (split
+    precision), against the bytes; fma_ms is the bound of the same work on
+    the f32 units outside the tensor cores (67 TFLOP/s), for comparison."""
+    return bound(nbytes, 3 * flops, "tf32") + (bound(nbytes, flops, "float32")[0],)
+
+
+def tf32_round(torch, x):
+    """x (float32) rounded to TF32 as cvt.rna does: to nearest on the 13
+    low mantissa bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def nbytes(*tensors) -> int:
@@ -603,8 +633,17 @@ def phase_attention(torch, np, attn):
              ("L=504 ragged", 4, 12, 504, bf16, [504, 500, 129, 0]),
              ("L=8", 2, 12, 8, bf16, [8, 3]),
              ("L=256", 4, 12, 256, bf16, [256, 100, 0, 1])]
+    # the f32 kernel (split-precision TF32 on wgmma) at the same edges: a
+    # single sequence, one block's rows, one tile and eight rows, eight rows
+    # short of 512, a sequence shorter than a tile
+    f32_cases = [("f32 B'=1", 1, 12, 512, f32, [77]),
+                 ("f32 L=128", 8, 12, 128, f32, [128, 127, 65, 64, 63, 1, 0, 100]),
+                 ("f32 L=136 ragged", 8, 12, 136, f32, [136, 129, 128, 127, 64, 8, 0, 135]),
+                 ("f32 L=504 ragged", 4, 12, 504, f32, [504, 500, 129, 0]),
+                 ("f32 L=8", 2, 12, 8, f32, [8, 3])]
     cases = [c + (None,) for c in cases] + [(f"{c[0]}, dropped keys at {drop:g}",) + c[1:] + (drop,)
-                                            for c in cases[-1:] for drop in OTHER_DROPS]
+                                            for c in cases[-1:] for drop in OTHER_DROPS] + [
+        c + (None,) for c in f32_cases]
     result = None
     for i, (name, B, H, L, dt, lens, drop) in enumerate(cases):
         q, k, v, mask = _attn_inputs(torch, np, B, H, L, dt, SEED + i, lens, drop)
@@ -612,7 +651,7 @@ def phase_attention(torch, np, attn):
             got = attn.fused_attention(q, k, v, mask)
             torch.cuda.synchronize()
             want = attn.attention_plain(q, k, v, mask)
-            if i % 2:  # contiguous [B, H, L, 64] inputs take the same kernel
+            if i % 2 or dt == f32:  # contiguous [B, H, L, 64] inputs take the same kernel
                 again = attn.fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask)
                 assert torch.equal(again, got), f"attention {name}: strided != contiguous"
         torch.cuda.synchronize()
@@ -624,6 +663,19 @@ def phase_attention(torch, np, attn):
             b = list(lens).index(0)
             check_close(f"attention {name} all-masked", got[b].float(),
                         v[b].float().mean(-2, keepdim=True).expand_as(got[b]), **tol)
+        if name == "f32":
+            # the reach of the f32 check: the plain version with each product's
+            # operands rounded to TF32, one pass (what the split is there to avoid)
+            r = lambda x: tf32_round(torch, x.float())
+            with torch.inference_mode():
+                logits = torch.einsum("bhqd,bhkd->bhqk", r(q), r(k)) / 8 + mask[:, None, None, :]
+                one_pass = torch.einsum("bhqk,bhkd->bhqd", r(torch.softmax(logits, -1)), r(v))
+            n_out = outside(one_pass, want, **tol)
+            assert n_out, "attention f32: the check cannot see one TF32 pass"
+            print(f"[attention]   f32: the plain version with one TF32 pass moves "
+                  f"{(one_pass - want).abs().max().item():.3g} and puts {n_out} of {want.numel()} "
+                  f"values outside tol; the kernel's max abs err {err:.3g}")
+            del logits, one_pass
         if i:
             continue
         # the reach of the check: each fault planted in the plain version must
@@ -726,7 +778,7 @@ def phase_attention_bwd(torch, np, attn):
     cases = [c + (None,) for c in cases] + [(f"{c[0]}, dropped keys at {drop:g}",) + c[1:] + (drop,)
                                             for c in cases[-1:] for drop in OTHER_DROPS]
     names = ("dq", "dk", "dv", "dmask")
-    results = {}
+    results, f32_times = {}, {}
     for i, (name, B, H, L, dt, lens, drop) in enumerate(cases):
         q, k, v, mask = _attn_inputs(torch, np, B, H, L, dt, SEED + i, lens, drop)
         # the gradient as BERT's backward hands it over: a [B, H, L, 64] view of [B, L, H*64]
@@ -761,6 +813,15 @@ def phase_attention_bwd(torch, np, attn):
               f"largest share of the floor in use, values outside tol) {errs} (tol {tol})")
         assert not any(e[3] for e in errs.values()), f"attention bwd {name}: outside tol: {errs}"
         err = max(e[0] for e in errs.values())
+        row = "attention_bwd" if mask is not None else "attention_bwd_nomask"
+        if dt == f32:  # the f32 forms' times at their cases (no main path launches them)
+            f32_times[row] = t_ = _attn_bwd_times(torch, np, F, attn, q, k, v, mask, do, got,
+                                                  want, lens, err)[0]
+            print(f"[attention_bwd] {name}, f32 forms (plain FMA): kernels {t_['ms']:.4f} ms "
+                  f"(device {t_['device_ms']:.4f}), plain {t_['plain_ms']:.4f} ms, autograd through "
+                  f"F.scaled_dot_product_attention f32 {t_['library_ms']:.4f} ms; bound "
+                  f"{t_['bound_ms']:.4f} ms ({t_['bound_by']}, the TF32 route: three TF32 products "
+                  f"per product at 495 TFLOP/s), FMA bound {t_['fma_bound_ms']:.4f} ms")
         if i > 1:
             continue
         # the reach of the check: each fault planted in the plain version must
@@ -790,40 +851,19 @@ def phase_attention_bwd(torch, np, attn):
         for f_, n in seen.items():
             assert n, f"attention bwd: the check cannot see the plain version with {f_}"
         print(f"[attention_bwd]   values a planted fault puts outside tol: {seen}")
-        # time: the two backward launches alone, on the residuals of one forward
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        out = attn.fused_attention(*leaves, mask)
-        o, m, l = out.grad_fn.saved_tensors[4:7]
-        with torch.no_grad():
-            ms = cuda_ms(lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
-            dev_ms = device_ms(lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
-            plain_ms = cuda_ms(lambda: attn.attention_backward_plain(q, k, v, mask, do), reps=5,
-                               warmup=1)
-        lib_mask = None if mask is None else mask[:, None, None, :]
-        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
-        lib_dev_ms = device_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
-        lib = torch.autograd.grad(lib_out, leaves, do)
-        kept = torch.ones(B, dtype=torch.bool, device="cuda") if lens is None else \
-            torch.as_tensor(np.asarray(lens) > 0, device="cuda")
-        lib_err = max((a.float() - b.float())[kept].abs().max().item() for a, b in zip(lib, want))
-        flops = 10 * L * L * 64 * B * H  # the five products
-        moved = nbytes(q, k, v, o, do, m, l, *got[:3]) + (nbytes(mask) if mask is not None else 0)
-        bound_ms, bound_by = bound(moved, flops)
+        t_, flops, moved = _attn_bwd_times(torch, np, F, attn, q, k, v, mask, do, got, want,
+                                           lens, err)
         print(f"[attention_bwd] [96,12,512,64] bf16, {'masked' if mask is not None else 'no mask'}: "
-              f"kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, autograd through "
-              f"F.scaled_dot_product_attention {library_ms:.4f} ms (yardstick only; max abs diff "
-              f"to plain on the sequences that keep a key {lib_err:.3g}), bound {bound_ms:.4f} ms "
-              f"({bound_by}: {flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB)")
-        row = "attention_bwd" if mask is not None else "attention_bwd_nomask"
-        print(f"[attention_bwd]   device time alone (torch.profiler): kernels {dev_ms:.4f} ms, "
-              f"autograd through F.scaled_dot_product_attention {lib_dev_ms:.4f} ms; before the "
-              f"redesign the kernels took {ATTN_EARLIER_MS[row]} ms (PERF.md), now {ms:.4f} ms")
-        results[row] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "device_ms": dev_ms,
-            "library_device_ms": lib_dev_ms}
-        del lib_out, lib, out, leaves, o, m, l
+              f"kernels {t_['ms']:.4f} ms, plain {t_['plain_ms']:.4f} ms, autograd through "
+              f"F.scaled_dot_product_attention {t_['library_ms']:.4f} ms (yardstick only; max abs "
+              f"diff to plain on the sequences that keep a key {t_['library_max_abs_diff']:.3g}), "
+              f"bound {t_['bound_ms']:.4f} ms ({t_['bound_by']}: {flops / 1e9:.1f} GFLOP, "
+              f"{moved / 1e6:.1f} MB)")
+        print(f"[attention_bwd]   device time alone (torch.profiler): kernels {t_['device_ms']:.4f} "
+              f"ms, autograd through F.scaled_dot_product_attention {t_['library_device_ms']:.4f} ms; "
+              f"before the redesign the kernels took {ATTN_EARLIER_MS[row]} ms (PERF.md), now "
+              f"{t_['ms']:.4f} ms")
+        results[row] = t_
     for bad, why in ((lambda q, k, v: (q.half(), k.half(), v.half()), "fp16"),
                      (lambda q, k, v: (q[..., :32], k[..., :32], v[..., :32]), "Dh=32"),
                      (lambda q, k, v: (q[:, :, :260], k[:, :, :260], v[:, :, :260]), "L % 8")):
@@ -833,7 +873,42 @@ def phase_attention_bwd(torch, np, attn):
             raise AssertionError(f"attention with a gradient: {why} was accepted")
         except ValueError:
             pass
+    for row, times in f32_times.items():
+        results[row]["f32"] = times
     return results
+
+
+def _attn_bwd_times(torch, np, F, attn, q, k, v, mask, do, got, want, lens, err) -> dict:
+    """The two backward launches alone on one forward's residuals, the plain
+    backward and autograd through F.scaled_dot_product_attention (a
+    yardstick; its largest difference to the plain version over the
+    sequences that keep a key), beside the bound: bf16 products at the bf16
+    peak, float32 ones by the tensor cores' split-TF32 route (the FMA bound
+    beside it).  Returns (times, flops, bytes moved); the last two are for
+    the printed line only."""
+    B, H, L, _ = q.shape
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = attn.fused_attention(*leaves, mask)
+    o, m, l = out.grad_fn.saved_tensors[4:7]
+    with torch.no_grad():
+        ms = cuda_ms(lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
+        dev_ms = device_ms(lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
+        plain_ms = cuda_ms(lambda: attn.attention_backward_plain(q, k, v, mask, do), reps=5, warmup=1)
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=None if mask is None else mask[:, None, None, :])
+    lib_grad = lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)
+    library_ms, lib_dev_ms = cuda_ms(lib_grad), device_ms(lib_grad)
+    kept = torch.as_tensor(np.ones(B, bool) if lens is None else np.asarray(lens) > 0, device="cuda")
+    lib_err = max((a.float() - b.float())[kept].abs().max().item() for a, b in zip(lib_grad(), want))
+    flops = 10 * L * L * 64 * B * H  # the five products
+    moved = nbytes(q, k, v, o, do, m, l, *got[:3]) + (nbytes(mask) if mask is not None else 0)
+    times = {"shape": [B, H, L, 64], "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+             "plain_ms": plain_ms, "library_ms": library_ms, "library_device_ms": lib_dev_ms,
+             "library_max_abs_diff": lib_err}
+    if q.dtype == torch.float32:
+        times["bound_ms"], times["bound_by"], times["fma_bound_ms"] = f32_bound(moved, flops)
+    else:
+        times["bound_ms"], times["bound_by"] = bound(moved, flops)
+    return times, flops, moved
 
 
 def _vertex_inputs(torch, B, C, D, dt, seed):
@@ -2909,12 +2984,22 @@ def phase_preprocess(torch, np, attn, gcn):
             768, 2048, 49, 101, 64, 512, 64, 128)
         argv = [f"{k}={v}" for k, v in overrides.items()] + ["device=cuda"]
 
-        # the main path, counted: the preprocessing CLI, then the DRIN eval
+        # the main path, counted: the preprocessing CLI, then the DRIN eval.
+        # The CLI runs under PyTorch's defaults (cuDNN TF32 on, matmul TF32
+        # off), as a user's process has them, and the smoke's own settings
+        # come back after it: the stages hold their encoders to full f32
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
         attn.launches = gcn.launches = 0
         t0 = time.perf_counter()
-        ran = pre_cli.main(["all"] + argv)
-        torch.cuda.synchronize()
+        try:
+            ran = pre_cli.main(["all"] + argv)
+            torch.cuda.synchronize()
+            after = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
         pre_wall = time.perf_counter() - t0
+        assert after == (True, False), f"the preprocessing CLI left the TF32 flags at {after}"
         counts["attention"], pre_gcn = attn.launches, gcn.launches
         eval_dir = os.path.join(tmp, "eval")
         os.makedirs(eval_dir)
@@ -3050,13 +3135,18 @@ def phase_preprocess(torch, np, attn, gcn):
             want = cpu_resnet(torch.from_numpy(x).permute(0, 3, 1, 2))[0].numpy()
             fmap = resnet.model.feature_map(torch.from_numpy(x).cuda().permute(0, 3, 1, 2))
             bad = fmap.reshape(2, -1, fmap.shape[1]).cpu().numpy()  # NCHW without the permute
+            with _cudnn_tf32(torch):  # the fault the stages' guard removes
+                tf32 = resnet.model(torch.from_numpy(x).cuda().permute(0, 3, 1, 2))[0].cpu().numpy()
         got = np.load(os.path.join(store, "mention-image-feature_test.npy"), mmap_mode="r")[:2]
         err, fault = _rel_err(np, got, want), _rel_err(np, bad, want)
-        errs["resnet"] = err
+        tf32_fault = _rel_err(np, tf32, want)
+        errs["resnet"], errs["resnet_tf32_fault"] = err, tf32_fault
         print(f"[preprocess] ResNet-152 regions of test mentions 0-1 {want.shape} vs the f32 CPU "
               f"forward: relative err {err:.3g} (limit {PRE_RESNET_REL}); the NCHW map "
-              f"flattened without the permute: {fault:.3g}")
+              f"flattened without the permute: {fault:.3g}; the same model on the card with "
+              f"cuDNN's TF32 on and no guard: {tf32_fault:.3g}")
         assert err <= PRE_RESNET_REL and fault > PRE_RESNET_REL, (err, fault)
+        assert tf32_fault > PRE_RESNET_REL, f"the check cannot see TF32 convolutions: {tf32_fault}"
         del cpu_resnet
 
         cfg_c, sd = checkpoints.load_clip(cfg.clip_checkpoint)
@@ -3079,12 +3169,17 @@ def phase_preprocess(torch, np, attn, gcn):
             last = card.text_model.hidden_states(ids.cuda())[:, -1]  # fault: the last position
             t_bad = norm(card.text_projection(last)).reshape(2, cfg.num_candidates_model, -1)
             bad = (scale * torch.einsum("np,ncp->nc", v_card, t_bad)).cpu().numpy()
+            with _cudnn_tf32(torch):  # the patch convolution in TF32, no guard
+                v_tf32 = norm(card.get_image_features(torch.from_numpy(pix).cuda().permute(0, 3, 1, 2)))
+                t_card = norm(card.get_text_features(ids.cuda())).reshape(2, cfg.num_candidates_model, -1)
+                tf32 = (scale * torch.einsum("np,ncp->nc", v_tf32, t_card)).cpu().numpy()
         got = np.load(os.path.join(store, "similarity-miet_test.npy"))[:2]
         err, fault = _rel_err(np, got, want), _rel_err(np, bad, want)
-        errs["clip"] = err
+        errs["clip"], errs["clip_tf32"] = err, _rel_err(np, tf32, want)
         print(f"[preprocess] CLIP similarity-miet rows of test mentions 0-1 {want.shape} vs the "
               f"f32 CPU forward: relative err {err:.3g} (limit {PRE_CLIP_REL}); pooled at the "
-              f"last position instead of argmax(input_ids): {fault:.3g}")
+              f"last position instead of argmax(input_ids): {fault:.3g}; the patch convolution in "
+              f"cuDNN's TF32, no guard: {errs['clip_tf32']:.3g}")
         assert err <= PRE_CLIP_REL and fault > PRE_CLIP_REL, (err, fault)
         del cpu_clip
 
@@ -3117,18 +3212,34 @@ def phase_preprocess(torch, np, attn, gcn):
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask))
         flops = 4 * 512 * 512 * 64 * B_ * 12
         moved = nbytes(q, k, v, mask, got)
-        bound_ms, bound_by = bound(moved, flops, "float32")
-        print(f"[preprocess] kernel 3, float32 form, [64,12,512,64] masked: kernel {ms:.4f} ms "
-              f"(device {dev:.4f}), plain {plain_ms:.4f} ms, F.scaled_dot_product_attention f32 "
-              f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP "
-              f"over the f32 non-tensor peak {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s, "
-              f"{moved / 1e6:.1f} MB over 3.35 TB/s); max abs err vs plain {f32_err:.3g}")
+        bound_ms, bound_by, fma_ms = f32_bound(moved, flops)
+        print(f"[preprocess] kernel 3, float32 form (split TF32 on wgmma), [64,12,512,64] masked: "
+              f"kernel {ms:.4f} ms (device {dev:.4f}), plain {plain_ms:.4f} ms, "
+              f"F.scaled_dot_product_attention f32 {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by}: 3 x {flops / 1e9:.1f} GFLOP of TF32 products over "
+              f"{PEAK_FLOPS['tf32'] / 1e12:.0f} TFLOP/s, {moved / 1e6:.1f} MB over 3.35 TB/s); "
+              f"FMA bound {fma_ms:.4f} ms (over the f32 non-tensor peak "
+              f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s); max abs err vs plain {f32_err:.3g}; "
+              f"before the redesign the kernel took {ATTN_EARLIER_MS['attention_f32']} ms "
+              f"(PERF.md), now {ms:.4f} ms")
         f32 = {"shape": [B_, 12, 512, 64], "max_abs_err": f32_err, "ms": ms, "device_ms": dev,
                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "fma_bound_ms": fma_ms}
         del q, k, v, mask, got, want_t, ran, bert, resnet, clip
         torch.cuda.empty_cache()
     return counts, {"errors": errs, "f32": f32, "preprocess_s": pre_wall, "eval_s": eval_wall}
+
+
+@contextlib.contextmanager
+def _cudnn_tf32(torch):
+    """cuDNN's TF32 switched on (PyTorch's default) for the block, the
+    caller's setting back after it."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 def profile_rank(torch, ranker, feats, label: str, reps: int = 5):

@@ -51,19 +51,21 @@
 // max is finite from the first tile on (key 0 is always in range), so
 // (-inf) - (-inf) never forms.
 //
-// The f32 instantiation is a plain-FMA kernel of the same streaming form
-// (64 query rows per block, two threads per row, tiles of 32 keys).
+// The f32 kernel has the same streaming form with both products on wgmma in
+// split-precision TF32 (three TF32 products per product, float32 accuracy;
+// see its section below).
 //
 // Where a gradient will be asked for, both kernels also store the row max m
 // and the row sum l of exp(logit - m), [B, H, L] f32 each, in natural units
 // (the bf16 kernel's m a float step or two below its own max where the
-// conversion from base 2 asks for it, natural_row_max in attention_common.cuh):
+// conversion from base 2 asks for it, natural_row_max in attention_common.cuh;
+// the f32 kernel takes its softmax in natural units and stores its own max):
 // the backward (attention_bwd.cu) recomputes P = exp(S - m) / l from them.
 // Inference passes null pointers and stores nothing.
 
 #include "attention_common.cuh"
 
-// The compiled-in tile configuration (tools/attention_sweep.py builds the
+// The compiled-in tile configurations (tools/attention_sweep.py builds the
 // others with -D and times them side by side).
 #ifndef DRIN_ATTN_FWD_STAGES
 #define DRIN_ATTN_FWD_STAGES 4   // (K, V) tiles in the ring
@@ -73,6 +75,13 @@
 #endif
 #ifndef DRIN_ATTN_FWD_BLOCKS
 #define DRIN_ATTN_FWD_BLOCKS 2   // blocks per SM the register budget is cut for
+#endif
+// the f32 kernel's
+#ifndef DRIN_ATTN_F32_STAGES
+#define DRIN_ATTN_F32_STAGES 3   // raw (K, V) tiles in the ring
+#endif
+#ifndef DRIN_ATTN_F32_WG
+#define DRIN_ATTN_F32_WG 2       // warpgroups = 64-row query tiles per block (at most 3)
 #endif
 
 namespace {
@@ -241,100 +250,294 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
 }
 
 // ------------------------------------------------------------------- f32
-constexpr int kFQ = 64;          // query rows per block, two threads per row
-constexpr int kFK = 32;          // keys per tile
-constexpr int kFRow = kDh + 4;   // padded tile row (floats), rows stay 16-byte aligned
+// The float32 forward on the tensor cores in split precision.  wgmma takes
+// float32 data only as TF32 (10 mantissa bits), so every operand x is split
+// into x = hi + lo, hi = x rounded to TF32 and lo = (x - hi) rounded to TF32
+// (both round to nearest, ties away: cvt.rna), and each product is taken as
+// lo.hi + hi.lo + hi.hi in f32 accumulators; lo.lo (2^-22 of the product)
+// is dropped, as CUTLASS's 3xTF32 (OpMultiplyAddFastF32) drops it.  What
+// remains differs from an f32 FMA loop by a few f32 roundings.
+//   * one block per (b, h, kF32WG * 64 query rows), key tiles of 64, as the
+//     bf16 kernel; a [64, 64] f32 tile is two 128-byte-swizzled atoms of 32
+//     columns, each arriving by its own TMA box;
+//   * q's hi and lo are A fragments in registers, formed once per block;
+//   * each key tile is split once per block by all its threads into a
+//     double-buffered split area: K's hi written over the raw tile where it
+//     lies (B read K-major, the head dim contiguous) and K's lo beside it; V
+//     transposed into V^T hi and lo tiles, since .tf32 has no MN-major B.
+//     Tile kt + 1 is split while the tensor cores take tile kt's first
+//     product; one __syncthreads at the end of each tile hands the split on
+//     to the products (tile kt's raw stage is refilled right after it, and
+//     its split buffer is free for tile kt + 2);
+//   * p goes from the logits' accumulator into the second product's A
+//     fragment without a shuffle: the accumulator gives a thread keys 2t and
+//     2t + 1 of each group of 8, the TF32 A fragment wants positions t and
+//     t + 4, so V^T holds the keys of each group in the order 0 2 4 6 1 3 5 7
+//     (a sum over keys does not depend on their order);
+//   * the softmax in natural units: logit = q.k * scale + mask, the row max m
+//     of those, p = 2^((logit - m) * log2 e).  m and l are stored as the f32
+//     backward reads them (exp(logit - m) / l): a row whose keys are all
+//     dropped has logits equal to the mask value, m the same, p = 1 each.
+// Bound at [64, 12, 512, 64]: 3 x 51.5 GFLOP of TF32 products (0.312 ms at
+// 495 TFLOP/s) over 403 MB (0.120 ms); the FMA route's bound was 0.769 ms.
+constexpr int kF32KT = 64;                        // keys per tile
+constexpr int kF32Atom = 64 * kSwizzleRow;        // 64 rows x 32 f32, one swizzle row each
+constexpr int kF32Tile = 2 * kF32Atom;            // [64, 64] f32: columns 0-31 | 32-63
+constexpr int kF32Stages = DRIN_ATTN_F32_STAGES;
+constexpr int kF32WG = DRIN_ATTN_F32_WG;
+constexpr int kF32Rows = kF32WG * 64;             // query rows per block
+constexpr int kF32Threads = kF32WG * kWgThreads;
+constexpr int kF32StageBytes = 2 * kF32Tile;      // raw K (its hi written over it) | raw V
+constexpr int kF32SplitBytes = 3 * kF32Tile;      // K lo | V^T hi | V^T lo
+// shared memory: ring | split buffers 0, 1 (q's tiles in 1 until the first
+// tile's barrier) | mask row | barriers (q_full, full[])
+constexpr int kF32OffSplit = kF32Stages * kF32StageBytes;
+constexpr int kF32OffMask = kF32OffSplit + 2 * kF32SplitBytes;
+constexpr int kF32OffBars = kF32OffMask + kMaxL * 4;
+constexpr int kF32Smem = 1024 + kF32OffBars + (1 + kF32Stages) * 8;
+static_assert(kF32WG * kF32Tile <= kF32SplitBytes, "q's tiles fit in split buffer 1");
+static_assert(kF32Stages >= 2, "a tile's stage is refilled while the next one is read");
+static_assert(kF32KT == kDh, "K, V and V^T tiles are [64, 64]: two atoms each");
+static_assert(kF32Smem <= 232448, "shared memory of one block");
 
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-             const float* __restrict__ mask, float* __restrict__ out, float* __restrict__ m_out,
-             float* __restrict__ l_out, Strides qs, Strides ks, Strides vs, long long mask_sb, int H,
-             int L, float scale) {
-  __shared__ __align__(16) float k_s[kFK][kFRow];
-  __shared__ __align__(16) float v_s[kFK][kFRow];
-  __shared__ float s_s[kFQ][kFK + 1];
-  __shared__ float mask_s[kMaxL];
+// byte offset of element (r, c) in a [64, 64] f32 tile of two swizzled atoms
+__device__ __forceinline__ int f32_at(int r, int c) {
+  return (c >> 5) * kF32Atom + r * kSwizzleRow + ((((c >> 2) & 7) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
 
-  const int n_qt = (L + kFQ - 1) / kFQ;
+// x rounded to TF32 (to nearest, ties away from zero), low 13 bits clear
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y & 0xffffe000u);
+}
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);  // x - hi is exact
+}
+__device__ __forceinline__ void split_tf32(const float4& x, float4& hi, float4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// grid: B * H * ceil(L / kF32Rows) blocks, the query tiles of one (b, h)
+// adjacent; out is [B, L, H, 64] contiguous
+__global__ void __launch_bounds__(kF32Threads, 1)
+attn_fwd_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ mask,
+             float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+             long long mask_sb, int H, int L, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* split_p = smem + kF32OffSplit;
+  const uint32_t ring = smem_u32(smem), split = ring + kF32OffSplit, bars = ring + kF32OffBars;
+  float* mask_s = reinterpret_cast<float*>(smem + kF32OffMask);
+  const uint32_t q_s = split + kF32SplitBytes;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 + s * 8; };
+
+  const int n_qt = (L + kF32Rows - 1) / kF32Rows;
   const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
   const int b = bh / H, h = bh % H;
-  const int r = threadIdx.x / 2, half = threadIdx.x % 2;  // the row's two threads share a warp
-  const int row = qt * kFQ + r;
-  const float* kp = k + (size_t)b * ks.b + (size_t)h * ks.h;
-  const float* vp = v + (size_t)b * vs.b + (size_t)h * vs.h;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = qt * kF32Rows;
+  const int n_kt = (L + kF32KT - 1) / kF32KT;
 
-  float4 qr[kDh / 4];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kF32Stages; ++s) mbar_init(full(s), 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // one thread: the raw (K, V) tile kt into its stage, two boxes of 32 columns each
+  auto produce = [&](int kt) {
+    const int s = kt % kF32Stages;
+    const uint32_t st = ring + s * kF32StageBytes;
+    mbar_expect_tx(full(s), kF32StageBytes);
+    for (int x = 0; x < 2; ++x) {
+      tma_load_tile(st + x * kF32Atom, &tm_k, full(s), kt * kF32KT, h, b, x * 32);
+      tma_load_tile(st + kF32Tile + x * kF32Atom, &tm_v, full(s), kt * kF32KT, h, b, x * 32);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, kF32WG * kF32Tile);
+    for (int w = 0; w < kF32WG; ++w)
+      for (int x = 0; x < 2; ++x)
+        tma_load_tile(q_s + w * kF32Tile + x * kF32Atom, &tm_q, q_full, q0 + w * 64, h, b, x * 32);
+    for (int kt = 0; kt < kF32Stages && kt < n_kt; ++kt) produce(kt);
+  }
+
+  // warpgroup wg owns query rows q0 + 64 wg .. + 63, its warp wq 16 of them
+  const int wg = warp / 4, wq = warp % 4;
+  const int g = lane / 4, t = lane % 4;  // fragment coordinates
+  fill_mask<float, kF32Threads>(mask_s, mask, mask_sb, b, L);
+  mbar_wait(q_full, 0);
+  uint32_t qhi[8][4], qlo[8][4];  // A fragments of the 8 k-steps of 8 columns
   {
-    const float4* qrow = reinterpret_cast<const float4*>(
-        q + (size_t)b * qs.b + (size_t)h * qs.h + (size_t)(row < L ? row : 0) * qs.l);
+    const unsigned char* qt_p = split_p + kF32SplitBytes + wg * kF32Tile;
 #pragma unroll
-    for (int i = 0; i < kDh / 4; ++i) qr[i] = row < L ? qrow[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  fill_mask(mask_s, mask, mask_sb, b, L);
-
-  float acc[kDh / 2];  // this thread's half of the output row
+    for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-  for (int d = 0; d < kDh / 2; ++d) acc[d] = 0.f;
-  float m_run = -CUDART_INF_F, l_run = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += kFK) {
-    __syncthreads();  // the previous tile is read; also orders mask_s on the first pass
-    for (int c = threadIdx.x; c < kFK * kDh / 4; c += kThreads) {
-      const int kr = c / (kDh / 4), col = (c % (kDh / 4)) * 4;
-      const bool in = k0 + kr < L;
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(&k_s[kr][col]) =
-          in ? *reinterpret_cast<const float4*>(kp + (size_t)(k0 + kr) * ks.l + col) : z;
-      *reinterpret_cast<float4*>(&v_s[kr][col]) =
-          in ? *reinterpret_cast<const float4*>(vp + (size_t)(k0 + kr) * vs.l + col) : z;
-    }
-    __syncthreads();
-    // this thread's 16 of the row's 32 logits
-    for (int kk = 0; kk < kFK / 2; ++kk) {
-      const int key = kk * 2 + half;
-      const float4* kr = reinterpret_cast<const float4*>(&k_s[key][0]);
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < kDh / 4; ++i) {
-        const float4 kv = kr[i];
-        dot += qr[i].x * kv.x + qr[i].y * kv.y + qr[i].z * kv.z + qr[i].w * kv.w;
+      for (int i = 0; i < 4; ++i) {
+        const float x = *reinterpret_cast<const float*>(qt_p + f32_at(wq * 16 + g + (i & 1) * 8, kk * 8 + t + (i >> 1) * 4));
+        float hi, lo;
+        split_tf32(x, hi, lo);
+        qhi[kk][i] = __float_as_uint(hi);
+        qlo[kk][i] = __float_as_uint(lo);
       }
-      s_s[r][key] = dot * scale + mask_s[k0 + key];
+  }
+
+  // all threads: tile kt's K hi over its raw tile and K lo beside it (the
+  // same layout: elementwise), V into V^T hi and lo, in split buffer kt % 2;
+  // chunk i of V^T row d holds the keys 8 (i / 2) + (i % 2) + {0, 2, 4, 6}
+  auto split_tile = [&](int kt) {
+    const int st = kt % kF32Stages;
+    unsigned char* k_p = smem + st * kF32StageBytes;
+    const unsigned char* v_p = k_p + kF32Tile;
+    unsigned char* klo_p = split_p + (kt & 1) * kF32SplitBytes;
+    unsigned char* vhi_p = klo_p + kF32Tile;
+    unsigned char* vlo_p = vhi_p + kF32Tile;
+    mbar_wait(full(st), (kt / kF32Stages) & 1);
+    for (int i = threadIdx.x; i < kF32Tile / 16; i += kF32Threads) {
+      float4* kp = reinterpret_cast<float4*>(k_p + i * 16);
+      float4 hi, lo;
+      split_tf32(*kp, hi, lo);
+      *kp = hi;
+      *reinterpret_cast<float4*>(klo_p + i * 16) = lo;
     }
-    __syncwarp();
-    float mx = -CUDART_INF_F;
-    for (int key = 0; key < kFK; ++key) mx = fmaxf(mx, s_s[r][key]);
-    const float m_new = fmaxf(m_run, mx);       // finite: tile 0 holds key 0
-    const float alpha = expf(m_run - m_new);    // 0 on the first tile
-    m_run = m_new;
-    l_run *= alpha;
+    for (int i = threadIdx.x; i < kF32Tile / 16; i += kF32Threads) {
+      const int d = i % 64, c = i / 64, key0 = (c >> 1) * 8 + (c & 1);
+      float4 x, hi, lo;
+      x.x = *reinterpret_cast<const float*>(v_p + f32_at(key0, d));
+      x.y = *reinterpret_cast<const float*>(v_p + f32_at(key0 + 2, d));
+      x.z = *reinterpret_cast<const float*>(v_p + f32_at(key0 + 4, d));
+      x.w = *reinterpret_cast<const float*>(v_p + f32_at(key0 + 6, d));
+      split_tf32(x, hi, lo);
+      const int at = (c >> 3) * kF32Atom + d * kSwizzleRow + (((c & 7) ^ (d & 7)) << 4);
+      *reinterpret_cast<float4*>(vhi_p + at) = hi;
+      *reinterpret_cast<float4*>(vlo_p + at) = lo;
+    }
+    fence_proxy_async();  // the tensor cores read what the threads wrote
+  };
+  split_tile(0);
+  __syncthreads();  // tile 0 is split, the mask row written, q's tiles (split buffer 1) read
+
+  float o[8][4];
 #pragma unroll
-    for (int d = 0; d < kDh / 2; ++d) acc[d] *= alpha;
-    for (int key = 0; key < kFK; ++key) {
-      const float p = expf(s_s[r][key] - m_new);
-      l_run += p;
-      const float4* vr = reinterpret_cast<const float4*>(&v_s[key][half * (kDh / 2)]);
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // rows g and g + 8, natural units
+  float l_run[2] = {0.f, 0.f};                       // this thread's share of the row sums
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const uint32_t k_s = ring + (kt % kF32Stages) * kF32StageBytes;
+    const uint32_t klo_s = split + (kt & 1) * kF32SplitBytes, vhi_s = klo_s + kF32Tile, vlo_s = vhi_s + kF32Tile;
+
+    // s = q . k^T for 64 rows x 64 keys: 8 k-steps of 8 columns, three products each
+    float s[8][4];
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < kDh / 8; ++i) {
-        const float4 vv = vr[i];
-        acc[4 * i] += p * vv.x;
-        acc[4 * i + 1] += p * vv.y;
-        acc[4 * i + 2] += p * vv.z;
-        acc[4 * i + 3] += p * vv.w;
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk >> 2) * kF32Atom + (kk & 3) * 32;
+      wgmma_tf32_n64(s, qlo[kk], tile_desc(k_s + off), kk > 0);
+      wgmma_tf32_n64(s, qhi[kk], tile_desc(klo_s + off), 1);
+      wgmma_tf32_n64(s, qhi[kk], tile_desc(k_s + off), 1);
+    }
+    wgmma_commit();
+    // while the tensor cores take them: the next tile's split (its buffer was
+    // last read by the tile before this one, which every warp has finished)
+    if (kt + 1 < n_kt) split_tile(kt + 1);
+    wgmma_wait<0>();
+    fence_acc(s);
+
+    // logits, tile row max (the four lanes of a quad share a row)
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 mk = *reinterpret_cast<const float2*>(&mask_s[kt * kF32KT + j * 8 + t * 2]);
+      s[j][0] = fmaf(s[j][0], scale, mk.x);
+      s[j][1] = fmaf(s[j][1], scale, mk.y);
+      s[j][2] = fmaf(s[j][2], scale, mk.x);
+      s[j][3] = fmaf(s[j][3], scale, mk.y);
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);      // finite: tile 0 holds key 0
+      alpha[r] = ex2((m_run[r] - m_new) * kLog2e);     // 0 on the first tile
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = ex2((s[j][0] - m_run[0]) * kLog2e);
+      s[j][1] = ex2((s[j][1] - m_run[0]) * kLog2e);
+      s[j][2] = ex2((s[j][2] - m_run[1]) * kLog2e);
+      s[j][3] = ex2((s[j][3] - m_run[1]) * kLog2e);
+      l_run[0] += s[j][0] + s[j][1];
+      l_run[1] += s[j][2] + s[j][3];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+    // p as A fragments: position t of k-step j is key 2t, position t + 4 key 2t + 1
+    uint32_t phi[8][4], plo[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float pv[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float hi, lo;
+        split_tf32(pv[i], hi, lo);
+        phi[j][i] = __float_as_uint(hi);
+        plo[j][i] = __float_as_uint(lo);
       }
     }
-  }
-  if (row < L) {
-    if (m_out && half == 0) {
-      m_out[(size_t)bh * L + row] = m_run;
-      l_out[(size_t)bh * L + row] = l_run;
-    }
-    const float inv = 1.f / l_run;
-    float4* op = reinterpret_cast<float4*>(out + (((size_t)b * L + row) * H + h) * kDh + half * (kDh / 2));
+    // o += p . v: 8 k-steps of 8 keys over the V^T tiles
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < kDh / 8; ++i)
-      op[i] = make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv,
-                          acc[4 * i + 3] * inv);
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk >> 2) * kF32Atom + (kk & 3) * 32;
+      wgmma_tf32_n64(o, plo[kk], tile_desc(vhi_s + off), 1);
+      wgmma_tf32_n64(o, phi[kk], tile_desc(vlo_s + off), 1);
+      wgmma_tf32_n64(o, phi[kk], tile_desc(vhi_s + off), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    __syncthreads();  // every warp is done with tile kt and has split tile kt + 1
+    // refill tile kt's raw stage
+    if (threadIdx.x == 0 && kt + kF32Stages < n_kt) produce(kt + kF32Stages);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wg * 64 + wq * 16 + g + r * 8;
+    if (row >= L) continue;
+    if (m_out && t == 0) {  // the softmax residuals of the backward, natural units
+      m_out[(size_t)bh * L + row] = m_run[r];
+      l_out[(size_t)bh * L + row] = l_run[r];
+    }
+    float* op = out + (((size_t)b * L + row) * H + h) * kDh + t * 2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(op + j * 8) = make_float2(o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
   }
 }
 
@@ -371,12 +574,18 @@ DRIN_EXPORT int drin_attention_fwd(int dtype, int B, int H, int L, int Dh, const
         tm_q, tm_k, tm_v, static_cast<const __nv_bfloat16*>(mask), static_cast<__nv_bfloat16*>(out),
         static_cast<float*>(m_out), static_cast<float*>(l_out), mask_sb, H, L, scale);
   } else if (dtype == DT_FLOAT32) {
-    const long long blocks = (long long)B * H * ((L + kFQ - 1) / kFQ);
+    const long long blocks = (long long)B * H * ((L + kF32Rows - 1) / kF32Rows);
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    attn_fwd_f32<<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(mask), static_cast<float*>(out), static_cast<float*>(m_out),
-        static_cast<float*>(l_out), qs, ks, vs, mask_sb, H, L, scale);
+    CUtensorMap tm_q, tm_k, tm_v;
+    int err = tile_map(&tm_q, q, qs, B, H, L, 64, 4);
+    if (!err) err = tile_map(&tm_k, k, ks, B, H, L, kF32KT, 4);
+    if (!err) err = tile_map(&tm_v, v, vs, B, H, L, kF32KT, 4);
+    if (err) return err;
+    static const cudaError_t opted = allow_smem(attn_fwd_f32, kF32Smem);
+    if (opted != cudaSuccess) return static_cast<int>(opted);
+    attn_fwd_f32<<<(unsigned)blocks, kF32Threads, kF32Smem, s>>>(
+        tm_q, tm_k, tm_v, static_cast<const float*>(mask), static_cast<float*>(out),
+        static_cast<float*>(m_out), static_cast<float*>(l_out), mask_sb, H, L, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -386,4 +595,9 @@ DRIN_EXPORT int drin_attention_fwd(int dtype, int B, int H, int L, int Dh, const
 // blocks of the bf16 forward kernel that share one SM (for the sweep tool and the records)
 DRIN_EXPORT int drin_attention_fwd_blocks_per_sm() {
   return blocks_per_sm(attn_fwd_bf16, kFwdThreads, kFwdSmem);
+}
+
+// the same for the f32 forward kernel
+DRIN_EXPORT int drin_attention_fwd_f32_blocks_per_sm() {
+  return blocks_per_sm(attn_fwd_f32, kF32Threads, kF32Smem);
 }

@@ -1,7 +1,8 @@
 // Shared pieces of the attention kernels (forward: attention.cu, backward:
 // attention_bwd.cu): sizes, strided addressing, the additive mask row in
 // shared memory, and, on top of hopper.cuh (mbarriers, TMA, wgmma, tensor
-// maps), what the bf16 kernels share:
+// maps), what the bf16 kernels share (the f32 forward reads its tiles through
+// the same 4-D maps, in boxes of 32 columns):
 //   * tiles of [rows, 64] bf16 in shared memory, one 128-byte row per query or
 //     key, 128-byte swizzled, written by TMA (cp.async.bulk.tensor) from a 4-D
 //     tensor map over (64, L, H, B) with the tensor's own byte strides; rows
@@ -25,10 +26,11 @@ struct Strides {
   long long b, h, l;  // in elements; Dh is contiguous
 };
 
-// the additive mask row of batch element b as f32, -inf past L (the f32 kernels' blocks)
-template <typename T>
+// the additive mask row of batch element b as f32, -inf past L, written by a
+// block of kN threads (the f32 kernels' blocks)
+template <typename T, int kN = kThreads>
 __device__ void fill_mask(float* mask_s, const T* __restrict__ mask, long long mask_sb, int b, int L) {
-  for (int i = threadIdx.x; i < kMaxL; i += kThreads)
+  for (int i = threadIdx.x; i < kMaxL; i += kN)
     mask_s[i] = i < L ? (mask ? to_f(mask[(size_t)b * mask_sb + i]) : 0.f) : -CUDART_INF_F;
 }
 
@@ -83,14 +85,15 @@ __device__ __forceinline__ float exp2_le1(float x) {
   return ex2(y);
 }
 
-// --- TMA: the box of rows row .. row + box_rows of (b, h), 64 columns, into a
-// swizzled tile; completion is counted in bytes on `bar`
+// --- TMA: the box of rows row .. row + box_rows of (b, h), from column x on
+// (all 64 columns of a bf16 tensor, 32 of a float32 one), into a swizzled
+// tile; completion is counted in bytes on `bar`
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row,
-                                              int h, int b) {
+                                              int h, int b, int x = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(h), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(row), "r"(h), "r"(b)
       : "memory");
 }
 // d[64 x 64] = a[64 x 64] . T^T for a tile T of 64 rows: the product over
@@ -131,14 +134,20 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[NB / 2][4], const float (&s
 }
 
 // ------------------------------------------------------------------ host
-// The tensor map of one [B, H, L, 64] bf16 tensor read in boxes of box_rows
-// rows of one (b, h): dimensions (64, L, H, B), innermost first, with the
-// tensor's own strides (kept by encode_map's cache).
-inline int tile_map(CUtensorMap* out, const void* base, Strides s, int B, int H, int L, int box_rows) {
+// The tensor map of one [B, H, L, 64] bf16 (elem_bytes 2) or float32 (4)
+// tensor read in boxes of box_rows rows of one (b, h) and 128 bytes of
+// columns (the widest box a 128-byte swizzle takes: all 64 bf16 columns, or
+// 32 float32 ones, so a float32 tile arrives as two loads into two atoms):
+// dimensions (64, L, H, B), innermost first, with the tensor's own strides
+// (kept by encode_map's cache).
+inline int tile_map(CUtensorMap* out, const void* base, Strides s, int B, int H, int L, int box_rows,
+                    int elem_bytes = 2) {
   const cuuint64_t dims[4] = {(cuuint64_t)kDh, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s.l * 2, (cuuint64_t)s.h * 2, (cuuint64_t)s.b * 2};  // bytes
-  const cuuint32_t box[4] = {(cuuint32_t)kDh, (cuuint32_t)box_rows, 1, 1};
-  return encode_map(out, base, 4, dims, strides, box);
+  const cuuint64_t e = (cuuint64_t)elem_bytes;
+  const cuuint64_t strides[3] = {(cuuint64_t)s.l * e, (cuuint64_t)s.h * e, (cuuint64_t)s.b * e};  // bytes
+  const cuuint32_t box[4] = {(cuuint32_t)(kSwizzleRow / elem_bytes), (cuuint32_t)box_rows, 1, 1};
+  return encode_map(out, base, 4, dims, strides, box,
+                    elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 }  // namespace

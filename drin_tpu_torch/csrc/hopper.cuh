@@ -6,10 +6,12 @@
 //     through the runtime (no -lcuda), with a small per-thread cache;
 //   * wgmma m64n64k16 (bf16 in, f32 accumulators) with A from registers or
 //     from shared memory and B read from a 128-byte-swizzled tile, K-major or
-//     MN-major;
+//     MN-major; wgmma m64n64k8 with TF32 operands (A from registers, B
+//     K-major: for .tf32 the instruction has no transposed form);
 //   * ldmatrix of a swizzled [rows, 64] bf16 tile into wgmma's A fragments.
 // Tiles are [rows, 64] bf16: one 128-byte row per matrix row, 128-byte
-// swizzled (16-byte chunk c of row r lies at chunk c ^ (r % 8)).
+// swizzled (16-byte chunk c of row r lies at chunk c ^ (r % 8)); a float32
+// tile of 64 columns is two such atoms of 32 columns each.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, nothing links against libcuda
@@ -98,6 +100,12 @@ __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_grou
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// orders this thread's generic-proxy writes to shared memory before the
+// async proxy's accesses (wgmma reading a tile that threads wrote, TMA
+// writing over it later); a barrier after it makes that hold for all threads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // keeps the compiler from reading or moving an accumulator across the wait
 template <int NB> __device__ __forceinline__ void fence_acc(float (&d)[NB][4]) {
 #pragma unroll
@@ -156,6 +164,27 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a, 
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
 }
 
+// d[64 x 64] (+)= a[64 x 8] . B with TF32 operands; B is 8 x 64 through
+// `desc`, read K-major (the only form .tf32 has).  A's fragment is mma.sync
+// m16n8k8's: warp w of the warpgroup holds rows 16 w .. 16 w + 15, a[0] row
+// lane / 4, column lane % 4; a[1] the same of row lane / 4 + 8; a[2], a[3]
+// those of column lane % 4 + 4.  The accumulator is wgmma_n64's.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc,
+                                               int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : DRIN_ACC4(d, 0), DRIN_ACC4(d, 1), DRIN_ACC4(d, 2), DRIN_ACC4(d, 3), DRIN_ACC4(d, 4),
+        DRIN_ACC4(d, 5), DRIN_ACC4(d, 6), DRIN_ACC4(d, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
 // wgmma's A fragments of rows r0 .. r0 + 15 (r0 a multiple of 16), all 64
 // columns, out of a swizzled tile
 __device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4], uint32_t tile, int r0, int lane) {
@@ -198,14 +227,14 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of up to 4 dimensions (innermost first, strides in bytes
-// for dimensions 1..), read in 128-byte-swizzled boxes.  Encoding takes a few
-// microseconds on the host and a model hands over the same buffers again and
-// again, so the last maps of each thread are kept by (pointer, shape,
-// strides, box).
+// A tensor map of up to 4 dimensions (innermost first, strides in bytes for
+// dimensions 1..), bf16 unless `type` says otherwise, read in
+// 128-byte-swizzled boxes.  Encoding takes a few microseconds on the host
+// and a model hands over the same buffers again and again, so the last maps
+// of each thread are kept by (pointer, type, shape, strides, box).
 struct MapKey {
   const void* base;
-  int rank;
+  int rank, type;
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4];
 };
@@ -217,12 +246,13 @@ struct MapSlot {
 constexpr int kMapSlots = 32;
 
 inline int encode_map(CUtensorMap* out, const void* base, int rank, const cuuint64_t* dims,
-                      const cuuint64_t* strides, const cuuint32_t* box) {
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   thread_local MapSlot slots[kMapSlots];
   thread_local int next = 0;
   MapKey key;
   memset(&key, 0, sizeof key);
-  key.base = base, key.rank = rank;
+  key.base = base, key.rank = rank, key.type = static_cast<int>(type);
   for (int i = 0; i < rank; ++i) key.dims[i] = dims[i], key.box[i] = box[i];
   for (int i = 0; i + 1 < rank; ++i) key.strides[i] = strides[i];
   for (int i = 0; i < kMapSlots; ++i)
@@ -237,7 +267,7 @@ inline int encode_map(CUtensorMap* out, const void* base, int rank, const cuuint
   cudaFree(nullptr);
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   MapSlot& slot = slots[next];
-  const CUresult r = encode(&slot.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+  const CUresult r = encode(&slot.map, type, rank, const_cast<void*>(base), dims,
                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) {

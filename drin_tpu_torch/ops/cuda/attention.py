@@ -31,7 +31,14 @@ finite mask value whatever the conversion rounds) in two launches
 without atomics, so its results repeat bit for bit: one owns dQ per 128 query
 rows (and stores each query's ``m``, ``1 / l`` and ``delta = rowsum(dO * o)``
 in tiles of 64 for the second), one owns dK, dV and the mask cotangent per 64
-keys.  float32 runs plain-FMA kernels of the same streaming form.
+keys.  The float32 forward has the same streaming form on ``wgmma`` in
+split-precision TF32: each operand is split into a TF32 high part and a
+TF32 remainder, and each product is taken as lo.hi + hi.lo + hi.hi in f32
+accumulators (lo.lo, 2^-22 of a product, dropped), which holds float32
+accuracy at the tensor cores' TF32 rate; V is transposed into V^T tiles as
+it is split, since ``wgmma`` reads TF32 only K-major, and the softmax is
+taken in natural units.  The float32 backward runs plain-FMA kernels of the
+bf16 backward's two-launch form.
 ``drin_tpu_torch/tools/attention_sweep.py`` builds other tile sizes, ring
 depths and block shapes with ``-D`` and times them side by side; the winner
 is compiled in, there is no runtime switch.
@@ -95,11 +102,12 @@ def attention_plain(q, k, v, additive_mask: Optional[torch.Tensor] = None) -> to
 
 def _strides(t):
     """Element strides of B, H and L of ``t`` [B, H, L, Dh] as the kernels get
-    them.  The bf16 kernels make a TMA tensor map from them: dimensions
-    ``(Dh, L, H, B)``, innermost first, and these strides in bytes, each a
-    multiple of 16 and below 2**40.  PyTorch leaves the stride of a dimension
-    of size 1 arbitrary (0 after ``expand``); no address depends on it, but a
-    tensor map checks it, so it is replaced by the packed one."""
+    them.  The forward kernels and the bf16 backward make a TMA tensor map
+    from them: dimensions ``(Dh, L, H, B)``, innermost first, and these
+    strides in bytes, each a multiple of 16 and below 2**40.  PyTorch leaves
+    the stride of a dimension of size 1 arbitrary (0 after ``expand``); no
+    address depends on it, but a tensor map checks it, so it is replaced by
+    the packed one."""
     B, H, L, Dh = t.shape
     sb, sh, sl, _ = t.stride()
     if H == 1:
@@ -142,11 +150,11 @@ def _check_cuda(q, k, v, additive_mask):
         if sd != 1 or t.data_ptr() % 16 or sb % row or sh % row or sl % row:
             raise ValueError(f"{name} needs a contiguous last dimension and 16-byte aligned "
                              f"rows (strides {t.stride()}); call .contiguous() first")
-        # the bf16 kernels read through tensor maps: a dimension that is walked needs a
-        # stride the map can hold (an expanded tensor's 0 is not one)
-        if es == 2 and not (0 < sl * es < _MAP_STRIDE_LIMIT
-                            and (H == 1 or 0 < sh * es < _MAP_STRIDE_LIMIT)
-                            and (B == 1 or 0 < sb * es < _MAP_STRIDE_LIMIT)):
+        # the forward kernels read through tensor maps: a dimension that is walked needs
+        # a stride the map can hold (an expanded tensor's 0 is not one)
+        if not (0 < sl * es < _MAP_STRIDE_LIMIT
+                and (H == 1 or 0 < sh * es < _MAP_STRIDE_LIMIT)
+                and (B == 1 or 0 < sb * es < _MAP_STRIDE_LIMIT)):
             raise ValueError(f"{name}: strides {t.stride()} are outside what a tensor map "
                              f"takes (positive, below 2**40 bytes); call .contiguous() first")
     if additive_mask is not None:
@@ -288,9 +296,12 @@ class _FusedAttention(torch.autograd.Function):
 
 
 def fused_attention(q, k, v, additive_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Softmax attention: q, k, v [B, H, L, Dh] (any strides over B, H and
-    L; views made by ``reshape(B, L, H, Dh).transpose(1, 2)`` are read in
-    place), additive mask [B, L] or None -> [B, H, L, Dh].  On CUDA the
+    """Softmax attention: q, k, v [B, H, L, Dh] (any positive strides over
+    B, H and L; views made by ``reshape(B, L, H, Dh).transpose(1, 2)`` are
+    read in place), additive mask [B, L] or None -> [B, H, L, Dh].  On CUDA
+    both forward kernels, bfloat16 and float32, read through TMA tensor maps,
+    so a stride of 0 over a dimension of size above 1 (an ``expand``ed
+    tensor) is refused in either type: call ``.contiguous()`` first.  On CUDA the
     result is a view of a [B, L, H, Dh] buffer, so the caller's
     ``transpose(1, 2).reshape(B, L, H * Dh)`` copies nothing.  Differentiable
     in q, k, v and the mask."""

@@ -2,8 +2,9 @@
 """Stages 2-4: frozen-encoder feature extraction over real batches (port of
 ``drin_tpu/preprocess/stages.py``).
 
-Each stage holds its encoder in float32 on one explicit ``device`` and
-writes the feature store the datasets read, under the JAX package's file
+Each stage holds its encoder in float32 on one explicit ``device``, runs it
+in full float32 whatever the caller's TF32 settings (:func:`full_float32`),
+and writes the feature store the datasets read, under the JAX package's file
 names, shapes and dtypes:
 
   * :class:`BertStage`: ``mention-text-feature/-mask_{split}``; WikiDiverse
@@ -53,6 +54,25 @@ def stage_device(device) -> torch.device:
         raise RuntimeError("device=cuda was asked for and CUDA is not available "
                            "(pass device=cpu to preprocess on the CPU)")
     return device
+
+
+@contextmanager
+def full_float32():
+    """The encoders' convolutions and products in full float32 whatever the
+    caller set: cuDNN takes a float32 convolution in TF32 by default
+    (``torch.backends.cudnn.allow_tf32`` is True), about three decimal
+    digits, where the JAX stages and the store's checks want float32.  Both
+    TF32 flags read False inside; the caller's values are back after it.
+    On the CPU neither flag is read."""
+    cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
 def _frozen(model: torch.nn.Module, state_dict, device) -> torch.nn.Module:
@@ -133,7 +153,7 @@ class BertStage:
                 enc = self.tokenizer(chunk, padding=True, truncation=True,
                                      max_length=cfg.max_bert_len)
                 ids, mask = self.bucket(enc["input_ids"], enc["attention_mask"])
-            with self.clock.timed("encoder"), torch.inference_mode():
+            with self.clock.timed("encoder"), torch.inference_mode(), full_float32():
                 h, pooled = self.model(torch.from_numpy(ids).to(self.device),
                                        torch.from_numpy(mask).to(self.device))
                 h = (pooled if output == "pooler_output" else h[:, :max_len]).cpu().numpy()
@@ -277,7 +297,7 @@ class ResnetStage:
                     lambda im: resnet_preprocess(im, cfg.image_input_size,
                                                  cfg.resnet_crop_pct, cfg.resnet_resample),
                     c, chunk=cfg.preprocess_batch_size)
-            with self.clock.timed("encoder"), torch.inference_mode():
+            with self.clock.timed("encoder"), torch.inference_mode(), full_float32():
                 h, pooled = self.model(_nchw(x, self.device))
                 if output == "pooler_output":
                     out = pooled[:, None, :].cpu().numpy()  # [B, 1, C]
@@ -454,7 +474,7 @@ class ClipStage:
         for i in range(0, len(texts), B_):
             with self.clock.timed("host"):
                 ids = self.text_ids(texts[i : i + B_])
-            with self.clock.timed("encoder"), torch.inference_mode():
+            with self.clock.timed("encoder"), torch.inference_mode(), full_float32():
                 t = self.model.get_text_features(torch.from_numpy(ids).to(self.device))
                 out.append((t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)).cpu().numpy())
             self.clock.chunks += 1
@@ -470,7 +490,7 @@ class ClipStage:
                 x = self.batcher.load_batch_chunked(paths[i : i + B_],
                                                     lambda im: clip_preprocess(im, size),
                                                     chunk=B_)
-            with self.clock.timed("encoder"), torch.inference_mode():
+            with self.clock.timed("encoder"), torch.inference_mode(), full_float32():
                 v = self.model.get_image_features(_nchw(x, self.device))
                 out.append((v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)).cpu().numpy())
             self.clock.chunks += 1

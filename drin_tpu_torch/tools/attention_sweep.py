@@ -6,7 +6,8 @@ it::
 
     python -m drin_tpu_torch.tools.attention_sweep \\
         --fwd ";STAGES=3;WG=4,BLOCKS=1;WG=1,BLOCKS=4" \\
-        --bwd ";DQ_WG=1,DQ_BLOCKS=3;DQ_STAGES=4;DKV_WG=2,DKV_BLOCKS=1" --old-csrc old/csrc
+        --bwd ";DQ_WG=1,DQ_BLOCKS=3;DQ_STAGES=4;DKV_WG=2,DKV_BLOCKS=1" \\
+        --f32 ";STAGES=2;WG=1" --old-csrc old/csrc
 
 Each ``--fwd`` entry is one build of ``csrc/attention.cu`` with
 ``-DDRIN_ATTN_FWD_<KEY>=<value>`` for every pair: the ring's depth
@@ -14,7 +15,11 @@ Each ``--fwd`` entry is one build of ``csrc/attention.cu`` with
 blocks per SM the register budget is cut for (``BLOCKS``).  Each ``--bwd``
 entry is one build of ``csrc/attention_bwd.cu`` with
 ``-DDRIN_ATTN_<KEY>=<value>``: ``DQ_WG``, ``DQ_STAGES`` and ``DQ_BLOCKS`` for
-the dq kernel, the same with ``DKV_`` for the dkv kernel.  Tiles are 64 keys
+the dq kernel, the same with ``DKV_`` for the dkv kernel.  Each ``--f32``
+entry is one build of ``csrc/attention.cu`` with
+``-DDRIN_ATTN_F32_<KEY>=<value>`` for the float32 forward (split-precision
+TF32): its ring of raw (K, V) tiles (``STAGES``, 2 or 3) and its warpgroups
+per block (``WG``, 1 to 3).  Tiles are 64 keys
 (or queries) throughout: the 128-key forms and the backward with its own rows
 held as register fragments were measured slower on the card and left the
 sources (PERF.md has their readings).  An empty entry is the configuration compiled
@@ -30,8 +35,11 @@ reach the launch) and with torch.profiler (the kernels' own time), plus the
 host's time per call, the blocks that share an SM and the registers from the
 build's log.  The forward is also timed at L = 128 .. 512 next to BERT's
 written-out product (``matmul``, ``softmax``, ``matmul``), which shows from
-which length on the kernel is the faster of the two.  The shipped kernel has
-the winner compiled in; there is no runtime switch.
+which length on the kernel is the faster of the two.  The float32 forward
+is timed the same way at BertStage's [64, 12, L, 64] (masked, float32) for
+each of ``--lens``, beside F.scaled_dot_product_attention's float32 path and
+the written-out float32 product.  The shipped kernel has the winner compiled in;
+there is no runtime switch.
 """
 
 from __future__ import annotations
@@ -63,18 +71,18 @@ def _ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _inputs(B, H, L, seed, lens=None):
+def _inputs(B, H, L, seed, lens=None, dtype=torch.bfloat16):
     """q, k, v as BERT hands them over (views of [B, L, H * 64]), a prefix mask."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda: torch.randn((B, L, H * 64), generator=g, device="cuda").bfloat16().reshape(
+    mk = lambda: torch.randn((B, L, H * 64), generator=g, device="cuda").to(dtype).reshape(
         B, L, H, 64).transpose(1, 2)
     q, k, v, do = mk(), mk(), mk(), mk()
     if lens is None:
         lens = torch.randint(9, L + 1, (B,), generator=g, device="cuda")
         lens[0] = 0
     keep = torch.arange(L, device="cuda")[None] < torch.as_tensor(lens, device="cuda")[:, None]
-    mask = torch.zeros((B, L), dtype=torch.bfloat16, device="cuda").masked_fill(
-        ~keep, torch.finfo(torch.bfloat16).min)
+    mask = torch.zeros((B, L), dtype=dtype, device="cuda").masked_fill(
+        ~keep, torch.finfo(dtype).min)
     return q, k, v, do, mask
 
 
@@ -87,18 +95,19 @@ def _use(name: str, path: Path) -> None:
     _build._libs[name] = ctypes.CDLL(str(path))
 
 
-def _report(path: Path) -> str:
-    """Blocks per SM, and registers and spills of the bf16 kernels from the
-    build's ``.log``."""
+def _report(path: Path, kind: str = "bf16") -> str:
+    """Blocks per SM, and registers and spills of the ``kind`` kernels
+    (``bf16`` or ``f32``) from the build's ``.log``."""
     lines = path.with_suffix(".log").read_text().splitlines()
     out = []
     lib = ctypes.CDLL(str(path))
-    if hasattr(lib, "drin_attention_fwd_blocks_per_sm"):
-        out.append(f"blocks/SM {lib.drin_attention_fwd_blocks_per_sm()}")
-    if hasattr(lib, "drin_attention_bwd_blocks_per_sm"):
+    per_sm = "drin_attention_fwd_f32_blocks_per_sm" if kind == "f32" else "drin_attention_fwd_blocks_per_sm"
+    if hasattr(lib, per_sm):
+        out.append(f"blocks/SM {getattr(lib, per_sm)()}")
+    if kind == "bf16" and hasattr(lib, "drin_attention_bwd_blocks_per_sm"):
         out.append("blocks/SM dq, dkv " + ", ".join(str(lib.drin_attention_bwd_blocks_per_sm(i)) for i in (0, 1)))
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "bf16" in line:
+        if "Compiling entry function" in line and kind in line:
             kernel = line.split("attn_")[1].split("E")[0][:14]
             spill = next((s.strip() for s in lines[i:i + 4] if "spill" in s), "")
             used = next((s.split("Used ")[1].split(",")[0] for s in lines[i:i + 5] if "Used" in s), "?")
@@ -188,6 +197,35 @@ def sweep_forward(variants, lens, batch):
               + f" | {_report(path)}")
 
 
+def sweep_f32(variants, lens):
+    print("== forward, float32: softmax(q.k^T / 8 + mask).v (the split-precision TF32 kernel)")
+    f32 = torch.float32
+    shapes = [(64, 12, L) for L in sorted(lens, reverse=True)]  # BertStage's chunks of 64
+    data = {s: _inputs(*s, seed=7, dtype=f32) for s in shapes}
+    check = _inputs(3, 2, 264, seed=9, lens=[264, 130, 0], dtype=f32)
+    sdpa = {s: _ms(lambda d=d: F.scaled_dot_product_attention(d[0], d[1], d[2], attn_mask=d[4][:, None, None, :]))
+            for s, d in data.items()}
+
+    def written_out(q, k, v, mask):
+        logits = torch.matmul(q, k.transpose(-1, -2)) / 8 + mask[:, None, None, :]
+        return torch.matmul(torch.softmax(logits, dim=-1), v)
+
+    plain = {s: _ms(lambda d=d: written_out(d[0], d[1], d[2], d[4])) for s, d in data.items()}
+    print("shape [B, 12, L, 64]: " + ", ".join(f"{s[0]}x{s[2]}" for s in shapes))
+    print("F.scaled_dot_product_attention f32 ms: " + ", ".join(f"{sdpa[s]:.4f}" for s in shapes))
+    print("written-out f32 product ms:            " + ", ".join(f"{plain[s]:.4f}" for s in shapes))
+    for label, path in variants:
+        _use("attention", path)
+        with torch.inference_mode():
+            q, k, v, _, mask = check
+            err = _max_err([attn.fused_attention(q, k, v, mask)], [attn.attention_plain(q, k, v, mask)])
+            ms = {s: _ms(lambda d=d: attn.fused_attention(d[0], d[1], d[2], d[4])) for s, d in data.items()}
+            d = data[shapes[0]]
+            dev = _device(lambda: attn.fused_attention(d[0], d[1], d[2], d[4]))
+        print(f"{label:40s} ms: " + ", ".join(f"{ms[s]:.4f}" for s in shapes)
+              + f" | {dev} at {shapes[0][0]}x{shapes[0][2]} | max err {err:.3g} | {_report(path, 'f32')}")
+
+
 def sweep_backward(variants, batch):
     print("== backward: dq, dk, dv (and the two launches without a mask), bf16")
     q, k, v, do, mask = _inputs(batch, 12, 512, seed=7)
@@ -224,32 +262,40 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fwd", default="", help="';'-separated forward builds, each 'KEY=value,...'")
     ap.add_argument("--bwd", default="", help="';'-separated backward builds")
+    ap.add_argument("--f32", default="", help="';'-separated float32 forward builds")
     ap.add_argument("--old-csrc", default=None, help="a second csrc directory, built as it is")
     ap.add_argument("--lens", default="128,256,384,512")
     ap.add_argument("--batch", type=int, default=96)
-    ap.add_argument("--skip", default="", help="'fwd' or 'bwd': leave that sweep out")
+    ap.add_argument("--skip", default="", help="'fwd', 'bwd' and/or 'f32', comma-separated: "
+                                               "leave those sweeps out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("attention_sweep needs the card: no CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
-    fwd = [("attention", _defines(e, "DRIN_ATTN_FWD_"), _build.CSRC) for e in args.fwd.split(";")]
-    bwd = [("attention_bwd", _defines(e, "DRIN_ATTN_"), _build.CSRC) for e in args.bwd.split(";")]
-    labels = [e.strip() or "as shipped" for e in args.fwd.split(";")] + \
-             [e.strip() or "as shipped" for e in args.bwd.split(";")]
-    if args.old_csrc:
-        old = Path(args.old_csrc).resolve()
-        fwd.append(("attention", (), old))
-        bwd.append(("attention_bwd", (), old))
-        labels.insert(len(fwd) - 1, f"old: {args.old_csrc}")
-        labels.append(f"old: {args.old_csrc}")
-    paths = _build.build_variants(fwd + bwd)
-    named = list(zip(labels, paths))
-    if args.skip != "fwd":
-        sweep_forward(named[:len(fwd)], [int(x) for x in args.lens.split(",")], args.batch)
-    if args.skip != "bwd":
-        sweep_backward(named[len(fwd):], args.batch)
+    sweeps = {"fwd": ("attention", "DRIN_ATTN_FWD_", args.fwd),
+              "bwd": ("attention_bwd", "DRIN_ATTN_", args.bwd),
+              "f32": ("attention", "DRIN_ATTN_F32_", args.f32)}
+    skip = {x.strip() for x in args.skip.split(",") if x.strip()}
+    builds, labels = {}, {}
+    for key, (name, prefix, entries) in sweeps.items():
+        if key in skip:
+            continue
+        builds[key] = [(name, _defines(e, prefix), _build.CSRC) for e in entries.split(";")]
+        labels[key] = [e.strip() or "as shipped" for e in entries.split(";")]
+        if args.old_csrc:
+            builds[key].append((name, (), Path(args.old_csrc).resolve()))
+            labels[key].append(f"old: {args.old_csrc}")
+    paths = iter(_build.build_variants([b for key in builds for b in builds[key]]))
+    named = {key: [(label, next(paths)) for label in labels[key]] for key in builds}
+    lens = [int(x) for x in args.lens.split(",")]
+    if "fwd" in named:
+        sweep_forward(named["fwd"], lens, args.batch)
+    if "bwd" in named:
+        sweep_backward(named["bwd"], args.batch)
+    if "f32" in named:
+        sweep_f32(named["f32"], lens)
 
 
 if __name__ == "__main__":

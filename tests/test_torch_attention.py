@@ -228,23 +228,27 @@ def _cu_constants(source, **overrides):
     ("fwd", 64, 4, 2, 1024 + 16384 + 4 * 16384 + 2048 + 72),  # the forward as shipped
     ("dq", 64, 3, 2, 1024 + 2 * 16384 + 3 * 16384 + 2048 + 56),  # the backward as shipped
     ("dkv", 64, 3, 1, 1024 + 2 * 8192 + 3 * 17408 + 56),
+    # the f32 forward as shipped: a ring of raw (K, V) tiles, two split buffers
+    # of K lo, V^T hi and V^T lo (q's tiles borrow the second), the mask row
+    ("f32", 64, 3, 2, 1024 + 3 * 32768 + 2 * 49152 + 2048 + 32),
     ("fwd", 128, 4, 4, None), ("fwd", 64, 8, 4, None), ("dq", 64, 4, 2, None),
-    ("dkv", 64, 4, 2, None)])
+    ("dkv", 64, 4, 2, None), ("f32", 64, 2, 3, None)])
 def test_shared_memory_of_a_block_fits_the_card(kernel, key_tile, stages, warpgroups, want):
     """The dynamic shared memory a block asks for, as the sources compute it
-    (``kFwdSmem``, ``kDqSmem``, ``kDkvSmem``), at the shipped knobs (where it
+    (``kFwdSmem``, ``kDqSmem``, ``kDkvSmem``, ``kF32Smem``), at the shipped knobs (where it
     is also the figure the records quote) and at other knobs the sweep tool
     builds: within what the card gives one block, which is the limit the
     sources' own ``static_assert`` holds."""
     source, knob, total = {"fwd": ("attention.cu", "FWD", "kFwdSmem"),
                            "dq": ("attention_bwd.cu", "DQ", "kDqSmem"),
-                           "dkv": ("attention_bwd.cu", "DKV", "kDkvSmem")}[kernel]
+                           "dkv": ("attention_bwd.cu", "DKV", "kDkvSmem"),
+                           "f32": ("attention.cu", "F32", "kF32Smem")}[kernel]
     shipped, text = _cu_constants(source)
     if want is not None:  # the row holds the knobs compiled in
         assert (shipped[f"DRIN_ATTN_{knob}_STAGES"], shipped[f"DRIN_ATTN_{knob}_WG"]) == (stages, warpgroups)
         assert shipped[total] == want
     tile = {"kFwdKT": key_tile} if kernel == "fwd" else {}
-    assert shipped["kFwdKT" if kernel == "fwd" else "kBwdKT"] == 64
+    assert shipped[{"fwd": "kFwdKT", "f32": "kF32KT"}.get(kernel, "kBwdKT")] == 64
     env, _ = _cu_constants(source, **tile, **{f"DRIN_ATTN_{knob}_STAGES": stages,
                                              f"DRIN_ATTN_{knob}_WG": warpgroups})
     assert env[total] <= SMEM_PER_BLOCK
@@ -261,18 +265,30 @@ def test_shared_memory_refuses_an_unknown_kernel_and_an_oversized_ring_is_seen()
         _cu_constants("attention.cu")[0]["kBwdSmem"]
 
 
-@pytest.mark.parametrize("dtype,refused", [(torch.bfloat16, True), (torch.float32, False)],
-                         ids=["bf16", "f32"])
-def test_cuda_checks_on_an_expanded_tensor(dtype, refused):
+def test_shared_memory_of_the_f32_forward_refuses_a_fourth_stage():
+    """The f32 forward's ring of raw 32 KB (K, V) stages beside its two 48 KB
+    split buffers: three stages fit one block, a fourth does not (by 40
+    bytes), and the source's ``static_assert`` stops such a build; so do
+    fewer than two stages (a tile's stage is refilled while the next is read)
+    and warpgroups whose q tiles overflow the second split buffer."""
+    env, text = _cu_constants("attention.cu", DRIN_ATTN_F32_STAGES=4)
+    assert env["kF32Smem"] == SMEM_PER_BLOCK + 40
+    assert _cu_constants("attention.cu")[0]["kF32Smem"] <= SMEM_PER_BLOCK
+    assert re.search(r"static_assert\(kF32Stages >= 2", text)
+    env, _ = _cu_constants("attention.cu", DRIN_ATTN_F32_WG=4)
+    assert env["kF32WG"] * env["kF32Tile"] > env["kF32SplitBytes"]
+    assert re.search(r"static_assert\(kF32WG \* kF32Tile <= kF32SplitBytes", text)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_checks_on_an_expanded_tensor(dtype):
     """A stride of 0 over a dimension that is walked cannot go into a tensor
-    map (bf16); the float32 kernels address through the strides and take it."""
+    map, and both forward kernels read through one (the float32 one since its
+    redesign for wgmma): the wrapper refuses it in either type."""
     q, k = (_on_card(2, 2, 256, 64, dtype=dtype) for _ in range(2))
     v = _OnCard(torch.zeros(1, 2, 256, 64, dtype=dtype).expand(2, 2, 256, 64))
-    if refused:
-        with pytest.raises(ValueError, match="tensor map"):
-            tattn._check_cuda(q, k, v, None)
-    else:
-        assert tattn._check_cuda(q, k, v, None) == (2, 2, 256, 64)
+    with pytest.raises(ValueError, match="tensor map"):
+        tattn._check_cuda(q, k, v, None)
     # a batch of one may carry any stride there
     one = _OnCard(torch.zeros(1, 2, 256, 64, dtype=dtype).expand(1, 2, 256, 64))
     assert tattn._check_cuda(one, one, one, None) == (1, 2, 256, 64)

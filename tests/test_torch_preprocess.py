@@ -14,7 +14,8 @@ result.  Also the host pieces on their own (``NpyWriter`` bytes, image
 loading and preprocessing, ``run_prepare``) and the edge paths: imported
 object arrays and their refusals, the stub detector's warning, a detector
 checkpoint refused by name, resumable CLIP, the entity text types, the
-CLI's validation and ``device=cuda`` without CUDA."""
+CLI's validation and ``device=cuda`` without CUDA, and each stage's encoder
+held to full float32 whatever the caller's TF32 flags."""
 
 import filecmp
 import json
@@ -472,6 +473,30 @@ def test_detector_checkpoint_refused_by_name(wd_stores):
         tdetector.make_detector(cfg)
     with pytest.raises(NotImplementedError, match="not ported"):
         tstages.ResnetStage(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["bert", "resnet", "clip"])
+def test_stages_hold_their_encoders_to_full_float32(name, wm_stores, tmp_path):
+    """Whatever the caller's TF32 settings (here both on: cuDNN's is on by
+    PyTorch's default), every module call inside a stage's ``run`` sees both
+    off, and the caller's values are back after it."""
+    kw, _, src = wm_stores
+    cfg = _cfg(kw, tmp_path / "store", import_objects_from=src)
+    tprepare.run_prepare(cfg)
+    stage = {"bert": tstages.BertStage, "resnet": tstages.ResnetStage,
+             "clip": tstages.ClipStage}[name](cfg, device="cpu")
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    saved, seen = flags(), []
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    hook = torch.nn.modules.module.register_module_forward_hook(lambda m, a, o: seen.append(flags()))
+    try:
+        stage.run()
+        after = flags()
+    finally:
+        hook.remove()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert seen and set(seen) == {(False, False)}, set(seen)
+    assert after == (True, True)
 
 
 def test_clip_stage_resumable(wd_stores, tmp_path):
