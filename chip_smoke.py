@@ -29,7 +29,9 @@ Trained, through ``Trainer`` and ``build_step_fns``:
   * GHMFC with online BERT, fine-tuned: B=8 mentions with 12 zipped
     sentences of 512 tokens each, a bf16 body over float32 masters, every
     BERT layer recomputed in the backward (the attention forward and backward
-    kernels, 24 and 12 launches per step);
+    kernels, 24 and 12 launches per step); then the same in float32, the
+    default compute dtype (the kernels' float32 forms, split-precision TF32
+    on the tensor cores, 24 and 12 launches per step);
   * the same model trained from raw text through the training entry point
     (``python -m drin_tpu_torch.train``'s ``main``): a seeded bert-base
     checkpoint and vocabulary file, a WikiMEL store of raw strings tokenized
@@ -131,7 +133,10 @@ OTHER_DROPS = (-1e9, -1e30)
 ATTN_EARLIER_MS = {"attention": 0.464, "attention_bwd": 1.453, "attention_bwd_nomask": 1.490,
                    # the f32 forward at BertStage's [64, 12, 512, 64] masked,
                    # plain FMA before its split-TF32 redesign (PERF.md section 6)
-                   "attention_f32": 2.952}
+                   "attention_f32": 2.952,
+                   # the f32 backward, plain FMA before its split-TF32 redesign:
+                   # [4, 12, 512, 64] masked and [2, 12, 264, 64] without a mask
+                   "attention_bwd_f32": 1.246, "attention_bwd_nomask_f32": 0.332}
 # served bf16 online scores vs the port's f32 CPU forward: 12 BERT layers and
 # the fusion round to bf16 at every step.  With random weights the cosines
 # of one mention's candidates spread by only ~5e-3, so the limit is absolute
@@ -158,6 +163,16 @@ ONLINE_F32_ATOL = 1e-4  # float32 on the card vs float32 on the CPU: summation o
 # difference, most tensors under 0.04.  A planted fault of the backward
 # (delta left out of dS) moves BERT's tensors by several times their norm
 TRAIN_GRAD_REL = 0.2
+# the same in float32 (the default compute_dtype): the kernels' split-TF32
+# products differ from the plain float32 attention by a few float32 roundings
+# (up to 0.2 of ATTN_BWD_F32_TOL's floor, phase_attention_bwd), and the
+# gradients carry that through 12 layers and the cancelling hinge sums.  The
+# CPU emulation in a 2-layer BERT (tests/test_torch_attention_bwd_f32.py)
+# moves a tensor by ~1e-6 through the split and ~1e-3 through one TF32 pass
+# of every product.  On an H100 the full model read 2.4e-5 through the
+# kernels and 5.5e-4 through one TF32 pass: the first limit, 5e-4, would have
+# let that fault pass within 10%, so the limit sits between the two readings
+TRAIN_F32_GRAD_REL = 1e-4
 # the online model's eval loss after five train steps on one batch, the main
 # path (bf16 body, remat, the kernels) against the float32 model that keeps
 # its activations and runs the plain attention: five Adam steps of all of
@@ -492,6 +507,7 @@ def phase_gcn(torch, gcn):
     cases = [(64, 101, 768, bf16, "gelu", "sigmoid", True),   # the main path
              (64, 101, 768, bf16, "gelu", "sigmoid", False),
              (8, 101, 768, f32, "gelu", "sigmoid", True),
+             (64, 101, 768, f32, "gelu", "sigmoid", True),    # the default dtype's DRIN layer
              (4, 11, 128, bf16, "relu", "tanh", True),        # B*C = 44: under one tile
              (1, 101, 768, bf16, "gelu", "sigmoid", True),    # B=1
              (64, 1, 768, bf16, "gelu", "sigmoid", True),     # C=1: 64 segments in a tile
@@ -579,6 +595,30 @@ def phase_gcn(torch, gcn):
                       "device_ms": dev_ms, "device_ms_by_launch": per_launch,
                       "cublas_product_ms": cublas_ms, "cublas_product_device_ms": cublas_dev_ms,
                       "mention_torch_route_ms": route_ms, "mention_torch_route_device_ms": route_dev_ms}
+        if (B, dt) == (64, f32):  # the float32 form (plain FMA), timed as case 0
+            layer = lambda: gcn.fused_gcn_layer(vertexes, edges, *weights, **kw)
+            with torch.inference_mode():
+                ms = cuda_ms(layer)
+                per_kernel = kernel_device_ms(torch, layer)
+                plain_ms = cuda_ms(lambda: gcn.gcn_layer_plain(vertexes, edges, *weights, **kw))
+                rows = [vertexes[2].view(-1, D), vertexes[3].view(-1, D), torch.cat(vertexes[:2])]
+                product = lambda: [F.linear(x, weights[0]) for x in rows]
+                cublas_ms, cublas_dev_ms = cuda_ms(product), device_ms(product)
+            dev_ms = sum(per_kernel.values())
+            flops = 2 * (2 * B * C + 2 * B) * D * D + 2 * 2 * (2 * B) * D * D
+            moved = nbytes(*vertexes, *edges, *weights) + nbytes(*got_v, *got_e)
+            bound_ms, bound_by, fma_ms = f32_bound(moved, flops)
+            print(f"[gcn_layer] B=64 C=101 D=768 f32 layer call (plain FMA kernels and the torch "
+                  f"mention updates): kernel {ms:.4f} ms (device {dev_ms:.4f}: "
+                  f"{ {k[:40]: round(v, 4) for k, v in per_kernel.items()} }), plain {plain_ms:.4f} "
+                  f"ms, cuBLAS f32 product alone {cublas_ms:.4f} ms (device {cublas_dev_ms:.4f}; a "
+                  f"yardstick, never called); bound {bound_ms:.4f} ms ({bound_by}, the TF32 route: "
+                  f"{flops / 1e9:.2f} GFLOP x 3 at 495 TFLOP/s, {moved / 1e6:.1f} MB), FMA bound "
+                  f"{fma_ms:.4f} ms; device / bound {dev_ms / bound_ms:.1f}")
+            result["f32"] = {"shape": [B, C, D], "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                             "fma_bound_ms": fma_ms, "cublas_product_ms": cublas_ms,
+                             "cublas_product_device_ms": cublas_dev_ms}
     for D, why in ((96, "D=96 bf16"), (256, "D=256 bf16")):
         vertexes, edges, weights = _gcn_inputs(torch, 2, 5, D, bf16, SEED)
         try:
@@ -626,6 +666,8 @@ def phase_attention(torch, np, attn):
              ("no mask", 16, 12, 512, bf16, None),
              ("f32", 4, 12, 512, f32, [512, 300, 17, 0]),
              ("f32 L=264 no mask", 2, 12, 264, f32, None),
+             ("f32 L=264 ragged", 4, 12, 264, f32, [264, 200, 9, 0]),
+             ("f32 main", 96, 12, 512, f32, main_lens),  # a default-dtype online train step's
              ("B'=1", 1, 12, 512, bf16, [77]),
              # one block's rows exactly, one tile and eight rows, eight rows short of 512
              ("L=128", 8, 12, 128, bf16, [128, 127, 65, 64, 63, 1, 0, 100]),
@@ -746,10 +788,56 @@ def _attn_grads(torch, attn, q, k, v, mask, do):
     return list(torch.autograd.grad(out, leaves, do))
 
 
+def _faulty_attention(torch, attn, fault: str):
+    """attention_plain with a planted fault in its backward, which keeps the
+    kernels' rounding points otherwise: "delta left out of dS", or "one TF32
+    pass" (every product's operands rounded to TF32: the f32 kernels without
+    their split)."""
+    r = (lambda x: tf32_round(torch, x)) if fault == "one TF32 pass" else (lambda x: x)
+
+    class Faulty(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, mask):
+            ctx.save_for_backward(q, k, v, mask)
+            return attn.attention_plain(q, k, v, mask)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, mask = ctx.saved_tensors
+            f, dt = torch.float32, q.dtype
+            q, k, v, do = (x.to(f) for x in (q, k, v, do))
+            logits = torch.einsum("bhqd,bhkd->bhqk", r(q), r(k)) * 0.125
+            if mask is not None:
+                logits = logits + mask[:, None, None, :].to(f)
+            p = torch.softmax(logits, -1)
+            dp = torch.einsum("bhqd,bhkd->bhqk", r(do), r(v))
+            ds = p * dp if fault == "delta left out of dS" else p * (dp - (p * dp).sum(-1, keepdim=True))
+            ds = r(ds.to(dt).to(f))
+            dq = torch.einsum("bhqk,bhkd->bhqd", ds, r(k)) * 0.125
+            dk = torch.einsum("bhqk,bhqd->bhkd", ds, r(q)) * 0.125
+            dv = torch.einsum("bhqk,bhqd->bhkd", r(p.to(dt).to(f)), r(do))
+            return dq.to(dt), dk.to(dt), dv.to(dt), None
+
+    return Faulty.apply
+
+
+def _plain_bwd_faults(torch, attn, q, k, v, mask, do):
+    """dq and dk of the plain backward with each planted fault of
+    ``_faulty_attention``, on the first 8 sequences."""
+    out = {}
+    for fault in ("one TF32 pass", "delta left out of dS"):
+        leaves = [x[:8].detach().requires_grad_(True) for x in (q, k, v)]
+        o = _faulty_attention(torch, attn, fault)(*leaves, None if mask is None else mask[:8])
+        out[fault] = torch.autograd.grad(o, leaves[:2], do[:8])
+    return out
+
+
 def phase_attention_bwd(torch, np, attn):
     """Kernels 3b (masked, with the mask's cotangent) and 3c (no mask)
     against attention_backward_plain, both on the card; the check must also
-    fail each planted fault of the plain version."""
+    fail each planted fault of the plain version.  The float32 forms are
+    timed at [4, 12, 512, 64] masked, [2, 12, 264, 64] without a mask and
+    the online train step's [96, 12, 512, 64] masked."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(SEED)
@@ -765,6 +853,8 @@ def phase_attention_bwd(torch, np, attn):
              ("L=264 ragged, no mask", 4, 12, 264, bf16, None),
              ("f32", 4, 12, 512, f32, [512, 300, 17, 0]),
              ("f32 L=264 no mask", 2, 12, 264, f32, None),
+             ("f32 L=264 ragged", 4, 12, 264, f32, [264, 200, 9, 0]),
+             ("f32 main", 96, 12, 512, f32, main_lens),  # a default-dtype online train step's
              ("B'=1", 1, 12, 512, bf16, [77]),
              # one block's rows exactly, one tile and eight rows, eight rows short of 512
              # (the sequence that keeps one key has a constant softmax: its dq, dk and
@@ -778,6 +868,8 @@ def phase_attention_bwd(torch, np, attn):
     cases = [c + (None,) for c in cases] + [(f"{c[0]}, dropped keys at {drop:g}",) + c[1:] + (drop,)
                                             for c in cases[-1:] for drop in OTHER_DROPS]
     names = ("dq", "dk", "dv", "dmask")
+    f32_timed = {"f32": ("attention_bwd", "f32"), "f32 L=264 no mask": ("attention_bwd_nomask", "f32"),
+                 "f32 main": ("attention_bwd", "f32_train_step_shape")}
     results, f32_times = {}, {}
     for i, (name, B, H, L, dt, lens, drop) in enumerate(cases):
         q, k, v, mask = _attn_inputs(torch, np, B, H, L, dt, SEED + i, lens, drop)
@@ -791,14 +883,15 @@ def phase_attention_bwd(torch, np, attn):
                          else (before[0], before[1] + 1)), (name, before, after)
         with torch.no_grad():
             want = [w for w in attn.attention_backward_plain(q, k, v, mask, do) if w is not None]
-        if i % 2:  # a contiguous gradient takes the same kernels
+        if i % 2 or dt == f32:  # a contiguous gradient takes the same kernels
             again = _attn_grads(torch, attn, q, k, v, mask, do.contiguous())
             for a, b in zip(again, got):
                 assert torch.equal(a, b), f"attention bwd {name}: contiguous dO != strided"
-        else:  # and the same inputs give the same bits again: no atomics, no order left open
+        if not i % 2 or dt == f32:  # and the same inputs give the same bits again: no atomics
             again = _attn_grads(torch, attn, q, k, v, mask, do)
             for a, b in zip(again, got):
                 assert torch.equal(a, b), f"attention bwd {name}: two runs differ"
+        del again
         torch.cuda.synchronize()
         tol = ATTN_BWD_BF16_TOL if dt == bf16 else ATTN_BWD_F32_TOL
         assert len(got) == len(want) == (4 if mask is not None else 3)
@@ -814,14 +907,26 @@ def phase_attention_bwd(torch, np, attn):
         assert not any(e[3] for e in errs.values()), f"attention bwd {name}: outside tol: {errs}"
         err = max(e[0] for e in errs.values())
         row = "attention_bwd" if mask is not None else "attention_bwd_nomask"
-        if dt == f32:  # the f32 forms' times at their cases (no main path launches them)
-            f32_times[row] = t_ = _attn_bwd_times(torch, np, F, attn, q, k, v, mask, do, got,
-                                                  want, lens, err)[0]
-            print(f"[attention_bwd] {name}, f32 forms (plain FMA): kernels {t_['ms']:.4f} ms "
-                  f"(device {t_['device_ms']:.4f}), plain {t_['plain_ms']:.4f} ms, autograd through "
-                  f"F.scaled_dot_product_attention f32 {t_['library_ms']:.4f} ms; bound "
-                  f"{t_['bound_ms']:.4f} ms ({t_['bound_by']}, the TF32 route: three TF32 products "
-                  f"per product at 495 TFLOP/s), FMA bound {t_['fma_bound_ms']:.4f} ms")
+        if dt == f32:
+            # the reach of the f32 check: the plain version with one TF32 pass, or
+            # without delta, must fall outside the tolerance
+            seen = {f_: outside_rel(a, want[0][:8], **tol) + outside_rel(b, want[1][:8], **tol)
+                    for f_, (a, b) in _plain_bwd_faults(torch, attn, q, k, v, mask, do).items()}
+            for f_, n in seen.items():
+                assert n, f"attention bwd {name}: the check cannot see the plain version with {f_}"
+            print(f"[attention_bwd]   dq and dk values a planted fault puts outside tol: {seen}")
+        if name in f32_timed:
+            t_ = _attn_bwd_times(torch, np, F, attn, q, k, v, mask, do, got, want, lens, err)[0]
+            f32_times[f32_timed[name]] = t_
+            earlier = ATTN_EARLIER_MS.get(f"{row}_f32") if name != "f32 main" else None
+            print(f"[attention_bwd] {name} [{B},{H},{L},64] f32 (split-precision TF32 on wgmma): "
+                  f"kernels {t_['ms']:.4f} ms (device {t_['device_ms']:.4f}: {t_['device_ms_by_kernel']}), "
+                  f"plain {t_['plain_ms']:.4f} ms, autograd through F.scaled_dot_product_attention f32 {t_['library_ms']:.4f} ms "
+                  f"(device {t_['library_device_ms']:.4f}); bound {t_['bound_ms']:.4f} ms "
+                  f"({t_['bound_by']}, the TF32 route: three TF32 products per product at 495 "
+                  f"TFLOP/s), FMA bound {t_['fma_bound_ms']:.4f} ms; device / bound "
+                  f"{t_['device_ms'] / t_['bound_ms']:.2f}"
+                  + (f"; plain FMA before the redesign: {earlier} ms (PERF.md)" if earlier else ""))
         if i > 1:
             continue
         # the reach of the check: each fault planted in the plain version must
@@ -873,9 +978,17 @@ def phase_attention_bwd(torch, np, attn):
             raise AssertionError(f"attention with a gradient: {why} was accepted")
         except ValueError:
             pass
-    for row, times in f32_times.items():
-        results[row]["f32"] = times
+    for (row, key), times in f32_times.items():
+        results[row][key] = times
     return results
+
+
+def _kernel_name(key: str) -> str:
+    """A kernel's name without its namespace, return type and parameters, as
+    the profiler's key holds it demangled (``void (anonymous
+    namespace)::name<..>(..)``; a parameter type may carry the namespace too)."""
+    name = key.replace("(anonymous namespace)::", "").split("(")[0]
+    return name[len("void "):] if name.startswith("void ") else name
 
 
 def _attn_bwd_times(torch, np, F, attn, q, k, v, mask, do, got, want, lens, err) -> dict:
@@ -892,7 +1005,8 @@ def _attn_bwd_times(torch, np, F, attn, q, k, v, mask, do, got, want, lens, err)
     o, m, l = out.grad_fn.saved_tensors[4:7]
     with torch.no_grad():
         ms = cuda_ms(lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
-        dev_ms = device_ms(lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
+        per_kernel = kernel_device_ms(torch, lambda: attn._launch_backward(q, k, v, mask, o, do, m, l, False))
+        dev_ms = sum(per_kernel.values())
         plain_ms = cuda_ms(lambda: attn.attention_backward_plain(q, k, v, mask, do), reps=5, warmup=1)
     lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=None if mask is None else mask[:, None, None, :])
     lib_grad = lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)
@@ -902,6 +1016,7 @@ def _attn_bwd_times(torch, np, F, attn, q, k, v, mask, do, got, want, lens, err)
     flops = 10 * L * L * 64 * B * H  # the five products
     moved = nbytes(q, k, v, o, do, m, l, *got[:3]) + (nbytes(mask) if mask is not None else 0)
     times = {"shape": [B, H, L, 64], "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+             "device_ms_by_kernel": {_kernel_name(k): round(v, 5) for k, v in per_kernel.items()},
              "plain_ms": plain_ms, "library_ms": library_ms, "library_device_ms": lib_dev_ms,
              "library_max_abs_diff": lib_err}
     if q.dtype == torch.float32:
@@ -946,7 +1061,7 @@ def phase_vertex_update(torch, vu):
         assert seen, "vertex_update: the check cannot see the plain version with e2*m2 left out"
         print(f"[vertex_update] B={B} C={C} D={D} {str(dt)[6:]} {act}: max abs err {err:.3g} "
               f"(tol {tol}); values outside tol with e2*m2 left out: {seen} of {want.numel()}")
-        if i:
+        if i > 1:  # cases 0 and 1, bf16 and f32 at the WikiMEL width, are timed
             continue
         call = lambda: vu.fused_vertex_update(*args, act=act)
         with torch.inference_mode():
@@ -958,14 +1073,25 @@ def phase_vertex_update(torch, vu):
             cublas_dev_ms = device_ms(lambda: F.linear(rows, args[5]))
         flops = 2 * B * C * D * D
         moved = nbytes(*args, got)
-        bound_ms, bound_by = bound(moved, flops)
-        print(f"[vertex_update] B=64 C=101 D=768 bf16: kernel {ms:.4f} ms (device {dev_ms:.4f}), "
-              f"plain {plain_ms:.4f} ms, cuBLAS product alone {cublas_ms:.4f} ms (device "
-              f"{cublas_dev_ms:.4f}; a yardstick, never called), bound {bound_ms:.4f} ms "
-              f"({bound_by}: {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
-        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms,
-                  "cublas_product_ms": cublas_ms, "cublas_product_device_ms": cublas_dev_ms}
+        times = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+                 "cublas_product_ms": cublas_ms, "cublas_product_device_ms": cublas_dev_ms}
+        if dt == bf16:
+            bound_ms, bound_by = bound(moved, flops)
+            print(f"[vertex_update] B=64 C=101 D=768 bf16: kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+                  f"plain {plain_ms:.4f} ms, cuBLAS product alone {cublas_ms:.4f} ms (device "
+                  f"{cublas_dev_ms:.4f}; a yardstick, never called), bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
+            result = {**times, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        else:  # the float32 form (plain FMA)
+            bound_ms, bound_by, fma_ms = f32_bound(moved, flops)
+            print(f"[vertex_update] B=64 C=101 D=768 f32 (plain FMA): kernel {ms:.4f} ms (device "
+                  f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, cuBLAS f32 product alone {cublas_ms:.4f} "
+                  f"ms (device {cublas_dev_ms:.4f}; a yardstick, never called); bound {bound_ms:.4f} "
+                  f"ms ({bound_by}, the TF32 route: {flops / 1e9:.2f} GFLOP x 3 at 495 TFLOP/s, "
+                  f"{moved / 1e6:.1f} MB), FMA bound {fma_ms:.4f} ms; device / bound "
+                  f"{dev_ms / bound_ms:.1f}")
+            result["f32"] = {"shape": [B, C, D], **times, "bound_ms": bound_ms, "bound_by": bound_by,
+                             "fma_bound_ms": fma_ms}
     args = _vertex_inputs(torch, 4, 11, 128, bf16, SEED)
     for bad, exc, why in ((lambda a: [a[0].half()] + a[1:], ValueError, "fp16"),
                           (lambda a: [a[0][:, :, :127]] + a[1:], ValueError, "shape"),
@@ -1634,7 +1760,8 @@ def phase_train_online(torch, np, attn):
     """GHMFC with online BERT, fine-tuned, through Trainer / build_step_fns
     at bert-base width: B=8 mentions, 12 zipped sentences of 512 tokens each,
     bf16 body over float32 masters, each BERT layer recomputed in the
-    backward (``bert_remat``)."""
+    backward (``bert_remat``); at the end the same in float32
+    (``_train_online_f32``), whose launches the returned counts include."""
     import copy
 
     from drin_tpu_torch import make_config
@@ -1673,52 +1800,37 @@ def phase_train_online(torch, np, attn):
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
     # the first step's gradients: the kernels against the plain attention on the card
-    def grads(attend):
-        model.zero_grad(set_to_none=True)
+    def grads(attend, tr=None):
+        tr = tr or trainer
+        tr.state.model.zero_grad(set_to_none=True)
         bert_module.fused_attention = attend
         try:
-            loss, _, _ = trainer.fns.loss_and_metrics(
+            loss, _, _ = tr.fns.loss_and_metrics(
                 batch, valid, M.init_state(cfg.metrics_topk, "cuda"), step_generator(cfg, 0, "cuda"))
             loss.backward()
         finally:
             bert_module.fused_attention = attn.fused_attention
         torch.cuda.synchronize()
-        return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()
-                             if p.grad is not None}
+        return float(loss.detach()), {n: p.grad.clone() for n, p in tr.state.model.named_parameters()
+                                      if p.grad is not None}
 
-    class NoDelta(torch.autograd.Function):
-        """The plain attention with delta left out of dS in its backward."""
-
-        @staticmethod
-        def forward(ctx, q, k, v, mask):
-            ctx.save_for_backward(q, k, v, mask)
-            return attn.attention_plain(q, k, v, mask)
-
-        @staticmethod
-        def backward(ctx, do):
-            q, k, v, mask = ctx.saved_tensors
-            f = torch.float32
-            logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f), k.to(f)) * 0.125
-            p = torch.softmax(logits + mask[:, None, None, :].to(f), -1)
-            ds = (p * torch.einsum("bhqd,bhkd->bhqk", do.to(f), v.to(f))).to(q.dtype).to(f)
-            dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(f)) * 0.125
-            dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(f)) * 0.125
-            dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).to(f), do.to(f))
-            return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), None
+    def rel_errs(g_plain, *others):
+        """Per tensor |g - g_plain|_2 / |g_plain|_2 of each of ``others``, over every
+        tensor but the key biases: adding a constant to all keys leaves the
+        softmax as it is, so their exact gradient is 0 and both sides hold noise."""
+        assert all(set(g) == set(g_plain) for g in others) and len(g_plain) > 200
+        names = [n for n in g_plain if not n.endswith("attention.self.key.bias")]
+        return [{n: ((g[n] - g_plain[n]).norm() / g_plain[n].norm().clamp_min(1e-30)).item()
+                 for n in names} for g in others]
 
     attn.launches = attn.bwd_launches = attn.bwd_nomask_launches = 0
     loss_k, g_kernel = grads(attn.fused_attention)
     counted = (attn.launches, attn.bwd_launches, attn.bwd_nomask_launches)
     assert counted == (2 * layers, layers, 0), counted
     loss_p, g_plain = grads(attn.attention_plain)
-    _, g_fault = grads(NoDelta.apply)
-    assert set(g_kernel) == set(g_plain) and len(g_kernel) > 200
-    # every tensor but the key biases: adding a constant to all keys leaves the
-    # softmax as it is, so their exact gradient is 0 and both sides hold noise
-    names = [n for n in g_plain if not n.endswith("attention.self.key.bias")]
-    rel = lambda g: {n: ((g[n] - g_plain[n]).norm() / g_plain[n].norm().clamp_min(1e-30)).item()
-                     for n in names}
-    rel_k, rel_f = rel(g_kernel), rel(g_fault)
+    _, g_fault = grads(_faulty_attention(torch, attn, "delta left out of dS"))
+    rel_k, rel_f = rel_errs(g_plain, g_kernel, g_fault)
+    names = list(rel_k)
     top = sorted(rel_k, key=rel_k.get, reverse=True)[:4]
     print(f"[train_online] first-step loss {loss_k:.6f} (plain attention swapped in: {loss_p:.6f}); "
           f"gradients vs the plain swap, relative L2 per tensor ({len(names)} tensors, the key "
@@ -1851,7 +1963,109 @@ def phase_train_online(torch, np, attn):
     print(f"[train_online] finetune_bert=False: BERT bit-equal after 3 steps, no Adam state for "
           f"it, {layers} forward launches per step and no backward launch; losses "
           f"{[round(x, 5) for x in f_losses]}, {statistics.median(f_times[1:]):.1f} ms per step")
-    return counts, {"step_ms": step_ms, "peak_gib": peak}
+    del frozen, fmodel, start, held
+    torch.cuda.empty_cache()
+
+    # the default dtype: the same model and batch with compute_dtype float32 (both
+    # CLIs' default), every BERT layer through the kernels' float32 forms
+    f32_counts, f32_stats = _train_online_f32(torch, np, attn, build, cfg, batch, valid, grads,
+                                              rel_errs, layers)
+    counts = {name: counts[name] + f32_counts[name] for name in counts}
+    return counts, {"step_ms": step_ms, "peak_gib": peak, "f32": f32_stats}
+
+
+def _launch_dtypes(attn):
+    """A context that records the dtype of every forward and backward launch
+    of kernel 3 (the wrappers' launch helpers wrapped, put back after)."""
+
+    @contextlib.contextmanager
+    def ctx():
+        seen = {"fwd": [], "bwd": []}
+        fwd, bwd = attn._launch_forward, attn._launch_backward
+        attn._launch_forward = lambda q, *a, **kw: (seen["fwd"].append(q.dtype), fwd(q, *a, **kw))[1]
+        attn._launch_backward = lambda q, *a, **kw: (seen["bwd"].append(q.dtype), bwd(q, *a, **kw))[1]
+        try:
+            yield seen
+        finally:
+            attn._launch_forward, attn._launch_backward = fwd, bwd
+
+    return ctx()
+
+
+def _train_online_f32(torch, np, attn, build, cfg, batch, valid, grads, rel_errs, layers):
+    """GHMFC-online fine-tuning in float32 (the default compute_dtype) with
+    bert_remat at B=8, 12 zipped sentences of 512 tokens: kernel 3's float32
+    forward and backward on every layer.  The first step's gradients against
+    the same float32 model with attention_plain and autograd through it; a
+    planted fault of the backward must exceed the limit; the loss falls over
+    three steps; the step's time, peak memory and one profiled step."""
+    from drin_tpu_torch.train import metrics as M
+
+    n_steps = 3
+    f32 = torch.float32
+    cfg32 = cfg.replace(compute_dtype="float32")
+    t0 = time.perf_counter()
+    trainer = build(cfg32)
+    print(f"[train_online] float32 body (compute_dtype=float32, bert_remat, B=8): built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    attn.launches = attn.bwd_launches = attn.bwd_nomask_launches = 0
+    with _launch_dtypes(attn) as seen:
+        loss_k, g_kernel = grads(attn.fused_attention, trainer)
+    counted = (attn.launches, attn.bwd_launches, attn.bwd_nomask_launches)
+    assert counted == (2 * layers, layers, 0), counted
+    assert set(seen["fwd"]) == set(seen["bwd"]) == {f32}, seen
+    loss_p, g_plain = grads(attn.attention_plain, trainer)
+    faults = {f: grads(_faulty_attention(torch, attn, f), trainer)[1]
+              for f in ("one TF32 pass", "delta left out of dS")}
+    rel_k, *rel_f = rel_errs(g_plain, g_kernel, *faults.values())
+    top = sorted(rel_k, key=rel_k.get, reverse=True)[:4]
+    worst_f = {f: max(r.values()) for f, r in zip(faults, rel_f)}
+    print(f"[train_online] float32: first-step loss {loss_k:.7f} (plain attention swapped in: "
+          f"{loss_p:.7f}); gradients vs the plain swap, relative L2 per tensor ({len(rel_k)} "
+          f"tensors, the key biases left out), the largest: "
+          f"{[(n, float(f'{rel_k[n]:.3g}')) for n in top]}, the median "
+          f"{statistics.median(rel_k.values()):.3g}; with a planted fault of the backward the "
+          f"largest: { {f: float(f'{v:.4g}') for f, v in worst_f.items()} } (limit {TRAIN_F32_GRAD_REL})")
+    assert all(torch.isfinite(g).all() for g in g_kernel.values())
+    assert rel_k[top[0]] <= TRAIN_F32_GRAD_REL, (top[0], rel_k[top[0]])
+    for f, v in worst_f.items():
+        assert v > TRAIN_F32_GRAD_REL, f"the float32 gradient check cannot see {f}"
+    del g_kernel, g_plain, faults
+    trainer.state.model.zero_grad(set_to_none=True)
+
+    ev_before = float(trainer.fns.eval_step(batch, valid, M.init_state(cfg.metrics_topk, "cuda"))[0])
+    torch.cuda.reset_peak_memory_stats()
+    attn.launches = attn.bwd_launches = attn.bwd_nomask_launches = 0
+    with _launch_dtypes(attn) as seen:
+        losses, times, mstate = _run_steps(torch, trainer, batch, valid, n_steps)
+    torch.cuda.synchronize()
+    counts = {"attention": attn.launches, "attention_bwd": attn.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert counts == {"attention": 2 * layers * n_steps, "attention_bwd": layers * n_steps}, counts
+    assert attn.bwd_nomask_launches == 0 and set(seen["fwd"]) == set(seen["bwd"]) == {f32}, seen
+    ev_after = float(trainer.fns.eval_step(batch, valid, mstate)[0])
+    assert np.isfinite(losses).all() and np.isfinite([ev_before, ev_after]).all(), losses
+    assert ev_after < ev_before, f"float32: the loss did not fall: eval {ev_before} -> {ev_after}, {losses}"
+    step_ms = statistics.median(times[1:])
+    print(f"[train_online] float32: {n_steps} train steps, forward launches {counts['attention']} "
+          f"and backward launches {counts['attention_bwd']}, all float32 ({2 * layers} and {layers} "
+          f"per step); train losses {[round(x, 5) for x in losses]}, eval loss {ev_before:.5f} "
+          f"before and {ev_after:.5f} after; {step_ms:.1f} ms per step (median of {n_steps - 1}, "
+          f"host clock to a synchronise; the first {times[0]:.1f} ms), peak memory {peak:.2f} GiB")
+    mstate0 = M.init_state(cfg.metrics_topk, "cuda")
+    prof = profile_call(torch, lambda: trainer.fns.train_step(trainer.state, batch, valid, mstate0),
+                        "online train step B=8 (float32, remat)", reps=1, top=10)
+    stats = {"step_ms": step_ms, "peak_gib": peak, "first_step_grad_rel_max": rel_k[top[0]],
+             "fault_grad_rel_max": worst_f, "losses": losses, "eval_loss": [ev_before, ev_after]}
+    if prof is not None:
+        bwd_ms = sum(ms for k, ms in prof["device_ms_by_kernel"].items() if "attn_bwd" in k)
+        fwd_ms = sum(ms for k, ms in prof["device_ms_by_kernel"].items() if "attn_fwd" in k)
+        print(f"[train_online] float32 step: kernel 3's backward {bwd_ms:.2f} ms of {prof['busy_ms']:.2f} "
+              f"ms device busy ({bwd_ms / prof['busy_ms']:.3f}), its forward {fwd_ms:.2f} ms "
+              f"({fwd_ms / prof['busy_ms']:.3f}); idle share {prof['idle']:.3f}")
+        stats.update(busy_ms=prof["busy_ms"], idle=prof["idle"], attention_bwd_device_ms=bwd_ms,
+                     attention_bwd_share=bwd_ms / prof["busy_ms"], attention_device_ms=fwd_ms)
+    return counts, stats
 
 
 def _write_text_store(np, d, cfg, tok, words, pieces, splits):
@@ -3258,7 +3472,8 @@ def profile_rank(torch, ranker, feats, label: str, reps: int = 5):
 
 def profile_call(torch, fn, label: str, reps: int = 5, top: int = 12):
     """Device time by kernel, the device's idle share and the host's largest
-    self times over ``reps`` calls of ``fn``, from torch.profiler."""
+    self times over ``reps`` calls of ``fn``, from torch.profiler; returns
+    them per call (None when the profiler saw no device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3278,7 +3493,7 @@ def profile_call(torch, fn, label: str, reps: int = 5, top: int = 12):
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
         print("[profile] device time not measured (the profiler saw no device activity)")
-        return
+        return None
     print(f"[profile] {label} under the profiler: {wall:.3f} ms wall, {busy:.3f} ms device "
           f"busy, idle share {1 - busy / wall:.3f}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
@@ -3287,6 +3502,8 @@ def profile_call(torch, fn, label: str, reps: int = 5, top: int = 12):
                    for e in prof.key_averages() if e.device_type == DeviceType.CPU), reverse=True)
     for ms, n, key in host[:6]:
         print(f"[profile]   host {ms:8.4f} ms  x{n:<5g} {key[:80]}")
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+            "device_ms_by_kernel": {key: ms for key, ms, _ in rows}}
 
 
 def main() -> int:

@@ -250,13 +250,9 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
 }
 
 // ------------------------------------------------------------------- f32
-// The float32 forward on the tensor cores in split precision.  wgmma takes
-// float32 data only as TF32 (10 mantissa bits), so every operand x is split
-// into x = hi + lo, hi = x rounded to TF32 and lo = (x - hi) rounded to TF32
-// (both round to nearest, ties away: cvt.rna), and each product is taken as
-// lo.hi + hi.lo + hi.hi in f32 accumulators; lo.lo (2^-22 of the product)
-// is dropped, as CUTLASS's 3xTF32 (OpMultiplyAddFastF32) drops it.  What
-// remains differs from an f32 FMA loop by a few f32 roundings.
+// The float32 forward on the tensor cores in split precision (three TF32
+// products per product, float32 accuracy: attention_common.cuh's f32
+// section).
 //   * one block per (b, h, kF32WG * 64 query rows), key tiles of 64, as the
 //     bf16 kernel; a [64, 64] f32 tile is two 128-byte-swizzled atoms of 32
 //     columns, each arriving by its own TMA box;
@@ -264,16 +260,15 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
 //   * each key tile is split once per block by all its threads into a
 //     double-buffered split area: K's hi written over the raw tile where it
 //     lies (B read K-major, the head dim contiguous) and K's lo beside it; V
-//     transposed into V^T hi and lo tiles, since .tf32 has no MN-major B.
+//     transposed into V^T hi and lo, since .tf32 has no MN-major B.
 //     Tile kt + 1 is split while the tensor cores take tile kt's first
 //     product; one __syncthreads at the end of each tile hands the split on
 //     to the products (tile kt's raw stage is refilled right after it, and
 //     its split buffer is free for tile kt + 2);
 //   * p goes from the logits' accumulator into the second product's A
-//     fragment without a shuffle: the accumulator gives a thread keys 2t and
-//     2t + 1 of each group of 8, the TF32 A fragment wants positions t and
-//     t + 4, so V^T holds the keys of each group in the order 0 2 4 6 1 3 5 7
-//     (a sum over keys does not depend on their order);
+//     fragment without a shuffle (split_frags), V^T's keys in the order 0 2 4
+//     6 1 3 5 7 within each group of 8 (transpose_split; a sum over keys does
+//     not depend on their order);
 //   * the softmax in natural units: logit = q.k * scale + mask, the row max m
 //     of those, p = 2^((logit - m) * log2 e).  m and l are stored as the f32
 //     backward reads them (exp(logit - m) / l): a row whose keys are all
@@ -281,8 +276,6 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
 // Bound at [64, 12, 512, 64]: 3 x 51.5 GFLOP of TF32 products (0.312 ms at
 // 495 TFLOP/s) over 403 MB (0.120 ms); the FMA route's bound was 0.769 ms.
 constexpr int kF32KT = 64;                        // keys per tile
-constexpr int kF32Atom = 64 * kSwizzleRow;        // 64 rows x 32 f32, one swizzle row each
-constexpr int kF32Tile = 2 * kF32Atom;            // [64, 64] f32: columns 0-31 | 32-63
 constexpr int kF32Stages = DRIN_ATTN_F32_STAGES;
 constexpr int kF32WG = DRIN_ATTN_F32_WG;
 constexpr int kF32Rows = kF32WG * 64;             // query rows per block
@@ -299,28 +292,6 @@ static_assert(kF32WG * kF32Tile <= kF32SplitBytes, "q's tiles fit in split buffe
 static_assert(kF32Stages >= 2, "a tile's stage is refilled while the next one is read");
 static_assert(kF32KT == kDh, "K, V and V^T tiles are [64, 64]: two atoms each");
 static_assert(kF32Smem <= 232448, "shared memory of one block");
-
-// byte offset of element (r, c) in a [64, 64] f32 tile of two swizzled atoms
-__device__ __forceinline__ int f32_at(int r, int c) {
-  return (c >> 5) * kF32Atom + r * kSwizzleRow + ((((c >> 2) & 7) ^ (r & 7)) << 4) + (c & 3) * 4;
-}
-
-// x rounded to TF32 (to nearest, ties away from zero), low 13 bits clear
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return __uint_as_float(y & 0xffffe000u);
-}
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - hi);  // x - hi is exact
-}
-__device__ __forceinline__ void split_tf32(const float4& x, float4& hi, float4& lo) {
-  split_tf32(x.x, hi.x, lo.x);
-  split_tf32(x.y, hi.y, lo.y);
-  split_tf32(x.z, hi.z, lo.z);
-  split_tf32(x.w, hi.w, lo.w);
-}
 
 // grid: B * H * ceil(L / kF32Rows) blocks, the query tiles of one (b, h)
 // adjacent; out is [B, L, H, 64] contiguous
@@ -376,23 +347,10 @@ attn_fwd_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
   fill_mask<float, kF32Threads>(mask_s, mask, mask_sb, b, L);
   mbar_wait(q_full, 0);
   uint32_t qhi[8][4], qlo[8][4];  // A fragments of the 8 k-steps of 8 columns
-  {
-    const unsigned char* qt_p = split_p + kF32SplitBytes + wg * kF32Tile;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x = *reinterpret_cast<const float*>(qt_p + f32_at(wq * 16 + g + (i & 1) * 8, kk * 8 + t + (i >> 1) * 4));
-        float hi, lo;
-        split_tf32(x, hi, lo);
-        qhi[kk][i] = __float_as_uint(hi);
-        qlo[kk][i] = __float_as_uint(lo);
-      }
-  }
+  load_split_frags(qhi, qlo, split_p + kF32SplitBytes + wg * kF32Tile, wq * 16, lane);
 
-  // all threads: tile kt's K hi over its raw tile and K lo beside it (the
-  // same layout: elementwise), V into V^T hi and lo, in split buffer kt % 2;
-  // chunk i of V^T row d holds the keys 8 (i / 2) + (i % 2) + {0, 2, 4, 6}
+  // all threads: tile kt's K hi over its raw tile and K lo beside it, V
+  // split into V^T hi and lo, in split buffer kt % 2
   auto split_tile = [&](int kt) {
     const int st = kt % kF32Stages;
     unsigned char* k_p = smem + st * kF32StageBytes;
@@ -401,25 +359,8 @@ attn_fwd_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     unsigned char* vhi_p = klo_p + kF32Tile;
     unsigned char* vlo_p = vhi_p + kF32Tile;
     mbar_wait(full(st), (kt / kF32Stages) & 1);
-    for (int i = threadIdx.x; i < kF32Tile / 16; i += kF32Threads) {
-      float4* kp = reinterpret_cast<float4*>(k_p + i * 16);
-      float4 hi, lo;
-      split_tf32(*kp, hi, lo);
-      *kp = hi;
-      *reinterpret_cast<float4*>(klo_p + i * 16) = lo;
-    }
-    for (int i = threadIdx.x; i < kF32Tile / 16; i += kF32Threads) {
-      const int d = i % 64, c = i / 64, key0 = (c >> 1) * 8 + (c & 1);
-      float4 x, hi, lo;
-      x.x = *reinterpret_cast<const float*>(v_p + f32_at(key0, d));
-      x.y = *reinterpret_cast<const float*>(v_p + f32_at(key0 + 2, d));
-      x.z = *reinterpret_cast<const float*>(v_p + f32_at(key0 + 4, d));
-      x.w = *reinterpret_cast<const float*>(v_p + f32_at(key0 + 6, d));
-      split_tf32(x, hi, lo);
-      const int at = (c >> 3) * kF32Atom + d * kSwizzleRow + (((c & 7) ^ (d & 7)) << 4);
-      *reinterpret_cast<float4*>(vhi_p + at) = hi;
-      *reinterpret_cast<float4*>(vlo_p + at) = lo;
-    }
+    split_in_place<kF32Threads>(k_p, klo_p, 1);
+    transpose_split<kF32Threads, true>(vhi_p, vlo_p, v_p, nullptr, threadIdx.x);
     fence_proxy_async();  // the tensor cores read what the threads wrote
   };
   split_tile(0);
@@ -438,13 +379,7 @@ attn_fwd_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     // s = q . k^T for 64 rows x 64 keys: 8 k-steps of 8 columns, three products each
     float s[8][4];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t off = (kk >> 2) * kF32Atom + (kk & 3) * 32;
-      wgmma_tf32_n64(s, qlo[kk], tile_desc(k_s + off), kk > 0);
-      wgmma_tf32_n64(s, qhi[kk], tile_desc(klo_s + off), 1);
-      wgmma_tf32_n64(s, qhi[kk], tile_desc(k_s + off), 1);
-    }
+    mma_split(s, qhi, qlo, k_s, klo_s, 0);
     wgmma_commit();
     // while the tensor cores take them: the next tile's split (its buffer was
     // last read by the tile before this one, which every warp has finished)
@@ -492,26 +427,10 @@ attn_fwd_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     }
     // p as A fragments: position t of k-step j is key 2t, position t + 4 key 2t + 1
     uint32_t phi[8][4], plo[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float pv[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float hi, lo;
-        split_tf32(pv[i], hi, lo);
-        phi[j][i] = __float_as_uint(hi);
-        plo[j][i] = __float_as_uint(lo);
-      }
-    }
+    split_frags(phi, plo, s);
     // o += p . v: 8 k-steps of 8 keys over the V^T tiles
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t off = (kk >> 2) * kF32Atom + (kk & 3) * 32;
-      wgmma_tf32_n64(o, plo[kk], tile_desc(vhi_s + off), 1);
-      wgmma_tf32_n64(o, phi[kk], tile_desc(vlo_s + off), 1);
-      wgmma_tf32_n64(o, phi[kk], tile_desc(vhi_s + off), 1);
-    }
+    mma_split(o, phi, plo, vhi_s, vlo_s, 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(o);

@@ -44,7 +44,8 @@
 //     accumulators as A operands of dQ, dK and dV without touching shared
 //     memory and are rounded to bf16 there (the TPU kernel keeps them f32);
 //     their B is the streamed tile again, MN-major, as it lies;
-//     f32: plain-FMA kernels of the same two-launch form, nothing rounded.
+//     f32: the same two-launch form with every product on wgmma in
+//     split-precision TF32 (its section below), nothing rounded.
 // Keys past L (ragged last tile) get -inf logits and so P = 0; query rows past
 // L arrive as zero q and dO.  The mask keeps its magnitude, so an all-dropped
 // row recomputes to the uniform P = 1 / L.  Like the forward, both kernels
@@ -414,202 +415,400 @@ attn_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_k, const __grid_constan
 }
 
 // ------------------------------------------------------------------- f32
-// Plain FMA, tiles of 32 rows x 32 rows, four threads per owned row (they
-// share a warp): each computes 8 of the tile's 32 dots per product and then
-// accumulates a quarter (16 columns) of the owned row's outputs.
-constexpr int kGT = 32;          // rows per tile, both ways
-constexpr int kGRow = kDh + 4;   // padded tile row (floats), rows stay 16-byte aligned
+// The float32 kernels: the bf16 kernels' two-launch form, every product on
+// wgmma in split-precision TF32 (attention_common.cuh's f32 section: three
+// TF32 products per product, nothing rounded to a narrower type).  .tf32
+// reads B only K-major, so a product that sums over a tile's rows (dQ over
+// keys, dK and dV over queries) takes a transposed split copy of the tile
+// (transpose_split, its rows in the order split_frags hands the
+// accumulator's columns over).  The streamed tile is split by all threads of
+// the block once it lands, hi written over the raw tile and lo beside it,
+// under the previous tile's last product; its transposed copy is written
+// while the tensor cores take the first product(s), which read only the
+// natural tiles.  A [64, 64] f32 tile is 16 KB, so shared memory and
+// registers decide the shapes (ptxas: 222 registers for dq, 187-191 for dkv,
+// no spills; one block per SM each):
+//   dq kernel   one block per (b, h, 128 query rows): two warpgroups share
+//               each key tile's split (K hi / V hi over the raw stage, K lo,
+//               V lo, K^T hi / lo: 96 KB); q's hi and lo are A fragments in
+//               registers, dO's hi and lo A tiles in shared memory (A from
+//               registers for both would take 128 registers a thread beside
+//               three accumulators); S and dP in turns (mma_split2); 2 raw
+//               stages; 195 KB.
+//   dkv kernel  one block per (b, h, 64 keys), two warpgroups on the same
+//               keys: one takes S^T and dV += P^T.dO, the other dP^T and dK
+//               += dS^T.q, with P^T handed over through shared memory, so
+//               that each keeps one operand (K, or V) as register fragments
+//               and two accumulators; each query tile's split takes 128 KB
+//               (Q hi / dO hi over the raw stage, Q lo, dO lo, Q^T and dO^T
+//               hi / lo), beside the P^T tile and 3 raw stages; 211 KB.
+// The softmax is recomputed in natural units from the forward's m and l,
+// p = 2^((logit - m) * log2 e) / l, as the f32 forward takes it (no cut-off:
+// the forward stores its own max).  The dq kernel stores each query's m,
+// 1 / l and delta in tiles of 64 (m = +inf, 1 / l = 0 past L, so that a
+// query past L recomputes to P = 0) for the dkv kernel, as the bf16 kernels do.
+// Bound at [96, 12, 512, 64]: 3 x 193.3 GFLOP of TF32 products (1.171 ms at
+// 495 TFLOP/s) over 1.21 GB (0.36 ms); the FMA route's bound is 2.885 ms.
+constexpr int kF32DqWG = 2;                         // warpgroups = 64-row query tiles per block
+constexpr int kF32DqRows = kF32DqWG * 64;
+constexpr int kF32DqThreads = kF32DqWG * kWgThreads;
+constexpr int kF32DqStages = 2;                      // raw (K, V) tiles in flight
+constexpr int kF32DkvStages = 3;                     // raw (Q, dO) tiles in flight
+constexpr int kF32DkvThreads = 2 * kWgThreads;
+constexpr int kF32StageBytes = 2 * kF32Tile;         // (K, V) or (Q, dO) raw, hi written over them
+// dq kernel: dO hi[WG] | dO lo[WG] | ring | K lo | V lo | K^T hi | K^T lo | mask row | barriers
+// (q's raw tiles lie in the split area until the first tile's barrier)
+constexpr int kF32DqOffRing = 2 * kF32DqWG * kF32Tile;
+constexpr int kF32DqOffSplit = kF32DqOffRing + kF32DqStages * kF32StageBytes;
+constexpr int kF32DqOffMask = kF32DqOffSplit + 4 * kF32Tile;
+constexpr int kF32DqOffBars = kF32DqOffMask + kMaxL * 4;
+constexpr int kF32DqSmem = 1024 + kF32DqOffBars + (1 + kF32DqStages) * 8;
+// dkv kernel: ring | Q lo | dO lo | Q^T hi | Q^T lo | dO^T hi | dO^T lo | P | statistics of each
+// stage | barriers (K's and V's raw tiles lie in the Q^T area until the first tile's barrier)
+constexpr int kF32DkvOffSplit = kF32DkvStages * kF32StageBytes;
+constexpr int kF32DkvOffP = kF32DkvOffSplit + 6 * kF32Tile;
+constexpr int kF32DkvOffStats = kF32DkvOffP + kF32Tile;
+constexpr int kF32DkvOffBars = kF32DkvOffStats + kF32DkvStages * kStatTile * 4;
+constexpr int kF32DkvSmem = 1024 + kF32DkvOffBars + (1 + kF32DkvStages) * 8;
+static_assert(kF32DqWG * kF32Tile <= 4 * kF32Tile, "q's raw tiles fit in the split area");
+static_assert(kF32DqSmem <= 232448 && kF32DkvSmem <= 232448, "shared memory of one block");
 
-__device__ __forceinline__ void load_tile_f32(float (*tile)[kGRow], const float* __restrict__ src,
-                                              long long stride_l, int r0, int L) {
-  for (int c = threadIdx.x; c < kGT * kDh / 4; c += kThreads) {
-    const int r = c / (kDh / 4), col = (c % (kDh / 4)) * 4;
-    *reinterpret_cast<float4*>(&tile[r][col]) =
-        r0 + r < L ? *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * stride_l + col)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-__device__ __forceinline__ float dot64(const float* a, const float* b) {
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-  const float4* b4 = reinterpret_cast<const float4*>(b);
+// delta of one f32 row: each thread of a quad sums 16 of the 64 columns of dO * o
+__device__ __forceinline__ float row_dot64(const float* __restrict__ a, const float* __restrict__ b, int t) {
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < kDh / 4; ++i) {
-    const float4 x = a4[i], y = b4[i];
+  for (int i = 0; i < 4; ++i) {
+    const float4 x = *reinterpret_cast<const float4*>(a + t * 16 + i * 4);
+    const float4 y = *reinterpret_cast<const float4*>(b + t * 16 + i * 4);
     acc += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
   }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
   return acc;
 }
 
-// grid: B * H * ceil(L / 32) blocks, one per tile of 32 query rows
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                const float* __restrict__ mask, const float* __restrict__ o,
-                const float* __restrict__ dout, const float* __restrict__ m_in,
-                const float* __restrict__ l_in, float* __restrict__ dq, float* __restrict__ delta_out,
-                Strides qs, Strides ks, Strides vs, Strides os, Strides ds, long long mask_sb, int H,
-                int L, float scale) {
-  __shared__ __align__(16) float q_s[kGT][kGRow];
-  __shared__ __align__(16) float do_s[kGT][kGRow];
-  __shared__ __align__(16) float k_s[kGT][kGRow];
-  __shared__ __align__(16) float v_s[kGT][kGRow];
-  __shared__ float ds_s[kGT][kGT + 1];
-  __shared__ float mask_s[kMaxL];
+// grid: B * H * ceil(L / kF32DqRows) blocks.  dq is [B, L, H, 64] contiguous;
+// stats [B * H, ceil(L / 64), 3, 64] f32 is written for the dkv kernel.
+__global__ void __launch_bounds__(kF32DqThreads, 1)
+attn_bwd_dq_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                const float* __restrict__ mask, const float* __restrict__ o, const float* __restrict__ dout,
+                const float* __restrict__ m_in, const float* __restrict__ l_in, float* __restrict__ dq,
+                float* __restrict__ stats, Strides os, Strides ds, long long mask_sb, int H, int L, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* split_p = smem + kF32DqOffSplit;
+  const uint32_t base = smem_u32(smem), ring = base + kF32DqOffRing, split = base + kF32DqOffSplit,
+                 bars = base + kF32DqOffBars;
+  float* mask_s = reinterpret_cast<float*>(smem + kF32DqOffMask);
+  const uint32_t own_full = bars;
+  auto full = [&](int s) { return bars + 8 + s * 8; };
 
-  const int n_qt = (L + kGT - 1) / kGT;
+  const int n_qt = (L + kF32DqRows - 1) / kF32DqRows;
   const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
   const int b = bh / H, h = bh % H;
-  const int r = threadIdx.x / 4, c = threadIdx.x % 4;  // owned row, quarter
-  const int q0 = qt * kGT, row = q0 + r;
-  const bool in = row < L;
-  const float* kp = k + (size_t)b * ks.b + (size_t)h * ks.h;
-  const float* vp = v + (size_t)b * vs.b + (size_t)h * vs.h;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = qt * kF32DqRows;
+  const int n_kt = (L + 63) / 64;
 
-  load_tile_f32(q_s, q + (size_t)b * qs.b + (size_t)h * qs.h, qs.l, q0, L);
-  load_tile_f32(do_s, dout + (size_t)b * ds.b + (size_t)h * ds.h, ds.l, q0, L);
-  fill_mask(mask_s, mask, mask_sb, b, L);
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < kF32DqStages; ++s) mbar_init(full(s), 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  const size_t at = (size_t)bh * L + (in ? row : 0);
-  const float m_row = in ? m_in[at] : 0.f, il_row = in ? 1.f / l_in[at] : 0.f;
-  float dl_row = 0.f;
-  if (in) {
-    const float* orow = o + (size_t)b * os.b + (size_t)h * os.h + (size_t)row * os.l;
-    for (int i = 0; i < kDh; ++i) dl_row += do_s[r][i] * orow[i];
-    if (c == 0) delta_out[at] = dl_row;
-  }
 
-  float acc[kDh / 4];
-#pragma unroll
-  for (int d = 0; d < kDh / 4; ++d) acc[d] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += kGT) {
-    __syncthreads();  // the previous tile is read
-    load_tile_f32(k_s, kp, ks.l, k0, L);
-    load_tile_f32(v_s, vp, vs.l, k0, L);
-    __syncthreads();
-    for (int kk = 0; kk < kGT / 4; ++kk) {
-      const int key = kk * 4 + c;
-      const float s = dot64(q_s[r], k_s[key]) * scale + mask_s[k0 + key];
-      const float p = expf(s - m_row) * il_row;
-      ds_s[r][key] = p * (dot64(do_s[r], v_s[key]) - dl_row);
+  // one thread: the raw (K, V) tile kt into its stage, two boxes of 32 columns each
+  auto produce = [&](int kt) {
+    const int s = kt % kF32DqStages;
+    const uint32_t st = ring + s * kF32StageBytes;
+    mbar_expect_tx(full(s), kF32StageBytes);
+    for (int x = 0; x < 2; ++x) {
+      tma_load_tile(st + x * kF32Atom, &tm_k, full(s), kt * 64, h, b, x * 32);
+      tma_load_tile(st + kF32Tile + x * kF32Atom, &tm_v, full(s), kt * 64, h, b, x * 32);
     }
-    __syncwarp();
-    for (int key = 0; key < kGT; ++key) {
-      const float dsv = ds_s[r][key];
-      const float4* kr = reinterpret_cast<const float4*>(&k_s[key][c * (kDh / 4)]);
-#pragma unroll
-      for (int i = 0; i < kDh / 16; ++i) {
-        const float4 kv = kr[i];
-        acc[4 * i] += dsv * kv.x;
-        acc[4 * i + 1] += dsv * kv.y;
-        acc[4 * i + 2] += dsv * kv.z;
-        acc[4 * i + 3] += dsv * kv.w;
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(own_full, 2 * kF32DqWG * kF32Tile);
+    for (int w = 0; w < kF32DqWG; ++w)
+      for (int x = 0; x < 2; ++x) {
+        tma_load_tile(base + w * kF32Tile + x * kF32Atom, &tm_do, own_full, q0 + w * 64, h, b, x * 32);
+        tma_load_tile(split + w * kF32Tile + x * kF32Atom, &tm_q, own_full, q0 + w * 64, h, b, x * 32);
       }
-    }
-    __syncwarp();  // ds_s of this row is read before the next tile rewrites it
+    for (int kt = 0; kt < kF32DqStages && kt < n_kt; ++kt) produce(kt);
   }
-  if (in) {
-    float4* dst = reinterpret_cast<float4*>(dq + (((size_t)b * L + row) * H + h) * kDh + c * (kDh / 4));
+
+  // warpgroup wg owns query rows q0 + 64 wg .. + 63, its warp wq 16 of them
+  const int wg = warp / 4, wq = warp % 4;
+  const int g = lane / 4, t = lane % 4;  // fragment coordinates
+  fill_mask<float, kF32DqThreads>(mask_s, mask, mask_sb, b, L);
+  // per row: the forward's max and 1 / sum, and delta = rowsum(dO * o)
+  float m_row[2], il_row[2], dl_row[2];
+  const int tile64 = qt * kF32DqWG + wg, n_t64 = (L + 63) / 64;
 #pragma unroll
-    for (int i = 0; i < kDh / 16; ++i)
-      dst[i] = make_float4(acc[4 * i] * scale, acc[4 * i + 1] * scale, acc[4 * i + 2] * scale,
-                           acc[4 * i + 3] * scale);
+  for (int r = 0; r < 2; ++r) {
+    const int lr = wq * 16 + g + r * 8, row = q0 + wg * 64 + lr;
+    const bool in = row < L;  // the same for the four threads of a quad
+    const size_t at = (size_t)bh * L + (in ? row : 0), rr = in ? row : 0;
+    m_row[r] = in ? m_in[at] : CUDART_INF_F;
+    il_row[r] = in ? 1.f / l_in[at] : 0.f;
+    dl_row[r] = row_dot64(dout + (size_t)b * ds.b + (size_t)h * ds.h + rr * ds.l,
+                          o + (size_t)b * os.b + (size_t)h * os.h + rr * os.l, t);
+    if (!in) dl_row[r] = 0.f;
+    if (t == 0 && tile64 < n_t64) {
+      float* st = stats + ((size_t)bh * n_t64 + tile64) * kStatTile + lr;
+      st[0] = m_row[r];
+      st[64] = il_row[r];
+      st[128] = dl_row[r];
+    }
+  }
+  mbar_wait(own_full, 0);
+  split_in_place<kF32DqThreads>(smem, smem + kF32DqWG * kF32Tile, kF32DqWG);  // dO of every warpgroup
+  uint32_t qhi[8][4], qlo[8][4];
+  load_split_frags(qhi, qlo, split_p + wg * kF32Tile, wq * 16, lane);
+  __syncthreads();  // q's raw tiles are read
+
+  // all threads: key tile kt's K and V -> hi in place, K lo | V lo in the split area
+  auto split_tile = [&](int kt) {
+    const int st = kt % kF32DqStages;
+    mbar_wait(full(st), (kt / kF32DqStages) & 1);
+    split_in_place<kF32DqThreads>(smem + kF32DqOffRing + st * kF32StageBytes, split_p, 2);
+    fence_proxy_async();  // the tensor cores read what the threads wrote
+  };
+  split_tile(0);
+
+  const uint32_t dohi = base + wg * kF32Tile, dolo = base + (kF32DqWG + wg) * kF32Tile;
+  const uint32_t klo = split, vlo = split + kF32Tile, kthi = split + 2 * kF32Tile, ktlo = split + 3 * kF32Tile;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kF32DqStages;
+    const uint32_t k_s = ring + st * kF32StageBytes, v_s = k_s + kF32Tile;
+    unsigned char* k_p = smem + kF32DqOffRing + st * kF32StageBytes;
+    __syncthreads();  // tile kt is split (dO too, before tile 0); tile kt - 1's dq product is done
+
+    // s = q . k^T and dp = dO . v^T for 64 rows x 64 keys
+    float s[8][4], dp[8][4];
+    wgmma_fence();
+    mma_split2(s, qhi, qlo, k_s, klo, dp, dohi, dolo, v_s, vlo, 0);
+    wgmma_commit();
+    // while the tensor cores take them: K^T for the third product
+    transpose_split<kF32DqThreads>(split_p + 2 * kF32Tile, split_p + 3 * kF32Tile, k_p, split_p, threadIdx.x);
+    fence_proxy_async();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // ds = p * (dp - delta), p = exp(logit - m) / l
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 mk = *reinterpret_cast<const float2*>(&mask_s[kt * 64 + j * 8 + t * 2]);
+      const float p0 = ex2((fmaf(s[j][0], scale, mk.x) - m_row[0]) * kLog2e) * il_row[0];
+      const float p1 = ex2((fmaf(s[j][1], scale, mk.y) - m_row[0]) * kLog2e) * il_row[0];
+      const float p2 = ex2((fmaf(s[j][2], scale, mk.x) - m_row[1]) * kLog2e) * il_row[1];
+      const float p3 = ex2((fmaf(s[j][3], scale, mk.y) - m_row[1]) * kLog2e) * il_row[1];
+      s[j][0] = p0 * (dp[j][0] - dl_row[0]);
+      s[j][1] = p1 * (dp[j][1] - dl_row[0]);
+      s[j][2] = p2 * (dp[j][2] - dl_row[1]);
+      s[j][3] = p3 * (dp[j][3] - dl_row[1]);
+    }
+    uint32_t dshi[8][4], dslo[8][4];
+    split_frags(dshi, dslo, s);
+    fence_frags(dshi);
+    fence_frags(dslo);
+    __syncthreads();  // K^T is written; every warp is done with the stage and with K lo, V lo
+    if (threadIdx.x == 0 && kt + kF32DqStages < n_kt) produce(kt + kF32DqStages);
+    // dq += ds . k
+    wgmma_fence();
+    mma_split(acc, dshi, dslo, kthi, ktlo, 1);
+    wgmma_commit();
+    if (kt + 1 < n_kt) split_tile(kt + 1);  // while the tensor cores take it
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wg * 64 + wq * 16 + g + r * 8;
+    if (row >= L) continue;
+    float* dst = dq + (((size_t)b * L + row) * H + h) * kDh + t * 2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(dst + j * 8) = make_float2(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
   }
 }
 
-// grid: B * H * ceil(L / 32) blocks, one per tile of 32 keys
+// grid: B * H * ceil(L / 64) blocks, one per 64 keys, two warpgroups on the
+// same keys: warpgroup 0 takes S^T = k.q^T, P^T and dV += P^T.dO, warpgroup 1
+// dP^T = v.dO^T, dS^T and dK += dS^T.q, and P^T goes from one to the other
+// through shared memory (each thread's 32 values where its partner in the
+// other warpgroup reads them).  Each warpgroup keeps its own operand (K, or
+// V) as split A fragments in registers.  dk, dv are [B, L, H, 64] contiguous;
+// dmask [B, H, L] f32 (kMask only, may be null).
 template <bool kMask>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ mask, const float* __restrict__ dout,
-                 const float* __restrict__ m_in, const float* __restrict__ l_in,
-                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                 float* __restrict__ dmask, Strides qs, Strides ks, Strides vs, Strides ds,
-                 long long mask_sb, int H, int L, float scale) {
-  __shared__ __align__(16) float q_s[kGT][kGRow];
-  __shared__ __align__(16) float do_s[kGT][kGRow];
-  __shared__ __align__(16) float k_s[kGT][kGRow];
-  __shared__ __align__(16) float v_s[kGT][kGRow];
-  __shared__ float p_s[kGT][kGT + 1];
-  __shared__ float ds_s[kGT][kGT + 1];
-  __shared__ float m_s[kGT], il_s[kGT], dl_s[kGT];
+__global__ void __launch_bounds__(kF32DkvThreads, 1)
+attn_bwd_dkv_f32(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                 const float* __restrict__ mask, const float* __restrict__ stats, float* __restrict__ dk,
+                 float* __restrict__ dv, float* __restrict__ dmask, long long mask_sb, int H, int L,
+                 float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* split_p = smem + kF32DkvOffSplit;
+  float* p_s = reinterpret_cast<float*>(smem + kF32DkvOffP);
+  const uint32_t ring = smem_u32(smem), split = ring + kF32DkvOffSplit, bars = ring + kF32DkvOffBars;
+  const uint32_t own_full = bars;
+  auto full = [&](int s) { return bars + 8 + s * 8; };
 
-  const int n_kt = (L + kGT - 1) / kGT;
-  const int kt = blockIdx.x % n_kt, bh = blockIdx.x / n_kt;
+  const int n_kb = (L + 63) / 64;
+  const int kb = blockIdx.x % n_kb, bh = blockIdx.x / n_kb;
   const int b = bh / H, h = bh % H;
-  const int r = threadIdx.x / 4, c = threadIdx.x % 4;  // owned key, quarter
-  const int k0 = kt * kGT, key = k0 + r;
-  const bool in = key < L;
-  const float* qp = q + (size_t)b * qs.b + (size_t)h * qs.h;
-  const float* dop = dout + (size_t)b * ds.b + (size_t)h * ds.h;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, wq = warp % 4, wtid = threadIdx.x % kWgThreads;
+  const int k0 = kb * 64;
+  const int n_qt = (L + 63) / 64;
 
-  load_tile_f32(k_s, k + (size_t)b * ks.b + (size_t)h * ks.h, ks.l, k0, L);
-  load_tile_f32(v_s, v + (size_t)b * vs.b + (size_t)h * vs.h, vs.l, k0, L);
-  const float mk = in ? (kMask ? mask[(size_t)b * mask_sb + key] : 0.f) : -CUDART_INF_F;
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < kF32DkvStages; ++s) mbar_init(full(s), 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  float dk_acc[kDh / 4], dv_acc[kDh / 4];
-#pragma unroll
-  for (int d = 0; d < kDh / 4; ++d) dk_acc[d] = dv_acc[d] = 0.f;
-  float dm_acc = 0.f;
-
-  for (int q0 = 0; q0 < L; q0 += kGT) {
-    __syncthreads();  // the previous tile is read
-    load_tile_f32(q_s, qp, qs.l, q0, L);
-    load_tile_f32(do_s, dop, ds.l, q0, L);
-    if (threadIdx.x < kGT) {
-      const int row = q0 + threadIdx.x;
-      const bool rin = row < L;
-      const size_t at = (size_t)bh * L + (rin ? row : 0);
-      m_s[threadIdx.x] = rin ? m_in[at] : 0.f;
-      il_s[threadIdx.x] = rin ? 1.f / l_in[at] : 0.f;
-      dl_s[threadIdx.x] = rin ? delta[at] : 0.f;
+  // one thread: raw Q and dO of query tile qt and their statistics into its stage
+  auto produce = [&](int qt) {
+    const int s = qt % kF32DkvStages;
+    const uint32_t at = ring + s * kF32StageBytes;
+    mbar_expect_tx(full(s), kF32StageBytes + kStatTile * 4);
+    for (int x = 0; x < 2; ++x) {
+      tma_load_tile(at + x * kF32Atom, &tm_q, full(s), qt * 64, h, b, x * 32);
+      tma_load_tile(at + kF32Tile + x * kF32Atom, &tm_do, full(s), qt * 64, h, b, x * 32);
     }
-    __syncthreads();
-    for (int qq = 0; qq < kGT / 4; ++qq) {
-      const int qi = qq * 4 + c;
-      const float s = dot64(k_s[r], q_s[qi]) * scale + mk;
-      const float p = expf(s - m_s[qi]) * il_s[qi];
-      const float dsv = p * (dot64(v_s[r], do_s[qi]) - dl_s[qi]);
-      p_s[r][qi] = p;
-      ds_s[r][qi] = dsv;
-      dm_acc += dsv;
+    bulk_load(ring + kF32DkvOffStats + s * kStatTile * 4, stats + ((size_t)bh * n_qt + qt) * kStatTile,
+              kStatTile * 4, full(s));
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(own_full, 2 * kF32Tile);
+    for (int x = 0; x < 2; ++x) {
+      tma_load_tile(split + 2 * kF32Tile + x * kF32Atom, &tm_k, own_full, k0, h, b, x * 32);
+      tma_load_tile(split + 3 * kF32Tile + x * kF32Atom, &tm_v, own_full, k0, h, b, x * 32);
     }
-    __syncwarp();
-    for (int qi = 0; qi < kGT; ++qi) {
-      const float p = p_s[r][qi], dsv = ds_s[r][qi];
-      const float4* dr = reinterpret_cast<const float4*>(&do_s[qi][c * (kDh / 4)]);
-      const float4* qr = reinterpret_cast<const float4*>(&q_s[qi][c * (kDh / 4)]);
+    for (int qt = 0; qt < kF32DkvStages && qt < n_qt; ++qt) produce(qt);
+  }
+
+  // warp wq of each warpgroup owns keys k0 + 16 wq .. + 15
+  const int g = lane / 4, t = lane % 4;
+  // the additive mask of this thread's keys (rows g and g + 8); -inf past L
+  float mk[2];
 #pragma unroll
-      for (int i = 0; i < kDh / 16; ++i) {
-        const float4 dv4 = dr[i], q4 = qr[i];
-        dv_acc[4 * i] += p * dv4.x;
-        dv_acc[4 * i + 1] += p * dv4.y;
-        dv_acc[4 * i + 2] += p * dv4.z;
-        dv_acc[4 * i + 3] += p * dv4.w;
-        dk_acc[4 * i] += dsv * q4.x;
-        dk_acc[4 * i + 1] += dsv * q4.y;
-        dk_acc[4 * i + 2] += dsv * q4.z;
-        dk_acc[4 * i + 3] += dsv * q4.w;
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + wq * 16 + g + r * 8;
+    mk[r] = key < L ? (kMask ? mask[(size_t)b * mask_sb + key] : 0.f) : -CUDART_INF_F;
+  }
+  mbar_wait(own_full, 0);
+  uint32_t ahi[8][4], alo[8][4];  // warpgroup 0: K's fragments, warpgroup 1: V's
+  load_split_frags(ahi, alo, split_p + (2 + wg) * kF32Tile, wq * 16, lane);
+
+  // all threads: query tile qt's Q and dO -> hi in place, Q lo | dO lo in the split area
+  auto split_tile = [&](int qt) {
+    const int st = qt % kF32DkvStages;
+    mbar_wait(full(st), (qt / kF32DkvStages) & 1);
+    split_in_place<kF32DkvThreads>(smem + st * kF32StageBytes, split_p, 2);
+    fence_proxy_async();  // the tensor cores read what the threads wrote
+  };
+  split_tile(0);
+
+  // shared memory of each product: warpgroup 0 reads Q (hi in the stage, lo
+  // in the split area) and dO^T, warpgroup 1 dO and Q^T
+  const uint32_t lo1 = split + wg * kF32Tile, thi = split + (4 - 2 * wg) * kF32Tile, tlo = thi + kF32Tile;
+  float acc[8][4];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float dm_acc[2] = {0.f, 0.f};  // warpgroup 1: this thread's share of the column sums of dS
+
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int st = qt % kF32DkvStages;
+    const uint32_t hi1 = ring + st * kF32StageBytes + wg * kF32Tile;
+    const unsigned char* q_p = smem + st * kF32StageBytes;
+    const float* stat_s = reinterpret_cast<const float*>(smem + kF32DkvOffStats + st * kStatTile * 4);
+    __syncthreads();  // tile qt is split (K's and V's raw tiles read, before tile 0); tile qt - 1 is done
+
+    // s^T = k . q^T (warpgroup 0) or dp^T = v . dO^T (warpgroup 1), 64 keys x 64 queries
+    float s1[8][4];
+    wgmma_fence();
+    mma_split(s1, ahi, alo, hi1, lo1, 0);
+    wgmma_commit();
+    // while the tensor cores take it: the transposed tile this warpgroup's
+    // second product reads (dO^T for warpgroup 0, Q^T for warpgroup 1)
+    transpose_split<kWgThreads>(smem + kF32DkvOffSplit + (4 - 2 * wg) * kF32Tile,
+                                smem + kF32DkvOffSplit + (5 - 2 * wg) * kF32Tile, q_p + (1 - wg) * kF32Tile,
+                                split_p + (1 - wg) * kF32Tile, wtid);
+    fence_proxy_async();
+    wgmma_wait<0>();
+    fence_acc(s1);
+    // the queries are the columns here
+    if (wg == 0) {  // p^T, handed to warpgroup 1
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qa = j * 8 + t * 2;
+        const float2 mq = *reinterpret_cast<const float2*>(&stat_s[qa]);
+        const float2 iq = *reinterpret_cast<const float2*>(&stat_s[64 + qa]);
+        s1[j][0] = ex2((fmaf(s1[j][0], scale, mk[0]) - mq.x) * kLog2e) * iq.x;
+        s1[j][1] = ex2((fmaf(s1[j][1], scale, mk[0]) - mq.y) * kLog2e) * iq.y;
+        s1[j][2] = ex2((fmaf(s1[j][2], scale, mk[1]) - mq.x) * kLog2e) * iq.x;
+        s1[j][3] = ex2((fmaf(s1[j][3], scale, mk[1]) - mq.y) * kLog2e) * iq.y;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p_s[(j * 4 + i) * kWgThreads + wtid] = s1[j][i];
+      }
+      named_sync(1, kF32DkvThreads);
+    } else {  // ds^T = p^T * (dp^T - delta), and its column sums
+      float2 dl[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dl[j] = *reinterpret_cast<const float2*>(&stat_s[128 + j * 8 + t * 2]);
+      named_sync(1, kF32DkvThreads);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s1[j][0] = p_s[(j * 4 + 0) * kWgThreads + wtid] * (s1[j][0] - dl[j].x);
+        s1[j][1] = p_s[(j * 4 + 1) * kWgThreads + wtid] * (s1[j][1] - dl[j].y);
+        s1[j][2] = p_s[(j * 4 + 2) * kWgThreads + wtid] * (s1[j][2] - dl[j].x);
+        s1[j][3] = p_s[(j * 4 + 3) * kWgThreads + wtid] * (s1[j][3] - dl[j].y);
+        dm_acc[0] += s1[j][0] + s1[j][1];
+        dm_acc[1] += s1[j][2] + s1[j][3];
       }
     }
-    __syncwarp();  // p_s, ds_s of this key are read before the next tile rewrites them
+    // past barrier 1 both warpgroups are done with the stage (its tiles and
+    // statistics) and with Q lo, dO lo: the stage is refilled, and the next
+    // tile is split under this tile's second product
+    if (threadIdx.x == 0 && qt + kF32DkvStages < n_qt) produce(qt + kF32DkvStages);
+    uint32_t fhi[8][4], flo[8][4];
+    split_frags(fhi, flo, s1);
+    fence_frags(fhi);
+    fence_frags(flo);
+    named_sync(2 + wg, kWgThreads);  // this warpgroup's transposed tile is written
+    // dv += p^T . dO (warpgroup 0) or dk += ds^T . q (warpgroup 1): sums over the tile's queries
+    wgmma_fence();
+    mma_split(acc, fhi, flo, thi, tlo, 1);
+    wgmma_commit();
+    if (qt + 1 < n_qt) split_tile(qt + 1);
+    wgmma_wait<0>();
+    fence_acc(acc);
   }
-  if (kMask) {  // the four threads of a key are neighbours in a warp
-    dm_acc += __shfl_xor_sync(0xffffffffu, dm_acc, 1);
-    dm_acc += __shfl_xor_sync(0xffffffffu, dm_acc, 2);
-    if (in && dmask && c == 0) dmask[(size_t)bh * L + key] = dm_acc;
-  }
-  if (in) {
-    const size_t at = (((size_t)b * L + key) * H + h) * kDh + c * (kDh / 4);
-    float4* dkp = reinterpret_cast<float4*>(dk + at);
-    float4* dvp = reinterpret_cast<float4*>(dv + at);
+
 #pragma unroll
-    for (int i = 0; i < kDh / 16; ++i) {
-      dkp[i] = make_float4(dk_acc[4 * i] * scale, dk_acc[4 * i + 1] * scale, dk_acc[4 * i + 2] * scale,
-                           dk_acc[4 * i + 3] * scale);
-      dvp[i] = make_float4(dv_acc[4 * i], dv_acc[4 * i + 1], dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+  for (int r = 0; r < 2; ++r) {
+    if (kMask && wg == 1) {  // all 32 lanes of the warp take part in the shuffles
+      dm_acc[r] += __shfl_xor_sync(0xffffffffu, dm_acc[r], 1);
+      dm_acc[r] += __shfl_xor_sync(0xffffffffu, dm_acc[r], 2);
     }
+    const int key = k0 + wq * 16 + g + r * 8;
+    if (key >= L) continue;
+    if (kMask && wg == 1 && dmask && t == 0) dmask[(size_t)bh * L + key] = dm_acc[r];
+    float* dst = (wg ? dk : dv) + (((size_t)b * L + key) * H + h) * kDh + t * 2;
+    const float f = wg ? scale : 1.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(dst + j * 8) = make_float2(acc[j][2 * r] * f, acc[j][2 * r + 1] * f);
   }
 }
 
@@ -632,16 +831,17 @@ int launch_bwd(const BwdArgs& a) {
   float* delta = static_cast<float*>(a.delta);
   float* dmask = static_cast<float*>(a.dmask);
   auto grid = [&](int rows) { return (unsigned)((long long)a.B * a.H * ((a.L + rows - 1) / rows)); };
-  if ((long long)a.B * a.H * ((a.L + kGT - 1) / kGT) > 0x7fffffffLL)  // the largest of the grids
+  if ((long long)a.B * a.H * ((a.L + 63) / 64) > 0x7fffffffLL)  // the largest of the grids
     return static_cast<int>(cudaErrorInvalidValue);
+  const int eb = a.dtype == DT_FLOAT32 ? 4 : 2;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;  // every tensor is read in tiles of 64 rows
+  int err = tile_map(&tm_q, a.q, a.qs, a.B, a.H, a.L, 64, eb);
+  if (!err) err = tile_map(&tm_do, a.dout, a.ds, a.B, a.H, a.L, 64, eb);
+  if (!err) err = tile_map(&tm_k, a.k, a.ks, a.B, a.H, a.L, 64, eb);
+  if (!err) err = tile_map(&tm_v, a.v, a.vs, a.B, a.H, a.L, 64, eb);
+  if (err) return err;
   if (a.dtype == DT_BFLOAT16) {
     using T = __nv_bfloat16;
-    CUtensorMap tm_q, tm_do, tm_k, tm_v;  // every tensor is read in tiles of 64 rows
-    int err = tile_map(&tm_q, a.q, a.qs, a.B, a.H, a.L, 64);
-    if (!err) err = tile_map(&tm_do, a.dout, a.ds, a.B, a.H, a.L, 64);
-    if (!err) err = tile_map(&tm_k, a.k, a.ks, a.B, a.H, a.L, 64);
-    if (!err) err = tile_map(&tm_v, a.v, a.vs, a.B, a.H, a.L, 64);
-    if (err) return err;
     static const cudaError_t opted_dq = allow_smem(attn_bwd_dq_bf16, kDqSmem);
     static const cudaError_t opted_dkv = allow_smem(attn_bwd_dkv_bf16<kMask>, kDkvSmem);
     if (opted_dq != cudaSuccess) return static_cast<int>(opted_dq);
@@ -657,17 +857,19 @@ int launch_bwd(const BwdArgs& a) {
         static_cast<T*>(a.dv), dmask, a.mask_sb, a.H, a.L, scale);
   } else if (a.dtype == DT_FLOAT32) {
     using T = float;
-    attn_bwd_dq_f32<<<grid(kGT), kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.mask), static_cast<const T*>(a.o), static_cast<const T*>(a.dout), m, l,
-        static_cast<T*>(a.dq), delta, a.qs, a.ks, a.vs, a.os, a.ds, a.mask_sb, a.H, a.L, scale);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkv_f32<kMask><<<grid(kGT), kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.mask), static_cast<const T*>(a.dout), m, l, delta,
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), dmask, a.qs, a.ks, a.vs, a.ds, a.mask_sb, a.H,
-        a.L, scale);
+    static const cudaError_t opted_dq = allow_smem(attn_bwd_dq_f32, kF32DqSmem);
+    static const cudaError_t opted_dkv = allow_smem(attn_bwd_dkv_f32<kMask>, kF32DkvSmem);
+    if (opted_dq != cudaSuccess) return static_cast<int>(opted_dq);
+    if (opted_dkv != cudaSuccess) return static_cast<int>(opted_dkv);
+    attn_bwd_dq_f32<<<grid(kF32DqRows), kF32DqThreads, kF32DqSmem, a.stream>>>(
+        tm_q, tm_do, tm_k, tm_v, static_cast<const T*>(a.mask), static_cast<const T*>(a.o),
+        static_cast<const T*>(a.dout), m, l, static_cast<T*>(a.dq), delta, a.os, a.ds, a.mask_sb, a.H, a.L,
+        scale);
+    cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+    attn_bwd_dkv_f32<kMask><<<grid(64), kF32DkvThreads, kF32DkvSmem, a.stream>>>(
+        tm_k, tm_v, tm_q, tm_do, static_cast<const T*>(a.mask), delta, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), dmask, a.mask_sb, a.H, a.L, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -682,8 +884,9 @@ int launch_bwd(const BwdArgs& a) {
 // mask: [B, L] in the compute type with row stride mask_sb.  Outputs: dq, dk,
 // dv [B, L, H, 64] contiguous (a view [B, H, L, 64] of each is the gradient);
 // dmask [B, H, L] f32 or null when the mask needs no gradient; delta is
-// workspace of B * H * ceil(L / 64) * 192 floats (the f32 kernels keep delta
-// [B, H, L] in it, the bf16 kernels m, 1 / l and delta in tiles of 64 queries).
+// workspace of B * H * ceil(L / 64) * 192 floats (each query's m, 1 / l and
+// delta in tiles of 64 queries: m in base 2 for the bf16 kernels, natural
+// units for the f32 ones).
 DRIN_EXPORT int drin_attention_bwd(int dtype, int B, int H, int L, int Dh, const void* q,
                                    const void* k, const void* v, const void* mask, const void* o,
                                    const void* dout, const void* m, const void* l, void* dq, void* dk,

@@ -1,8 +1,9 @@
 // Shared pieces of the attention kernels (forward: attention.cu, backward:
 // attention_bwd.cu): sizes, strided addressing, the additive mask row in
 // shared memory, and, on top of hopper.cuh (mbarriers, TMA, wgmma, tensor
-// maps), what the bf16 kernels share (the f32 forward reads its tiles through
-// the same 4-D maps, in boxes of 32 columns):
+// maps), what the bf16 kernels share (the f32 kernels read their tiles through
+// the same 4-D maps, in boxes of 32 columns, and share the split-precision
+// TF32 pieces of the last section):
 //   * tiles of [rows, 64] bf16 in shared memory, one 128-byte row per query or
 //     key, 128-byte swizzled, written by TMA (cp.async.bulk.tensor) from a 4-D
 //     tensor map over (64, L, H, B) with the tensor's own byte strides; rows
@@ -20,7 +21,6 @@ namespace {
 
 constexpr int kDh = 64;       // head width both kernels are written for
 constexpr int kMaxL = 512;    // longest sequence (the mask row lives in shared memory)
-constexpr int kThreads = 128; // block of the f32 kernels
 
 struct Strides {
   long long b, h, l;  // in elements; Dh is contiguous
@@ -28,7 +28,7 @@ struct Strides {
 
 // the additive mask row of batch element b as f32, -inf past L, written by a
 // block of kN threads (the f32 kernels' blocks)
-template <typename T, int kN = kThreads>
+template <typename T, int kN>
 __device__ void fill_mask(float* mask_s, const T* __restrict__ mask, long long mask_sb, int b, int L) {
   for (int i = threadIdx.x; i < kMaxL; i += kN)
     mask_s[i] = i < L ? (mask ? to_f(mask[(size_t)b * mask_sb + i]) : 0.f) : -CUDART_INF_F;
@@ -148,6 +148,180 @@ inline int tile_map(CUtensorMap* out, const void* base, Strides s, int B, int H,
   const cuuint32_t box[4] = {(cuuint32_t)(kSwizzleRow / elem_bytes), (cuuint32_t)box_rows, 1, 1};
   return encode_map(out, base, 4, dims, strides, box,
                     elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+}
+
+// ------------------------------------------------------------------- f32
+// The float32 kernels take every product on the tensor cores in split
+// precision.  wgmma takes float32 data only as TF32 (10 mantissa bits), so
+// every operand x is split into x = hi + lo, hi = x rounded to TF32 and lo =
+// (x - hi) rounded to TF32 (both to nearest, ties away: cvt.rna), and each
+// product is taken as lo.hi + hi.lo + hi.hi in f32 accumulators; lo.lo
+// (2^-22 of the product) is dropped, as CUTLASS's 3xTF32
+// (OpMultiplyAddFastF32) drops it.  What remains differs from an f32 FMA loop
+// by a few f32 roundings.  A [64, 64] f32 tile is two 128-byte-swizzled atoms
+// of 32 columns, each arriving by its own TMA box.
+constexpr int kF32Atom = 64 * kSwizzleRow;        // 64 rows x 32 f32, one swizzle row each
+constexpr int kF32Tile = 2 * kF32Atom;            // [64, 64] f32: columns 0-31 | 32-63
+
+// byte offset of element (r, c) in a [64, 64] f32 tile of two swizzled atoms
+__device__ __forceinline__ int f32_at(int r, int c) {
+  return (c >> 5) * kF32Atom + r * kSwizzleRow + ((((c >> 2) & 7) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+// x rounded to TF32 (to nearest, ties away from zero), low 13 bits clear
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y & 0xffffe000u);
+}
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);  // x - hi is exact
+}
+__device__ __forceinline__ void split_tf32(const float4& x, float4& hi, float4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// all kN threads: `tiles` f32 tiles at `raw` split where they lie, hi written
+// over the raw values and lo into the tiles at `lo` (elementwise, so the
+// layout is kept: both read K-major, as the raw tile would be)
+template <int kN>
+__device__ __forceinline__ void split_in_place(unsigned char* raw, unsigned char* lo, int tiles) {
+  for (int i = threadIdx.x; i < tiles * kF32Tile / 16; i += kN) {
+    float4* p = reinterpret_cast<float4*>(raw + i * 16);
+    float4 h, l;
+    split_tf32(*p, h, l);
+    *p = h;
+    *reinterpret_cast<float4*>(lo + i * 16) = l;
+  }
+}
+
+// kN threads (tid 0 .. kN - 1): the split tiles hi, lo [64, 64] transposed into thi, tlo
+// (row c of the result holds column c), for a product that sums over the
+// source's rows (.tf32 reads B only K-major); with kRaw, `hi` is a raw tile,
+// split on the way (`lo` is not read).  The source rows come in the order 0
+// 2 4 6 1 3 5 7 within each group of 8: an accumulator hands a thread columns
+// 2t and 2t + 1 of each group, which split_frags puts at A positions t and
+// t + 4, so B's rows along the sum must follow the same order.  Chunk i of a
+// result row holds source rows 8 (i / 2) + (i % 2) + {0, 2, 4, 6}.
+template <int kN, bool kRaw = false>
+__device__ __forceinline__ void transpose_split(unsigned char* thi, unsigned char* tlo, const unsigned char* hi,
+                                                const unsigned char* lo, int tid) {
+  for (int i = tid; i < kF32Tile / 16; i += kN) {
+    const int c = i % 64, ch = i / 64, r0 = (ch >> 1) * 8 + (ch & 1);
+    float4 h, l;
+    h.x = *reinterpret_cast<const float*>(hi + f32_at(r0, c));
+    h.y = *reinterpret_cast<const float*>(hi + f32_at(r0 + 2, c));
+    h.z = *reinterpret_cast<const float*>(hi + f32_at(r0 + 4, c));
+    h.w = *reinterpret_cast<const float*>(hi + f32_at(r0 + 6, c));
+    if (kRaw) {
+      const float4 x = h;
+      split_tf32(x, h, l);
+    } else {
+      l.x = *reinterpret_cast<const float*>(lo + f32_at(r0, c));
+      l.y = *reinterpret_cast<const float*>(lo + f32_at(r0 + 2, c));
+      l.z = *reinterpret_cast<const float*>(lo + f32_at(r0 + 4, c));
+      l.w = *reinterpret_cast<const float*>(lo + f32_at(r0 + 6, c));
+    }
+    const int at = (ch >> 3) * kF32Atom + c * kSwizzleRow + (((ch & 7) ^ (c & 7)) << 4);
+    *reinterpret_cast<float4*>(thi + at) = h;
+    *reinterpret_cast<float4*>(tlo + at) = l;
+  }
+}
+
+// the A fragments (hi and lo) of rows r0 .. r0 + 15 of a raw [64, 64] f32
+// tile, all 64 columns: 8 k-steps of 8 columns (wgmma_tf32_n64's layout)
+__device__ __forceinline__ void load_split_frags(uint32_t (&hi)[8][4], uint32_t (&lo)[8][4],
+                                                 const unsigned char* tile, int r0, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = *reinterpret_cast<const float*>(tile + f32_at(r0 + g + (i & 1) * 8, kk * 8 + t + (i >> 1) * 4));
+      float h, l;
+      split_tf32(x, h, l);
+      hi[kk][i] = __float_as_uint(h);
+      lo[kk][i] = __float_as_uint(l);
+    }
+}
+
+// the f32 accumulator of a [64 x 64] product as the split A fragments of the
+// next product, which sums over its 64 columns: position t of k-step j is
+// column 8 j + 2 t, position t + 4 column 8 j + 2 t + 1 (no shuffle; the B
+// tile's rows follow, transpose_split)
+__device__ __forceinline__ void split_frags(uint32_t (&hi)[8][4], uint32_t (&lo)[8][4], const float (&s)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float pv[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float h, l;
+      split_tf32(pv[i], h, l);
+      hi[j][i] = __float_as_uint(h);
+      lo[j][i] = __float_as_uint(l);
+    }
+  }
+}
+
+// pins the fragments' last writes before the caller's wgmma_fence: without
+// it the compiler may sink the split past the fence, and ptxas then fences
+// (and so serializes) the products that read them (warning C7519)
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
+}
+
+// one k-step (8 columns) of d (+)= A . B^T in split precision, lo.hi +
+// hi.lo + hi.hi; A as register fragments, B's hi and lo tiles K-major
+__device__ __forceinline__ void mma_step(float (&d)[8][4], const uint32_t (&ahi)[8][4], const uint32_t (&alo)[8][4],
+                                         int kk, uint32_t bhi, uint32_t blo, int accumulate) {
+  const uint32_t off = (kk >> 2) * kF32Atom + (kk & 3) * 32;
+  wgmma_tf32_n64(d, alo[kk], tile_desc(bhi + off), accumulate);
+  wgmma_tf32_n64(d, ahi[kk], tile_desc(blo + off), 1);
+  wgmma_tf32_n64(d, ahi[kk], tile_desc(bhi + off), 1);
+}
+
+// the same with A's hi and lo tiles read from shared memory (K-major, as B)
+__device__ __forceinline__ void mma_step(float (&d)[8][4], uint32_t ahi, uint32_t alo, int kk, uint32_t bhi,
+                                         uint32_t blo, int accumulate) {
+  const uint32_t off = (kk >> 2) * kF32Atom + (kk & 3) * 32;
+  wgmma_tf32_ss_n64(d, tile_desc(alo + off), tile_desc(bhi + off), accumulate);
+  wgmma_tf32_ss_n64(d, tile_desc(ahi + off), tile_desc(blo + off), 1);
+  wgmma_tf32_ss_n64(d, tile_desc(ahi + off), tile_desc(bhi + off), 1);
+}
+
+// d (+)= A . B^T over 64 columns in split precision, 8 k-steps.  These only
+// enqueue the instructions; the caller fences before and commits after.
+template <class A>
+__device__ __forceinline__ void mma_split(float (&d)[8][4], const A& ahi, const A& alo, uint32_t bhi, uint32_t blo,
+                                          int accumulate_first) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) mma_step(d, ahi, alo, kk, bhi, blo, kk > 0 ? 1 : accumulate_first);
+}
+
+// two independent split products with their k-steps in turns: two chains of
+// dependent accumulations, so that the tensor cores need not wait for one
+// wgmma's sum before the next starts
+template <class A1, class A2>
+__device__ __forceinline__ void mma_split2(float (&d1)[8][4], const A1& a1hi, const A1& a1lo, uint32_t b1hi,
+                                           uint32_t b1lo, float (&d2)[8][4], const A2& a2hi, const A2& a2lo,
+                                           uint32_t b2hi, uint32_t b2lo, int accumulate_first) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    mma_step(d1, a1hi, a1lo, kk, b1hi, b1lo, kk > 0 ? 1 : accumulate_first);
+    mma_step(d2, a2hi, a2lo, kk, b2hi, b2lo, kk > 0 ? 1 : accumulate_first);
+  }
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 }  // namespace

@@ -6,8 +6,9 @@
 //     through the runtime (no -lcuda), with a small per-thread cache;
 //   * wgmma m64n64k16 (bf16 in, f32 accumulators) with A from registers or
 //     from shared memory and B read from a 128-byte-swizzled tile, K-major or
-//     MN-major; wgmma m64n64k8 with TF32 operands (A from registers, B
-//     K-major: for .tf32 the instruction has no transposed form);
+//     MN-major; wgmma m64n64k8 with TF32 operands (A from registers or from
+//     shared memory, B K-major: for .tf32 the instruction has no transposed
+//     form);
 //   * ldmatrix of a swizzled [rows, 64] bf16 tile into wgmma's A fragments.
 // Tiles are [rows, 64] bf16: one 128-byte row per matrix row, 128-byte
 // swizzled (16-byte chunk c of row r lies at chunk c ^ (r % 8)); a float32
@@ -183,6 +184,24 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[8][4], const uint32_t 
       : DRIN_ACC4(d, 0), DRIN_ACC4(d, 1), DRIN_ACC4(d, 2), DRIN_ACC4(d, 3), DRIN_ACC4(d, 4),
         DRIN_ACC4(d, 5), DRIN_ACC4(d, 6), DRIN_ACC4(d, 7)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// the same with A read from shared memory: a K-major [64 x 8] slice of a tile
+// laid out as B's (for .tf32 both operands are K-major)
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : DRIN_ACC4(d, 0), DRIN_ACC4(d, 1), DRIN_ACC4(d, 2), DRIN_ACC4(d, 3), DRIN_ACC4(d, 4),
+        DRIN_ACC4(d, 5), DRIN_ACC4(d, 6), DRIN_ACC4(d, 7)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // wgmma's A fragments of rows r0 .. r0 + 15 (r0 a multiple of 16), all 64

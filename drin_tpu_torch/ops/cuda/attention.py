@@ -37,8 +37,13 @@ TF32 remainder, and each product is taken as lo.hi + hi.lo + hi.hi in f32
 accumulators (lo.lo, 2^-22 of a product, dropped), which holds float32
 accuracy at the tensor cores' TF32 rate; V is transposed into V^T tiles as
 it is split, since ``wgmma`` reads TF32 only K-major, and the softmax is
-taken in natural units.  The float32 backward runs plain-FMA kernels of the
-bf16 backward's two-launch form.
+taken in natural units.  The float32 backward has the bf16 backward's
+two-launch form with all five products on ``wgmma`` in the same split
+precision: each streamed tile is split once by the block that reads it, and
+the three products that sum over a tile's rows (dQ over keys, dK and dV over
+queries) read transposed split copies (K^T, Q^T, dO^T) written while the
+tensor cores take the first two; it recomputes the softmax in natural units
+from the forward's ``m`` and ``l``.
 ``drin_tpu_torch/tools/attention_sweep.py`` builds other tile sizes, ring
 depths and block shapes with ``-D`` and times them side by side; the winner
 is compiled in, there is no runtime switch.
@@ -234,8 +239,8 @@ def _launch_backward(q, k, v, additive_mask, o, do, m, l, need_dmask: bool):
     B, H, L, Dh = q.shape
     do = _kernel_rows(do)
     dq, dk, dv = (torch.empty((B, L, H, Dh), dtype=q.dtype, device=q.device) for _ in range(3))
-    # workspace of the two launches: delta [B, H, L] in f32; m, 1 / l and delta
-    # in padded tiles of 64 queries in bf16
+    # workspace of the two launches: each query's m, 1 / l and delta in padded
+    # tiles of 64 queries
     delta = torch.empty((B, H, -(-L // STATS_TILE), 3, STATS_TILE), dtype=torch.float32,
                         device=q.device)
     dmask = (torch.empty((B, H, L), dtype=torch.float32, device=q.device)

@@ -19,7 +19,11 @@ the dq kernel, the same with ``DKV_`` for the dkv kernel.  Each ``--f32``
 entry is one build of ``csrc/attention.cu`` with
 ``-DDRIN_ATTN_F32_<KEY>=<value>`` for the float32 forward (split-precision
 TF32): its ring of raw (K, V) tiles (``STAGES``, 2 or 3) and its warpgroups
-per block (``WG``, 1 to 3).  Tiles are 64 keys
+per block (``WG``, 1 to 3).  ``--f32-bwd`` times the float32 backward (it has
+no knobs: an empty entry, and ``--old-csrc`` for another commit's) at the
+online train step's [96, 12, 512, 64] and at [4, 12, 512, 64], masked,
+beside autograd through F.scaled_dot_product_attention's float32 path.
+Tiles are 64 keys
 (or queries) throughout: the 128-key forms and the backward with its own rows
 held as register fragments were measured slower on the card and left the
 sources (PERF.md has their readings).  An empty entry is the configuration compiled
@@ -258,16 +262,49 @@ def sweep_backward(variants, batch):
               f"{rel:.3g} | {split} | {_report(path)}")
 
 
+def sweep_f32_backward(variants, batch):
+    print("== backward, float32: dq, dk, dv, dmask (the split-precision TF32 kernels)")
+    f32 = torch.float32
+    shapes = [(batch, 12, 512), (4, 12, 512)]  # the online train step's, and the smoke's case
+    data = {s: _inputs(*s, seed=7, dtype=f32) for s in shapes}
+    cq, ck, cv, cdo, cmask = _inputs(3, 2, 264, seed=9, lens=[264, 130, 0], dtype=f32)
+    want = attn.attention_backward_plain(cq, ck, cv, cmask, cdo)
+    sdpa = {}
+    for s, (q, k, v, do, mask) in data.items():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask[:, None, None, :])
+        sdpa[s] = _device(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    print("shape [B, 12, 512, 64] masked: " + ", ".join(f"{s[0]}x{s[2]}" for s in shapes))
+    print("autograd through F.scaled_dot_product_attention f32: " + "; ".join(sdpa[s] for s in shapes))
+    for label, path in variants:
+        _use("attention_bwd", path)
+        leaves = [t.detach().requires_grad_(True) for t in (cq, ck, cv, cmask)]
+        got = torch.autograd.grad(attn.fused_attention(*leaves), leaves, cdo)
+        rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+        times = []
+        for s, (q, k, v, do, mask) in data.items():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = attn.fused_attention(*leaves, mask)
+            o, mm, ll = out.grad_fn.saved_tensors[4:7]
+            with torch.no_grad():
+                call = lambda: attn._launch_backward(q, k, v, mask, o, do, mm, ll, True)
+                times.append(f"{_ms(call, reps=10, warmup=2):.4f} ms ({_device(call)})")
+            del out, leaves, o, mm, ll
+        print(f"{label:40s} {'; '.join(times)} | max err / max |want| {rel:.3g}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fwd", default="", help="';'-separated forward builds, each 'KEY=value,...'")
     ap.add_argument("--bwd", default="", help="';'-separated backward builds")
     ap.add_argument("--f32", default="", help="';'-separated float32 forward builds")
+    ap.add_argument("--f32-bwd", default="", help="';'-separated float32 backward builds (the "
+                                                  "shipped one, with --old-csrc another commit's)")
     ap.add_argument("--old-csrc", default=None, help="a second csrc directory, built as it is")
     ap.add_argument("--lens", default="128,256,384,512")
     ap.add_argument("--batch", type=int, default=96)
-    ap.add_argument("--skip", default="", help="'fwd', 'bwd' and/or 'f32', comma-separated: "
-                                               "leave those sweeps out")
+    ap.add_argument("--skip", default="", help="'fwd', 'bwd', 'f32' and/or 'f32-bwd', comma-"
+                                               "separated: leave those sweeps out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("attention_sweep needs the card: no CUDA device")
@@ -276,7 +313,8 @@ def main(argv=None):
     print(f"card: {card}")
     sweeps = {"fwd": ("attention", "DRIN_ATTN_FWD_", args.fwd),
               "bwd": ("attention_bwd", "DRIN_ATTN_", args.bwd),
-              "f32": ("attention", "DRIN_ATTN_F32_", args.f32)}
+              "f32": ("attention", "DRIN_ATTN_F32_", args.f32),
+              "f32-bwd": ("attention_bwd", "DRIN_ATTN_", args.f32_bwd)}
     skip = {x.strip() for x in args.skip.split(",") if x.strip()}
     builds, labels = {}, {}
     for key, (name, prefix, entries) in sweeps.items():
@@ -296,6 +334,8 @@ def main(argv=None):
         sweep_backward(named["bwd"], args.batch)
     if "f32" in named:
         sweep_f32(named["f32"], lens)
+    if "f32-bwd" in named:
+        sweep_f32_backward(named["f32-bwd"], args.batch)
 
 
 if __name__ == "__main__":

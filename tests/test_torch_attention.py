@@ -280,6 +280,25 @@ def test_shared_memory_of_the_f32_forward_refuses_a_fourth_stage():
     assert re.search(r"static_assert\(kF32WG \* kF32Tile <= kF32SplitBytes", text)
 
 
+def test_shared_memory_of_the_f32_backward_fits_the_card():
+    """The f32 backward kernels (split TF32 on wgmma) at their fixed shapes:
+    the dq kernel's dO hi / lo for two warpgroups, two raw (K, V) stages, K
+    lo, V lo, K^T hi / lo and the mask row; the dkv kernel's three raw (Q, dO)
+    stages, Q lo, dO lo, Q^T and dO^T hi / lo, the P^T tile its two
+    warpgroups hand over and a statistics tile per stage (K and V live in
+    registers).  Both fit one block; a third dq stage or a fourth dkv stage
+    would not, and the source's static_assert stops such a build."""
+    tile = 64 * 64 * 4
+    env, text = _cu_constants("attention_bwd.cu")
+    assert env["kF32Tile"] == tile
+    assert env["kF32DqSmem"] == 1024 + 4 * tile + 2 * 2 * tile + 4 * tile + 2048 + 24
+    assert env["kF32DkvSmem"] == 1024 + 3 * 2 * tile + 6 * tile + tile + 3 * 768 + 32
+    assert max(env["kF32DqSmem"], env["kF32DkvSmem"]) <= SMEM_PER_BLOCK
+    assert _cu_constants("attention_bwd.cu", kF32DqStages=3)[0]["kF32DqSmem"] > SMEM_PER_BLOCK
+    assert _cu_constants("attention_bwd.cu", kF32DkvStages=4)[0]["kF32DkvSmem"] > SMEM_PER_BLOCK
+    assert re.search(rf"static_assert\(kF32DqSmem <= {SMEM_PER_BLOCK} && kF32DkvSmem <= {SMEM_PER_BLOCK}", text)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_cuda_checks_on_an_expanded_tensor(dtype):
     """A stride of 0 over a dimension that is walked cannot go into a tensor

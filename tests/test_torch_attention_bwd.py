@@ -177,3 +177,9 @@ def test_backward_workspace_is_cut_in_tiles_of_64_queries():
     assert env["kDkvStageBytes"] - 2 * env["kTile64"] >= env["kStatTile"] * 4
     assert env["kDkvStageTx"] == 2 * env["kTile64"] + env["kStatTile"] * 4
     assert "B * H * ceil(L / 64) * 192 floats" in text  # the C entry's contract for the workspace
+    # the f32 kernels (split TF32 on wgmma) share the layout: the dq kernel
+    # writes a tile per warpgroup of 64 queries, the dkv kernel's statistics
+    # area holds one tile per raw stage, and each stage's barrier counts it
+    assert env["kF32DqRows"] == env["kF32DqWG"] * tattn.STATS_TILE
+    assert env["kF32DkvOffBars"] - env["kF32DkvOffStats"] == env["kF32DkvStages"] * env["kStatTile"] * 4
+    assert "mbar_expect_tx(full(s), kF32StageBytes + kStatTile * 4)" in text
