@@ -7,13 +7,16 @@
 Builds the CUDA kernels from ``drin_tpu_torch/csrc`` (one nvcc per source,
 started together, sm_90a), holds each against its plain PyTorch version on
 the card (gather+dequant at DRIN's and offline GHMFC's two packed layouts,
-the GCN layer with its per-launch device times, the attention forward, the
-attention backward with and without a mask, the vertex update), then drives
-fourteen paths at the full width of their models with seeded random weights.
-Served, through ``Ranker`` and ``serve_http``:
+the GCN layer with its per-launch device times in bf16 and float32, the
+attention forward, the attention backward with and without a mask, the
+vertex update in both dtypes), then drives sixteen paths at the full width
+of their models with seeded random weights.  Served, through ``Ranker`` and
+``serve_http``:
 
   * DRIN's rank stage at the WikiMEL width over an int8 fused store of
-    32,768 synthetic entities (the gather+dequant and GCN-layer kernels);
+    32,768 synthetic entities (the gather+dequant and GCN-layer kernels),
+    in bf16 and with the default compute dtype, float32 (the GCN-layer
+    kernel's float32 form: split-precision TF32 on the tensor cores);
   * GHMFC with online BERT at bert-base width: ``/rank`` requests of token
     ids, 101 candidates zipped into 12 sentences of 512 tokens (the fused
     attention kernel, 12 launches per request);
@@ -39,7 +42,8 @@ Trained, through ``Trainer`` and ``build_step_fns``:
     checkpoints and profiler windows (the attention kernels, 24 and 12
     launches per train step, 12 per eval step);
   * DRIN at B=64, C=101, D=768 over the device-resident entity tables (the
-    GCN-layer kernel in the forward, its backward through the plain version);
+    GCN-layer kernel in the forward, its backward through the plain version),
+    with a bf16 body and then in float32, the default compute dtype;
   * offline GHMFC at B=64 over the float text-only store, and MELHI at B=64
     (no kernel).
 
@@ -67,9 +71,10 @@ Without CUDA, or without the repository around it, it exits non-zero and
 prints no result.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists the kernels with their errors, times and launches:
-each main path's own count (``launches_by_path``) and their sum.  The
-mask-free attention backward and the vertex update are on no model path, as
-in the JAX package: their counts are 0 and their kernel phases hold them.
+each main path's own count (``launches_by_path``) and their sum, and the
+GCN layer's dtype on each path.  The mask-free attention backward and the
+vertex update are on no model path, as in the JAX package: their counts are
+0 and their kernel phases hold them.
 """
 
 from __future__ import annotations
@@ -89,7 +94,11 @@ SEED = 0
 # another order, so a value may round to the neighbouring bf16 (2 ulps
 # relative = 1.6e-2) and values near 0 get an absolute floor
 GCN_BF16_TOL = dict(atol=1e-2, rtol=1.6e-2)
-GCN_F32_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 summation order only
+# f32: the kernels take every product in split-precision TF32 (lo.hi + hi.lo +
+# hi.hi of TF32 halves in f32 accumulators): a few f32 roundings, 2.1e-6 -
+# 2.9e-6 by the CPU emulation of tests/test_torch_gcn_layer_f32.py, against
+# 1.3e-3 - 1.7e-3 for one TF32 pass (the planted fault)
+GCN_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # served bf16 scores vs the port's f32 CPU forward on the same int8 tables:
 # bf16 keeps 8 mantissa bits and the forward rounds at every layer
 SCORE_ATOL = 5e-2
@@ -197,6 +206,13 @@ TRAIN_LOSS2_ATOL = 2.5e-3
 # of the margin and switch on or off.  A layer's W_h gradient dropped in the
 # backward of the fused layer moves that tensor by its whole norm (1.0)
 TRAIN_DRIN_GRAD_REL = 0.2
+# the same in float32 (the default compute_dtype) on the card: the forward's
+# products (cuBLAS f32, kernel 1's split TF32) and the backward's sum in
+# another order than the CPU's, as for offline GHMFC and MELHI in f32
+TRAIN_DRIN_F32_GRAD_REL = 1e-3
+# DRIN's first-step loss (dropout off) in float32 on the card against the
+# float32 CPU port: summation order only
+TRAIN_DRIN_F32_LOSS_RTOL = 1e-4
 # offline GHMFC served in bf16 against the port's f32 CPU forward of the same
 # request over the same int8 rows: the fusion's cross attentions, LayerNorms
 # and gelu round to bf16 at every step.  At random weights one mention's
@@ -458,17 +474,54 @@ def _fold_faults(torch, weights, D):
     return faults
 
 
-# the launches of kernel 1's bf16 path by the template's mode (csrc/gcn_layer.cu RowsMode)
-GCN_LAUNCHES = {"gcn_rows_bf16<3": "A1 fold u.Ku", "gcn_rows_bf16<4": "A2 fold a.Kv",
-                "gcn_rows_bf16<0": "B entity rows", "gcn_rows_bf16<1": "C mention rows"}
+# the launches of kernel 1 (and 4) by the row kernel's mode (csrc/gcn_layer.cu
+# RowsMode), bf16 or f32, and the f32 path's weight split
+GCN_LAUNCHES = {"<3,": "A1 fold u.Ku", "<4,": "A2 fold a.Kv", "<0,": "B entity rows",
+                "<1,": "C mention rows", "<2,": "vertex update"}
 
 
 def by_launch(times: dict) -> dict:
     out = {}
     for key, ms in times.items():
-        label = next((v for k, v in GCN_LAUNCHES.items() if k in key), key[:40])
+        if "gcn_rows" in key:
+            label = next((v for k, v in GCN_LAUNCHES.items() if k in key.replace(" ", "")), key[:40])
+        else:
+            label = "W split" if "split_w_f32" in key else key[:40]
         out[label] = round(out.get(label, 0.0) + ms, 5)
     return out
+
+
+@contextlib.contextmanager
+def tf32_products(gcn):
+    """The plain versions of kernels 1 and 4 with their weight products in
+    one TF32 pass (both operands rounded as cvt.rna does): the float32
+    kernels without their split, for the block."""
+    import torch
+
+    saved = gcn._product
+    gcn._product = lambda a, b: tf32_round(torch, a) @ tf32_round(torch, b)
+    try:
+        yield
+    finally:
+        gcn._product = saved
+
+
+def gcn_dtypes(gcn):
+    """A context that records the dtype of every launch of kernel 1 (the
+    wrapper's launch helper wrapped, put back after)."""
+
+    @contextlib.contextmanager
+    def ctx():
+        seen = []
+        launch = gcn._launch
+        gcn._launch = lambda vertexes, *a, **kw: (seen.append(str(vertexes[2].dtype)[6:]),
+                                                  launch(vertexes, *a, **kw))[1]
+        try:
+            yield seen
+        finally:
+            gcn._launch = launch
+
+    return ctx()
 
 
 def _mention_faults(torch, gcn, vertexes, edges, weights, vact):
@@ -495,10 +548,12 @@ def _mention_faults(torch, gcn, vertexes, edges, weights, vact):
 
 
 def phase_gcn(torch, gcn):
-    """Kernel 1 against gcn_layer_plain, both on the card.  The cases cover
-    the bf16 path's tiling: C=101 tiles that cross b boundaries, B*C under
-    one tile, B=1, C=1, C=64 and 65.  The check must also fail each planted
-    fault of the edge fold and of the message slots and mention rows."""
+    """Kernel 1 against gcn_layer_plain, both on the card, in bf16 and in
+    float32.  The cases cover the row kernel's tiling: C=101 tiles that cross
+    b boundaries, B*C under one tile, B=1, C=1, C=64 and 65.  The check must
+    also fail each planted fault of the edge fold and of the message slots
+    and mention rows, and in float32 the plain version with its products in
+    one TF32 pass.  The main case of each dtype is timed."""
     import torch.nn.functional as F
 
     from drin_tpu_torch.nn.layers import get_activation
@@ -506,17 +561,24 @@ def phase_gcn(torch, gcn):
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(64, 101, 768, bf16, "gelu", "sigmoid", True),   # the main path
              (64, 101, 768, bf16, "gelu", "sigmoid", False),
-             (8, 101, 768, f32, "gelu", "sigmoid", True),
-             (64, 101, 768, f32, "gelu", "sigmoid", True),    # the default dtype's DRIN layer
              (4, 11, 128, bf16, "relu", "tanh", True),        # B*C = 44: under one tile
              (1, 101, 768, bf16, "gelu", "sigmoid", True),    # B=1
              (64, 1, 768, bf16, "gelu", "sigmoid", True),     # C=1: 64 segments in a tile
              (3, 1, 128, bf16, "sigmoid", "identity", False),
              (2, 64, 128, bf16, "tanh", "relu", True),        # tiles on the b boundaries
              (5, 65, 128, bf16, "gelu", "sigmoid", True),
-             (4, 11, 32, f32, "tanh", "identity", True),
-             (4, 11, 32, f32, "sigmoid", "relu", False)]
-    main_err = None
+             # float32, the default compute dtype's DRIN layer and the same tiling
+             (64, 101, 768, f32, "gelu", "sigmoid", True),
+             (64, 101, 768, f32, "gelu", "sigmoid", False),
+             (8, 101, 768, f32, "gelu", "sigmoid", True),
+             (1, 101, 768, f32, "gelu", "sigmoid", True),
+             (64, 1, 768, f32, "gelu", "sigmoid", True),
+             (5, 65, 768, f32, "gelu", "sigmoid", False),
+             (4, 11, 128, f32, "relu", "tanh", True),
+             (3, 1, 128, f32, "sigmoid", "identity", False),
+             (2, 64, 128, f32, "tanh", "relu", True),
+             (5, 65, 128, f32, "tanh", "identity", True)]
+    result = {}
     for i, (B, C, D, dt, vact, eact, dyn) in enumerate(cases):
         vertexes, edges, weights = _gcn_inputs(torch, B, C, D, dt, SEED + i)
         kw = dict(vact=vact, eact=eact, dynamic=dyn)
@@ -526,13 +588,13 @@ def phase_gcn(torch, gcn):
             want_v, want_e = gcn.gcn_layer_plain(vertexes, edges, *weights, **kw)
         torch.cuda.synchronize()
         for a, b in zip(got_v + got_e, again_v + again_e):  # no atomics, no order left open
-            assert torch.equal(a, b), f"gcn_layer B={B} C={C} D={D}: two runs differ"
+            assert torch.equal(a, b), f"gcn_layer B={B} C={C} D={D} {dt}: two runs differ"
         tol = GCN_BF16_TOL if dt == bf16 else GCN_F32_TOL
         err = max(check_close(f"gcn_layer {n}", a, b, **tol)
                   for n, a, b in zip(("mt", "mi", "et", "ei", "tt", "ti", "it", "ii"),
                                      got_v + got_e, want_v + want_e))
         print(f"[gcn_layer] B={B} C={C} D={D} {str(dt)[6:]} {vact}/{eact} "
-              f"{'dynamic' if dyn else 'static'}: max abs err {err:.3g} (tol {tol})")
+              f"{'dynamic' if dyn else 'static'}: max abs err {err:.3g} (tol {tol}); two runs bit-equal")
         if dyn and D > 64:
             ea = get_activation(eact)
             signal = max((b.float() - ea(e.float())).abs().max().item()
@@ -545,87 +607,69 @@ def phase_gcn(torch, gcn):
                 assert seen[fault], f"gcn_layer: the edge check cannot see a fold with {fault}"
             print(f"[gcn_layer]   the fold moves edges by up to {signal:.3g}; edges a planted "
                   f"fault puts outside tol: {seen}")
-        if i == 0:
-            with torch.inference_mode():
-                faults = _mention_faults(torch, gcn, vertexes, edges, weights, vact)
-            seen = {f: sum(outside(a, b, **tol) for a, b in zip(bad, want_v[:2]))
-                    for f, bad in faults.items()}
-            for f, n in seen.items():
-                assert n, f"gcn_layer: the mention check cannot see {f}"
-            print(f"[gcn_layer]   mention values a planted fault puts outside tol: {seen}")
-            main_err = err
-            layer = lambda: gcn.fused_gcn_layer(vertexes, edges, *weights, **kw)
-            with torch.inference_mode():
-                ms = cuda_ms(layer)
-                per_launch = by_launch(kernel_device_ms(torch, layer))
-                dev_ms = sum(per_launch.values())
-                plain_ms = cuda_ms(lambda: gcn.gcn_layer_plain(vertexes, edges, *weights, **kw))
-                # the yardstick of the product part alone (the port never calls it):
-                # cuBLAS x . W_h^T over the 2BC entity rows and the 2B mention rows
-                rows = [vertexes[2].view(-1, D), vertexes[3].view(-1, D), torch.cat(vertexes[:2])]
-                product = lambda: [F.linear(x, weights[0]) for x in rows]
-                cublas_ms = cuda_ms(product)
-                cublas_dev_ms = device_ms(product)
-                # launch C against the torch route it replaced (the mention
-                # updates from the message sums, as the f32 path still runs them)
-                mt, mi, et, ei = vertexes
-                f = lambda t: t.float()
-                msg_mt = (torch.einsum("bc,bcd->bd", f(edges[0]), f(et))
-                          + torch.einsum("bc,bcd->bd", f(edges[1]), f(ei))) / C
-                msg_mi = (torch.einsum("bc,bcd->bd", f(edges[2]), f(et))
-                          + torch.einsum("bc,bcd->bd", f(edges[3]), f(ei))) / C
-                route = lambda: gcn._mention_updates(mt, mi, msg_mt, msg_mi, *weights[:4], 1e-5, vact)
-                route_ms = cuda_ms(route)
-                route_dev_ms = device_ms(route)
-            print(f"[gcn_layer]   the mention rows: launch C {per_launch['C mention rows']:.4f} ms of "
-                  f"device time; the torch route from the message sums {route_dev_ms:.4f} ms of device "
-                  f"time, {route_ms:.4f} ms event-timed")
-            # x.W_h^T over 2*B*C + 2*B rows, the fold's two products over 2*B rows;
-            # et, ei read and written once, the mention rows, edges and weights once
-            flops = 2 * (2 * B * C + 2 * B) * D * D + 2 * 2 * (2 * B) * D * D
-            moved = nbytes(*vertexes, *edges, *weights) + nbytes(*got_v, *got_e)
+        if (B, C, D, dyn) != (64, 101, 768, True):
+            continue
+        # the main case of each dtype: the mention faults (and in float32 one
+        # TF32 pass) must fail the check; the layer is timed
+        with torch.inference_mode():
+            faults = _mention_faults(torch, gcn, vertexes, edges, weights, vact)
+            if dt == f32:
+                with tf32_products(gcn):
+                    faults["one TF32 pass"] = sum(gcn.gcn_layer_plain(vertexes, edges, *weights, **kw), [])
+        seen = {f: sum(outside(a, b, **tol) for a, b in zip(bad, (want_v + want_e)[:len(bad)]))
+                for f, bad in faults.items()}
+        for f, n in seen.items():
+            assert n, f"gcn_layer {dt}: the check cannot see {f}"
+        one_pass = None
+        if dt == f32:
+            one_pass = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(faults["one TF32 pass"], want_v + want_e))
+        print(f"[gcn_layer]   {str(dt)[6:]}: values a planted fault puts outside tol: {seen}"
+              + (f"; one TF32 pass moves them by up to {one_pass:.3g}" if one_pass else ""))
+        layer = lambda: gcn.fused_gcn_layer(vertexes, edges, *weights, **kw)
+        with torch.inference_mode():
+            ms = cuda_ms(layer)
+            per_launch = by_launch(kernel_device_ms(torch, layer))
+            dev_ms = sum(per_launch.values())
+            plain_ms = cuda_ms(lambda: gcn.gcn_layer_plain(vertexes, edges, *weights, **kw))
+            # the yardstick of the product part alone (the port never calls it):
+            # cuBLAS x . W_h^T over the 2BC entity rows and the 2B mention rows
+            rows = [vertexes[2].view(-1, D), vertexes[3].view(-1, D), torch.cat(vertexes[:2])]
+            product = lambda: [F.linear(x, weights[0]) for x in rows]
+            cublas_ms = cuda_ms(product)
+            cublas_dev_ms = device_ms(product)
+        # x.W_h^T over 2*B*C + 2*B rows, the fold's two products over 2*B rows;
+        # et, ei read and written once, the mention rows, edges and weights once
+        flops = 2 * (2 * B * C + 2 * B) * D * D + 2 * 2 * (2 * B) * D * D
+        moved = nbytes(*vertexes, *edges, *weights) + nbytes(*got_v, *got_e)
+        times = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                 "device_ms": dev_ms, "device_ms_by_launch": per_launch,
+                 "cublas_product_ms": cublas_ms, "cublas_product_device_ms": cublas_dev_ms}
+        if dt == bf16:
             bound_ms, bound_by = bound(moved, flops)
             print(f"[gcn_layer] B=64 C=101 D=768 bf16 layer call: kernel {ms:.4f} ms (device "
                   f"{dev_ms:.4f}: {per_launch}), plain {plain_ms:.4f} ms, cuBLAS product alone "
                   f"{cublas_ms:.4f} ms (device {cublas_dev_ms:.4f}; a yardstick, never called), "
                   f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
                   f"{moved / 1e6:.1f} MB)")
-            result = {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                      "device_ms": dev_ms, "device_ms_by_launch": per_launch,
-                      "cublas_product_ms": cublas_ms, "cublas_product_device_ms": cublas_dev_ms,
-                      "mention_torch_route_ms": route_ms, "mention_torch_route_device_ms": route_dev_ms}
-        if (B, dt) == (64, f32):  # the float32 form (plain FMA), timed as case 0
-            layer = lambda: gcn.fused_gcn_layer(vertexes, edges, *weights, **kw)
-            with torch.inference_mode():
-                ms = cuda_ms(layer)
-                per_kernel = kernel_device_ms(torch, layer)
-                plain_ms = cuda_ms(lambda: gcn.gcn_layer_plain(vertexes, edges, *weights, **kw))
-                rows = [vertexes[2].view(-1, D), vertexes[3].view(-1, D), torch.cat(vertexes[:2])]
-                product = lambda: [F.linear(x, weights[0]) for x in rows]
-                cublas_ms, cublas_dev_ms = cuda_ms(product), device_ms(product)
-            dev_ms = sum(per_kernel.values())
-            flops = 2 * (2 * B * C + 2 * B) * D * D + 2 * 2 * (2 * B) * D * D
-            moved = nbytes(*vertexes, *edges, *weights) + nbytes(*got_v, *got_e)
+            result.update(times, bound_ms=bound_ms, bound_by=bound_by)
+        else:
             bound_ms, bound_by, fma_ms = f32_bound(moved, flops)
-            print(f"[gcn_layer] B=64 C=101 D=768 f32 layer call (plain FMA kernels and the torch "
-                  f"mention updates): kernel {ms:.4f} ms (device {dev_ms:.4f}: "
-                  f"{ {k[:40]: round(v, 4) for k, v in per_kernel.items()} }), plain {plain_ms:.4f} "
-                  f"ms, cuBLAS f32 product alone {cublas_ms:.4f} ms (device {cublas_dev_ms:.4f}; a "
-                  f"yardstick, never called); bound {bound_ms:.4f} ms ({bound_by}, the TF32 route: "
-                  f"{flops / 1e9:.2f} GFLOP x 3 at 495 TFLOP/s, {moved / 1e6:.1f} MB), FMA bound "
-                  f"{fma_ms:.4f} ms; device / bound {dev_ms / bound_ms:.1f}")
-            result["f32"] = {"shape": [B, C, D], "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                             "fma_bound_ms": fma_ms, "cublas_product_ms": cublas_ms,
-                             "cublas_product_device_ms": cublas_dev_ms}
-    for D, why in ((96, "D=96 bf16"), (256, "D=256 bf16")):
-        vertexes, edges, weights = _gcn_inputs(torch, 2, 5, D, bf16, SEED)
+            print(f"[gcn_layer] B=64 C=101 D=768 f32 layer call (split TF32): kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f}: {per_launch}), plain {plain_ms:.4f} ms, cuBLAS f32 product "
+                  f"alone {cublas_ms:.4f} ms (device {cublas_dev_ms:.4f}; a yardstick, never called); "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, the TF32 route: {flops / 1e9:.2f} GFLOP x 3 "
+                  f"at 495 TFLOP/s, {moved / 1e6:.1f} MB), FMA bound {fma_ms:.4f} ms; device / bound "
+                  f"{dev_ms / bound_ms:.2f}")
+            result["f32"] = {"shape": [B, C, D], **times, "bound_ms": bound_ms, "bound_by": bound_by,
+                             "fma_bound_ms": fma_ms, "one_tf32_pass_err": one_pass}
+    for D, dt in ((96, bf16), (256, bf16), (32, f32), (48, f32)):
+        vertexes, edges, weights = _gcn_inputs(torch, 2, 5, D, dt, SEED)
         try:
             gcn.fused_gcn_layer(vertexes, edges, *weights)
-            raise AssertionError(f"gcn_layer: {why} was accepted")
-        except ValueError:
-            pass
+            raise AssertionError(f"gcn_layer: D={D} {dt} was accepted")
+        except ValueError as e:
+            assert "built for D in" in str(e), e
     return result
 
 
@@ -1036,17 +1080,20 @@ def _vertex_inputs(torch, B, C, D, dt, seed):
             (1 + 0.1 * r(D)).to(dt), (0.1 * r(D)).to(dt)]
 
 
-def phase_vertex_update(torch, vu):
-    """Kernel 4 against vertex_update_plain, both on the card; the check
-    must also fail the plain version with e2*m2 left out."""
+def phase_vertex_update(torch, vu, gcn):
+    """Kernel 4 against vertex_update_plain, both on the card, in bf16 and
+    float32; the check must also fail the plain version with e2*m2 left out,
+    and in float32 at the WikiMEL width the plain version with its product
+    in one TF32 pass."""
     import torch.nn.functional as F
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(64, 101, 768, bf16, "gelu"),   # the WikiMEL width
              (64, 101, 768, f32, "gelu"),
-             (5, 11, 128, bf16, "relu"), (5, 11, 32, f32, "tanh"),
-             (5, 11, 128, bf16, "sigmoid"), (3, 33, 48, f32, "gelu"),
-             (1, 1, 128, bf16, "gelu"), (1, 101, 768, bf16, "tanh"), (2, 64, 768, bf16, "gelu")]
+             (5, 11, 128, bf16, "relu"), (5, 11, 128, f32, "tanh"),
+             (5, 11, 128, bf16, "sigmoid"), (3, 33, 128, f32, "sigmoid"),
+             (1, 1, 128, bf16, "gelu"), (1, 1, 128, f32, "relu"), (1, 101, 768, bf16, "tanh"),
+             (1, 101, 768, f32, "tanh"), (2, 64, 768, bf16, "gelu"), (2, 64, 768, f32, "gelu")]
     result = None
     for i, (B, C, D, dt, act) in enumerate(cases):
         args = _vertex_inputs(torch, B, C, D, dt, SEED + i)
@@ -1059,14 +1106,24 @@ def phase_vertex_update(torch, vu):
         err = check_close(f"vertex_update {act}", got, want, **tol)
         seen = outside(fault, want, **tol)
         assert seen, "vertex_update: the check cannot see the plain version with e2*m2 left out"
+        again = vu.fused_vertex_update(*args, act=act)
+        assert torch.equal(got, again), f"vertex_update B={B} C={C} D={D} {dt}: two runs differ"
+        one_pass = None
+        if i == 1:  # float32 at the WikiMEL width: the kernel without its split
+            with torch.inference_mode(), tf32_products(gcn):
+                bad = vu.vertex_update_plain(*args, act=act)
+            one_pass = (bad - want).abs().max().item()
+            assert outside(bad, want, **tol), "vertex_update: the check cannot see one TF32 pass"
         print(f"[vertex_update] B={B} C={C} D={D} {str(dt)[6:]} {act}: max abs err {err:.3g} "
-              f"(tol {tol}); values outside tol with e2*m2 left out: {seen} of {want.numel()}")
+              f"(tol {tol}), two runs bit-equal; values outside tol with e2*m2 left out: {seen} of "
+              f"{want.numel()}" + (f"; one TF32 pass moves them by up to {one_pass:.3g}" if one_pass else ""))
         if i > 1:  # cases 0 and 1, bf16 and f32 at the WikiMEL width, are timed
             continue
         call = lambda: vu.fused_vertex_update(*args, act=act)
         with torch.inference_mode():
             ms = cuda_ms(call)
-            dev_ms = device_ms(call)
+            per_launch = by_launch(kernel_device_ms(torch, call))
+            dev_ms = sum(per_launch.values())
             plain_ms = cuda_ms(lambda: vu.vertex_update_plain(*args, act=act))
             rows = args[0].view(-1, D)
             cublas_ms = cuda_ms(lambda: F.linear(rows, args[5]))
@@ -1074,7 +1131,8 @@ def phase_vertex_update(torch, vu):
         flops = 2 * B * C * D * D
         moved = nbytes(*args, got)
         times = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
-                 "cublas_product_ms": cublas_ms, "cublas_product_device_ms": cublas_dev_ms}
+                 "device_ms_by_launch": per_launch, "cublas_product_ms": cublas_ms,
+                 "cublas_product_device_ms": cublas_dev_ms}
         if dt == bf16:
             bound_ms, bound_by = bound(moved, flops)
             print(f"[vertex_update] B=64 C=101 D=768 bf16: kernel {ms:.4f} ms (device {dev_ms:.4f}), "
@@ -1082,21 +1140,25 @@ def phase_vertex_update(torch, vu):
                   f"{cublas_dev_ms:.4f}; a yardstick, never called), bound {bound_ms:.4f} ms "
                   f"({bound_by}: {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
             result = {**times, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-        else:  # the float32 form (plain FMA)
+        else:  # the float32 form (split TF32)
             bound_ms, bound_by, fma_ms = f32_bound(moved, flops)
-            print(f"[vertex_update] B=64 C=101 D=768 f32 (plain FMA): kernel {ms:.4f} ms (device "
-                  f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, cuBLAS f32 product alone {cublas_ms:.4f} "
+            print(f"[vertex_update] B=64 C=101 D=768 f32 (split TF32): kernel {ms:.4f} ms (device "
+                  f"{dev_ms:.4f}: {per_launch}), plain {plain_ms:.4f} ms, cuBLAS f32 product alone {cublas_ms:.4f} "
                   f"ms (device {cublas_dev_ms:.4f}; a yardstick, never called); bound {bound_ms:.4f} "
                   f"ms ({bound_by}, the TF32 route: {flops / 1e9:.2f} GFLOP x 3 at 495 TFLOP/s, "
                   f"{moved / 1e6:.1f} MB), FMA bound {fma_ms:.4f} ms; device / bound "
-                  f"{dev_ms / bound_ms:.1f}")
+                  f"{dev_ms / bound_ms:.2f}")
             result["f32"] = {"shape": [B, C, D], **times, "bound_ms": bound_ms, "bound_by": bound_by,
-                             "fma_bound_ms": fma_ms}
+                             "fma_bound_ms": fma_ms, "one_tf32_pass_err": one_pass}
     args = _vertex_inputs(torch, 4, 11, 128, bf16, SEED)
     for bad, exc, why in ((lambda a: [a[0].half()] + a[1:], ValueError, "fp16"),
                           (lambda a: [a[0][:, :, :127]] + a[1:], ValueError, "shape"),
                           (lambda a: [x[..., :64] if x.shape[-1] == 128 else x for x in a],
                            ValueError, "D=64"),
+                          (lambda a: [x.float()[..., :32] if x.shape[-1] == 128 else x.float() for x in a],
+                           ValueError, "D=32 f32"),
+                          (lambda a: [x.float()[..., :48] if x.shape[-1] == 128 else x.float() for x in a],
+                           ValueError, "D=48 f32"),
                           (lambda a: [a[0].requires_grad_(True)] + a[1:], RuntimeError, "grad")):
         try:
             vu.fused_vertex_update(*bad(list(args)))
@@ -1183,11 +1245,11 @@ def phase_slice(torch, np, gather, gcn):
         print(f"[slice] launches over {n_fwd} forwards: {launches}")
         assert launches == {"gather_dequant": n_fwd, "gcn_layer": cfg.num_gcn_layers * n_fwd}, \
             launches
-        score_err = 0.0
+        score_err, wants = 0.0, {}
         for B, (s, i) in served.items():
             assert s.shape == i.shape == (B, 5) and np.isfinite(s).all(), (B, s.shape, i.shape)
             full = ranker.score(batches[B])
-            want = reference.score(batches[B])
+            want = wants[B] = reference.score(batches[B])
             assert full.shape == want.shape == (B, cfg.num_candidates_model)
             np.testing.assert_allclose(s, np.take_along_axis(full, i, -1), rtol=0, atol=1e-5)
             err = float(np.abs(full - want).max())
@@ -1206,7 +1268,103 @@ def phase_slice(torch, np, gather, gcn):
     finally:
         server.shutdown()
         server.server_close()
-    return launches, score_err, {"ranker": ranker, "reference": reference}
+    return launches, score_err, {"ranker": ranker, "reference": reference, "weights": weights,
+                                 "tables": tables, "batches": batches, "want_scores": wants}
+
+
+# served float32 DRIN scores (the default compute_dtype) against the port's
+# f32 CPU forward of the same request over the same int8 rows: cuBLAS's f32
+# products and kernel 1's split-TF32 ones sum in another order than the CPU.
+# On an H100 the kernels read 8.3e-7 and the layers' products in one TF32
+# pass 7.8e-5: the first limit, 1e-4, would have let that fault pass, so the
+# limit sits between the two readings
+SCORE_F32_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def plain_gcn_layers(gcn, tf32: bool = False):
+    """DRIN's GCN layers through gcn_layer_plain on the card instead of
+    kernel 1 for the block (with ``tf32``, its products in one TF32 pass: the
+    float32 kernel without its split)."""
+    from drin_tpu_torch.models import drin as drin_model
+
+    saved = drin_model.fused_gcn_layer
+    drin_model.fused_gcn_layer = gcn.gcn_layer_plain
+    try:
+        with tf32_products(gcn) if tf32 else contextlib.nullcontext():
+            yield
+    finally:
+        drin_model.fused_gcn_layer = saved
+
+
+def phase_serve_drin_f32(torch, np, gather, gcn, drin):
+    """DRIN's rank stage with the configuration's default compute dtype,
+    float32, over phase_slice's store rows, weights and requests: kernel 1's
+    float32 form (split-precision TF32) on every GCN layer.  Scores against
+    phase_slice's f32 CPU forward; the same forward with the layers' products
+    in one TF32 pass printed beside."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.serve import Ranker, rank_feat_fields, serve_http
+
+    cfg = make_config("drin", "wikimel")
+    assert cfg.compute_dtype == "float32", cfg.compute_dtype
+    t0 = time.perf_counter()
+    ranker = Ranker(cfg, drin["weights"], drin["tables"], device="cuda", quantize_store=True,
+                    fused_gather=True)
+    torch.cuda.synchronize()
+    print(f"[serve_drin_f32] Ranker(make_config('drin', 'wikimel'): compute_dtype {cfg.compute_dtype}, "
+          f"quantize_store, fused_gather) on cuda: built in {time.perf_counter() - t0:.1f} s")
+    batches, wants = drin["batches"], drin["want_scores"]
+    fields = rank_feat_fields(ranker)
+    server = serve_http(ranker, port=0, feat_fields=fields)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    post = lambda feats, k=5: post_rank(np, url, fields, feats, k)
+    try:
+        # the main path, counted: /rank at B=1, Ranker.rank at B=64
+        gather.launches = gcn.launches = 0
+        with gcn_dtypes(gcn) as seen:
+            served = {1: post(batches[1]), 64: ranker.rank(batches[64], k=5)}
+            torch.cuda.synchronize()
+        launches = {"gather_dequant": gather.launches, "gcn_layer": gcn.launches}
+        print(f"[serve_drin_f32] launches over 2 forwards: {launches}, kernel 1 by dtype {seen}")
+        assert launches == {"gather_dequant": 2, "gcn_layer": 2 * cfg.num_gcn_layers}, launches
+        assert seen == ["float32"] * 2 * cfg.num_gcn_layers, seen
+        errs, full64 = {}, None
+        for B, (s, i) in served.items():
+            assert s.shape == i.shape == (B, 5) and np.isfinite(s).all(), (B, s.shape, i.shape)
+            full = ranker.score(batches[B])
+            assert full.shape == wants[B].shape == (B, cfg.num_candidates_model)
+            np.testing.assert_allclose(s, np.take_along_axis(full, i, -1), rtol=0, atol=1e-6)
+            errs[B] = float(np.abs(full - wants[B]).max())
+            full64 = full
+        with plain_gcn_layers(gcn, tf32=True):
+            tf32_err = float(np.abs(ranker.score(batches[64]) - wants[64]).max())
+        with plain_gcn_layers(gcn):
+            plain_err = float(np.abs(ranker.score(batches[64]) - wants[64]).max())
+        print(f"[serve_drin_f32] scores vs the f32 CPU forward, max abs err: B=1 {errs[1]:.3g}, B=64 "
+              f"{errs[64]:.3g} (limit {SCORE_F32_ATOL}); the same B=64 forward on the card with the "
+              f"plain layer {plain_err:.3g}, with the plain layer's products in one TF32 pass "
+              f"{tf32_err:.3g}; spread of one mention's candidates {float(np.ptp(full64, -1).mean()):.3g}")
+        assert max(errs.values()) <= SCORE_F32_ATOL, errs
+        assert tf32_err > SCORE_F32_ATOL, f"the float32 score check cannot see one TF32 pass: {tf32_err}"
+        ms_b1 = host_ms(lambda: post(batches[1]))
+        ms_b64 = host_ms(lambda: ranker.rank(batches[64], k=5))
+        pairs = 64 * cfg.num_candidates_model / (ms_b64 / 1e3)
+        print(f"[serve_drin_f32] /rank B=1: {ms_b1:.3f} ms per request (HTTP, median of 10); "
+              f"Ranker.rank B=64: {ms_b64:.3f} ms, {pairs:.0f} pairs/s")
+        prof = profile_rank(torch, ranker, batches[64], "float32 B=64")
+    finally:
+        server.shutdown()
+        server.server_close()
+    stats = {"rank_b64_ms": ms_b64, "rank_b1_http_ms": ms_b1, "score_err": errs,
+             "tf32_fault_err": tf32_err, "plain_layer_err": plain_err}
+    if prof is not None:
+        layer_ms = sum(ms for k, ms in prof["device_ms_by_kernel"].items()
+                       if "gcn_rows" in k or "split_w_f32" in k)
+        print(f"[serve_drin_f32] kernel 1 (float32) {layer_ms:.3f} ms of {prof['busy_ms']:.3f} ms device "
+              f"busy ({layer_ms / prof['busy_ms']:.3f}); idle share {prof['idle']:.3f}")
+        stats.update(busy_ms=prof["busy_ms"], idle=prof["idle"], gcn_layer_device_ms=layer_ms)
+    return launches, stats
 
 
 def _concurrent(fns, timeout=600):
@@ -2392,47 +2550,13 @@ def phase_train_drin(torch, np, gcn, vu):
     # the first step's gradients with dropout off: the card (kernel 1 forward,
     # its backward through the plain version, bf16 body, gradients cast into
     # the float32 masters) against the float32 CPU port, tensor by tensor
-    def grads(tr, b, v):
-        tr.state.model.zero_grad(set_to_none=True)
-        loss, _, _ = tr.fns.loss_and_metrics(b, v, M.init_state(cfg.metrics_topk, tr.device))
-        loss.backward()
-        got = {n: p.grad.float().cpu() for n, p in tr.state.model.named_parameters()
-               if p.grad is not None}
-        tr.state.model.zero_grad(set_to_none=True)
-        return got
-
-    def drop_wh(ctx, *gs):
-        """The fused layer's backward with W_h's gradient left out."""
-        out = list(layer_backward(ctx, *gs))
-        out[1 + 8] = None  # inputs: opts, 4 vertexes, 4 edges, then wh
-        return tuple(out)
-
-    g_cpu, g_card = grads(cpu, cbatch, cvalid), grads(trainer, batch, valid)
-    layer_backward = gcn._FusedGCNLayer.backward
-    gcn._FusedGCNLayer.backward = staticmethod(drop_wh)
-    try:
-        g_fault = grads(trainer, batch, valid)
-    finally:
-        gcn._FusedGCNLayer.backward = staticmethod(layer_backward)
-    # a tensor the loss does not depend on (the last layer's edge update) has
-    # no gradient on the CPU and an all-zero one behind the fused layer
-    extra = sorted(set(g_card) - set(g_cpu))
-    assert set(g_cpu) <= set(g_card) and len(g_cpu) >= 20, (len(g_card), len(g_cpu))
-    assert all(not g_card[n].any() for n in extra), extra
-    rel = lambda g: {n: float((g.get(n, torch.zeros_like(w)) - w).norm() / w.norm().clamp_min(1e-30))
-                     for n, w in g_cpu.items()}
-    rel_c, rel_f = rel(g_card), rel(g_fault)
-    top = sorted(rel_c, key=rel_c.get, reverse=True)[:4]
-    worst_f = max(rel_f, key=rel_f.get)
-    print(f"[train_drin] first-step gradients (dropout off) vs the float32 CPU port, relative L2 "
-          f"per tensor ({len(g_cpu)} tensors), the largest: "
-          f"{[(n, float(f'{rel_c[n]:.3g}')) for n in top]}; with W_h's gradient dropped in the "
-          f"fused layer's backward: {worst_f} {rel_f[worst_f]:.3g} (limit {TRAIN_DRIN_GRAD_REL})")
-    assert all(torch.isfinite(g).all() for g in g_card.values())
-    assert rel_c[top[0]] <= TRAIN_DRIN_GRAD_REL, (top[0], rel_c[top[0]])
-    assert rel_f[worst_f] > TRAIN_DRIN_GRAD_REL and "w_h" in worst_f, \
-        f"the gradient check cannot see a faulty backward: {worst_f} {rel_f[worst_f]}"
-    del g_cpu, g_card, g_fault
+    init = copy.deepcopy(cpu_model.state_dict())  # the float32 phase starts here too
+    loss_cpu, g_cpu = _drin_grads(cpu, cbatch, cvalid)
+    _, g_card = _drin_grads(trainer, batch, valid)
+    with _drop_wh_grad(gcn):
+        _, g_fault = _drin_grads(trainer, batch, valid)
+    _check_drin_grads(torch, "train_drin", g_cpu, g_card, g_fault, TRAIN_DRIN_GRAD_REL)
+    del g_card, g_fault
 
     gcn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2492,7 +2616,133 @@ def phase_train_drin(torch, np, gcn, vu):
           f"{vu_launches} launch, max abs diff to kernel 1's et' {err4:.3g} (a check beside "
           f"the main paths: no model calls the op, and the kernels line does not count it)")
     assert vu_launches == 1
-    return {"gcn_layer": launches}, {"step_ms": step_ms}
+    shared = {"tables": tables, "rows": rows, "init": init, "g_cpu": g_cpu, "loss_cpu": loss_cpu}
+    return {"gcn_layer": launches}, {"step_ms": step_ms}, shared
+
+
+def _drin_grads(tr, b, v):
+    """The deterministic first-step loss (dropout off) and the gradient of
+    every parameter tensor, on the host in float32."""
+    from drin_tpu_torch.train import metrics as M
+
+    tr.state.model.zero_grad(set_to_none=True)
+    loss, _, _ = tr.fns.loss_and_metrics(b, v, M.init_state(tr.cfg.metrics_topk, tr.device))
+    loss.backward()
+    got = {n: p.grad.float().cpu() for n, p in tr.state.model.named_parameters()
+           if p.grad is not None}
+    tr.state.model.zero_grad(set_to_none=True)
+    return float(loss.detach()), got
+
+
+@contextlib.contextmanager
+def _drop_wh_grad(gcn):
+    """The fused layer's backward with W_h's gradient left out, for the block."""
+    layer_backward = gcn._FusedGCNLayer.backward
+
+    def drop_wh(ctx, *gs):
+        out = list(layer_backward(ctx, *gs))
+        out[1 + 8] = None  # inputs: opts, 4 vertexes, 4 edges, then wh
+        return tuple(out)
+
+    gcn._FusedGCNLayer.backward = staticmethod(drop_wh)
+    try:
+        yield
+    finally:
+        gcn._FusedGCNLayer.backward = staticmethod(layer_backward)
+
+
+def _check_drin_grads(torch, tag, g_cpu, g_card, g_fault, limit):
+    """Relative L2 per tensor of the card's first-step gradients against the
+    float32 CPU port's: within ``limit``; with W_h's gradient dropped, W_h's
+    tensor outside it.  Returns (largest, the fault's largest)."""
+    # a tensor the loss does not depend on (the last layer's edge update) has
+    # no gradient on the CPU and an all-zero one behind the fused layer
+    extra = sorted(set(g_card) - set(g_cpu))
+    assert set(g_cpu) <= set(g_card) and len(g_cpu) >= 20, (len(g_card), len(g_cpu))
+    assert all(not g_card[n].any() for n in extra), extra
+    rel = lambda g: {n: float((g.get(n, torch.zeros_like(w)) - w).norm() / w.norm().clamp_min(1e-30))
+                     for n, w in g_cpu.items()}
+    rel_c, rel_f = rel(g_card), rel(g_fault)
+    top = sorted(rel_c, key=rel_c.get, reverse=True)[:4]
+    worst_f = max(rel_f, key=rel_f.get)
+    print(f"[{tag}] first-step gradients (dropout off) vs the float32 CPU port, relative L2 "
+          f"per tensor ({len(g_cpu)} tensors), the largest: "
+          f"{[(n, float(f'{rel_c[n]:.3g}')) for n in top]}, the median "
+          f"{statistics.median(rel_c.values()):.3g}; with W_h's gradient dropped in the fused "
+          f"layer's backward: {worst_f} {rel_f[worst_f]:.3g} (limit {limit})")
+    assert all(torch.isfinite(g).all() for g in g_card.values())
+    assert rel_c[top[0]] <= limit, (top[0], rel_c[top[0]])
+    assert rel_f[worst_f] > limit and "w_h" in worst_f, \
+        f"the gradient check cannot see a faulty backward: {worst_f} {rel_f[worst_f]}"
+    return rel_c[top[0]], rel_f[worst_f]
+
+
+def phase_train_drin_f32(torch, np, gcn, shared):
+    """DRIN train steps with the configuration's default compute dtype,
+    float32, over phase_train_drin's entity tables, batch and initial
+    weights: kernel 1's float32 form in the forward (split-precision TF32),
+    its backward through the plain version.  First-step gradients and loss
+    against that phase's float32 CPU port; three steps on the repeated
+    batch; the step's time, peak memory and one profiled step."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.device_store import DeviceEntityStore
+    from drin_tpu_torch.models.drin import DRIN
+    from drin_tpu_torch.train import metrics as M
+    from drin_tpu_torch.train.trainer import Trainer
+
+    B, n_steps = 64, 3
+    cfg = make_config("drin", "wikimel", batch_size=B)
+    assert cfg.compute_dtype == "float32", cfg.compute_dtype
+    model = DRIN(cfg)
+    model.load_state_dict(shared["init"])
+    store = DeviceEntityStore(cfg, shared["tables"], device="cuda")
+    trainer = Trainer(cfg, model, device="cuda", feats_fn=store.drin_feats_fn(), log=lambda *a: None)
+    batch, valid = trainer._put(shared["rows"], np.ones((B,), np.float32))
+    print(f"[train_drin_f32] Trainer(make_config('drin', 'wikimel'): compute_dtype {cfg.compute_dtype}) "
+          f"on cuda, B={B}: store of {store.n_rows} entities resident ({store.nbytes / 2 ** 20:.0f} MiB)")
+    gcn.launches = 0
+    with gcn_dtypes(gcn) as seen:
+        loss, g_card = _drin_grads(trainer, batch, valid)
+    assert gcn.launches == cfg.num_gcn_layers and seen == ["float32"] * cfg.num_gcn_layers, seen
+    with _drop_wh_grad(gcn):
+        _, g_fault = _drin_grads(trainer, batch, valid)
+    grad_rel, fault_rel = _check_drin_grads(torch, "train_drin_f32", shared["g_cpu"], g_card, g_fault,
+                                            TRAIN_DRIN_F32_GRAD_REL)
+    loss_err = abs(loss - shared["loss_cpu"]) / abs(shared["loss_cpu"])
+    print(f"[train_drin_f32] first-step loss {loss:.7f} (dropout off), the float32 CPU port's "
+          f"{shared['loss_cpu']:.7f}: relative error {loss_err:.3g} (limit {TRAIN_DRIN_F32_LOSS_RTOL})")
+    assert loss_err <= TRAIN_DRIN_F32_LOSS_RTOL, loss_err
+    del g_card, g_fault
+
+    gcn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with gcn_dtypes(gcn) as seen:
+        losses, times, mstate = _run_steps(torch, trainer, batch, valid, n_steps)
+        ev_loss, mstate, scores = trainer.fns.eval_step(batch, valid, mstate)
+        torch.cuda.synchronize()
+    launches = gcn.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(times[1:])
+    print(f"[train_drin_f32] {n_steps} train steps + 1 eval step: gcn_layer launches {launches}, "
+          f"all float32 ({cfg.num_gcn_layers} per forward); losses {[round(x, 6) for x in losses]}, "
+          f"eval {float(ev_loss):.6f}; {step_ms:.2f} ms per step (median of {n_steps - 1}; the first "
+          f"{times[0]:.1f} ms), {B * cfg.num_candidates_model / (step_ms / 1e3):.0f} pairs/s, peak "
+          f"memory {peak:.2f} GiB")
+    assert launches == cfg.num_gcn_layers * (n_steps + 1) and set(seen) == {"float32"}, (launches, seen)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert tuple(scores.shape) == (B, cfg.num_candidates_model) and torch.isfinite(scores).all()
+    mstate0 = M.init_state(cfg.metrics_topk, "cuda")
+    prof = profile_call(torch, lambda: trainer.fns.train_step(trainer.state, batch, valid, mstate0),
+                        "DRIN train step B=64 (float32)", reps=3)
+    stats = {"step_ms": step_ms, "peak_gib": peak, "first_step_grad_rel_max": grad_rel,
+             "fault_grad_rel_max": fault_rel, "first_loss_rel_err": loss_err, "losses": losses}
+    if prof is not None:
+        layer_ms = sum(ms for k, ms in prof["device_ms_by_kernel"].items()
+                       if "gcn_rows" in k or "split_w_f32" in k)
+        print(f"[train_drin_f32] kernel 1's forward {layer_ms:.3f} ms of {prof['busy_ms']:.3f} ms device "
+              f"busy ({layer_ms / prof['busy_ms']:.3f}); idle share {prof['idle']:.3f}")
+        stats.update(busy_ms=prof["busy_ms"], idle=prof["idle"], gcn_layer_device_ms=layer_ms)
+    return {"gcn_layer": launches}, stats
 
 
 def launch_counts(kernels) -> dict:
@@ -3467,7 +3717,7 @@ def profile_rank(torch, ranker, feats, label: str, reps: int = 5):
         torch.cuda.synchronize()
 
     print(f"[profile] {label} input preparation (host to device, cast): {host_ms(prep):.3f} ms")
-    profile_call(torch, lambda: ranker.rank(feats, k=5), f"{label} rank", reps)
+    return profile_call(torch, lambda: ranker.rank(feats, k=5), f"{label} rank", reps)
 
 
 def profile_call(torch, fn, label: str, reps: int = 5, top: int = 12):
@@ -3545,20 +3795,26 @@ def main() -> int:
 
     measured = {"gather_dequant": phase_gather(torch, gather), "gcn_layer": phase_gcn(torch, gcn),
                 "attention": phase_attention(torch, np, attn),
-                "vertex_update": phase_vertex_update(torch, vu)}
+                "vertex_update": phase_vertex_update(torch, vu, gcn)}
     measured.update(phase_attention_bwd(torch, np, attn))
     # each main path is driven with its kernels' counts set to 0 just before
     # and read just after; a kernel of a path that the path never launched fails
     mods = (gather, gcn, attn, vu)
-    paths, seconds = {}, {}
+    paths, seconds, gcn_by_dtype = {}, {}, {}
 
     def timed(path, fn, *args):
         t = time.perf_counter()
-        out = fn(*args)
+        with gcn_dtypes(gcn) as seen:  # kernel 1's launches in the whole phase, by dtype
+            out = fn(*args)
+        gcn_by_dtype[path] = {dt: seen.count(dt) for dt in sorted(set(seen))}
         seconds[path] = round(time.perf_counter() - t, 1)
         return out
 
     paths["serve_drin"], _, drin = timed("serve_drin", phase_slice, torch, np, gather, gcn)
+    # the same rank stage with the default compute dtype, float32: kernel 1's
+    # float32 form (the CLIs' default), over the same store rows and weights
+    paths["serve_drin_f32"], serve_f32 = timed("serve_drin_f32", phase_serve_drin_f32, torch, np,
+                                               gather, gcn, drin)
     # the DRIN store as a deployment: a bundle served behind the micro-batching
     # front, then stage-1 retrieval over its text table (no kernel)
     paths["serve_batched"], served = timed("serve_batched", phase_serve_batched, torch, np,
@@ -3569,7 +3825,10 @@ def main() -> int:
     paths["serve_text"], _ = timed("serve_text", phase_serve_text, torch, np, attn)
     paths["train_online"], _ = timed("train_online", phase_train_online, torch, np, attn)
     paths["train_text"], _ = timed("train_text", phase_train_text, torch, np, attn)
-    paths["train_drin"], _ = timed("train_drin", phase_train_drin, torch, np, gcn, vu)
+    paths["train_drin"], _, drin_shared = timed("train_drin", phase_train_drin, torch, np, gcn, vu)
+    paths["train_drin_f32"], train_f32 = timed("train_drin_f32", phase_train_drin_f32, torch, np, gcn,
+                                               drin_shared)
+    del drin_shared
     # the baselines: offline GHMFC reads its rows through kernel 2; MELHI, the
     # transformer mention layer and the float store of training run no kernel
     # (each of those phases fails if any kernel launched in it)
@@ -3584,15 +3843,23 @@ def main() -> int:
     measured["attention"]["f32_bert_stage"] = pre["f32"]
     print(f"seconds by path: {seconds}")
     assert {p: sorted(c) for p, c in paths.items()} == {
-        "serve_drin": ["gather_dequant", "gcn_layer"], "serve_online": ["attention"],
+        "serve_drin": ["gather_dequant", "gcn_layer"], "serve_drin_f32": ["gather_dequant", "gcn_layer"],
+        "serve_online": ["attention"],
         "serve_batched": ["gather_dequant", "gcn_layer"], "retrieve": [],
         "serve_text": ["attention"],
         "train_online": ["attention", "attention_bwd"],
         "train_text": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"],
+        "train_drin_f32": ["gcn_layer"],
         "serve_ghmfc": ["gather_dequant"], "serve_ghmfc_transformer": [], "serve_melhi": [],
         "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer"]}, paths
     for path, counts in paths.items():
         assert all(counts.values()), f"{path} never launched one of its kernels: {counts}"
+    # kernel 1 by dtype: the default-dtype paths launch only its float32 form,
+    # every other path only its bf16 form
+    print(f"kernel 1's launches by path and dtype (whole phases): {gcn_by_dtype}")
+    for path, by_dt in gcn_by_dtype.items():
+        want = "float32" if path.endswith("_f32") else "bfloat16"
+        assert set(by_dt) <= {want} and bool(by_dt) == ("gcn_layer" in paths[path]), (path, by_dt)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "drin_tpu"))
     assert not bad, f"the port imported {bad}"
 
@@ -3612,6 +3879,9 @@ def main() -> int:
     assert set(kernels) == set(measured)
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in kernels}
+    measured["gcn_layer"]["dtype_by_path"] = {path: next(iter(by_dt)) for path, by_dt in gcn_by_dtype.items()
+                                              if by_dt}
+    measured["gcn_layer"]["f32_paths"] = {"serve_drin_f32": serve_f32, "train_drin_f32": train_f32}
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"drin_tpu_torch/csrc/{src}", "replaces": tpu,

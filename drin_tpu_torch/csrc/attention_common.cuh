@@ -152,37 +152,15 @@ inline int tile_map(CUtensorMap* out, const void* base, Strides s, int B, int H,
 
 // ------------------------------------------------------------------- f32
 // The float32 kernels take every product on the tensor cores in split
-// precision.  wgmma takes float32 data only as TF32 (10 mantissa bits), so
-// every operand x is split into x = hi + lo, hi = x rounded to TF32 and lo =
-// (x - hi) rounded to TF32 (both to nearest, ties away: cvt.rna), and each
-// product is taken as lo.hi + hi.lo + hi.hi in f32 accumulators; lo.lo
-// (2^-22 of the product) is dropped, as CUTLASS's 3xTF32
-// (OpMultiplyAddFastF32) drops it.  What remains differs from an f32 FMA loop
-// by a few f32 roundings.  A [64, 64] f32 tile is two 128-byte-swizzled atoms
-// of 32 columns, each arriving by its own TMA box.
+// precision (hopper.cuh: tf32_rna, split_tf32, wgmma_tf32_split).  A [64, 64]
+// f32 tile is two 128-byte-swizzled atoms of 32 columns, each arriving by its
+// own TMA box.
 constexpr int kF32Atom = 64 * kSwizzleRow;        // 64 rows x 32 f32, one swizzle row each
 constexpr int kF32Tile = 2 * kF32Atom;            // [64, 64] f32: columns 0-31 | 32-63
 
 // byte offset of element (r, c) in a [64, 64] f32 tile of two swizzled atoms
 __device__ __forceinline__ int f32_at(int r, int c) {
   return (c >> 5) * kF32Atom + r * kSwizzleRow + ((((c >> 2) & 7) ^ (r & 7)) << 4) + (c & 3) * 4;
-}
-
-// x rounded to TF32 (to nearest, ties away from zero), low 13 bits clear
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return __uint_as_float(y & 0xffffe000u);
-}
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - hi);  // x - hi is exact
-}
-__device__ __forceinline__ void split_tf32(const float4& x, float4& hi, float4& lo) {
-  split_tf32(x.x, hi.x, lo.x);
-  split_tf32(x.y, hi.y, lo.y);
-  split_tf32(x.z, hi.z, lo.z);
-  split_tf32(x.w, hi.w, lo.w);
 }
 
 // all kN threads: `tiles` f32 tiles at `raw` split where they lie, hi written
@@ -267,24 +245,12 @@ __device__ __forceinline__ void split_frags(uint32_t (&hi)[8][4], uint32_t (&lo)
   }
 }
 
-// pins the fragments' last writes before the caller's wgmma_fence: without
-// it the compiler may sink the split past the fence, and ptxas then fences
-// (and so serializes) the products that read them (warning C7519)
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
-}
-
 // one k-step (8 columns) of d (+)= A . B^T in split precision, lo.hi +
 // hi.lo + hi.hi; A as register fragments, B's hi and lo tiles K-major
 __device__ __forceinline__ void mma_step(float (&d)[8][4], const uint32_t (&ahi)[8][4], const uint32_t (&alo)[8][4],
                                          int kk, uint32_t bhi, uint32_t blo, int accumulate) {
   const uint32_t off = (kk >> 2) * kF32Atom + (kk & 3) * 32;
-  wgmma_tf32_n64(d, alo[kk], tile_desc(bhi + off), accumulate);
-  wgmma_tf32_n64(d, ahi[kk], tile_desc(blo + off), 1);
-  wgmma_tf32_n64(d, ahi[kk], tile_desc(bhi + off), 1);
+  wgmma_tf32_split(d, ahi[kk], alo[kk], tile_desc(bhi + off), tile_desc(blo + off), accumulate);
 }
 
 // the same with A's hi and lo tiles read from shared memory (K-major, as B)

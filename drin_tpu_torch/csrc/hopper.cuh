@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks shared by the bf16 kernels (attention.cu,
+// Hopper (sm_90a) building blocks shared by the kernels (attention.cu,
 // attention_bwd.cu, gcn_layer.cu):
 //   * mbarriers for "tile has landed" and "tile is read", with waits that trap
 //     instead of hanging the card;
@@ -9,10 +9,15 @@
 //     MN-major; wgmma m64n64k8 with TF32 operands (A from registers or from
 //     shared memory, B K-major: for .tf32 the instruction has no transposed
 //     form);
+//   * split-precision TF32: float32 operands split into TF32 hi + lo and each
+//     product taken as lo.hi + hi.lo + hi.hi (float32 accuracy on the tensor
+//     cores);
 //   * ldmatrix of a swizzled [rows, 64] bf16 tile into wgmma's A fragments.
 // Tiles are [rows, 64] bf16: one 128-byte row per matrix row, 128-byte
 // swizzled (16-byte chunk c of row r lies at chunk c ^ (r % 8)); a float32
-// tile of 64 columns is two such atoms of 32 columns each.
+// tile of 64 columns is two such atoms of 32 columns each.  The float32 GCN
+// kernels read [rows, 16] float32 tiles, one 64-byte row per matrix row,
+// 64-byte swizzled (chunk c of row r at chunk c ^ (r / 2 % 4)).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, nothing links against libcuda
@@ -115,14 +120,17 @@ template <int NB> __device__ __forceinline__ void fence_acc(float (&d)[NB][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
 }
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled tile with 128-byte
-// rows: groups of eight rows lie 1024 bytes apart (the stride offset); the
-// leading offset is not read for these shapes (one swizzle row covers all 64
-// columns).  The same encoding serves the K-major and the MN-major reading;
-// the instruction's transpose bit chooses.
+// Shared-memory matrix descriptor of a tile swizzled in rows of kSwizzle
+// bytes (128: layout 1, 64: layout 2): groups of eight rows lie 8 * kSwizzle
+// bytes apart (the stride offset); the leading offset is not read for these
+// shapes (one k-step lies within a swizzle row).  The same encoding serves the
+// K-major and the MN-major reading; the instruction's transpose bit chooses.
+template <int kSwizzle = 128>
 __device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
+  static_assert(kSwizzle == 128 || kSwizzle == 64, "128- or 64-byte swizzle");
+  constexpr uint64_t layout = kSwizzle == 128 ? 1 : 2;
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(8 * kSwizzle >> 4) << 32) |
+         (layout << 62);
 }
 
 #define DRIN_ACC4(d, j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
@@ -204,6 +212,52 @@ __device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[8][4], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// ------------------------------------------------- split-precision TF32
+// wgmma takes float32 data only as TF32 (10 mantissa bits), so every operand
+// x is split into x = hi + lo, hi = x rounded to TF32 and lo = (x - hi)
+// rounded to TF32 (both to nearest, ties away: cvt.rna), and each product is
+// taken as lo.hi + hi.lo + hi.hi in f32 accumulators; lo.lo (2^-22 of the
+// product) is dropped, as CUTLASS's 3xTF32 (OpMultiplyAddFastF32) drops it.
+// What remains differs from an f32 FMA loop by a few f32 roundings.
+
+// x rounded to TF32 (to nearest, ties away from zero), low 13 bits clear
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y & 0xffffe000u);
+}
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);  // x - hi is exact
+}
+__device__ __forceinline__ void split_tf32(const float4& x, float4& hi, float4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// pins the fragments' last writes before the caller's wgmma_fence: without
+// it the compiler may sink the split past the fence, and ptxas then fences
+// (and so serializes) the products that read them (warning C7519)
+template <int K> __device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
+}
+
+// one k-step (8 columns) of d (+)= A . B^T in split precision, lo.hi + hi.lo
+// + hi.hi: A's split fragments in registers, B's hi and lo through their
+// descriptors (K-major)
+__device__ __forceinline__ void wgmma_tf32_split(float (&d)[8][4], const uint32_t (&ahi)[4],
+                                                 const uint32_t (&alo)[4], uint64_t bhi, uint64_t blo,
+                                                 int accumulate) {
+  wgmma_tf32_n64(d, alo, bhi, accumulate);
+  wgmma_tf32_n64(d, ahi, blo, 1);
+  wgmma_tf32_n64(d, ahi, bhi, 1);
+}
+
 // wgmma's A fragments of rows r0 .. r0 + 15 (r0 a multiple of 16), all 64
 // columns, out of a swizzled tile
 __device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4], uint32_t tile, int r0, int lane) {
@@ -248,12 +302,12 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 // A tensor map of up to 4 dimensions (innermost first, strides in bytes for
 // dimensions 1..), bf16 unless `type` says otherwise, read in
-// 128-byte-swizzled boxes.  Encoding takes a few microseconds on the host
+// 128-byte-swizzled boxes unless `swizzle` says otherwise.  Encoding takes a few microseconds on the host
 // and a model hands over the same buffers again and again, so the last maps
 // of each thread are kept by (pointer, type, shape, strides, box).
 struct MapKey {
   const void* base;
-  int rank, type;
+  int rank, type, swizzle;
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4];
 };
@@ -266,12 +320,13 @@ constexpr int kMapSlots = 32;
 
 inline int encode_map(CUtensorMap* out, const void* base, int rank, const cuuint64_t* dims,
                       const cuuint64_t* strides, const cuuint32_t* box,
-                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   thread_local MapSlot slots[kMapSlots];
   thread_local int next = 0;
   MapKey key;
   memset(&key, 0, sizeof key);
-  key.base = base, key.rank = rank, key.type = static_cast<int>(type);
+  key.base = base, key.rank = rank, key.type = static_cast<int>(type), key.swizzle = static_cast<int>(swizzle);
   for (int i = 0; i < rank; ++i) key.dims[i] = dims[i], key.box[i] = box[i];
   for (int i = 0; i + 1 < rank; ++i) key.strides[i] = strides[i];
   for (int i = 0; i < kMapSlots; ++i)
@@ -287,7 +342,7 @@ inline int encode_map(CUtensorMap* out, const void* base, int rank, const cuuint
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   MapSlot& slot = slots[next];
   const CUresult r = encode(&slot.map, type, rank, const_cast<void*>(base), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) {
     slot.used = false;
@@ -304,11 +359,17 @@ inline int encode_map(CUtensorMap* out, const void* base, int rank, const cuuint
 }
 
 // the map of a row-major [rows, cols] bf16 matrix read in [64, 64] boxes
+// (128-byte swizzle), or of a float32 one read in [64 rows, 16 columns]
+// boxes (64-byte swizzle)
+template <typename T>
 inline int matrix_map(CUtensorMap* out, const void* base, int rows, int cols) {
+  constexpr bool f32 = sizeof(T) == 4;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, 64};
-  return encode_map(out, base, 2, dims, strides, box);
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
+  const cuuint32_t box[2] = {f32 ? 16u : 64u, 64};
+  return encode_map(out, base, 2, dims, strides, box,
+                    f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    f32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // opt in to `bytes` of dynamic shared memory and to the largest shared-memory

@@ -7,15 +7,17 @@ from one read of the old entity vertices it produces et'/ei', the four
 folded dynamic scalar edges, the mention messages and the two mention
 updates.  On the H100 the W_h products (~15 GFLOP per layer at B=64, C=101,
 D=768) bound it; the TPU design of a whole [C, D] tile plus W_h resident in
-fast memory does not fit 227 KB of shared memory.  In bf16 the layer is
-four launches of one kernel, rows x W^T on ``wgmma`` with W fed by a TMA
-ring and a row-wise epilogue (LayerNorm finished in registers): A1 and A2
-fold the edges over the 2B mention rows, B updates the 2BC entity rows in
-flat tiles of 64 (and writes the edge dots and per-tile message slots from
-the same read of the old rows), C sums the slots in a fixed order and
-updates the 2B mention rows.  The bf16 path takes D = 128 or 768.  The f32
-instantiation is plain FMA loops; its two mention updates are finished here
-in torch (:func:`_mention_updates`).
+fast memory does not fit 227 KB of shared memory.  The layer is four
+launches of one row kernel, rows x W^T on ``wgmma`` with W fed by a ring of
+K-slices and a row-wise epilogue (LayerNorm finished in registers): A1 and
+A2 fold the edges over the 2B mention rows, B updates the 2BC entity rows
+in flat tiles of 64 (and writes the edge dots and per-tile message slots
+from the same read of the old rows), C sums the slots in a fixed order and
+updates the 2B mention rows.  In float32 every product runs on the tensor
+cores in split-precision TF32 (each operand split into TF32 hi + lo, the
+product taken as lo.hi + hi.lo + hi.hi in float32), and a first launch
+splits the weights into the workspace once per call.  Both dtypes take D =
+128 or 768 (:data:`BUILT_WIDTHS`).
 
 Weights are in torch layout (``[out, in]``).  Rounding points follow
 ``gcn_layer_reference``: x is rounded to the compute dtype before the W_h
@@ -45,8 +47,9 @@ ACT_CODES = {"gelu": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "identity": 4}
 KERNEL_VERTEX_ACTS = ("gelu", "relu", "tanh", "sigmoid")
 KERNEL_EDGE_ACTS = ("sigmoid", "tanh", "relu", "identity")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-BF16_WIDTHS = (128, 768)  # the widths the bf16 kernels are compiled for
-ROW_TILE = 64  # rows of one block of the bf16 kernels
+BUILT_WIDTHS = (128, 768)  # the widths the kernels are compiled for, in both dtypes
+ROW_TILE = 64  # rows of one block of the row kernel
+F32_K = 16  # columns of the float32 kernel's K-slices (its weights' split image)
 
 launches = 0  # kernel launches (CUDA path only), one per layer call
 
@@ -59,9 +62,17 @@ def _norm_act(h, ln_scale, ln_bias, eps, vact):
     return get_activation(vact)(ln)
 
 
+def _product(a, b):
+    """``a @ b`` for the plain versions' weight products (both float32).
+    A module attribute, so that an emulation of the kernels' TF32 arithmetic
+    can take its place (``tests/test_torch_gcn_layer_f32.py``,
+    ``chip_smoke.py``)."""
+    return a @ b
+
+
 def _update(x, wh, bh, ln_scale, ln_bias, eps, vact):
     """act(LN(x . W_h^T + b_h)) for x in the compute dtype; f32 product."""
-    h = x.float() @ wh.float().T + bh.float()
+    h = _product(x.float(), wh.float().T) + bh.float()
     return _norm_act(h, ln_scale, ln_bias, eps, vact).to(x.dtype)
 
 
@@ -142,8 +153,8 @@ def gcn_layer_plain(vertexes, edges, wh, bh, ln_scale, ln_bias,
     ea = get_activation(eact)
     ne = []
     for u, pairs in ((mt, (tt, ti)), (mi, (it, ii))):
-        a = f(u) @ f(wu).T + f(bu)  # u . Ku + bu
-        p = a.to(dt).float() @ f(wv)  # round(a) . Kv^T  (Kv^T == Wv in torch layout)
+        a = _product(f(u), f(wu).T) + f(bu)  # u . Ku + bu
+        p = _product(a.to(dt).float(), f(wv))  # round(a) . Kv^T  (Kv^T == Wv in torch layout)
         s = (a * f(bv)).sum(-1)
         for e, v in zip(pairs, (et, ei)):
             conv = (torch.einsum("bd,bcd->bc", p.to(dt).float(), f(v)) + s[:, None]) / D
@@ -166,8 +177,8 @@ def _check_cuda(vertexes, edges, weights, dynamic):
                 wu=(D, D), bu=(D,), wv=(D, D), bv=(D,))
     if B < 1 or C < 1:
         raise ValueError(f"fused_gcn_layer needs B >= 1 and C >= 1, got B={B} C={C}")
-    if et.dtype == torch.bfloat16 and D not in BF16_WIDTHS:
-        raise ValueError(f"the bf16 kernel is built for D in {BF16_WIDTHS}, got D={D}")
+    if D not in BUILT_WIDTHS:
+        raise ValueError(f"the kernel is built for D in {BUILT_WIDTHS}, got D={D}")
     if B * C >= 2 ** 31 // ROW_TILE:
         raise ValueError(f"fused_gcn_layer takes B * C < {2 ** 31 // ROW_TILE}, got {B * C}")
     for k, t in named.items():
@@ -184,19 +195,24 @@ def _check_cuda(vertexes, edges, weights, dynamic):
     return B, C, D
 
 
-def workspace_layout(B: int, C: int, D: int):
-    """The bf16 layer's scratch as ``(name, byte offset, shape, dtype)``, each
+def workspace_layout(B: int, C: int, D: int, dtype=torch.bfloat16):
+    """The layer's scratch as ``(name, byte offset, shape, dtype)``, each
     part 256-byte aligned, and the total bytes: round(a) of the fold [2B, D]
-    (then launch C's x rows), its partial sums of s [2, B, D / 64], p
-    [B, 2, D], the message slots [2, T, S, 2, D] (:func:`message_slots`) and
-    launch B's count of finished tiles per b [B]."""
+    in the compute dtype (then launch C's x rows), its partial sums of s
+    [2, B, D / 64], p [B, 2, D], the message slots [2, T, S, 2, D]
+    (:func:`message_slots`) and launch B's count of finished tiles per b
+    [B]; in float32 also the split images of W_h, Ku and Kv^T that the first
+    launch writes, [D / 16, 2, D, 16] each (K-slice, TF32 hi | lo, output,
+    the slice's columns)."""
     T, S = message_slots(B, C)
+    split = (D // F32_K, 2, D, F32_K)
+    spec = [("ar", (2 * B, D), dtype), ("s_part", (2, B, D // 64), torch.float32),
+            ("p", (B, 2, D), dtype), ("msg", (2, T, S, 2, D), torch.float32),
+            ("count", (B,), torch.int32)]
+    if dtype == torch.float32:
+        spec += [(name, split, torch.float32) for name in ("wh_split", "wu_split", "wv_split")]
     parts, off = [], 0
-    for name, shape, dt in (("ar", (2 * B, D), torch.bfloat16),
-                            ("s_part", (2, B, D // 64), torch.float32),
-                            ("p", (B, 2, D), torch.bfloat16),
-                            ("msg", (2, T, S, 2, D), torch.float32),
-                            ("count", (B,), torch.int32)):
+    for name, shape, dt in spec:
         parts.append((name, off, shape, dt))
         n = dt.itemsize
         for s in shape:
@@ -205,9 +221,9 @@ def workspace_layout(B: int, C: int, D: int):
     return parts, off
 
 
-def _workspace(B, C, D, device):
+def _workspace(B, C, D, device, dtype=torch.bfloat16):
     """One allocation, cut into the views of :func:`workspace_layout`."""
-    parts, total = workspace_layout(B, C, D)
+    parts, total = workspace_layout(B, C, D, dtype)
     raw = torch.empty(total, dtype=torch.uint8, device=device)
     views = {}
     for name, off, shape, dt in parts:
@@ -220,16 +236,17 @@ def _workspace(B, C, D, device):
 
 def _launch(vertexes, edges, wh, bh, ln_scale, ln_bias, wu, bu, wv, bv, vact, eact, eps,
             dynamic):
-    """Check the inputs and launch the kernel once (bf16: its four launches)."""
+    """Check the inputs and launch the kernel once (its four launches and a
+    memset; float32 first splits the weights)."""
     global launches
     if vact not in KERNEL_VERTEX_ACTS or eact not in KERNEL_EDGE_ACTS:
         raise ValueError(f"the kernel implements vertex activations {KERNEL_VERTEX_ACTS} "
                          f"and edge activations {KERNEL_EDGE_ACTS}; got {vact}/{eact}")
     weights = (wh, bh, ln_scale, ln_bias) + ((wu, bu, wv, bv) if dynamic else ())
     B, C, D = _check_cuda(vertexes, edges, weights, dynamic)
-    mt, mi, et, ei = vertexes
+    et = vertexes[2]
     new_edges = [torch.empty_like(e) for e in edges] if dynamic else list(edges)
-    et_o, ei_o = torch.empty_like(et), torch.empty_like(ei)
+    new_vertexes = [torch.empty_like(v) for v in vertexes]
 
     from drin_tpu_torch.ops.cuda import _build
 
@@ -238,36 +255,18 @@ def _launch(vertexes, edges, wh, bh, ln_scale, ln_bias, wu, bu, wv, bv, vact, ea
     ins = (*map(ptr, vertexes), *map(ptr, edges),
            *map(ptr, (wh, bh, ln_scale, ln_bias, wu, bu, wv, bv)))
     opts = (B, C, D, float(eps), ACT_CODES[vact], ACT_CODES[eact], int(dynamic))
-    head = [I, I, I, ctypes.c_float, I, I, I] + [P] * 16
-    if et.dtype == torch.bfloat16:
-        ws = _workspace(B, C, D, et.device)
-        mt_o, mi_o = torch.empty_like(mt), torch.empty_like(mi)
-        lib, fn = _build.entry("gcn_layer", "drin_gcn_layer_bf16", head + [P] * 5 + [I] + [P] * 9)
-        status = fn(*opts, *ins, *(ws[k].data_ptr() for k in ("ar", "s_part", "p", "msg", "count")),
-                    ws["msg"].shape[2], mt_o.data_ptr(), mi_o.data_ptr(),
-                    et_o.data_ptr(), ei_o.data_ptr(), *map(ptr, new_edges), _build.stream_of(et))
-        _build.check(status, lib, "gcn_layer launch")
-        launches += 1
-        return [mt_o, mi_o, et_o, ei_o], new_edges
-    dt, dev = et.dtype, et.device
-    Bp = -(-B // 16) * 16  # the f32 fold runs in tiles of 16 mentions
-    a_ws = torch.empty((2, Bp, D), dtype=dt, device=dev)
-    sp_ws = torch.empty((2, Bp, -(-D // 64)), dtype=torch.float32, device=dev)
-    p_ws = torch.empty((B, 2, D), dtype=dt, device=dev)
-    s_ws = torch.empty((B, 2), dtype=torch.float32, device=dev)
-    msg = torch.empty((B, 2, 2, D), dtype=torch.float32, device=dev)
-    lib, fn = _build.entry("gcn_layer", "drin_gcn_layer_f32", head + [P] * 12)
-    status = fn(*opts, *ins, a_ws.data_ptr(), sp_ws.data_ptr(), p_ws.data_ptr(), s_ws.data_ptr(),
-                et_o.data_ptr(), ei_o.data_ptr(), *map(ptr, new_edges), msg.data_ptr(),
-                _build.stream_of(et))
+    ws = _workspace(B, C, D, et.device, et.dtype)
+    scratch = [ws[k].data_ptr() for k in ("ar", "s_part", "p", "msg", "count")]
+    f32 = et.dtype == torch.float32
+    split = [ws[k].data_ptr() for k in ("wh_split", "wu_split", "wv_split")] if f32 else []
+    name = "drin_gcn_layer_f32" if f32 else "drin_gcn_layer_bf16"
+    lib, fn = _build.entry("gcn_layer", name, [I, I, I, ctypes.c_float, I, I, I] + [P] * 21 + [I]
+                           + [P] * (len(split) + 9))
+    status = fn(*opts, *ins, *scratch, ws["msg"].shape[2], *split, *map(ptr, new_vertexes),
+                *map(ptr, new_edges), _build.stream_of(et))
     _build.check(status, lib, "gcn_layer launch")
     launches += 1
-    # messages: (sum over et + sum over ei) / C, then the two mention updates
-    msg_mt = (msg[:, 0, 0] + msg[:, 1, 0]) / C
-    msg_mi = (msg[:, 0, 1] + msg[:, 1, 1]) / C
-    new_mt, new_mi = _mention_updates(mt, mi, msg_mt, msg_mi, wh, bh, ln_scale,
-                                      ln_bias, eps, vact)
-    return [new_mt, new_mi, et_o, ei_o], new_edges
+    return new_vertexes, new_edges
 
 
 class _FusedGCNLayer(torch.autograd.Function):

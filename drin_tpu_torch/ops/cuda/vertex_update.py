@@ -1,19 +1,20 @@
 # -*- coding: utf-8 -*-
 """Fused entity-vertex update (port of ``drin_tpu/ops/pallas/gcn.py``).
 
-Kernel: ``gcn_rows_bf16`` (f32: ``vertex_update_kernel``) in ``csrc/gcn_layer.cu``, CUDA C++ for
-``sm_90a``.  It replaces the TPU kernel ``fused_vertex_update``
+Kernel: ``gcn_rows_bf16`` / ``gcn_rows_f32`` in ``csrc/gcn_layer.cu``, CUDA C++
+for ``sm_90a``.  It replaces the TPU kernel ``fused_vertex_update``
 (``gcn.py:58``): ``y = act(LN((v + e1*m1 + e2*m2) . W + b))`` for the
 [B, C, D] entity vertices in one pass, the scalar-edge broadcasts, the
 product, LayerNorm and the activation without a round trip through device
 memory.  On the H100 the product bounds it (7.6 GFLOP over ~21 MB at B=64,
 C=101, D=768).  The TPU design holds one sample's whole [C, D] block and W in
 fast memory; W alone (1.18 MB of bf16) does not fit 227 KB of shared memory,
-so the bf16 kernel is the GCN-layer kernel's row piece over the B*C rows in
+so the kernel is the GCN-layer kernel's row piece over the B*C rows in
 flat tiles of 64: x formed in the K-slice's prologue, the product on
-``wgmma`` with W fed by a TMA ring, bias, LayerNorm and the activation
-finished in registers.  The bf16 path takes D = 128 or 768; the f32 form is
-plain FMA loops.
+``wgmma`` with W fed by a ring of K-slices, bias, LayerNorm and the
+activation finished in registers.  In float32 the product runs in
+split-precision TF32 (lo.hi + hi.lo + hi.hi of TF32 halves) from W's split
+image, written by a first launch.  Both dtypes take D = 128 or 768.
 
 The weight is in torch layout (``[out, in]``), as the GCN-layer kernel's.
 x is formed in float32 and rounded once to the compute dtype before the
@@ -31,7 +32,8 @@ import ctypes
 
 import torch
 
-from drin_tpu_torch.ops.cuda.gcn_layer import (ACT_CODES, BF16_WIDTHS, KERNEL_VERTEX_ACTS,
+from drin_tpu_torch.ops.cuda import gcn_layer as _gcn
+from drin_tpu_torch.ops.cuda.gcn_layer import (ACT_CODES, BUILT_WIDTHS, F32_K, KERNEL_VERTEX_ACTS,
                                                ROW_TILE, _DTYPE_CODE, _norm_act)
 
 launches = 0  # kernel launches (CUDA path only), one per call
@@ -45,7 +47,7 @@ def vertex_update_plain(v, e1, m1, e2, m2, w, b, scale, bias, act: str = "gelu",
     f = lambda t: t.float()
     x = (f(v) + f(e1)[..., None] * f(m1)[:, None, :]
          + f(e2)[..., None] * f(m2)[:, None, :]).to(v.dtype)
-    h = x.float() @ f(w).T + f(b)
+    h = _gcn._product(x.float(), f(w).T) + f(b)
     return _norm_act(h, scale, bias, eps, act).to(v.dtype)
 
 
@@ -60,8 +62,8 @@ def _check_cuda(named: dict, act: str):
     B, C, D = v.shape
     if B < 1 or C < 1 or B > 65535:
         raise ValueError(f"fused_vertex_update needs 1 <= B <= 65535 and C >= 1, got B={B} C={C}")
-    if v.dtype == torch.bfloat16 and D not in BF16_WIDTHS:
-        raise ValueError(f"the bf16 kernel is built for D in {BF16_WIDTHS}, got D={D}")
+    if D not in BUILT_WIDTHS:
+        raise ValueError(f"the kernel is built for D in {BUILT_WIDTHS}, got D={D}")
     if B * C >= 2 ** 31 // ROW_TILE:
         raise ValueError(f"fused_vertex_update takes B * C < {2 ** 31 // ROW_TILE}, got {B * C}")
     want = dict(v=(B, C, D), e1=(B, C), e2=(B, C), m1=(B, D), m2=(B, D), w=(D, D), b=(D,),
@@ -91,14 +93,18 @@ def fused_vertex_update(v, e1, m1, e2, m2, w, b, scale, bias, act: str = "gelu",
     named = dict(v=v, e1=e1, m1=m1, e2=e2, m2=m2, w=w, b=b, scale=scale, bias=bias)
     B, C, D = _check_cuda(named, act)
     out = torch.empty_like(v)
+    # float32: W's split image, written by the kernel's first launch
+    split = (torch.empty((D // F32_K, 2, D, F32_K), dtype=torch.float32, device=v.device)
+             if v.dtype == torch.float32 else None)
 
     from drin_tpu_torch.ops.cuda import _build
 
     P, I = ctypes.c_void_p, ctypes.c_int
     lib, fn = _build.entry("gcn_layer", "drin_vertex_update",
-                           [I, I, I, I, ctypes.c_float, I] + [P] * 11)
+                           [I, I, I, I, ctypes.c_float, I] + [P] * 12)
     status = fn(_DTYPE_CODE[v.dtype], B, C, D, float(eps), ACT_CODES[act],
-                *(t.data_ptr() for t in named.values()), out.data_ptr(), _build.stream_of(v))
+                *(t.data_ptr() for t in named.values()), split.data_ptr() if split is not None else None,
+                out.data_ptr(), _build.stream_of(v))
     _build.check(status, lib, "vertex_update launch")
     launches += 1
     return out

@@ -216,19 +216,32 @@ def test_message_slots_hold_every_segment_and_sum_to_the_messages(B, C):
     assert not torch.allclose(tgcn.sum_slots_plain(bad, B, C), msg)
 
 
-@pytest.mark.parametrize("B,C,D", [(64, 101, 768), (1, 1, 128), (5, 65, 128)])
-def test_workspace_is_one_allocation_cut_into_aligned_disjoint_views(B, C, D):
-    parts, total = tgcn.workspace_layout(B, C, D)
+WORKSPACE_SHAPES = [(64, 101, 768), (1, 1, 128), (5, 65, 128)]
+
+
+@pytest.mark.parametrize("B,C,D,dt", [s + (torch.bfloat16,) for s in WORKSPACE_SHAPES]
+                         + [s + (torch.float32,) for s in WORKSPACE_SHAPES],
+                         ids=["%d-%d-%d" % s for s in WORKSPACE_SHAPES]
+                         + ["%d-%d-%d-f32" % s for s in WORKSPACE_SHAPES])
+def test_workspace_is_one_allocation_cut_into_aligned_disjoint_views(B, C, D, dt):
+    """bf16 and float32 take the same parts in their compute dtype; float32
+    adds the split images of W_h, Ku and Kv^T that its first launch writes."""
+    parts, total = tgcn.workspace_layout(B, C, D, dt)
     T, S = tgcn.message_slots(B, C)
     shapes = {name: shape for name, _, shape, _ in parts}
-    assert shapes == {"ar": (2 * B, D), "s_part": (2, B, D // 64), "p": (B, 2, D),
-                      "msg": (2, T, S, 2, D), "count": (B,)}
+    want = {"ar": (2 * B, D), "s_part": (2, B, D // 64), "p": (B, 2, D),
+            "msg": (2, T, S, 2, D), "count": (B,)}
+    if dt == torch.float32:
+        want.update({k: (D // 16, 2, D, 16) for k in ("wh_split", "wu_split", "wv_split")})
+    assert shapes == want
+    types = {name: t for name, _, _, t in parts}
+    assert types["ar"] == types["p"] == dt and types["count"] == torch.int32
     end = 0
-    for name, off, shape, dt in parts:
+    for name, off, shape, t in parts:
         assert off % 256 == 0 and off >= end, name
-        end = off + int(np.prod(shape)) * dt.itemsize
+        end = off + int(np.prod(shape)) * t.itemsize
     assert end <= total < end + 256
-    views = tgcn._workspace(B, C, D, "cpu")
+    views = tgcn._workspace(B, C, D, "cpu", dt)
     base = views["ar"].untyped_storage().data_ptr()
     for name, off, shape, dt in parts:
         v = views[name]
@@ -257,13 +270,13 @@ def _fake_layer(B, C, D, dt, dynamic=True):
 
 @pytest.mark.parametrize("case,match", [
     ("fp16", "float32 or bfloat16"), ("D=96", "built for D in"), ("D=256", "built for D in"),
-    ("D=24", "built for D in"), ("shape", "tt must be"), ("strided", "contiguous"),
-    ("no wu", "dynamic edges need wu"), ("B=0", "B >= 1")])
+    ("D=24", "built for D in"), ("D=24 f32", "built for D in"), ("shape", "tt must be"),
+    ("strided", "contiguous"), ("no wu", "dynamic edges need wu"), ("B=0", "B >= 1")])
 def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, match):
-    """The bf16 kernels are built for D = 128 and 768; every other width,
-    type, shape or layout is refused by name before a launch."""
-    dt = torch.float16 if case == "fp16" else torch.bfloat16
-    D = int(case[2:]) if case.startswith("D=") else 128
+    """The kernels are built for D = 128 and 768 in both dtypes; every other
+    width, type, shape or layout is refused by name before a launch."""
+    dt = {"fp16": torch.float16, "D=24 f32": torch.float32}.get(case, torch.bfloat16)
+    D = int(case[2:].split()[0]) if case.startswith("D=") else 128
     vertexes, edges, weights = _fake_layer(0 if case == "B=0" else 2, 5, D, dt)
     if case == "shape":
         edges[0] = _OnCard(torch.zeros(2, 6, dtype=dt))
@@ -275,9 +288,10 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, match):
         tgcn._check_cuda(vertexes, edges, weights, True)
 
 
-@pytest.mark.parametrize("dt,D", [(torch.bfloat16, 768), (torch.bfloat16, 128), (torch.float32, 24)])
+@pytest.mark.parametrize("dt,D", [(torch.bfloat16, 768), (torch.bfloat16, 128), (torch.float32, 768),
+                                  (torch.float32, 128)])
 @pytest.mark.parametrize("dynamic", [True, False], ids=["dynamic", "static"])
 def test_cuda_checks_take_the_built_widths(dt, D, dynamic):
-    """bf16 at D = 128 and 768, float32 at any D (plain FMA loops)."""
+    """Both dtypes at D = 128 and 768, the widths the row kernel is built for."""
     vertexes, edges, weights = _fake_layer(3, 7, D, dt, dynamic)
     assert tgcn._check_cuda(vertexes, edges, weights, dynamic) == (3, 7, D)

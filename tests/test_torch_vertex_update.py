@@ -100,14 +100,18 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, err, match):
             assert tvu._check_cuda(named, "gelu") == (B, C, D)
 
 
-def test_cuda_checks_take_any_width_in_float32():
-    """The f32 kernel (plain FMA loops) takes any D; only bf16 is tied to the
-    widths the wgmma kernel is built for."""
-    B, C, D = 2, 5, 24
+@pytest.mark.parametrize("dt,D,ok", [(torch.float32, 128, True), (torch.float32, 768, True)]
+                         + [(dt, D, False) for dt in (torch.float32, torch.bfloat16) for D in (24, 32, 48)],
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_cuda_checks_take_the_built_widths_in_both_dtypes(dt, D, ok):
+    """The row kernel is built for D = 128 and 768 in both dtypes: float32
+    takes them, and 24, 32 and 48 are refused by name in either dtype."""
+    B, C = 2, 5
     names = ("v", "e1", "m1", "e2", "m2", "w", "b", "scale", "bias")
     shapes = ((B, C, D), (B, C), (B, D), (B, C), (B, D), (D, D), (D,), (D,), (D,))
-    named = {n: _OnCard(torch.zeros(s)) for n, s in zip(names, shapes)}
-    assert tvu._check_cuda(named, "gelu") == (B, C, D)
-    named = {n: _OnCard(torch.zeros(s, dtype=torch.bfloat16)) for n, s in zip(names, shapes)}
-    with pytest.raises(ValueError, match="built for D in"):
-        tvu._check_cuda(named, "gelu")
+    named = {n: _OnCard(torch.zeros(s, dtype=dt)) for n, s in zip(names, shapes)}
+    if ok:
+        assert tvu._check_cuda(named, "gelu") == (B, C, D)
+    else:
+        with pytest.raises(ValueError, match="built for D in"):
+            tvu._check_cuda(named, "gelu")
