@@ -9,9 +9,11 @@ started together, sm_90a), holds each against its plain PyTorch version on
 the card (gather+dequant at DRIN's and offline GHMFC's two packed layouts,
 the GCN layer with its per-launch device times in bf16 and float32, the
 attention forward, the attention backward with and without a mask, the
-vertex update in both dtypes), then drives sixteen paths at the full width
-of their models with seeded random weights.  Served, through ``Ranker`` and
-``serve_http``:
+vertex update in both dtypes, and the port-only NMS kernel on the detector's
+RPN and class problems and its edge cases), runs the full-width Faster R-CNN
+detector from a seeded torchvision-keyed checkpoint against its CPU forward,
+then drives sixteen paths at the full width of their models with seeded
+random weights.  Served, through ``Ranker`` and ``serve_http``:
 
   * DRIN's rank stage at the WikiMEL width over an int8 fused store of
     32,768 synthetic entities (the gather+dequant and GCN-layer kernels),
@@ -50,12 +52,14 @@ Trained, through ``Trainer`` and ``build_step_fns``:
 Preprocessed, through ``python -m drin_tpu_torch.preprocess all``'s ``main``:
 
   * a seeded WikiMEL raw corpus (64 mentions a split, 1,024 entities, JPEG
-    images) into the feature store with seeded bert-base, ResNet-152 and CLIP
-    ViT-B/32 checkpoints at WikiMEL's widths (the attention kernel in float32,
-    split-precision TF32 on the tensor cores, in BERT's buckets of 256-512,
-    12 launches a chunk), under PyTorch's default TF32 settings as a user's
-    process has them (the stages hold their encoders to full float32), then
-    DRIN evaluated over that store through the training entry point (the
+    images) into the feature store with seeded bert-base, ResNet-152, CLIP
+    ViT-B/32 and Faster R-CNN (ResNet-50 FPN, torchvision's keys) checkpoints
+    at WikiMEL's widths (the attention kernel in float32, split-precision TF32
+    on the tensor cores, in BERT's buckets of 256-512, 12 launches a chunk;
+    the NMS kernel in the detector, two launches a forward of 8 images),
+    under PyTorch's default TF32 settings as a user's process has them (the
+    stages hold their encoders and the detector to full float32), then DRIN
+    evaluated over that store through the training entry point (the
     GCN-layer kernel).
 
 It checks the answers against the port's float32 forward on the CPU, shows
@@ -74,7 +78,10 @@ the line before it lists the kernels with their errors, times and launches:
 each main path's own count (``launches_by_path``) and their sum, and the
 GCN layer's dtype on each path.  The mask-free attention backward and the
 vertex update are on no model path, as in the JAX package: their counts are
-0 and their kernel phases hold them.
+0 and their kernel phases hold them.  The NMS kernel replaces no Pallas
+kernel: it is the counterpart of the JAX package's jnp loop
+(``drin_tpu/ops/detection.py:29``), which eager PyTorch cannot run as one
+program.
 """
 
 from __future__ import annotations
@@ -2747,16 +2754,17 @@ def phase_train_drin_f32(torch, np, gcn, shared):
 
 def launch_counts(kernels) -> dict:
     """Every kernel wrapper's launch count; ``kernels`` = (gather, gcn,
-    attention, vertex_update) modules."""
-    gather, gcn, attn, vu = kernels
+    attention, vertex_update, nms) modules."""
+    gather, gcn, attn, vu, nms_mod = kernels
     return {"gather_dequant": gather.launches, "gcn_layer": gcn.launches,
             "attention": attn.launches, "attention_bwd": attn.bwd_launches,
-            "attention_bwd_nomask": attn.bwd_nomask_launches, "vertex_update": vu.launches}
+            "attention_bwd_nomask": attn.bwd_nomask_launches, "vertex_update": vu.launches,
+            "nms": nms_mod.launches}
 
 
 def zero_counts(kernels) -> None:
-    gather, gcn, attn, vu = kernels
-    gather.launches = gcn.launches = attn.launches = vu.launches = 0
+    gather, gcn, attn, vu, nms_mod = kernels
+    gather.launches = gcn.launches = attn.launches = vu.launches = nms_mod.launches = 0
     attn.bwd_launches = attn.bwd_nomask_launches = 0
 
 
@@ -3167,6 +3175,471 @@ def phase_train_melhi(torch, np, kernels):
                            lambda c, device: None, "mention_encoder.mention_lstm")
 
 
+# --- detection: the NMS kernel (phase_nms) and the detector (phase_detector) -
+
+DET_SIZE = 800  # FRCNNConfig().min_size: the detector's square input
+DET_STAGE_BATCH = 64  # the stage's chunk (preprocess_batch_size)
+# the detector on the card against the port's f32 CPU forward on the same
+# images: max |got - want| / max |want| of the FPN levels (the worst level),
+# the RPN logits (the worst level) and the class probabilities (the card's RoI
+# head on the CPU's proposals, so both read the same boxes).  f32 on both
+# sides with TF32 off; the products sum in another order.  The first run on
+# an NVIDIA H100 80GB HBM3 (700 W) read 3.1e-6, 4.7e-6 and 1.0e-5; the
+# limits are about ten times that.  cuDNN's TF32 with no full_float32()
+# guard (the planted fault) read 1.0e-3, 2.0e-3 and 2.3e-3 on that card
+DET_FPN_REL = 3e-5
+DET_LOGIT_REL = 5e-5
+DET_PROB_REL = 1e-4
+# detections matched between two runs: the same label, IoU >= 0.999 and the
+# score within 1e-4.  A last-bit difference can move a box across a top-k
+# cut or an NMS threshold; such a difference is printed with its margin.  At
+# most this share of an image's detections may go unmatched, and each of
+# them must sit within DET_MARGIN of a cut or a threshold
+DET_UNMATCHED_SHARE = 0.05
+DET_MARGIN = 1e-3
+# three classes' cls_score biases raised by this much: their softmax
+# probability ~0.2 against ~1/91 for the rest, so that the 0.05 score
+# threshold keeps detections at random weights
+DET_RAISED_CLASSES = (1, 18, 62)
+DET_RAISE = 4.0
+
+
+def _write_detector(torch, d):
+    """A seeded torchvision fasterrcnn_resnet50_fpn state dict at
+    FRCNNConfig()'s widths, saved in both key layouts: ``detector.pt``
+    (torchvision >= 0.13) and ``detector-pre013.pt`` (before).  ResNet-50's
+    convolutions He-normal with each bottleneck's last FrozenBN scaled to 0.2
+    (50 blocks keep their activations O(1)), the FPN and RPN convolutions
+    over their fan-in, small box regressors (boxes near their anchors and
+    proposals), and DET_RAISED_CLASSES' biases raised by DET_RAISE.  Returns
+    the two paths and the parameter count."""
+    import math
+
+    from drin_tpu_torch.encoders.checkpoints import _pre_013_spelling
+    from drin_tpu_torch.encoders.frcnn import FasterRCNN, FRCNNConfig
+
+    g = torch.Generator().manual_seed(SEED + 1500)
+    normal = lambda t, std: torch.randn(t.shape, generator=g) * std
+    with torch.device("meta"):
+        keys = FasterRCNN(FRCNNConfig()).state_dict()
+    sd = {}
+    for k, t in keys.items():
+        fan_in = t[0].numel() if t.dim() > 1 else 1
+        if k.endswith("bias") and t.dim() == 1 and ("bn" not in k and "downsample.1" not in k):
+            sd[k] = torch.zeros(t.shape)
+        elif k.startswith("backbone.body") and t.dim() == 4:
+            sd[k] = normal(t, math.sqrt(2.0 / fan_in))
+        elif k.endswith("running_var"):
+            sd[k] = 1 + 0.1 * torch.rand(t.shape, generator=g)
+        elif k.endswith("running_mean") or k.endswith(".bias"):
+            sd[k] = normal(t, 0.05)
+        elif t.dim() == 1:  # FrozenBN scale
+            sd[k] = torch.full(t.shape, 0.2 if ".bn3." in k else 1.0)
+        elif "bbox_pred" in k:
+            sd[k] = normal(t, 0.1 / math.sqrt(fan_in))
+        elif k.startswith("backbone.fpn") or "cls_logits" in k or "cls_score" in k:
+            sd[k] = normal(t, 1.0 / math.sqrt(fan_in))
+        else:  # the RPN head's 3x3, fc6, fc7
+            sd[k] = normal(t, math.sqrt(2.0 / fan_in))
+    bias = sd["roi_heads.box_predictor.cls_score.bias"]
+    bias[list(DET_RAISED_CLASSES)] += DET_RAISE
+    new, old = os.path.join(d, "detector.pt"), os.path.join(d, "detector-pre013.pt")
+    torch.save(sd, new)
+    torch.save({_pre_013_spelling(k): v for k, v in sd.items()}, old)
+    assert any(_pre_013_spelling(k) != k for k in sd)
+    return new, old, sum(t.numel() for t in sd.values())
+
+
+def _det_images(np, n, seed, size=224):
+    """n seeded [size, size, 3] images in [0, 1]: a 12x12 pattern scaled up,
+    plus noise, as the stage hands images to the detector."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        base = Image.fromarray(rng.integers(0, 255, (12, 12, 3), dtype=np.uint8)).resize((size, size))
+        arr = np.clip(np.asarray(base, np.int16) + rng.integers(-20, 21, (size, size, 3)), 0, 255)
+        out.append(arr.astype(np.float32) / 255.0)
+    return np.stack(out)
+
+
+def _rpn_problems(torch, images: int, seed: int):
+    """The RPN's NMS problems of ``images`` images at 800 px, built as
+    FasterRCNN.proposals builds them: per level (200^2, 100^2, 50^2, 25^2,
+    13^2 cells x 3 anchors) the top 1000 (507 at P6) of seeded logits by a
+    stable sort, decoded with seeded deltas, clipped, degenerate boxes at
+    -inf, padded to 1000 with -inf.  Returns boxes [images, 5, 1000, 4] and
+    scores [images, 5, 1000] on the card."""
+    from drin_tpu_torch.encoders.frcnn import FRCNNConfig, take_along, top_k
+    from drin_tpu_torch.ops.detection import clip_boxes, decode_boxes, generate_anchors
+
+    c = FRCNNConfig()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    boxes, scores = [], []
+    for lvl, cells in enumerate((200, 100, 50, 25, 13)):
+        anchors = generate_anchors((cells, cells), 2 ** (lvl + 2), c.anchor_sizes[lvl],
+                                   c.aspect_ratios, device="cuda")
+        logit = torch.randn((images, anchors.shape[0]), generator=g, device="cuda")
+        delta = 0.2 * torch.randn((images, anchors.shape[0], 4), generator=g, device="cuda")
+        s, i = top_k(logit, min(c.pre_nms_topk, anchors.shape[0]))
+        b = clip_boxes(decode_boxes(take_along(delta, i), anchors[i]), DET_SIZE, DET_SIZE)
+        s = torch.where(((b[..., 2] - b[..., 0]) > 1e-3) & ((b[..., 3] - b[..., 1]) > 1e-3), s,
+                        float("-inf"))
+        pad = c.pre_nms_topk - s.shape[1]
+        boxes.append(torch.nn.functional.pad(b, (0, 0, 0, pad)))
+        scores.append(torch.nn.functional.pad(s, (0, pad), value=float("-inf")))
+    return torch.stack(boxes, 1), torch.stack(scores, 1)
+
+
+def _class_problems(torch, images: int, seed: int):
+    """The class NMS problems of ``images`` images: 4,096 candidates each
+    (1,000 proposals x 90 classes cut by score), proposals jittered by class,
+    scores in [0.05, 0.3) and a seventh at -inf (under the threshold), boxes
+    offset by label * 802 as FasterRCNN.postprocess offsets them.  Returns
+    boxes [images, 4096, 4] and scores [images, 4096]."""
+    from drin_tpu_torch.ops.detection import clip_boxes
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 4096
+    xy = torch.rand((images, 1000, 2), generator=g, device="cuda") * 700
+    wh = 16 + torch.rand((images, 1000, 2), generator=g, device="cuda") * 300
+    props = torch.cat([xy, xy + wh], -1)
+    pick = torch.randint(0, 1000, (images, n), generator=g, device="cuda")
+    labels = torch.randint(1, 91, (images, n), generator=g, device="cuda")
+    boxes = torch.gather(props, 1, pick[..., None].expand(-1, -1, 4))
+    boxes = clip_boxes(boxes + 4 * torch.randn((images, n, 4), generator=g, device="cuda"),
+                       DET_SIZE, DET_SIZE)
+    scores = 0.05 + 0.25 * torch.rand((images, n), generator=g, device="cuda")
+    scores[torch.rand((images, n), generator=g, device="cuda") < 1 / 7] = float("-inf")
+    return boxes + (labels.float() * (DET_SIZE + 2.0))[..., None], scores
+
+
+def _nms_edge_cases(torch, seed: int):
+    """(name, boxes [P, N, 4], scores [P, N], threshold, top_k) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xy = torch.rand((4, 1000, 2), generator=g, device="cuda") * 700
+    b = torch.cat([xy, xy + 20 + torch.rand((4, 1000, 2), generator=g, device="cuda") * 200], -1)
+    s = torch.randn((4, 1000), generator=g, device="cuda")
+    same = b[:, :1].expand(-1, 1000, -1).contiguous()
+    # IoU exactly 0.5 between each box and its neighbour: [x, 0, x + 4, 1]
+    # against [x, 0, x + 2, 1] (inter 2, union 4)
+    x = torch.arange(500, device="cuda", dtype=torch.float32) * 10
+    at = torch.stack([torch.stack([x, 0 * x, x + 4, 0 * x + 1], -1),
+                      torch.stack([x, 0 * x, x + 2, 0 * x + 1], -1)], 1).reshape(1, 1000, 4)
+    at_s = torch.linspace(1, 0, 1000, device="cuda")[None]
+    ties = torch.floor(torch.rand((4, 1000), generator=g, device="cuda") * 4) / 4
+    return [("no score above -inf", b, torch.full_like(s, float("-inf")), 0.7, 1000),
+            ("every box equal", same, s, 0.5, 100),
+            ("IoU exactly at the threshold", at, at_s, 0.5, 1000),
+            ("equal scores (4 values)", b, ties, 0.7, 1000),
+            ("equal scores, class cut", b, ties, 0.5, 100)]
+
+
+def _nms_iou_evals(torch, keep, boxes, scores, thr, top_k) -> int:
+    """The IoUs a greedy pass over these problems cannot skip: each kept box
+    against every box after it in the sorted order that is still live when
+    it is picked (its score above -inf, removed by no earlier pick).  The
+    top_k-th pick tests none: the pass ends there."""
+    from drin_tpu_torch.ops.detection import box_iou
+
+    n = scores.shape[-1]
+    keep, boxes, scores = keep.reshape(-1, top_k), boxes.reshape(-1, n, 4), scores.reshape(-1, n)
+    total = 0
+    for p0 in range(0, scores.shape[0], 16):  # [16, top_k, n] at a time
+        kp, b, s = keep[p0:p0 + 16], boxes[p0:p0 + 16], scores[p0:p0 + 16]
+        order = torch.sort(s, dim=-1, descending=True, stable=True).indices
+        rank = torch.empty_like(order)
+        rank.scatter_(-1, order, torch.arange(n, device=order.device).expand_as(order))
+        picked = (kp >= 0)[..., None]
+        k = kp.clamp_min(0)
+        after = rank[:, None, :] > torch.gather(rank, -1, k)[..., None]
+        kb = torch.gather(b, 1, k[..., None].expand(-1, -1, 4))
+        hit = (box_iou(kb, b) > thr) & after & picked
+        removed = (hit.cumsum(1) - hit.long()) > 0  # by an earlier pick
+        tested = after & picked & ~removed & (s > float("-inf"))[:, None, :]
+        tested[:, top_k - 1] = False
+        total += int(tested.sum())
+    return total
+
+
+def phase_nms(torch, np, nms_mod):
+    """The NMS kernel against nms_plain on the same CUDA tensors: the RPN's
+    problems (64 images x 5 levels, N = 1000, top_k 1000, P6's 507 padded
+    as the detector pads them), the class NMS (N = 4096, top_k 100, boxes
+    offset by class) at the stage's 64 images and the detector's forward
+    batch of 8, and the edge cases.  The kept indices must be equal.  Two
+    planted faults must break that equality: nms_plain with `>=` for `>`
+    (a kernel equal to nms_plain where the two differ cannot hold `>=`) and
+    the kernel's walk fed a sort that breaks ties toward the higher index
+    (what an unstable sort may give).  Times by CUDA events and device time
+    beside the bound."""
+    from drin_tpu_torch.ops.detection import nms_plain
+
+    cases = []
+    b, s = _rpn_problems(torch, DET_STAGE_BATCH, SEED + 1600)
+    cases.append(("rpn [64x5, 1000] top 1000", b, s, 0.7, 1000))
+    cases.append(("rpn [8x5, 1000] top 1000 (a forward)", b[:8], s[:8], 0.7, 1000))
+    b, s = _class_problems(torch, DET_STAGE_BATCH, SEED + 1601)
+    cases.append(("class [64, 4096] top 100", b, s, 0.5, 100))
+    cases.append(("class [8, 4096] top 100 (a forward)", b[:8], s[:8], 0.5, 100))
+    cases += _nms_edge_cases(torch, SEED + 1602)
+    lib, fn = nms_mod.entry()
+    results, faults = {}, {"ge": 0, "ties reversed": 0}
+    for name, boxes, scores, thr, k in cases:
+        got = nms_mod.nms_cuda(boxes, scores, thr, k)
+        want = nms_plain(boxes, scores, thr, k)
+        torch.cuda.synchronize()
+        kept = int((want >= 0).sum())
+        assert torch.equal(got, want), (
+            f"nms kernel != nms_plain on {name}: {int((got != want).sum())} slots differ")
+        # the planted faults, through the wrapper's own steps
+        # `>=` for `>`: iou > the float32 below thr is iou >= thr in float32
+        below = float(np.nextafter(np.float32(thr), np.float32(-np.inf)))
+        bad_ge = nms_plain(boxes, scores, below, k)
+        bb, ss, _ = nms_mod._problems(boxes, scores)
+        asc = torch.sort(ss, dim=-1, stable=True)
+        bad_ties = nms_mod._launch(fn, lib, bb, asc.values.flip(-1), asc.indices.flip(-1), thr,
+                                   k).reshape(want.shape)
+        d_ge, d_ties = int((bad_ge != want).sum()), int((bad_ties != want).sum())
+        faults["ge"] += d_ge
+        faults["ties reversed"] += d_ties
+        print(f"[nms] {name}: kept {kept} of {want.numel()} slots, equal to nms_plain; "
+              f"planted `>=`: {d_ge} slots differ, ties reversed: {d_ties}")
+        if "threshold" in name:
+            assert d_ge, "the check cannot see `>=` for `>`"
+        if "equal scores" in name:
+            assert d_ties, "the check cannot see an unstable sort"
+        results[name] = (boxes, scores, thr, k, want)
+
+    # times at the main path's shapes (a detector forward of 8 images) and at
+    # the stage's 64 images; the lead numbers are the forward's RPN call
+    times = {}
+    for name in ("rpn [8x5, 1000] top 1000 (a forward)", "class [8, 4096] top 100 (a forward)",
+                 "rpn [64x5, 1000] top 1000", "class [64, 4096] top 100"):
+        boxes, scores, thr, k, want = results[name]
+        call = lambda: nms_mod.nms_cuda(boxes, scores, thr, k)
+        ms = cuda_ms(call)
+        by_kernel = kernel_device_ms(torch, call)
+        plain_ms = cuda_ms(lambda: nms_plain(boxes, scores, thr, k), reps=3, warmup=1)
+        moved = nbytes(boxes, scores, want)
+        flops = 14 * _nms_iou_evals(torch, want, boxes, scores, thr, k)  # ~14 FLOP an IoU
+        bound_ms, bound_by = bound(moved, flops, "float32")
+        dev = sum(by_kernel.values())
+        split = {k_[:40]: round(v, 4) for k_, v in by_kernel.items()}
+        print(f"[nms] {name}: kernel {ms:.4f} ms (device {dev:.4f}: {split}), plain {plain_ms:.3f} "
+              f"ms; bound {bound_ms:.5f} ms ({bound_by}: {moved / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP); no single PyTorch call computes greedy NMS")
+        times[name] = {"ms": ms, "device_ms": dev, "device_ms_by_kernel": by_kernel,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    lead = times["rpn [8x5, 1000] top 1000 (a forward)"]
+    return {"max_abs_err": 0, "ms": lead["ms"], "device_ms": lead["device_ms"],
+            "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
+            "bound_by": lead["bound_by"], "library_ms": None, "shapes": times,
+            "planted_faults": faults}
+
+
+def _det_rel(a, b) -> float:
+    """max |a - b| / max |b| over tensors (or lists of them, the worst)."""
+    if isinstance(a, (list, tuple)):
+        return max(_det_rel(x, y) for x, y in zip(a, b))
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _det_stages(torch, model, x, H, W, proposals=None):
+    """The detector's continuous stages and its detections on images ``x``
+    [B, 3, 800, 800] in ``model``'s device: FPN levels, RPN logits, the
+    proposals, class probabilities (over ``proposals`` when given, else its
+    own), and (boxes, scores, labels)."""
+    feats = model.features(x)
+    logits, deltas = model.rpn.head(feats)
+    props = model.proposals(feats, logits, deltas, H, W)
+    read = props if proposals is None else proposals.to(x.device)
+    probs, box_deltas = model.class_outputs(feats[:4], read)
+    dets = model.postprocess(probs, box_deltas, read, H, W)
+    return {"feats": feats, "logits": logits, "proposals": props, "probs": probs, "dets": dets}
+
+
+def _match_detections(torch, card, cpu, label: str, full: int):
+    """Detections of one image as matched sets: a card detection matches a
+    CPU one of the same label with IoU >= 0.999 and a score within 1e-4.
+    Each unmatched one is printed with its decisive margin, the smallest of:
+    its score's distance to the other side's last kept score when that side
+    kept ``full`` (the top-k cut), its largest IoU with the other side's
+    detections of its label less the NMS threshold 0.5, and its score less
+    the 0.05 threshold.  Returns (matched, unmatched, the largest margin of
+    an unmatched one, detections)."""
+    from drin_tpu_torch.ops.detection import box_iou
+
+    sides = []
+    for boxes, scores, labels in (card, cpu):
+        keep = scores > 0
+        sides.append((boxes[keep].double().cpu(), scores[keep].double().cpu(), labels[keep].cpu()))
+    (cb, cs, cl), (pb, ps, pl) = sides
+    ok = ((cl[:, None] == pl[None, :]) & (box_iou(cb, pb) >= 0.999)
+          & ((cs[:, None] - ps[None, :]).abs() <= 1e-4))
+    pairs = {}
+    for i in range(len(cb)):
+        for j in torch.nonzero(ok[i]).flatten().tolist():
+            if j not in pairs.values():
+                pairs[i] = j
+                break
+    left = (("card", [i for i in range(len(cb)) if i not in pairs], sides[0], sides[1]),
+            ("cpu", [j for j in range(len(pb)) if j not in pairs.values()], sides[1], sides[0]))
+    margins = []
+    for side, idx, (b, s, lab), (ob, os_, ol) in left:
+        for i in idx:
+            same = ol == lab[i]
+            best_iou = float(box_iou(b[i:i + 1], ob[same]).max()) if same.any() else 0.0
+            cut = abs(float(s[i]) - float(os_.min())) if len(os_) == full else float("inf")
+            margin = min(cut, abs(best_iou - 0.5), abs(float(s[i]) - 0.05))
+            margins.append(margin)
+            print(f"[detector] {label}: unmatched {side} detection label {int(lab[i])} score "
+                  f"{float(s[i]):.6f} box {[round(v, 3) for v in b[i].tolist()]}: the other "
+                  f"side kept {len(os_)} (last score {float(os_.min()) if len(os_) else None}), "
+                  f"its best IoU with that label {best_iou:.6f}; margin {margin:.3g}")
+    return len(pairs), len(margins), max(margins, default=0.0), max(len(cb), len(pb))
+
+
+def phase_detector(torch, np, nms_mod):
+    """The full-width Faster R-CNN (FRCNNConfig(): ResNet-50, FPN 256, 91
+    classes) from a seeded torchvision-keyed checkpoint on the card, in full
+    float32, against the port's CPU forward of the same 2 images: FPN levels,
+    RPN logits and class probabilities (on the CPU's proposals) within their
+    limits; the detections of the card's class stage on the CPU's proposals
+    and of its whole forward as matched sets; the card with cuDNN's TF32 and
+    no guard must exceed each of the three limits; the checkpoint in the
+    pre-0.13 key layout detects the same.  Then ms an image and the peak memory of the
+    stage's chunk of 64 images through FRCNNDetector, and one forward under
+    the profiler."""
+    import tempfile
+
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.encoders.checkpoints import load_detector
+    from drin_tpu_torch.encoders.frcnn import FasterRCNN
+    from drin_tpu_torch.ops.detection import resize_bilinear
+    from drin_tpu_torch.preprocess.detector import FRCNNDetector
+    from drin_tpu_torch.preprocess.stages import full_float32
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        new, old, n_params = _write_detector(torch, tmp)
+        cfg, sd = load_detector(new)
+        _, sd_old = load_detector(old)
+    assert (cfg.depths, cfg.fpn_channels, cfg.num_classes, cfg.representation_size,
+            cfg.min_size, cfg.pre_nms_topk, cfg.detections_per_img) == (
+        (3, 4, 6, 3), 256, 91, 1024, 800, 1000, 100)
+    print(f"[detector] seeded torchvision-keyed checkpoint, {n_params / 1e6:.1f} M parameters, "
+          f"written in both key layouts and loaded in {time.perf_counter() - t0:.1f} s")
+
+    def build(state_dict, device):
+        with torch.device("meta"):
+            m = FasterRCNN(cfg)
+        m.load_state_dict(state_dict, assign=True)
+        return m.to(device=device, dtype=torch.float32).eval()
+
+    x224 = torch.from_numpy(_det_images(np, 2, SEED + 1700)).permute(0, 3, 1, 2)
+    x_cpu = resize_bilinear(x224, (DET_SIZE, DET_SIZE))
+    card, cpu = build(sd, "cuda"), build(sd, "cpu")
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = _det_stages(torch, cpu, x_cpu, DET_SIZE, DET_SIZE)
+        cpu_s = time.perf_counter() - t0
+        x = resize_bilinear(x224.cuda(), (DET_SIZE, DET_SIZE))
+        with full_float32():
+            got = _det_stages(torch, card, x, DET_SIZE, DET_SIZE, proposals=want["proposals"])
+            own = card(x)
+        with _cudnn_tf32(torch):  # the fault: cuDNN's TF32 and no guard
+            tf32_feats = card.features(x)
+            tf32_logits, _ = card.rpn.head(tf32_feats)
+            tf32_probs, _ = card.class_outputs(tf32_feats[:4], want["proposals"].to(x.device))
+    errs = {"fpn": _det_rel(got["feats"], want["feats"]),
+            "rpn_logits": _det_rel(got["logits"], want["logits"]),
+            "class_probs": _det_rel(got["probs"], want["probs"]),
+            "resize": _det_rel(x, x_cpu), "fpn_tf32_fault": _det_rel(tf32_feats, want["feats"]),
+            "rpn_logits_tf32_fault": _det_rel(tf32_logits, want["logits"]),
+            "class_probs_tf32_fault": _det_rel(tf32_probs, want["probs"])}
+    by_level = [float(f"{_det_rel(a, b):.3g}") for a, b in zip(got["feats"], want["feats"])]
+    props = want["proposals"]
+    same_props = int(torch.isclose(got["proposals"].cpu(), props, rtol=0, atol=1e-3).all(-1).sum())
+    print(f"[detector] card vs the f32 CPU forward ({cpu_s:.1f} s on the CPU), 2 images at "
+          f"{DET_SIZE}: FPN {errs['fpn']:.3g} (by level {by_level}; limit {DET_FPN_REL}), RPN "
+          f"logits {errs['rpn_logits']:.3g} (limit {DET_LOGIT_REL}), class probabilities on the "
+          f"CPU's proposals {errs['class_probs']:.3g} (limit {DET_PROB_REL}), the resize "
+          f"{errs['resize']:.3g}; cuDNN's TF32 with no guard: FPN {errs['fpn_tf32_fault']:.3g}, "
+          f"RPN logits {errs['rpn_logits_tf32_fault']:.3g}, class probabilities "
+          f"{errs['class_probs_tf32_fault']:.3g}; "
+          f"the card's proposals within 1e-3 px of the CPU's, slot for slot: {same_props} of "
+          f"{props.shape[0] * props.shape[1]} ({int((props.abs().sum(-1) > 0).sum())} non-empty)")
+    assert errs["fpn"] <= DET_FPN_REL and errs["rpn_logits"] <= DET_LOGIT_REL, errs
+    assert errs["class_probs"] <= DET_PROB_REL, errs
+    for key, limit in (("fpn", DET_FPN_REL), ("rpn_logits", DET_LOGIT_REL),
+                       ("class_probs", DET_PROB_REL)):
+        assert errs[f"{key}_tf32_fault"] > limit, f"{key} cannot see TF32 convolutions: {errs}"
+
+    # detections as matched sets: the card's class stage on the CPU's
+    # proposals (held to the margin), its whole forward (a proposal that an
+    # RPN cut or NMS decides otherwise may cascade: printed), and the pre-0.13
+    # key layout's forward on the card against the 0.13 one's (equal)
+    card_old = build(sd_old, "cuda")
+    with torch.inference_mode(), full_float32():
+        old_dets = card_old(x)
+    del card_old
+    full, found = cfg.detections_per_img, 0
+    for i in range(x.shape[0]):
+        cpu_dets = [t[i] for t in want["dets"]]
+        m, u, worst, n = _match_detections(torch, [t[i] for t in got["dets"]], cpu_dets,
+                                           f"image {i}, class stage", full)
+        labels = sorted(set(cpu_dets[2][cpu_dets[1] > 0].tolist()))
+        print(f"[detector] image {i}: {n} detections (labels {labels}); the card's class stage "
+              f"on the CPU's proposals: {m} matched, {u} unmatched (largest margin {worst:.3g}, "
+              f"limit {DET_MARGIN}; at most {DET_UNMATCHED_SHARE:.0%} may go unmatched)")
+        assert n and u <= DET_UNMATCHED_SHARE * n and worst <= DET_MARGIN, (i, m, u, worst)
+        m2, u2, worst2, _ = _match_detections(torch, [t[i] for t in own], cpu_dets,
+                                              f"image {i}, whole forward", full)
+        print(f"[detector] image {i}: the card's whole forward vs the CPU's: {m2} matched, {u2} "
+              f"unmatched (largest detection-level margin {worst2:.3g})")
+        assert u2 <= DET_UNMATCHED_SHARE * n, (i, m2, u2)
+        m3, u3, _, n3 = _match_detections(torch, [t[i] for t in old_dets], [t[i] for t in own],
+                                          f"image {i}, pre-0.13 vs 0.13 keys", full)
+        assert u3 == 0 and m3 == n3, f"the pre-0.13 key layout detects otherwise: {m3}/{n3}"
+        found += n
+    print(f"[detector] the pre-0.13 key layout's detections equal the 0.13 layout's ({found} "
+          f"detections over 2 images)")
+    del cpu, want, got, own, tf32_feats, tf32_logits, tf32_probs, old_dets, card
+
+    # the stage's chunk of 64 images through FRCNNDetector: ms an image, peak
+    det = FRCNNDetector(make_config("drin", "wikimel"), sd, cfg, device="cuda")
+    batch = _det_images(np, DET_STAGE_BATCH, SEED + 1701)
+    with full_float32():
+        det(batch, 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        launches0 = nms_mod.launches
+        t0 = time.perf_counter()
+        _, scores = det(batch, 3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launched = nms_mod.launches - launches0
+        with torch.inference_mode():
+            xb = torch.from_numpy(batch[:det.batch]).cuda().permute(0, 3, 1, 2)
+            prof = profile_call(torch, lambda: det.detect(xb), "[detector] one forward of "
+                                f"{det.batch} images", reps=3, top=10)
+    ms_image = 1e3 * wall / DET_STAGE_BATCH
+    print(f"[detector] FRCNNDetector on {DET_STAGE_BATCH} images of 224 px ({det.batch} a "
+          f"forward): {1e3 * wall:.1f} ms, {ms_image:.2f} ms an image; peak memory "
+          f"{peak / 2**30:.2f} GiB over the weights and inputs; {launched} NMS launches; top-3 "
+          f"scores > 0 in {int((scores > 0).sum())} of {scores.size} slots")
+    assert (scores[:, 0] > 0).all() and launched == 2 * -(-DET_STAGE_BATCH // det.batch)
+    del det
+    torch.cuda.empty_cache()
+    return {"errors": errs, "ms_per_image": ms_image, "peak_gib": peak / 2**30,
+            "stage_chunk_ms": 1e3 * wall, "profile": prof, "cpu_s": cpu_s}
+
+
 # --- the offline preprocessing pipeline (preprocess) -------------------------
 
 PRE_MENTIONS = 64  # per split
@@ -3391,14 +3864,16 @@ def _shape_of(spec: str, dims: dict) -> tuple:
     return tuple(out)
 
 
-def phase_preprocess(torch, np, attn, gcn):
+def phase_preprocess(torch, np, attn, gcn, nms_mod):
     """The offline preprocessing pipeline on the card at make_config("drin",
     "wikimel")'s widths, through its entry point: ``python -m
     drin_tpu_torch.preprocess all ... device=cuda`` (``__main__.main``) over
-    a seeded WikiMEL raw corpus with seeded bert-base, ResNet-152 and CLIP
-    ViT-B/32 checkpoints, then ``drin_tpu_torch.train.cli.main`` evaluating
-    DRIN (test_only) over the store it wrote.  Kernel 3 runs in float32 in
-    BertStage's buckets of 256 and more, kernel 1 in the eval."""
+    a seeded WikiMEL raw corpus with seeded bert-base, ResNet-152, CLIP
+    ViT-B/32 and Faster R-CNN (``detector_checkpoint``, torchvision keys)
+    checkpoints, then ``drin_tpu_torch.train.cli.main`` evaluating DRIN
+    (test_only) over the store it wrote.  Kernel 3 runs in float32 in
+    BertStage's buckets of 256 and more, the NMS kernel in the detector
+    (two launches a forward of 8 images), kernel 1 in the eval."""
     import tempfile
 
     import PIL
@@ -3423,6 +3898,7 @@ def phase_preprocess(torch, np, attn, gcn):
         _write_raw_wikimel(np, raw, words, pieces)
         _write_clip_bpe(np, enc, words)
         n_params = _write_encoders(torch, enc)
+        det_path, _, n_params["detector"] = _write_detector(torch, enc)
         print(f"[preprocess] raw corpus ({3 * PRE_MENTIONS} mentions, {PRE_ENTITIES} entities, "
               f"{PRE_IMAGES} distinct images + default), vocabularies and checkpoints "
               f"({ {k: f'{v / 1e6:.1f} M' for k, v in n_params.items()} } parameters) written in "
@@ -3440,7 +3916,8 @@ def phase_preprocess(torch, np, attn, gcn):
             bert_vocab=os.path.join(enc, "vocab.txt"),
             resnet_checkpoint=os.path.join(enc, "resnet-152"),
             clip_checkpoint=os.path.join(enc, "clip-vit-base-patch32"),
-            clip_vocab=os.path.join(enc, "vocab.json"), clip_merges=os.path.join(enc, "merges.txt"))
+            clip_vocab=os.path.join(enc, "vocab.json"), clip_merges=os.path.join(enc, "merges.txt"),
+            detector_checkpoint=det_path, drin_object_detector="faster_rcnn")
         cfg = make_config(**overrides)
         assert (cfg.bert_embed_dim, cfg.resnet_embed_dim, cfg.resnet_num_region,
                 cfg.num_candidates_model, cfg.preprocess_batch_size, cfg.max_bert_len,
@@ -3454,7 +3931,7 @@ def phase_preprocess(torch, np, attn, gcn):
         # come back after it: the stages hold their encoders to full f32
         saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
-        attn.launches = gcn.launches = 0
+        attn.launches = gcn.launches = nms_mod.launches = 0
         t0 = time.perf_counter()
         try:
             ran = pre_cli.main(["all"] + argv)
@@ -3464,7 +3941,7 @@ def phase_preprocess(torch, np, attn, gcn):
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
         pre_wall = time.perf_counter() - t0
         assert after == (True, False), f"the preprocessing CLI left the TF32 flags at {after}"
-        counts["attention"], pre_gcn = attn.launches, gcn.launches
+        counts["attention"], pre_gcn, counts["nms"] = attn.launches, gcn.launches, nms_mod.launches
         eval_dir = os.path.join(tmp, "eval")
         os.makedirs(eval_dir)
         cwd = os.getcwd()
@@ -3480,6 +3957,7 @@ def phase_preprocess(torch, np, attn, gcn):
             os.chdir(cwd)
         counts["gcn_layer"] = gcn.launches
         eval_attention = attn.launches - counts["attention"]
+        eval_nms = nms_mod.launches - counts["nms"]
 
         # what the stages launched: 12 forward launches per BERT chunk at a
         # bucket of 256 or more, none at 128 (every mention chunk)
@@ -3510,6 +3988,17 @@ def phase_preprocess(torch, np, attn, gcn):
         assert counts["attention"] == layers * kernel_chunks and pre_gcn == 0, counts
         n_eval = -(-PRE_MENTIONS // cfg.batch_size)
         assert counts["gcn_layer"] == cfg.num_gcn_layers * n_eval and eval_attention == 0
+        # the detector: two NMS launches (the RPN's, the classes') a forward
+        # of 8 images, over each split's mention images and the entity images
+        det = resnet.detector
+        chunks = [PRE_MENTIONS] * 3 + [PRE_ENTITIES]
+        forwards = sum(-(-min(cfg.preprocess_batch_size, n - i) // det.batch)
+                       for n in chunks for i in range(0, n, cfg.preprocess_batch_size))
+        print(f"[preprocess] detector: {resnet.clock.detected} images, {forwards} forwards of "
+              f"{det.batch}, nms launches {counts['nms']} (= 2 x {forwards}), in the eval "
+              f"{eval_nms}; {resnet.clock.seconds['detector']:.2f} s of the ResNet stage")
+        assert counts["nms"] == 2 * forwards and eval_nms == 0, (counts, forwards)
+        assert resnet.clock.detected == 3 * PRE_MENTIONS + PRE_ENTITIES
 
         # every file the JAX stages write, with the shapes the config gives
         dims = dict(N=PRE_MENTIONS, C=cfg.num_candidates_model, E=PRE_ENTITIES,
@@ -3551,7 +4040,17 @@ def phase_preprocess(torch, np, attn, gcn):
                   f"{c.items / c.seconds['wall']:.1f} {unit}/s over {c.items} in {c.chunks} "
                   f"chunks; host {c.seconds['host']:.2f} s ({1e3 * c.seconds['host'] / c.chunks:.2f} "
                   f"ms per chunk), encoder {c.seconds['encoder']:.2f} s")
-        print(f"[preprocess] preprocess all: {pre_wall:.1f} s wall (checkpoint loading included)")
+        print(f"[preprocess] preprocess all: {pre_wall:.1f} s wall (checkpoint loading included); "
+              f"the ResNet stage's detector {resnet.clock.seconds['detector']:.2f} s over "
+              f"{resnet.clock.detected} images")
+        # the object scores hold real detections: every image has one above
+        # the 0.05 threshold in its first slot
+        for name in ("mention-object-score_train.npy", "mention-object-score_valid.npy",
+                     "mention-object-score_test.npy", "entity-object-score_all.npy"):
+            sc = np.load(os.path.join(store, name))
+            print(f"[preprocess] {name}: {sc.shape}, first slot in [{sc[:, 0].min():.4f}, "
+                  f"{sc[:, 0].max():.4f}], {int((sc > 0).sum())} of {sc.size} slots detected")
+            assert (sc[:, 0] > 0.05).all(), f"{name}: an image without a detection"
 
         # the three card-against-CPU checks, each with a planted fault
         cpu = {}
@@ -3611,6 +4110,34 @@ def phase_preprocess(torch, np, attn, gcn):
               f"cuDNN's TF32 on and no guard: {tf32_fault:.3g}")
         assert err <= PRE_RESNET_REL and fault > PRE_RESNET_REL, (err, fault)
         assert tf32_fault > PRE_RESNET_REL, f"the check cannot see TF32 convolutions: {tf32_fault}"
+        # ResNet's object features over the detector's boxes: the detector
+        # again on the card over the test split's first forward of 8 images
+        # (the scores must be the stored ones), then the f32 CPU ResNet over
+        # the crops of mentions 0-1 at its boxes
+        topk = cfg.mention_object_topk
+        paths8 = stages.wikimel_mention_images(cfg, "test")[:det.batch]
+
+        def raw01(im):
+            return np.asarray(im.resize(cfg.image_input_size), dtype=np.float32) / 255.0
+
+        with stages.full_float32():
+            boxes8, scores8 = det(resnet.batcher.load_batch(paths8, raw01), topk)
+        stored = np.load(os.path.join(store, "mention-object-score_test.npy"))[:det.batch]
+        score_err = float(np.abs(scores8 - stored).max())
+        crops = boxes8[:2].reshape(-1, 4)
+        xo = resnet.batcher.load_batch_chunked(
+            list(np.repeat(np.asarray(paths8[:2]), topk)),
+            lambda im: images.resnet_preprocess(im, cfg.image_input_size, cfg.resnet_crop_pct,
+                                                cfg.resnet_resample), crops, chunk=len(crops))
+        with torch.inference_mode():
+            want = cpu_resnet(torch.from_numpy(xo).permute(0, 3, 1, 2))[1].numpy()
+        got = np.load(os.path.join(store, "mention-object-feature_test.npy"))[:2]
+        errs["resnet_objects"] = err = _rel_err(np, got.reshape(want.shape), want)
+        print(f"[preprocess] ResNet-152 object features of test mentions 0-1 ({len(crops)} crops "
+              f"at the detector's boxes, e.g. {[round(v, 2) for v in crops[0].tolist()]}) vs the "
+              f"f32 CPU forward: relative err {err:.3g} (limit {PRE_RESNET_REL}); the detector "
+              f"run again on the card: scores within {score_err:.3g} of the stored ones")
+        assert score_err <= 1e-6 and err <= PRE_RESNET_REL, (score_err, err)
         del cpu_resnet
 
         cfg_c, sd = checkpoints.load_clip(cfg.clip_checkpoint)
@@ -3689,7 +4216,7 @@ def phase_preprocess(torch, np, attn, gcn):
         f32 = {"shape": [B_, 12, 512, 64], "max_abs_err": f32_err, "ms": ms, "device_ms": dev,
                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "fma_bound_ms": fma_ms}
-        del q, k, v, mask, got, want_t, ran, bert, resnet, clip
+        del q, k, v, mask, got, want_t, ran, bert, resnet, clip, det
         torch.cuda.empty_cache()
     return counts, {"errors": errs, "f32": f32, "preprocess_s": pre_wall, "eval_s": eval_wall}
 
@@ -3772,7 +4299,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from drin_tpu_torch.ops.cuda import (_build, attention as attn, gather, gcn_layer as gcn,
-                                         vertex_update as vu)
+                                         nms as nms_mod, vertex_update as vu)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -3795,11 +4322,13 @@ def main() -> int:
 
     measured = {"gather_dequant": phase_gather(torch, gather), "gcn_layer": phase_gcn(torch, gcn),
                 "attention": phase_attention(torch, np, attn),
-                "vertex_update": phase_vertex_update(torch, vu, gcn)}
+                "vertex_update": phase_vertex_update(torch, vu, gcn),
+                "nms": phase_nms(torch, np, nms_mod)}
     measured.update(phase_attention_bwd(torch, np, attn))
+    detector = phase_detector(torch, np, nms_mod)
     # each main path is driven with its kernels' counts set to 0 just before
     # and read just after; a kernel of a path that the path never launched fails
-    mods = (gather, gcn, attn, vu)
+    mods = (gather, gcn, attn, vu, nms_mod)
     paths, seconds, gcn_by_dtype = {}, {}, {}
 
     def timed(path, fn, *args):
@@ -3838,9 +4367,12 @@ def main() -> int:
                         ("train_melhi", phase_train_melhi)):
         paths[path], _ = timed(path, phase, torch, np, mods)
     # the offline preprocessing pipeline writes a store and DRIN evaluates it:
-    # kernel 3 in float32 in BertStage, kernel 1 in the eval
-    paths["preprocess"], pre = timed("preprocess", phase_preprocess, torch, np, attn, gcn)
+    # kernel 3 in float32 in BertStage, the NMS kernel in the ResNet stage's
+    # detector, kernel 1 in the eval
+    paths["preprocess"], pre = timed("preprocess", phase_preprocess, torch, np, attn, gcn, nms_mod)
     measured["attention"]["f32_bert_stage"] = pre["f32"]
+    measured["nms"]["detector"] = {k: detector[k] for k in ("ms_per_image", "peak_gib",
+                                                            "stage_chunk_ms", "errors")}
     print(f"seconds by path: {seconds}")
     assert {p: sorted(c) for p, c in paths.items()} == {
         "serve_drin": ["gather_dequant", "gcn_layer"], "serve_drin_f32": ["gather_dequant", "gcn_layer"],
@@ -3851,7 +4383,7 @@ def main() -> int:
         "train_text": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"],
         "train_drin_f32": ["gcn_layer"],
         "serve_ghmfc": ["gather_dequant"], "serve_ghmfc_transformer": [], "serve_melhi": [],
-        "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer"]}, paths
+        "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer", "nms"]}, paths
     for path, counts in paths.items():
         assert all(counts.values()), f"{path} never launched one of its kernels: {counts}"
     # kernel 1 by dtype: the default-dtype paths launch only its float32 form,
@@ -3875,7 +4407,9 @@ def main() -> int:
         "attention": ("attention.cu", "drin_tpu/ops/pallas/attention.py:48"),
         "attention_bwd": ("attention_bwd.cu", "drin_tpu/ops/pallas/attention.py:122"),
         "attention_bwd_nomask": ("attention_bwd.cu", "drin_tpu/ops/pallas/attention.py:134"),
-        "vertex_update": ("gcn_layer.cu", "drin_tpu/ops/pallas/gcn.py:58")}
+        "vertex_update": ("gcn_layer.cu", "drin_tpu/ops/pallas/gcn.py:58"),
+        # a port-only kernel: the counterpart of a jnp loop, not of a Pallas kernel
+        "nms": ("nms.cu", "drin_tpu/ops/detection.py:29")}
     assert set(kernels) == set(measured)
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in kernels}

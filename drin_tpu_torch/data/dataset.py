@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """Feature-store datasets with vectorized, columnar batch assembly, the
 batch layouts and the global WikiMEL entity tables (the port's own copy of
-``drin_tpu/data/dataset.py``; table rows are gathered with numpy indexing,
-the native gather library is not ported).
+``drin_tpu/data/dataset.py``; table rows are gathered by the native threaded
+gather, ``drin_tpu_torch.native.gather_rows``, as the JAX package gathers
+them).
 
   * a one-time vectorized qid->row join producing an ``[N, C]`` int32 index
     matrix,
@@ -94,9 +95,12 @@ def gold_labels(answer: np.ndarray, num_onehot_rows: int) -> np.ndarray:
 
 
 def _gather(table: np.ndarray, rows: np.ndarray) -> np.ndarray:
-    """Batch gather rows from a (possibly huge, mmap'd) table: numpy
-    fancy-indexing, output ``rows.shape + table.shape[1:]``."""
-    return np.ascontiguousarray(table[np.asarray(rows)])
+    """Batch gather rows from a (possibly huge, mmap'd) table, output
+    ``rows.shape + table.shape[1:]``: the native threaded gather where the
+    rows are large and many, numpy indexing otherwise."""
+    from drin_tpu_torch.native import gather_rows
+
+    return gather_rows(table, rows)
 
 
 def _check_shape(name: str, arr, expected_tail: tuple, knobs: str):

@@ -3,7 +3,8 @@
 a torch state_dict file or an HF-style directory (``config.json`` +
 ``pytorch_model.bin`` / ``model.pt`` / ``state_dict.pt``) -> the port's
 config and a state_dict for its ``BertModel``, ``ResNetModel`` or
-``CLIPModel``.
+``CLIPModel``; a torchvision detection state dict -> the port's
+``FasterRCNN`` (:func:`load_detector`).
 
 The port's encoders carry the HF models' keys (``models/convert.py``), so a
 checkpoint's tensors load under their own names: the keys read are the ones
@@ -154,3 +155,58 @@ def load_clip(path: str, clip_cfg=None):
                 projection_dim=sd["text_projection.weight"].shape[0],
             )
     return clip_cfg, _keys_of(CLIPModel, clip_cfg, sd)
+
+
+DETECTOR_ARCHS = ("faster_rcnn", "mask_rcnn")
+
+
+def _pre_013_spelling(key: str) -> str:
+    """torchvision's key before 0.13, where the FPN blocks and the RPN
+    head's convolution were bare ``Conv2d``s, not ``Conv2dNormActivation``s:
+    ``backbone.fpn.inner_blocks.{i}.0.weight`` -> ``...inner_blocks.{i}.weight``,
+    ``rpn.head.conv.0.0.weight`` -> ``rpn.head.conv.weight``."""
+    for blocks in ("backbone.fpn.inner_blocks.", "backbone.fpn.layer_blocks."):
+        if key.startswith(blocks):
+            i, rest = key[len(blocks):].split(".", 1)
+            return blocks + i + "." + rest[2:] if rest.startswith("0.") else key
+    return key.replace("rpn.head.conv.0.0.", "rpn.head.conv.", 1)
+
+
+def load_detector(path: str, frcnn_cfg=None, arch: str = "faster_rcnn"):
+    """Returns (FRCNNConfig, state_dict of the port's ``FasterRCNN``) from a
+    torchvision ``fasterrcnn_resnet50_fpn`` / ``maskrcnn_resnet50_fpn`` state
+    dict file, in either key layout (torchvision before 0.13 or after; where
+    a file has both spellings of a key, the older is read, as the JAX
+    package's converter reads it).  ``arch`` is ``drin_object_detector``,
+    validated as ``drin_tpu``'s ``detector_params_from_torch`` validates it:
+    ``mask_rcnn`` requires the ``roi_heads.mask_*`` keys (then dropped: the
+    pipeline reads boxes and scores only) and ``faster_rcnn`` refuses them.
+    A key the model needs and the file lacks raises ``KeyError``.  Without
+    ``frcnn_cfg`` the detector is ``FRCNNConfig()``, torchvision's own
+    model, as in ``drin_tpu``'s ``make_detector``; a file of other widths
+    is refused by ``load_state_dict``."""
+    from drin_tpu_torch.encoders.frcnn import FasterRCNN, FRCNNConfig
+
+    if arch not in DETECTOR_ARCHS:
+        raise ValueError(f"unknown drin_object_detector {arch!r} (expected one of {DETECTOR_ARCHS})")
+    sd, _ = load_torch_state_dict(path)
+    has_mask = any(k.startswith("roi_heads.mask_") for k in sd)
+    if arch == "mask_rcnn" and not has_mask:
+        raise ValueError(f"drin_object_detector='mask_rcnn' but {path} has no roi_heads.mask_* "
+                         "keys (a Faster R-CNN state_dict?)")
+    if arch == "faster_rcnn" and has_mask:
+        raise ValueError(f"drin_object_detector='faster_rcnn' but {path} has roi_heads.mask_* "
+                         "keys (a Mask R-CNN state_dict?)")
+    frcnn_cfg = frcnn_cfg or FRCNNConfig()
+    with torch.device("meta"):
+        keys = list(FasterRCNN(frcnn_cfg).state_dict())
+    out = {}
+    for k in keys:
+        old = _pre_013_spelling(k)
+        if old in sd:
+            out[k] = sd[old]
+        elif k in sd:
+            out[k] = sd[k]
+        else:
+            raise KeyError(f"{path}: no {k!r} (nor its pre-0.13 spelling {old!r})")
+    return frcnn_cfg, out

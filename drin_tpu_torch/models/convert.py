@@ -242,3 +242,44 @@ def clip_state_dict_from_jax(params: Mapping, clip_cfg) -> Dict[str, torch.Tenso
         sd[name + ".weight"] = _t(np.asarray(params[name]["kernel"]).T)
     sd["logit_scale"] = _t(params["logit_scale"])
     return sd
+
+
+def frcnn_state_dict_from_jax(params: Mapping, frcnn_cfg) -> Dict[str, torch.Tensor]:
+    """Flax ``FasterRCNN`` params -> a float32 state_dict with torchvision's
+    >= 0.13 ``fasterrcnn_resnet50_fpn`` keys (the inverse of
+    ``drin_tpu.encoders.frcnn.frcnn_params_from_torch``): convolutions HWIO
+    -> OIHW, Dense kernels transposed, and fc6's input axis permuted back
+    from the flax model's (P, P, C) flatten to torchvision's (C, P, P)."""
+    sd: Dict[str, torch.Tensor] = {}
+    body = params["body"]
+    _conv(sd, "backbone.body.conv1.weight", body["conv1"]["kernel"])
+    _batchnorm(sd, "backbone.body.bn1", body["bn1"])
+    for li, depth in enumerate(frcnn_cfg.depths):
+        for bi in range(depth):
+            blk, p = body[f"layer{li + 1}_{bi}"], f"backbone.body.layer{li + 1}.{bi}"
+            for ci in (1, 2, 3):
+                _conv(sd, f"{p}.conv{ci}.weight", blk[f"conv{ci}"]["kernel"])
+                _batchnorm(sd, f"{p}.bn{ci}", blk[f"bn{ci}"])
+            if "downsample_conv" in blk:
+                _conv(sd, p + ".downsample.0.weight", blk["downsample_conv"]["kernel"])
+                _batchnorm(sd, p + ".downsample.1", blk["downsample_bn"])
+    fpn = params["fpn"]
+    for i in range(len(frcnn_cfg.depths)):
+        for flax_name, torch_name in ((f"inner_{i}", "inner_blocks"), (f"layer_{i}", "layer_blocks")):
+            _conv(sd, f"backbone.fpn.{torch_name}.{i}.0.weight", fpn[flax_name]["kernel"])
+            sd[f"backbone.fpn.{torch_name}.{i}.0.bias"] = _t(fpn[flax_name]["bias"])
+    rpn = params["rpn_head"]
+    for flax_name, torch_name in (("conv", "conv.0.0"), ("cls_logits", "cls_logits"),
+                                  ("bbox_pred", "bbox_pred")):
+        _conv(sd, f"rpn.head.{torch_name}.weight", rpn[flax_name]["kernel"])
+        sd[f"rpn.head.{torch_name}.bias"] = _t(rpn[flax_name]["bias"])
+    fc6 = dict(params["box_head"]["fc6"])
+    kernel = np.asarray(fc6["kernel"])  # [P * P * C, R], rows in (P, P, C) order
+    cin = frcnn_cfg.fpn_channels
+    p = int(round((kernel.shape[0] // cin) ** 0.5))
+    fc6["kernel"] = kernel.reshape(p, p, cin, -1).transpose(2, 0, 1, 3).reshape(cin * p * p, -1)
+    _dense(sd, "roi_heads.box_head.fc6", fc6)
+    _dense(sd, "roi_heads.box_head.fc7", params["box_head"]["fc7"])
+    for name in ("cls_score", "bbox_pred"):
+        _dense(sd, f"roi_heads.box_predictor.{name}", params["box_predictor"][name])
+    return sd

@@ -1,18 +1,27 @@
 # -*- coding: utf-8 -*-
-"""The native (C++) WordPiece tokenizer: the port's copy of the tokenizer
-half of ``drin_tpu/native`` (``src/wordpiece.cpp``, a BasicTokenizer pass
-driven by a BMP classification table built in Python from ``unicodedata``,
-fused with the greedy longest-match WordPiece), loaded with ``ctypes``.
+"""The native (C++) host runtime: the port's copy of ``drin_tpu/native``,
+loaded with ``ctypes``.
 
-The library is built with the host's C++ compiler (``c++``, or ``$CXX``) at
+  * ``src/wordpiece.cpp``: the WordPiece tokenizer, a BasicTokenizer pass
+    driven by a BMP classification table built in Python from
+    ``unicodedata``, fused with the greedy longest-match WordPiece.
+  * ``src/gather.cpp``: the threaded feature-table row gather behind
+    :func:`gather_rows` (``create_datasets``' table reads).
+  * ``src/tsan_stress.cpp``: a ThreadSanitizer stress harness over both,
+    which the tests build into ``build/`` and run.
+
+The sources are the JAX package's, byte for byte.  The library is built
+from the first two with the host's C++ compiler (``c++``, or ``$CXX``) at
 first use, never at import, into ``<repo>/build/drin_tpu_torch/`` under a
-name keyed by a hash of the source and flags; the compiler writes a file of
+name keyed by a hash of the sources and flags; the compiler writes a file of
 its own and renames it into place, so processes that build at once never
-load half a library.  A failed build or load raises with the compiler's
-output: nothing falls back to the Python path because a build failed.
-Per text, the Python path still takes what the native pass cannot express
-(astral code points, characters the cleaner removes, lone surrogates): that
-is the tokenizer's semantics, the same ids either way.
+load half a library.  A failed build, load or gather call raises with the
+compiler's output or the call's status: nothing falls back to Python or
+numpy because native code failed.  Per text, the Python path still takes
+what the native pass cannot express (astral code points, characters the
+cleaner removes, lone surrogates), and per gather numpy still takes small,
+non-integer and out-of-range rows: that is the semantics, the same result
+either way.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from typing import Optional
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "src" / "wordpiece.cpp"
+GATHER_SRC = SRC.parent / "gather.cpp"
+TSAN_SRC = SRC.parent / "tsan_stress.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "drin_tpu_torch"
 FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
@@ -39,6 +50,9 @@ _lock = threading.Lock()
 _P64 = ctypes.POINTER(ctypes.c_int64)
 _P32 = ctypes.POINTER(ctypes.c_int32)
 _SIGNATURES = {  # symbol -> (argtypes, restype)
+    # src, dst, row indices, n rows, row bytes, n threads
+    "drin_gather_rows": ([ctypes.c_void_p, ctypes.c_void_p, _P32, ctypes.c_int64, ctypes.c_int64,
+                          ctypes.c_int32], ctypes.c_int32),
     "drin_wp_build": ([ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32], ctypes.c_void_p),
     "drin_wp_free": ([ctypes.c_void_p], None),
     # vocab handle, concatenated utf-8 words, word byte offsets [n+1], n words,
@@ -59,31 +73,56 @@ def _cxx() -> str:
         if path:
             return path
     raise RuntimeError("no C++ compiler found (set CXX or put c++ on PATH): the native "
-                       "tokenizer is built from drin_tpu_torch/native/src at first use")
+                       "library is built from drin_tpu_torch/native/src at first use")
+
+
+def _key(flags, sources) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
 
 
 def library_path(src: Path = SRC) -> Path:
-    """Where the library for ``src`` is (or will be) built."""
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    h.update(src.read_bytes())
-    return BUILD_DIR / f"libdrin_native-{h.hexdigest()[:16]}.so"
+    """Where the library of the tokenizer source ``src`` and the gather is
+    (or will be) built."""
+    return BUILD_DIR / f"libdrin_native-{_key(FLAGS, (src, GATHER_SRC))}.so"
 
 
-def build(src: Path = SRC) -> Path:
-    """Compile ``src`` unless a library of the same source exists; raises
-    with the compiler's output when the build fails."""
-    out = library_path(src)
+def _compile(flags, out: Path, sources, what: str) -> Path:
+    """Compile ``sources`` with ``flags`` into ``out`` unless it exists; the
+    compiler writes a file of its own, renamed into place."""
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_cxx(), *FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_cxx(), *flags, "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building the native tokenizer failed: {' '.join(cmd)}\n{proc.stdout}")
+        raise RuntimeError(f"building {what} failed: {' '.join(cmd)}\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def build(src: Path = SRC) -> Path:
+    """Compile the tokenizer source ``src`` with the gather into one library
+    unless a library of the same sources exists; raises with the compiler's
+    output when the build fails."""
+    return _compile(FLAGS, library_path(src), (src, GATHER_SRC), "the native tokenizer")
+
+
+TSAN_FLAGS = ("-O1", "-g", "-std=c++17", "-fsanitize=thread", "-pthread")
+
+
+def build_tsan_stress() -> Path:
+    """The ThreadSanitizer stress binary of ``src/tsan_stress.cpp`` over the
+    gather and the tokenizer (``drin_tpu/native/Makefile``'s
+    ``tsan_stress``), built into ``build/``; raises with the compiler's
+    output where it cannot be built."""
+    sources = (GATHER_SRC, SRC, TSAN_SRC)
+    out = BUILD_DIR / f"tsan_stress-{_key(TSAN_FLAGS, sources)}"
+    return _compile(TSAN_FLAGS, out, sources, "the ThreadSanitizer stress binary")
 
 
 def load() -> ctypes.CDLL:
@@ -222,3 +261,31 @@ class BertEncodeNative(_Vocab):
                 res.append(out[prev:int(ends[i])].tolist())
                 prev = int(ends[i])
         return res
+
+
+def gather_rows(table: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """``table[rows]`` for ``rows`` of any shape: ``rows.shape +
+    table.shape[1:]``, contiguous.  Rows of 256 bytes or more, gathered 64 or
+    more at a time from a C-contiguous ndarray (an mmap'd store included) by
+    in-range integer indices, take the threaded native copy; the rest is
+    numpy indexing, which gives the same rows and raises or wraps as numpy
+    does (negative, out-of-range, boolean or float indices).  A native call
+    that fails raises."""
+    rows = np.asarray(rows)
+    flat = rows.reshape(-1)
+    row_nbytes = int(np.prod(table.shape[1:])) * table.dtype.itemsize
+    native = (isinstance(table, np.ndarray) and np.issubdtype(flat.dtype, np.integer)
+              and table.flags["C_CONTIGUOUS"] and row_nbytes >= 256 and flat.size >= 64
+              and int(flat.min()) >= 0 and int(flat.max()) < table.shape[0]
+              and int(flat.max()) <= np.iinfo(np.int32).max)
+    if not native:
+        return np.ascontiguousarray(table[rows])
+    idx = np.ascontiguousarray(flat, dtype=np.int32)
+    out = np.empty((idx.size,) + table.shape[1:], dtype=table.dtype)
+    status = load().drin_gather_rows(table.ctypes.data_as(ctypes.c_void_p),
+                                     out.ctypes.data_as(ctypes.c_void_p),
+                                     idx.ctypes.data_as(_P32), idx.size, row_nbytes,
+                                     min(8, os.cpu_count() or 1))
+    if status != 0:
+        raise RuntimeError(f"the native row gather failed (status {status})")
+    return out.reshape(rows.shape + table.shape[1:])

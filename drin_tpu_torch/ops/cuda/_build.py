@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "drin_tpu_torch"
-KERNELS = ("gather_dequant", "gcn_layer", "attention", "attention_bwd")  # csrc/<name>.cu
+KERNELS = ("gather_dequant", "gcn_layer", "attention", "attention_bwd", "nms")  # csrc/<name>.cu
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

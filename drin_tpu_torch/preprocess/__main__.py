@@ -6,11 +6,14 @@ training CLI (e.g. ``dataset_name=wikimel bert_checkpoint=/path/dir``), and
 ``device`` (default ``cuda``) is explicit: ``device=cuda`` without CUDA
 raises, nothing falls back to the CPU.
 
-Migrating a store the reference already preprocessed (with its pretrained
-torchvision detector): ``resnet import_objects_from=/path/to/ref/store``
-adopts the detector-derived object arrays verbatim, while whole-image
-features are recomputed here.  A set ``detector_checkpoint`` is refused:
-the Faster R-CNN detector is not ported yet."""
+Object boxes: ``detector_checkpoint=/path/frcnn.pt`` runs the Faster R-CNN
+of a torchvision ``fasterrcnn_resnet50_fpn`` state dict (either key layout;
+``drin_object_detector=mask_rcnn`` for a Mask R-CNN one) on the stage's
+device; unset, a whole-image stub stands in, with a warning.  Migrating a
+store the reference already preprocessed (with its pretrained torchvision
+detector): ``resnet import_objects_from=/path/to/ref/store`` adopts the
+detector-derived object arrays verbatim, while whole-image features are
+recomputed here."""
 
 from __future__ import annotations
 

@@ -15,8 +15,10 @@ names, shapes and dtypes:
     kernel 3 (``ops/cuda/attention.py``) on the card from a bucket of 256 on.
   * :class:`ResnetStage`: ``{mention,entity}-image-feature_*`` (49 regions in
     the NHWC map's order, or the pooled vector) and
-    ``*-object-{feature,score}_*`` from a detector or, with
-    ``import_objects_from``, copied byte for byte from another store.
+    ``*-object-{feature,score}_*`` from a detector (the Faster R-CNN of
+    ``detector_checkpoint`` on the stage's device, NMS through its kernel
+    on the card) or, with ``import_objects_from``, copied byte for byte
+    from another store.
   * :class:`ClipStage`: ``similarity-{miet,eimt}_*``, each unique image and
     text embedded once; a file already there is kept (resumable).
 
@@ -85,13 +87,15 @@ def _frozen(model: torch.nn.Module, state_dict, device) -> torch.nn.Module:
 class _Clock:
     """Seconds by kind (``wall``: the stage's ``run``; ``host``: the encoder
     chunks' tokenization or image decode; ``encoder``: the encoder's
-    dispatch up to the features on the host), with the number of chunks and
-    items that ``host`` and ``encoder`` covered.  The rest of ``wall`` is
-    the detector's own decode, the writes and the bookkeeping."""
+    dispatch up to the features on the host; ``detector``: the ResNet
+    stage's detector calls, up to its boxes on the host), with the number of
+    chunks and items that ``host`` and ``encoder`` covered and the images
+    the detector saw.  The rest of ``wall`` is the detector's own decode,
+    the writes and the bookkeeping."""
 
     def __init__(self):
-        self.seconds = {"wall": 0.0, "host": 0.0, "encoder": 0.0}
-        self.chunks = self.items = 0
+        self.seconds = {"wall": 0.0, "host": 0.0, "encoder": 0.0, "detector": 0.0}
+        self.chunks = self.items = self.detected = 0
 
     @contextmanager
     def timed(self, kind: str):
@@ -105,9 +109,11 @@ class _Clock:
         h, e = self.seconds["host"], self.seconds["encoder"]
         rate = self.items / (h + e) if h + e else 0.0
         per_chunk = 1e3 * h / self.chunks if self.chunks else 0.0
+        det = (f", detector {self.seconds['detector']:.2f} s over {self.detected} images"
+               if self.detected else "")
         return (f"[{name}] {self.items} {unit} in {self.chunks} chunks, {self.seconds['wall']:.2f} "
                 f"s: host {h:.2f} s ({per_chunk:.2f} ms per chunk), encoder {e:.2f} s, "
-                f"{rate:.1f} {unit}/s")
+                f"{rate:.1f} {unit}/s{det}")
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +287,7 @@ class ResnetStage:
         if detector is None and not cfg.import_objects_from:
             from drin_tpu_torch.preprocess.detector import make_detector
 
-            detector = make_detector(cfg)
+            detector = make_detector(cfg, device=self.device)
         self.detector = detector
         self.clock = _Clock()
 
@@ -371,7 +377,9 @@ class ResnetStage:
 
     def detect(self, image_paths: Sequence[str], topk: int):
         """Top-k boxes/scores padded with default_box/0.  The detector
-        receives resized [0, 1] images, not ImageNet-normalized ones."""
+        receives resized [0, 1] images, not ImageNet-normalized ones, and runs
+        in full float32 like the encoders (its convolutions would otherwise
+        take cuDNN's TF32 under PyTorch's default flags)."""
         cfg = self.cfg
         B_ = cfg.preprocess_batch_size
 
@@ -382,7 +390,9 @@ class ResnetStage:
         all_boxes, all_scores = [], []
         for i in range(0, len(image_paths), B_):
             x = self.batcher.load_batch(image_paths[i : i + B_], raw01)
-            b, s = self.detector(x, topk)
+            with self.clock.timed("detector"), full_float32():
+                b, s = self.detector(x, topk)
+            self.clock.detected += len(x)
             all_boxes.append(np.asarray(b))
             all_scores.append(np.asarray(s))
         return np.concatenate(all_boxes, 0), np.concatenate(all_scores, 0)

@@ -98,19 +98,22 @@ def test_package_data_lists_kernel_sources():
     assert '"drin_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
     assert sorted(p.name for p in (ROOT / "drin_tpu_torch" / "csrc").iterdir()) == [
         "attention.cu", "attention_bwd.cu", "attention_common.cuh", "common.cuh",
-        "gather_dequant.cu", "gcn_layer.cu", "hopper.cuh"]
+        "gather_dequant.cu", "gcn_layer.cu", "hopper.cuh", "nms.cu"]
     from drin_tpu_torch.ops.cuda import _build
 
-    assert _build.KERNELS == ("gather_dequant", "gcn_layer", "attention", "attention_bwd")
-    # the native tokenizer's source is the port's own copy, built from its
-    # own directory, and includes nothing but the C++ standard library
+    assert _build.KERNELS == ("gather_dequant", "gcn_layer", "attention", "attention_bwd", "nms")
+    # the native sources (tokenizer, row gather, TSan harness) are the port's
+    # own copies, built from its own directory, and include nothing but the
+    # C++ standard library
     assert '"drin_tpu_torch.native" = ["src/*.cpp"]' in text
     from drin_tpu_torch import native
 
     assert native.SRC.parent == ROOT / "drin_tpu_torch" / "native" / "src"
-    assert sorted(p.name for p in native.SRC.parent.iterdir()) == ["wordpiece.cpp"]
-    includes = [ln for ln in native.SRC.read_text().splitlines() if ln.startswith("#include")]
-    assert includes and all(ln.split()[1].startswith("<") for ln in includes), includes
+    assert sorted(p.name for p in native.SRC.parent.iterdir()) == [
+        "gather.cpp", "tsan_stress.cpp", "wordpiece.cpp"]
+    for src in native.SRC.parent.iterdir():
+        includes = [ln for ln in src.read_text().splitlines() if ln.startswith("#include")]
+        assert includes and all(ln.split()[1].startswith("<") for ln in includes), (src, includes)
 
 
 def test_no_library_attention_in_the_port():

@@ -12,8 +12,11 @@ abstract long enough for a BERT bucket of 256 (the port's plain attention
 on the CPU, JAX's XLA path).  The port's ``create_datasets`` reads the
 result.  Also the host pieces on their own (``NpyWriter`` bytes, image
 loading and preprocessing, ``run_prepare``) and the edge paths: imported
-object arrays and their refusals, the stub detector's warning, a detector
-checkpoint refused by name, resumable CLIP, the entity text types, the
+object arrays and their refusals, the stub detector's warning, the Faster
+R-CNN detector from a written torchvision checkpoint (the detector itself,
+``TorchDetector``, the ResNet stage with it and the CLI at TINY widths,
+against the JAX package's), a detector checkpoint refused by name,
+resumable CLIP, the entity text types, the
 CLI's validation and ``device=cuda`` without CUDA, and each stage's encoder
 held to full float32 whatever the caller's TF32 flags."""
 
@@ -37,6 +40,7 @@ from drin_tpu.preprocess import __main__ as jcli
 from drin_tpu.preprocess import detector as jdetector
 from drin_tpu.preprocess import images as jimages
 from drin_tpu.preprocess import prepare as jprepare
+from drin_tpu.preprocess import stages as jstages
 from drin_tpu.text.clip_bpe import bytes_to_unicode
 from drin_tpu.text.wordpiece import build_tiny_vocab
 from drin_tpu_torch.common import npy_io as tnpy
@@ -49,6 +53,7 @@ from drin_tpu_torch.preprocess import images as timages
 from drin_tpu_torch.preprocess import prepare as tprepare
 from drin_tpu_torch.preprocess import stages as tstages
 from test_preprocess import wd_raw  # noqa: F401  (the JAX suite's WikiDiverse raw corpus)
+from test_frcnn import TINY as JTINY, _fabricate_torchvision_sd
 from test_torch_encoders import _randomized
 
 F32 = dict(rtol=2e-4, atol=1e-5)  # the parity tests' convention (test_torch_checkpoints)
@@ -466,13 +471,131 @@ def test_stub_detector_warns_and_matches_jax(wd_stores, capsys):
             np.testing.assert_array_equal(a, b)
 
 
-def test_detector_checkpoint_refused_by_name(wd_stores):
+def test_detector_checkpoint_refused_by_name(wd_stores, tmp_path):
+    """A detector checkpoint that is missing, or that is not the
+    architecture ``drin_object_detector`` names, is refused naming it, by
+    ``make_detector`` and by the stage that builds one."""
     kw, _, _ = wd_stores
-    cfg = make_config("drin", **dict(kw, detector_checkpoint="/ckpt/frcnn.pt"))
-    with pytest.raises(NotImplementedError, match="detector_checkpoint.*ROADMAP: item 8"):
-        tdetector.make_detector(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    cfg = make_config("drin", **dict(kw, detector_checkpoint=str(tmp_path / "frcnn.pt")))
+    with pytest.raises(FileNotFoundError, match="frcnn.pt"):
+        tdetector.make_detector(cfg, device="cpu")
+    with pytest.raises(FileNotFoundError, match="frcnn.pt"):
         tstages.ResnetStage(cfg, device="cpu")
+    path = _detector_checkpoint(tmp_path)
+    cfg = make_config("drin", **dict(kw, detector_checkpoint=path,
+                                     drin_object_detector="mask_rcnn"))
+    with pytest.raises(ValueError, match="mask_rcnn.*no roi_heads.mask"):
+        tdetector.make_detector(cfg, device="cpu")
+
+
+def _detector_checkpoint(d, name="frcnn.pt"):
+    """The JAX suite's fabricated torchvision Faster R-CNN state dict at its
+    TINY widths (the 0.13 key layout), saved as a file."""
+    path = d / name
+    if not path.exists():
+        sd = _fabricate_torchvision_sd(JTINY, new_style=True)
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    return str(path)
+
+
+def _port_tiny():
+    from drin_tpu_torch.encoders.frcnn import FRCNNConfig
+
+    return FRCNNConfig(**{k: getattr(JTINY, k) for k in (
+        "depths", "stem_width", "fpn_channels", "anchor_sizes", "pre_nms_topk",
+        "post_nms_topk", "detections_per_img", "num_classes", "representation_size",
+        "min_size")})
+
+
+def test_make_detector_builds_the_port_frcnn(wd_stores, tmp_path):
+    """With a checkpoint, ``make_detector`` builds ``FRCNNDetector`` on the
+    stage's device, with no stub warning; its boxes and scores equal the JAX
+    package's ``FRCNNDetector`` on the same images (k under and over the
+    detections kept, so the default_box / 0 padding is held too)."""
+    kw, _, _ = wd_stores
+    kw = dict(kw, detector_checkpoint=_detector_checkpoint(tmp_path))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no stub warning
+        det = tdetector.make_detector(make_config("drin", **kw), frcnn_cfg=_port_tiny(),
+                                      device="cpu")
+    assert isinstance(det, tdetector.FRCNNDetector) and det.device.type == "cpu"
+    theirs = jdetector.make_detector(jmake_config("drin", **kw), frcnn_cfg=JTINY)
+    # 11 images: two forwards (8 + 3) through the port's detector
+    images = np.random.default_rng(8).uniform(0, 1, (11, 48, 40, 3)).astype(np.float32)
+    for k in (2, JTINY.detections_per_img + 2):
+        (b, s), (jb, js) = det(images, k), theirs(images, k)
+        assert (s > 0).any()
+        if k > JTINY.detections_per_img:
+            assert (s[:, -1] == 0).all() and (b[:, -1] == det.cfg.default_box).all()
+        np.testing.assert_allclose(s, js, rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(b, jb, rtol=1e-3, atol=1e-3)
+
+
+def test_torch_detector_matches_jax_detector(wd_stores):
+    """``TorchDetector`` against ``JaxDetector`` over the same proposals:
+    the score threshold, NMS and the top-k padding."""
+    kw, _, _ = wd_stores
+    rng = np.random.default_rng(9)
+    xy = rng.uniform(0, 50, (3, 30, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 30, (3, 30, 2))], -1).astype(np.float32)
+    scores = rng.uniform(0, 0.3, (3, 30)).astype(np.float32)
+    ours = tdetector.TorchDetector(make_config("drin", **kw),
+                                   lambda im: (torch.from_numpy(boxes), torch.from_numpy(scores)))
+    theirs = jdetector.JaxDetector(jmake_config("drin", **kw), lambda im: (boxes, scores))
+    for k in (3, 40):
+        for a, b in zip(ours(None, k), theirs(None, k)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_resnet_stage_with_the_detector_equals_jax(wd_stores, tmp_path):
+    """Both packages' ResNet stages with ``make_detector(cfg, frcnn_cfg=TINY)``
+    over one written checkpoint write the same store: the object scores hold
+    detections, and the object features are the crops at those boxes."""
+    kw, _, _ = wd_stores
+    kw = dict(kw, detector_checkpoint=_detector_checkpoint(tmp_path))
+    cfg, jcfg = _cfg(kw, tmp_path / "port"), jmake_config("drin", **dict(
+        kw, preprocess_dir=str(tmp_path / "jax")))
+    tprepare.run_prepare(cfg)
+    jprepare.run_prepare(jcfg)
+    tstages.ResnetStage(cfg, device="cpu", detector=tdetector.make_detector(
+        cfg, frcnn_cfg=_port_tiny(), device="cpu")).run()
+    jstages.ResnetStage(jcfg, detector=jdetector.make_detector(jcfg, frcnn_cfg=JTINY)).run()
+    names = _same_store(jcfg.preprocess_dir, cfg.preprocess_dir)
+    scores = np.load(os.path.join(cfg.preprocess_dir, "mention-object-score_test.npy"))
+    assert "entity-object-feature_train.npy" in names and (scores > 0).all()
+
+
+def test_resnet_cli_with_detector_checkpoint_equals_jax(wm_stores, tmp_path, monkeypatch):
+    """``python -m drin_tpu_torch.preprocess resnet ... detector_checkpoint=``
+    builds ``FRCNNDetector`` from the checkpoint and writes the object files
+    the JAX package's stage writes with the same detector.  The CLI's
+    detector is ``FRCNNConfig()``, as the JAX package's is, so a TINY file is
+    refused by the CLI as it is; with ``make_detector`` handed TINY's widths
+    the CLI runs at TINY."""
+    kw, _, _ = wm_stores
+    kw = dict(kw, detector_checkpoint=_detector_checkpoint(tmp_path))
+    tdir, jdir = tmp_path / "port", tmp_path / "jax"
+    tcli.main(["prepare"] + _argv(dict(kw, preprocess_dir=str(tdir))))
+    argv = ["resnet"] + _argv(dict(kw, preprocess_dir=str(tdir))) + ["device=cpu"]
+    with pytest.raises(KeyError, match="layer1.1.conv1.weight"):
+        tcli.main(argv)
+    built, make = [], tdetector.make_detector
+
+    def tiny_detector(cfg, frcnn_cfg=None, device="cuda"):
+        assert frcnn_cfg is None and cfg.detector_checkpoint == kw["detector_checkpoint"]
+        built.append(make(cfg, _port_tiny(), device))
+        return built[-1]
+
+    monkeypatch.setattr(tdetector, "make_detector", tiny_detector)
+    ran = tcli.main(argv)
+    assert [type(d) for d in built] == [tdetector.FRCNNDetector] and built[0].device.type == "cpu"
+    assert ran["resnet"].clock.detected and ran["resnet"].clock.seconds["detector"] > 0
+    jcfg = jmake_config("drin", **dict(kw, preprocess_dir=str(jdir)))
+    jprepare.run_prepare(jcfg)
+    jstages.ResnetStage(jcfg, detector=jdetector.make_detector(jcfg, frcnn_cfg=JTINY)).run()
+    _same_store(str(jdir), str(tdir))
+    scores = np.load(tdir / "entity-object-score_all.npy")
+    assert (scores > 0).any()
 
 
 @pytest.mark.parametrize("name", ["bert", "resnet", "clip"])
