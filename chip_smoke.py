@@ -344,6 +344,25 @@ def device_ms(fn, reps: int = 10) -> float:
     return sum(kernel_device_ms(torch, fn, reps).values())
 
 
+def kernel_launches(torch, fn) -> dict:
+    """The CUDA kernels one call of ``fn`` launches, by name: {name: count},
+    from torch.profiler (a window that saw no device activity is taken
+    again, up to three times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if got:
+            return got
+    raise RuntimeError("torch.profiler saw no device activity in three windows")
+
+
 def host_ms(fn, reps: int = 10) -> float:
     """Median wall time of ``fn`` (which ends in a host copy), in ms."""
     fn()
@@ -398,11 +417,16 @@ GATHER_LAYOUTS = {"drin": ((1536, 2), (2048, 1), (2048, 1)), "ghmfc_text": ((153
 
 def phase_gather(torch, gather):
     """Kernel 2 against gather_dequant_plain, both on the card, at each
-    packed layout of GATHER_LAYOUTS; the DRIN layout's numbers lead."""
+    packed layout of GATHER_LAYOUTS, on int32 rows and on an int64 copy with
+    values beyond int32 (the kernel wraps and clamps them itself); one call
+    must launch one kernel, the gather; the DRIN layout's numbers lead."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = torch.randint(0, N_ENTITIES, (64, 101), generator=g, device="cuda", dtype=torch.int32)
     rows[0, :4] = torch.tensor([-1, -N_ENTITIES, N_ENTITIES, N_ENTITIES + 99], dtype=torch.int32)
     rows[1, :2] = torch.tensor([-5 * N_ENTITIES, 2**31 - 1], dtype=torch.int32)
+    rows64 = rows.long()
+    rows64[2, :6] = torch.tensor([2**40, -2**40, -N_ENTITIES - 1, 2**31, -2**31 - 1, -2**63],
+                                 dtype=torch.int64)
     results = {}
     for name, chunks in GATHER_LAYOUTS.items():
         _, m_data, m = gather._slot_subrows(chunks)
@@ -411,14 +435,15 @@ def phase_gather(torch, gather):
         scales = torch.rand((N_ENTITIES, m), generator=g, device="cuda") * 0.05 + 1e-3
         err = 0.0
         for dt in (torch.bfloat16, torch.float32):
-            got = gather.gather_dequant(table, scales, rows, chunks, dt)
-            want = gather.gather_dequant_plain(table, scales, rows, chunks, dt)
-            torch.cuda.synchronize()
-            assert len(got) == len(want) == len(chunks)
-            for a, b, (w, _) in zip(got, want, chunks):
-                assert a.shape == b.shape == (64, 101, w), (name, a.shape, b.shape)
-                assert torch.equal(a, b), f"gather_dequant {name} {dt}: kernel != plain"
-                err = max(err, (a.float() - b.float()).abs().max().item())
+            for r in (rows, rows64):
+                got = gather.gather_dequant(table, scales, r, chunks, dt)
+                want = gather.gather_dequant_plain(table, scales, r, chunks, dt)
+                torch.cuda.synchronize()
+                assert len(got) == len(want) == len(chunks)
+                for a, b, (w, _) in zip(got, want, chunks):
+                    assert a.shape == b.shape == (64, 101, w), (name, a.shape, b.shape)
+                    assert torch.equal(a, b), f"gather_dequant {name} {dt} {r.dtype}: kernel != plain"
+                    err = max(err, (a.float() - b.float()).abs().max().item())
         empty = gather.gather_dequant(table, scales, rows[:, :0], chunks, torch.bfloat16)
         assert [tuple(e.shape) for e in empty] == [(64, 0, w) for w, _ in chunks]
         try:
@@ -426,9 +451,19 @@ def phase_gather(torch, gather):
             raise AssertionError("float rows were accepted")
         except TypeError:
             pass
+        # one call, one kernel: the indices are checked inside it
+        for r in (rows, rows64):
+            seen = kernel_launches(torch, lambda: gather.gather_dequant(table, scales, r, chunks,
+                                                                        torch.bfloat16))
+            assert len(seen) == 1 and "gather_dequant_kernel" in next(iter(seen)) and \
+                sum(seen.values()) == 1, f"a gather call on {r.dtype} rows launched {seen}"
         call = lambda: gather.gather_dequant(table, scales, rows, chunks, torch.bfloat16)
         ms = cuda_ms(call)
         dev_ms = device_ms(call)
+        call64 = lambda: gather.gather_dequant(table, scales, rows64, chunks, torch.bfloat16)
+        ms64, dev_ms64 = cuda_ms(call64), device_ms(call64)
+        call32 = lambda: gather.gather_dequant(table, scales, rows, chunks, torch.float32)
+        ms_f32, dev_ms_f32 = cuda_ms(call32), device_ms(call32)
         plain_ms = cuda_ms(lambda: gather.gather_dequant_plain(table, scales, rows, chunks,
                                                                torch.bfloat16))
         # bytes this run's rows need: each gathered row's data sub-rows (the
@@ -439,11 +474,15 @@ def phase_gather(torch, gather):
         moved = rows.numel() * (m_data * 128 + m_data * 4 + 4) + nbytes(*out)
         bound_ms, bound_by = bound(moved, sum(o.numel() for o in out))
         print(f"[gather_dequant] {name} chunks={chunks} m={m} ({m_data} data sub-rows), "
-              f"N={N_ENTITIES} rows=[64,101]: bit-equal to plain (bf16, f32, bad indices, R=0); "
-              f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB)")
+              f"N={N_ENTITIES} rows=[64,101]: bit-equal to plain (bf16, f32, int32 and int64 rows, "
+              f"bad indices, R=0), one kernel a call; kernel {ms:.4f} ms (device {dev_ms:.4f}; "
+              f"int64 rows {ms64:.4f}, device {dev_ms64:.4f}; f32 out {ms_f32:.4f}, device "
+              f"{dev_ms_f32:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {moved / 1e6:.1f} MB)")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms}
+                         "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms,
+                         "int64_rows": {"ms": ms64, "device_ms": dev_ms64},
+                         "f32_out": {"ms": ms_f32, "device_ms": dev_ms_f32}}
         del table, scales, out
     return dict(results["drin"], layouts=results)
 
@@ -3329,7 +3368,12 @@ def _nms_edge_cases(torch, seed: int):
                       torch.stack([x, 0 * x, x + 2, 0 * x + 1], -1)], 1).reshape(1, 1000, 4)
     at_s = torch.linspace(1, 0, 1000, device="cuda")[None]
     ties = torch.floor(torch.rand((4, 1000), generator=g, device="cuda") * 4) / 4
+    # more boxes than a block stages in shared memory: columns read from L2
+    xy = torch.rand((2, 12000, 2), generator=g, device="cuda") * 3000
+    big = torch.cat([xy, xy + 20 + torch.rand((2, 12000, 2), generator=g, device="cuda") * 200], -1)
+    big_s = torch.randn((2, 12000), generator=g, device="cuda")
     return [("no score above -inf", b, torch.full_like(s, float("-inf")), 0.7, 1000),
+            ("12,000 boxes, past the staged size", big, big_s, 0.5, 300),
             ("every box equal", same, s, 0.5, 100),
             ("IoU exactly at the threshold", at, at_s, 0.5, 1000),
             ("equal scores (4 values)", b, ties, 0.7, 1000),
@@ -3363,6 +3407,12 @@ def _nms_iou_evals(torch, keep, boxes, scores, thr, top_k) -> int:
     return total
 
 
+# the most device memory one NMS call at the stage's class problems [64, 4096]
+# may add: the sort's keys and indices (2.1 MB) and the output; the bitmask
+# scratch of the first kernel took 134 MB there
+NMS_MEM_RISE_MB = 16
+
+
 def phase_nms(torch, np, nms_mod):
     """The NMS kernel against nms_plain on the same CUDA tensors: the RPN's
     problems (64 images x 5 levels, N = 1000, top_k 1000, P6's 507 padded
@@ -3373,7 +3423,9 @@ def phase_nms(torch, np, nms_mod):
     (a kernel equal to nms_plain where the two differ cannot hold `>=`) and
     the kernel's walk fed a sort that breaks ties toward the higher index
     (what an unstable sort may give).  Times by CUDA events and device time
-    beside the bound."""
+    by kernel (the sort, the NMS kernel) beside the bound; one NMS kernel a
+    call, and the call's rise in device memory (no scratch: at most
+    NMS_MEM_RISE_MB at the stage's class problems)."""
     from drin_tpu_torch.ops.detection import nms_plain
 
     cases = []
@@ -3413,12 +3465,25 @@ def phase_nms(torch, np, nms_mod):
         results[name] = (boxes, scores, thr, k, want)
 
     # times at the main path's shapes (a detector forward of 8 images) and at
-    # the stage's 64 images; the lead numbers are the forward's RPN call
+    # the stage's 64 images; the lead numbers are the forward's RPN call.  A
+    # call is the stable sort and one NMS kernel, with no scratch: its rise
+    # in device memory over what it holds before is the sort's and the output
     times = {}
     for name in ("rpn [8x5, 1000] top 1000 (a forward)", "class [8, 4096] top 100 (a forward)",
                  "rpn [64x5, 1000] top 1000", "class [64, 4096] top 100"):
         boxes, scores, thr, k, want = results[name]
         call = lambda: nms_mod.nms_cuda(boxes, scores, thr, k)
+        seen = kernel_launches(torch, call)
+        nms_kernels = {k_: c for k_, c in seen.items() if "nms_kernel" in k_}
+        assert len(nms_kernels) == 1 and sum(nms_kernels.values()) == 1, seen
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        rise_mb = (torch.cuda.max_memory_allocated() - before) / 2**20
+        if name.startswith("class [64"):
+            assert rise_mb <= NMS_MEM_RISE_MB, f"nms at {name} took {rise_mb:.2f} MB more"
         ms = cuda_ms(call)
         by_kernel = kernel_device_ms(torch, call)
         plain_ms = cuda_ms(lambda: nms_plain(boxes, scores, thr, k), reps=3, warmup=1)
@@ -3426,12 +3491,15 @@ def phase_nms(torch, np, nms_mod):
         flops = 14 * _nms_iou_evals(torch, want, boxes, scores, thr, k)  # ~14 FLOP an IoU
         bound_ms, bound_by = bound(moved, flops, "float32")
         dev = sum(by_kernel.values())
-        split = {k_[:40]: round(v, 4) for k_, v in by_kernel.items()}
+        split = {_kernel_name(k_)[:48]: round(v, 4) for k_, v in by_kernel.items()}
         print(f"[nms] {name}: kernel {ms:.4f} ms (device {dev:.4f}: {split}), plain {plain_ms:.3f} "
               f"ms; bound {bound_ms:.5f} ms ({bound_by}: {moved / 1e6:.2f} MB, "
-              f"{flops / 1e9:.3f} GFLOP); no single PyTorch call computes greedy NMS")
+              f"{flops / 1e9:.3f} GFLOP); memory rise {rise_mb:.2f} MB; kernels a call "
+              f"{ {_kernel_name(k_)[:48]: c for k_, c in seen.items()} }; "
+              f"no single PyTorch call computes greedy NMS")
         times[name] = {"ms": ms, "device_ms": dev, "device_ms_by_kernel": by_kernel,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "mem_rise_mb": rise_mb, "kernels_a_call": seen}
     lead = times["rpn [8x5, 1000] top 1000 (a forward)"]
     return {"max_abs_err": 0, "ms": lead["ms"], "device_ms": lead["device_ms"],
             "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],

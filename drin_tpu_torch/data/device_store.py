@@ -17,7 +17,9 @@ GHMFC the text table alone.  Three layouts:
     layout, read through the gather+dequant kernel (``ops/cuda/gather.py``).
 
 Row indices follow the JAX package's indexing semantics in every layout:
-negatives wrap once, the rest clamp (``ops.cuda.gather.sanitize_rows``).
+negatives wrap once, the rest clamp (``ops.cuda.gather.sanitize_rows``).  A
+fused store hands the rows to the kernel as they come (it checks them
+itself) and checks them once more only for the tables it indexes in torch.
 The row-sharded store is on the ROADMAP (multi-device).
 """
 
@@ -222,6 +224,7 @@ class DeviceEntityStore:
 
             def feats_fn(feats):
                 (mtf, mtm, sp, ep, mif, mof, mos, rows, miet, mtei) = feats
+                # the kernel checks the raw rows; obj_score is indexed in torch
                 tf, imf, of = gather_dequant(self.packed, self.packed_scales, rows, chunks, dt)
                 shape = tuple(rows.shape)
                 eos = self.obj_score[sanitize_rows(rows, n)].reshape(

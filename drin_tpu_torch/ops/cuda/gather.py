@@ -5,11 +5,13 @@
 Kernel: ``csrc/gather_dequant.cu``, CUDA C++ for ``sm_90a``.  It replaces
 the TPU kernel ``gather_dequant`` (``_kernel``, ``gather.py:78``).  What
 bounds it on the H100 is bytes: at B=64, C=101 and the WikiMEL widths it
-reads about 36 MB of int8 and writes about 73 MB of bf16.  One warp gathers
-one requested row with 16-byte vector loads, multiplies each 128-lane
-sub-row by its scale and writes each chunk's row contiguously in the output
-type; the slab's pad sub-rows are never read and nothing intermediate is
-written.
+reads about 36 MB of int8 and writes about 73 MB of bf16.  A persistent grid
+streams each requested row's data sub-rows and scales into a ring in shared
+memory with bulk copies, dequantizes them there and writes each chunk's row
+contiguously in the output type; the slab's pad sub-rows are never read and
+nothing intermediate is written.  The kernel checks the row indices itself
+(int32 or int64, as they come), so one call is one launch into one output
+buffer (:func:`out_plan`).
 
 The packed table keeps the JAX package's byte layout (``[N, m, 128]`` int8,
 ``m`` padded to a multiple of 8, per-sub-row f32 scales ``[N, m]``), so a
@@ -24,6 +26,7 @@ on the CPU; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -116,16 +119,49 @@ def gather_dequant_plain(table, scales, rows, chunks, out_dtype):
                  for (lo, hi), (w, _) in zip(spans, chunks))
 
 
+def out_plan(R: int, chunks):
+    """The one output buffer of a call: ``(numel, views)``, ``views[k] =
+    (offset, width)`` in elements, chunk k's ``[R, width]`` block at
+    ``offset``.  The blocks follow one another in chunk order, so chunk k
+    starts at ``R * 128 * lo_k`` (its first sub-row): a multiple of 128
+    elements, 256 bytes in bf16 and 512 in float32."""
+    views, offset = [], 0
+    for width, _ in chunks:
+        views.append((offset, width))
+        offset += R * width
+    return offset, tuple(views)
+
+
+def out_views(buf, shape, chunks) -> tuple:
+    """Chunk k's output ``shape + (width_k,)``, a contiguous view of the
+    buffer ``buf`` that :func:`out_plan` sized for ``R = prod(shape)`` rows."""
+    R = int(np.prod(shape, dtype=np.int64))
+    return tuple(buf[o:o + R * w].view(tuple(shape) + (w,)) for o, w in out_plan(R, chunks)[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_args(chunks) -> tuple:
+    """The kernel's layout arguments for ``chunks``, built once a layout:
+    ``(m, n_chunks, lo0, hi0, ..., lo3, hi3)``."""
+    spans, _, m = _slot_subrows(chunks)
+    spans = tuple(spans) + ((0, 0),) * (MAX_CHUNKS - len(spans))
+    return (m, len(chunks)) + tuple(x for span in spans for x in span)
+
+
 def gather_dequant(table, scales, rows, chunks, out_dtype):
     """Gather ``rows`` (any shape) out of the packed int8 ``table`` and
     dequantize: returns one ``rows.shape + (width,)`` tensor per chunk,
     bit-equal to :func:`gather_dequant_plain`.  Negative indices wrap once,
     the rest clamp; R=0 gives empty outputs; non-integer rows raise
-    ``TypeError``."""
+    ``TypeError``.  On the card the kernel checks the indices itself: int32
+    and int64 rows go in as they are (other integer types as int64), and the
+    outputs are views of one buffer."""
     global launches
     if not table.is_cuda:
         return gather_dequant_plain(table, scales, rows, chunks, out_dtype)
-    chunks, spans, m = _check(table, scales, chunks)
+    chunks = _check(table, scales, chunks)[0]
+    if rows.dtype not in _INT_DTYPES:
+        raise TypeError(f"gather rows must be integer, got {rows.dtype}")
     if not (scales.is_cuda and scales.device == table.device):
         raise ValueError("scales must be on the table's CUDA device")
     if out_dtype not in _DTYPE_CODE:
@@ -134,22 +170,29 @@ def gather_dequant(table, scales, rows, chunks, out_dtype):
         raise ValueError(f"at most {MAX_CHUNKS} chunks, got {len(chunks)}")
     if not (table.is_contiguous() and scales.is_contiguous()):
         raise ValueError("table and scales must be contiguous")
-    N = table.shape[0]
+    if table.data_ptr() % 16 or scales.data_ptr() % 16:
+        raise ValueError("table and scales must be 16-byte aligned (the kernel's bulk copies)")
     shape = tuple(rows.shape)
-    flat = sanitize_rows(rows.to(table.device), N).to(torch.int32)
+    flat = rows.to(table.device).reshape(-1)
+    if flat.dtype not in (torch.int32, torch.int64):
+        flat = flat.to(torch.int64)
+    flat = flat.contiguous()
     R = flat.numel()
-    outs = [torch.empty((R, w), dtype=out_dtype, device=table.device) for w, _ in chunks]
+    if R > 2**31 - 1:
+        raise ValueError(f"gather_dequant takes at most 2**31 - 1 rows a call, got {R}")
+    buf = torch.empty(out_plan(R, chunks)[0], dtype=out_dtype, device=table.device)
     if R:
         from drin_tpu_torch.ops.cuda import _build
 
+        if buf.data_ptr() % 16:
+            raise ValueError("the output buffer must be 16-byte aligned")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib, fn = _build.entry("gather_dequant", "drin_gather_dequant",
-                               [P, P, P, I, I, I, I] + [I, I, P] * MAX_CHUNKS + [P])
-        pad = [(0, 0, None)] * (MAX_CHUNKS - len(chunks))
-        spec = [(lo, hi, o.data_ptr()) for (lo, hi), o in zip(spans, outs)] + pad
-        status = fn(table.data_ptr(), scales.data_ptr(), flat.data_ptr(), R, m,
-                    _DTYPE_CODE[out_dtype], len(chunks),
-                    *[x for s in spec for x in s], _build.stream_of(table))
+                               [P, P, P, I, ctypes.c_longlong, I]
+                               + [I] * (3 + 2 * MAX_CHUNKS) + [P, P])
+        status = fn(table.data_ptr(), scales.data_ptr(), flat.data_ptr(),
+                    int(flat.dtype == torch.int64), table.shape[0], R, _DTYPE_CODE[out_dtype],
+                    *_layout_args(chunks), buf.data_ptr(), _build.stream_of(table))
         _build.check(status, lib, "gather_dequant launch")
         launches += 1
-    return tuple(o.reshape(shape + (w,)) for o, (w, _) in zip(outs, chunks))
+    return out_views(buf, shape, chunks)

@@ -6,9 +6,10 @@ counterpart of a Pallas kernel: ``drin_tpu/ops/detection.py:29`` ``nms`` is a
 ``lax.fori_loop`` inside one compiled program, which eager PyTorch does not
 have, so the loop is a kernel here (``csrc/nms.cu`` says why and how).  The
 wrapper sorts each problem's scores with a stable sort (ties: the lower
-index first, as ``jnp.argmax`` picks), then one launch writes the
-suppression bitmask and one walks it, a warp per problem.  Its picks equal
-``ops.detection.nms_plain``'s index for index.
+index first, as ``jnp.argmax`` picks), then one launch does the whole greedy
+pass, a block a problem, with its state in shared memory and no scratch in
+device memory.  Its picks equal ``ops.detection.nms_plain``'s index for
+index.
 
 :func:`nms_cuda` takes CUDA tensors only; ``ops.detection.nms`` sends CPU
 tensors to ``nms_plain``.
@@ -20,7 +21,10 @@ import ctypes
 
 import torch
 
-launches = 0  # kernel launches (the mask and the walk of one call count once)
+launches = 0  # kernel launches (CUDA path only)
+# the most boxes a problem may hold: its removed bitmask, a bit a box, lives in
+# 200 KB of shared memory (csrc/nms.cu, kSmemBudget)
+MAX_BOXES = 200 * 1024 * 8
 
 
 def _problems(boxes: torch.Tensor, scores: torch.Tensor):
@@ -47,17 +51,17 @@ def _launch(fn, lib, boxes, sorted_scores, order, iou_threshold, top_k) -> torch
     from drin_tpu_torch.ops.cuda import _build
 
     P, n = sorted_scores.shape
-    if P > 65535:
-        raise ValueError(f"nms_cuda takes at most 65535 problems a call, got {P}")
+    if P > 2**31 - 1:
+        raise ValueError(f"nms_cuda takes at most 2**31 - 1 problems a call, got {P}")
+    if n > MAX_BOXES:
+        raise ValueError(f"nms_cuda takes at most {MAX_BOXES} boxes a problem, got {n}")
     out = torch.empty((P, top_k), dtype=torch.int64, device=boxes.device)
     if P == 0 or top_k == 0:
         return out
     if n == 0:
         return out.fill_(-1)
-    words = -(-n // 64)
-    mask = torch.empty((P, n, words), dtype=torch.int64, device=boxes.device)
     status = fn(boxes.data_ptr(), sorted_scores.contiguous().data_ptr(),
-                order.contiguous().data_ptr(), mask.data_ptr(), out.data_ptr(), P, n, top_k,
+                order.contiguous().data_ptr(), out.data_ptr(), P, n, top_k,
                 float(iou_threshold), _build.stream_of(boxes))
     _build.check(status, lib, "nms launch")
     return out
@@ -68,7 +72,7 @@ def entry(name: str = "nms"):
     from drin_tpu_torch.ops.cuda import _build
 
     P, I = ctypes.c_void_p, ctypes.c_int
-    return _build.entry(name, "drin_nms", [P, P, P, P, P, I, I, I, ctypes.c_float, P])
+    return _build.entry(name, "drin_nms", [P, P, P, P, I, I, I, ctypes.c_float, P])
 
 
 def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,

@@ -36,7 +36,7 @@ def test_box_iou_matches_jax_and_is_symmetric():
     got = tdet.box_iou(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_allclose(got, np.asarray(jdet.box_iou(a, b)), **F32)
     sq = tdet.box_iou(torch.from_numpy(a), torch.from_numpy(a)).numpy()
-    np.testing.assert_array_equal(sq, sq.T)  # bit for bit: the kernel's mask rows rely on it
+    np.testing.assert_array_equal(sq, sq.T)  # bit for bit
     batched = tdet.box_iou(torch.from_numpy(np.stack([a[:20], b])), torch.from_numpy(np.stack([b, a[:20]])))
     np.testing.assert_array_equal(batched[1].numpy(), tdet.box_iou(torch.from_numpy(b), torch.from_numpy(a[:20])).numpy())
 

@@ -44,11 +44,21 @@ def test_layout_helpers_match_jax(packed):
     np.random.default_rng(1).integers(0, N, (5, 7)).astype(np.int32),
     np.array([[-1, 0, N - 1, N, N + 7, -2 * N, 3, 5]], np.int32),  # wrap once, clamp
     np.array([[2, -3], [N * 4, 1]], np.int64),
-], ids=["random", "out_of_range", "int64"])
+    np.array([[2**40, -2**40, -N - 1, 2**31], [-2**31 - 1, -2**63, N - 1, 7]], np.int64),
+], ids=["random", "out_of_range", "int64", "int64_beyond_int32"])
 def test_plain_bit_equal_to_interpret_kernel(packed, rows):
+    """The plain version against the JAX kernel in interpret mode.  Rows
+    beyond int32 (the CUDA kernel takes them as they come) do not survive
+    JAX's int32 indices: there the JAX kernel reads the rows as
+    ``sanitize_rows`` gives them, wrapped once and clamped in numpy."""
     qt, sc = packed
     table, scales = jgather.pack_quantized_tables(qt, sc)
-    want = jgather.gather_dequant(jnp.asarray(table), jnp.asarray(scales), jnp.asarray(rows),
+    jrows = rows
+    if np.abs(rows.astype(np.float64)).max() >= 2**31:
+        jrows = np.clip(np.where(rows < 0, rows + N, rows), 0, N - 1).astype(np.int32)
+        np.testing.assert_array_equal(tgather.sanitize_rows(torch.from_numpy(rows), N).numpy(),
+                                      jrows.reshape(-1))
+    want = jgather.gather_dequant(jnp.asarray(table), jnp.asarray(scales), jnp.asarray(jrows),
                                   CHUNKS, jnp.float32, interpret=True)
     got = tgather.gather_dequant(torch.from_numpy(table), torch.from_numpy(scales),
                                  torch.from_numpy(rows), CHUNKS, torch.float32)
@@ -58,10 +68,36 @@ def test_plain_bit_equal_to_interpret_kernel(packed, rows):
     # bf16: the same single rounding of the f32 product
     got16 = tgather.gather_dequant_plain(torch.from_numpy(table), torch.from_numpy(scales),
                                          torch.from_numpy(rows), CHUNKS, torch.bfloat16)
-    want16 = jgather.gather_dequant(jnp.asarray(table), jnp.asarray(scales), jnp.asarray(rows),
+    want16 = jgather.gather_dequant(jnp.asarray(table), jnp.asarray(scales), jnp.asarray(jrows),
                                     CHUNKS, jnp.bfloat16, interpret=True)
     for g, w in zip(got16, want16):
         np.testing.assert_array_equal(g.float().numpy(), np.asarray(w, np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunks", [CHUNKS, ((1536, 2), (2048, 1), (2048, 1)), ((1536, 2),)],
+                         ids=["tiny", "drin", "ghmfc_text"])
+def test_output_plan_is_one_buffer_of_aligned_chunk_views(chunks, dtype):
+    """The CUDA path's single output buffer: chunk k's view is contiguous,
+    ``rows.shape + (width,)``, starts R * 128 * lo_k elements in (where the
+    kernel writes it) at a 256-byte-aligned offset, and the views tile the
+    buffer; the kernel's layout arguments list m, the chunk count and the
+    sub-row spans."""
+    shape = (3, 7)
+    R = 21
+    numel, views = tgather.out_plan(R, chunks)
+    spans, m_data, m = tgather._slot_subrows(chunks)
+    assert numel == R * m_data * 128
+    buf = torch.empty(numel, dtype=dtype)
+    outs = tgather.out_views(buf, shape, chunks)
+    assert len(outs) == len(views) == len(chunks)
+    for o, (w, _), (lo, _hi), (offset, width) in zip(outs, chunks, spans, views):
+        assert o.is_contiguous() and tuple(o.shape) == shape + (w,) and width == w
+        assert o.storage_offset() == offset == R * 128 * lo
+        assert (o.data_ptr() - buf.data_ptr()) % 256 == 0
+    assert sum(o.numel() for o in outs) == numel
+    pad = ((0, 0),) * (tgather.MAX_CHUNKS - len(spans))
+    assert tgather._layout_args(chunks) == (m, len(chunks)) + sum(tuple(spans) + pad, ())
 
 
 def test_empty_rows_and_non_integer_rows(packed):
