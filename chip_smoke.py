@@ -60,7 +60,22 @@ Preprocessed, through ``python -m drin_tpu_torch.preprocess all``'s ``main``:
     under PyTorch's default TF32 settings as a user's process has them (the
     stages hold their encoders and the detector to full float32), then DRIN
     evaluated over that store through the training entry point (the
-    GCN-layer kernel).
+    GCN-layer kernel); then BertStage's encoder through the data-parallel
+    dispatch on [cuda:0, cuda:0] against the one-device stage (the attention
+    kernel in float32).
+
+Over several ranks (``drin_tpu_torch/parallel``), two processes sharing the
+one card over gloo, which stages CUDA tensors through the host (this checks
+the sharded code and measures its overhead; it does not scale):
+
+  * DRIN at the full WikiMEL width in float32 trained through the training
+    entry point by two ranks against one process, over a seeded store on
+    disk: the batch split over the data axis (the global batch's loss, the
+    gradients summed), then the token-level tables row-sharded over the
+    model axis (the GCN-layer kernel in every rank); before them, train
+    steps through Trainer with two planted faults that the checks must see;
+  * stage-1 retrieval with the table row-sharded: ``ShardedRetrieval`` in 4
+    shards on the card and the serve CLI's ``shard_retrieval=true``.
 
 It checks the answers against the port's float32 forward on the CPU, shows
 through the launch counters that each path ran its kernels (and that the
@@ -623,7 +638,8 @@ def phase_gcn(torch, gcn):
              (4, 11, 128, f32, "relu", "tanh", True),
              (3, 1, 128, f32, "sigmoid", "identity", False),
              (2, 64, 128, f32, "tanh", "relu", True),
-             (5, 65, 128, f32, "tanh", "identity", True)]
+             (5, 65, 128, f32, "tanh", "identity", True),
+             (32, 101, 768, f32, "gelu", "sigmoid", True)]  # a rank's rows in train_dp
     result = {}
     for i, (B, C, D, dt, vact, eact, dyn) in enumerate(cases):
         vertexes, edges, weights = _gcn_inputs(torch, B, C, D, dt, SEED + i)
@@ -3932,7 +3948,7 @@ def _shape_of(spec: str, dims: dict) -> tuple:
     return tuple(out)
 
 
-def phase_preprocess(torch, np, attn, gcn, nms_mod):
+def phase_preprocess(torch, np, attn, gcn, nms_mod, tmp=None):
     """The offline preprocessing pipeline on the card at make_config("drin",
     "wikimel")'s widths, through its entry point: ``python -m
     drin_tpu_torch.preprocess all ... device=cuda`` (``__main__.main``) over
@@ -3941,7 +3957,9 @@ def phase_preprocess(torch, np, attn, gcn, nms_mod):
     checkpoints, then ``drin_tpu_torch.train.cli.main`` evaluating DRIN
     (test_only) over the store it wrote.  Kernel 3 runs in float32 in
     BertStage's buckets of 256 and more, the NMS kernel in the detector
-    (two launches a forward of 8 images), kernel 1 in the eval."""
+    (two launches a forward of 8 images), kernel 1 in the eval.  Written
+    into ``tmp`` when given (the caller removes it), else a temporary
+    directory."""
     import tempfile
 
     import PIL
@@ -3958,7 +3976,7 @@ def phase_preprocess(torch, np, attn, gcn, nms_mod):
 
     print(f"[preprocess] image decode: Pillow {PIL.__version__} on the card (real JPEG files)")
     counts = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with (tempfile.TemporaryDirectory() if tmp is None else contextlib.nullcontext(tmp)) as tmp:
         raw, store, enc = (os.path.join(tmp, s) for s in ("raw", "store", "encoders"))
         os.makedirs(enc)
         t0 = time.perf_counter()
@@ -4286,7 +4304,8 @@ def phase_preprocess(torch, np, attn, gcn, nms_mod):
                "bound_by": bound_by, "fma_bound_ms": fma_ms}
         del q, k, v, mask, got, want_t, ran, bert, resnet, clip, det
         torch.cuda.empty_cache()
-    return counts, {"errors": errs, "f32": f32, "preprocess_s": pre_wall, "eval_s": eval_wall}
+    return counts, {"errors": errs, "f32": f32, "preprocess_s": pre_wall, "eval_s": eval_wall,
+                    "cfg": cfg}
 
 
 @contextlib.contextmanager
@@ -4299,6 +4318,567 @@ def _cudnn_tf32(torch):
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+# ---------------------------------------------------------------------------
+# several ranks: two processes share the one card over gloo (CUDA tensors
+# staged through the host).  That holds the sharded code against one process
+# and measures its overhead; it says nothing of scaling.
+
+DP_MENTIONS = {"train": 4 * 64 + 13, "valid": 64 + 7, "test": 64 + 9}  # ragged tails
+DP_ENTITIES = 4096  # WikiMEL has ~109k; cut for the store's set-up time
+DP_TIMEOUT = 600  # seconds a rank may take; every wait in the workers is bounded too
+# two ranks against one process, one fit epoch at B=64 from the same weights:
+# the loss of every epoch (relative) and every parameter tensor after it
+# (relative L2).  The ranks split each batch, so cuBLAS sees [32, ...] where
+# one process sees [64, ...] and may sum in another order; Adam turns such
+# last-bit differences of near-zero gradients into steps of ~lr.  The planted
+# faults (the local in-batch loss, and a step without the gradient sum) are
+# held to the same limits after two steps and must exceed them.  First
+# readings (NVIDIA H100 80GB HBM3, 700 W): losses 2.2e-6, parameters
+# 3.2e-5 (two steps) and 1.9e-7 / 1.1e-5 (the epoch); the faults 1.8e-4 /
+# 0.16 (local loss) and 0.55 / 1.0 (no gradient sum).  Limits ~10x the
+# readings
+DP_LOSS_RTOL = 2e-5
+DP_PARAM_REL = 3e-4
+# accuracies: a near-tie may flip one mention's rank
+DP_ACC_MENTIONS = 2
+# the steps' triplet margin.  At random weights every DRIN cosine lies within
+# ~0.03 of 1 (the first run on the card), under the configured margin of 0.25:
+# then every hinge is active, the loss is linear in the scores, and a rank's
+# loss over its own rows with its own negatives averages to the global loss
+# exactly, gradients too, so the local-loss fault cannot show.  A margin
+# inside the scores' spread cuts the hinge, and the other ranks' negatives
+# count; the steps of one process and of two ranks both run at it
+DP_STEP_MARGIN = 0.01
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_argv(spec: dict, run: str, rank: int) -> list:
+    """The training entry point's arguments of one run: ``dp`` (pooled
+    tables, the batch split over the data axis) or ``rows`` (token-level
+    tables, row-sharded over the model axis; one process gathers them on
+    the host)."""
+    world = spec["world"]
+    args = dict(model_type="drin", dataset_name="wikimel", preprocess_dir=spec["store"],
+                dataset_root="unused", batch_size=64, num_epoch=1, test_epoch_interval=1,
+                transformer_dropout=0.0, seed=SEED, enable_checkpointing="true",
+                checkpoint_dir=os.path.join(spec["out"], f"ckpt-{run}"), device="cuda")
+    if run == "rows":
+        args["cache_entity_pooling"] = "false"
+    if world > 1:
+        args.update(num_processes=world, process_id=rank, coordinator_address=spec["coordinator"],
+                    dist_backend="gloo", mesh_data=world if run == "dp" else 1,
+                    mesh_model=world if run == "rows" else 1)
+    return [f"{k}={v}" for k, v in args.items()]
+
+
+@contextlib.contextmanager
+def _dp_fault(mode: str, nd: int):
+    """A planted fault of the data-parallel step, for the block: ``local_loss``
+    (each rank's loss over its own rows with its own rows' negatives, the
+    summed gradients over the data width) or ``no_allreduce`` (each rank
+    steps on its own rows' gradient)."""
+    from drin_tpu_torch.parallel import collectives
+    from drin_tpu_torch.train import loss as L
+    from drin_tpu_torch.train import trainer as T
+
+    saved = T.triplet_loss, collectives.sum_grads_
+    if mode == "local_loss":
+        def local(y_true, y_pred, margin, valid=None, rows=None):
+            if rows is None:
+                return L.triplet_loss(y_true, y_pred, margin, valid)
+            lo, hi = rows
+            return L.triplet_loss(y_true[lo:hi], y_pred[lo:hi], margin, valid[lo:hi]) / nd
+
+        T.triplet_loss = local
+    elif mode == "no_allreduce":
+        collectives.sum_grads_ = lambda params, group, extra, divide=1: extra
+    try:
+        yield
+    finally:
+        T.triplet_loss, collectives.sum_grads_ = saved
+
+
+@contextlib.contextmanager
+def _timed_collectives(torch, into: dict):
+    """Every all_reduce / all_gather in the block timed on the host clock
+    between two synchronises (gloo stages CUDA tensors through the host)."""
+    import torch.distributed as dist
+
+    saved = dist.all_reduce, dist.all_gather
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into[name] = into.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+            into[name + "_calls"] = into.get(name + "_calls", 0) + 1
+            return out
+        return call
+
+    dist.all_reduce, dist.all_gather = timed("all_reduce", saved[0]), timed("all_gather", saved[1])
+    try:
+        yield into
+    finally:
+        dist.all_reduce, dist.all_gather = saved
+
+
+def _dp_steps(torch, np, spec: dict, world: int, mesh) -> dict:
+    """Train steps through Trainer / build_step_fns from seeded weights on the
+    train split's first global batches, at the margin DP_STEP_MARGIN: the
+    parameters after two steps (the main rank writes them) with each planted
+    fault (two ranks) and without; then the step's host clock and, in one
+    more step, its collectives."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.dataset import create_datasets
+    from drin_tpu_torch.data.device_store import DeviceEntityStore
+    from drin_tpu_torch.models.drin import DRIN
+    from drin_tpu_torch.train import metrics as M
+    from drin_tpu_torch.train.trainer import Trainer
+
+    cfg = make_config("drin", "wikimel", preprocess_dir=spec["store"], batch_size=64,
+                      transformer_dropout=0.0, seed=SEED, triplet_margin=DP_STEP_MARGIN)
+    train = create_datasets(cfg)[0]
+    store = DeviceEntityStore(cfg, train.tables, device="cuda")
+    ones = np.ones((64,), np.float32)
+    out = {}
+    for mode in ("ok",) + (("local_loss", "no_allreduce") if world > 1 else ()):
+        model = DRIN(cfg, generator=torch.Generator().manual_seed(SEED))
+        with _dp_fault(mode, world):
+            tr = Trainer(cfg, model, device="cuda", feats_fn=store.drin_feats_fn(), mesh=mesh,
+                         log=lambda *a: None)
+            mstate = M.init_state(cfg.metrics_topk, "cuda")
+            losses, times, coll = [], [], {}
+            for step in range(5 if mode == "ok" else 2):
+                batch, valid = tr._assemble(train, "drin_rows", np.arange(64) + 64 * (step % 4), ones)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with (_timed_collectives(torch, coll) if step == 4 and world > 1
+                      else contextlib.nullcontext()):
+                    tr.state, loss, mstate = tr.fns.train_step(tr.state, batch, valid, mstate)
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(loss))
+                if step == 1 and tr._main:
+                    torch.save({k: v.cpu() for k, v in tr.state.model.state_dict().items()},
+                               os.path.join(spec["out"], f"steps-{mode}.pt"))
+        out[mode] = {"losses": losses}
+        if mode == "ok":
+            out[mode].update(step_ms=statistics.median(times[1:4]), collectives_ms=coll,
+                             step_with_timed_collectives_ms=times[4])
+    return out
+
+
+def _owner_gather_check(torch, np, spec: dict, mesh) -> dict:
+    """One batch's rows through the row-sharded token-level store against
+    the full tables' rows on the host: bit for bit."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.dataset import create_datasets
+    from drin_tpu_torch.data.device_store import DeviceEntityStore
+
+    cfg = make_config("drin", "wikimel", preprocess_dir=spec["store"], cache_entity_pooling=False)
+    test = create_datasets(cfg)[2]
+    store = DeviceEntityStore(cfg, test.tables, device="cuda", shard_rows=True, mesh=mesh)
+    rows = test.entity_row_idx[np.arange(64)]
+    names = ["text", "text_mask", "image", "obj", "obj_score"]
+    keys = ["entity_text_feature", "entity_text_mask", "entity_image_feature",
+            "entity_object_feature", "entity_object_score"]
+    got = store.gather(names, torch.from_numpy(np.ascontiguousarray(rows)).to("cuda"))
+    same = all(np.array_equal(g.cpu().numpy(), np.asarray(test.tables[k])[rows]) for g, k in zip(got, keys))
+    return {"bit_equal": bool(same), "rank_bytes": store.nbytes, "block": store.block,
+            "n_rows": store.n_rows}
+
+
+def _state_digest(state_dict) -> str:
+    """SHA-256 of a state dict's bytes, keys sorted: equal only where every
+    tensor is equal bit for bit and in the same place."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k in sorted(state_dict):
+        h.update(k.encode())
+        h.update(state_dict[k].detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_worker(spec_path: str, rank: int) -> None:
+    """One rank of the multi-rank phases (or the one process they are held
+    against): the data-parallel steps with and without the planted faults,
+    then ``python -m drin_tpu_torch.train``'s ``main`` for the ``dp`` and
+    ``rows`` runs, kernel 1's launches and dtypes and the peak memory of
+    each.  Writes ``rank<rank>.json`` beside the spec."""
+    import numpy as np
+    import torch
+
+    from drin_tpu_torch.ops.cuda import gcn_layer as gcn
+    from drin_tpu_torch.parallel import distributed
+    from drin_tpu_torch.parallel.mesh import make_mesh
+    from drin_tpu_torch.train import cli
+    from drin_tpu_torch.train.trainer import Trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world = spec["world"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(coordinator_address=spec["coordinator"], num_processes=world,
+                           process_id=rank, backend="gloo", device="cuda")
+    out = {"rank": rank, "device": str(distributed.local_device("cuda", rank)),
+           "device_count": torch.cuda.device_count()}
+    try:
+        if world > 1:
+            import torch.distributed as dist
+
+            out["backend"] = dist.get_backend()
+        mesh = make_mesh(data=world, model=1) if world > 1 else None
+        out["steps"] = _dp_steps(torch, np, spec, world, mesh)
+        if world > 1:
+            out["owner_gather"] = _owner_gather_check(torch, np, spec, make_mesh(data=1, model=world))
+        for run in ("dp", "rows"):
+            epochs = []
+            plain_epoch = Trainer._run_epoch
+
+            def recording(self, dataset, split, train, kind):
+                r = plain_epoch(self, dataset, split, train, kind)
+                epochs.append({"split": split, "loss": r["loss"],
+                               "accs": {str(k): v for k, v in r["accs"].items()},
+                               "total": len(dataset),
+                               "digest": _state_digest(self.state.model.state_dict())})
+                return r
+
+            Trainer._run_epoch = recording
+            gcn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            try:
+                with gcn_dtypes(gcn) as seen:
+                    cli.main(_dp_argv(spec, run, rank))
+                    torch.cuda.synchronize()
+            finally:
+                Trainer._run_epoch = plain_epoch
+            out[run] = {"epochs": epochs, "launches": gcn.launches, "dtypes": sorted(set(seen)),
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "seconds": time.perf_counter() - t}
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _run_ranks(spec: dict, world: int) -> list:
+    """Start ``world`` rank processes of :func:`dp_worker` and wait for them
+    (each within DP_TIMEOUT); a rank's non-zero exit fails the phase with its
+    output.  Returns their results in rank order and their directory."""
+    import subprocess as sp
+
+    spec = dict(spec, world=world, out=os.path.join(spec["out"], f"world{world}"),
+                coordinator=f"127.0.0.1:{_free_port()}")
+    os.makedirs(spec["out"])
+    path = os.path.join(spec["out"], "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [sp.Popen([sys.executable, "-c", "import sys, chip_smoke as cs; "
+                       "cs.dp_worker(sys.argv[1], int(sys.argv[2]))", path, str(r)],
+                      cwd=spec["out"], env=env, stdout=sp.PIPE, stderr=sp.PIPE, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for r, p in enumerate(procs):
+            so, se = p.communicate(timeout=DP_TIMEOUT)
+            logs.append(so)
+            assert p.returncode == 0, f"rank {r} of {world} exited {p.returncode}:\n{so[-3000:]}\n{se[-6000:]}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r in range(world):
+        with open(os.path.join(spec["out"], f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, spec["out"]
+
+
+def _param_rel(torch, got: dict, want: dict) -> dict:
+    """Relative L2 per parameter tensor."""
+    return {k: float((got[k].float() - w.float()).norm() / w.float().norm().clamp_min(1e-30))
+            for k, w in want.items() if w.is_floating_point()}
+
+
+def _newest_checkpoint(torch, d: str) -> dict:
+    steps = sorted(int(f[5:-3]) for f in os.listdir(d) if f.startswith("step_") and f.endswith(".pt"))
+    return torch.load(os.path.join(d, f"step_{steps[-1]}.pt"), map_location="cpu",
+                      weights_only=True)["params"]
+
+
+def _compare_runs(torch, np, tag: str, ranks: list, one: dict, out2: str, out1: str) -> dict:
+    """The two-rank run ``tag`` of the entry point against the one-process
+    run: epoch losses, accuracies, the saved parameters."""
+    got, want = ranks[0][tag]["epochs"], one[tag]["epochs"]
+    assert [e["split"] for e in got] == [e["split"] for e in want] == ["train", "valid", "test"], got
+    loss_err = max(abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(got, want))
+    acc_err = max(abs(g["accs"][k] - w["accs"][k]) * w["total"] for g, w in zip(got, want)
+                  for k in w["accs"])
+    rel = _param_rel(torch, _newest_checkpoint(torch, os.path.join(out2, f"ckpt-{tag}")),
+                     _newest_checkpoint(torch, os.path.join(out1, f"ckpt-{tag}")))
+    worst = max(rel, key=rel.get)
+    print(f"[train_{tag}] two ranks against one process through the entry point (1 epoch, "
+          f"{len(rel)} tensors): epoch losses {[round(e['loss'], 6) for e in got]} against "
+          f"{[round(e['loss'], 6) for e in want]}, max relative error {loss_err:.3g} (limit "
+          f"{DP_LOSS_RTOL}); accuracies differ by at most {acc_err:.3g} mentions (limit "
+          f"{DP_ACC_MENTIONS}); saved parameters, relative L2 per tensor: largest {worst} "
+          f"{rel[worst]:.3g}, median {statistics.median(rel.values()):.3g} (limit {DP_PARAM_REL})")
+    assert loss_err <= DP_LOSS_RTOL, loss_err
+    assert acc_err <= DP_ACC_MENTIONS + 1e-6, acc_err
+    assert rel[worst] <= DP_PARAM_REL, (worst, rel[worst])
+    return {"loss_rel_err": loss_err, "acc_mentions": acc_err, "param_rel_max": rel[worst]}
+
+
+def phase_train_ranks(torch, np):
+    """``phase_train_dp`` and ``phase_train_rows`` in one pair of process
+    groups: DRIN at the full WikiMEL width (D=768, Dr=2048, C=101, 2 GCN
+    layers) in float32, the default compute dtype, over a seeded store on
+    disk (4 global batches of 64 and a ragged tail a split's train, 4,096
+    entities), first as one process, then as two ranks of one gloo process
+    group on the one card.  Each process takes train steps through Trainer
+    (with the planted faults, two ranks) and runs ``python -m
+    drin_tpu_torch.train``'s ``main`` twice: ``dp`` (mesh_data=2, the
+    pooled tables) and ``rows`` (cache_entity_pooling=false, mesh_model=2:
+    the token-level tables row-sharded over the two ranks; one process
+    gathers them on the host).  Returns the two paths' kernel-1 launches
+    (both ranks') and their numbers."""
+    import tempfile
+
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data.synthetic import make_synthetic_store
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cfg = make_config("drin", "wikimel", preprocess_dir=os.path.join(tmp, "store"))
+        make_synthetic_store(cfg, n_mentions=DP_MENTIONS, n_entities=DP_ENTITIES, seed=SEED + 900)
+        size = sum(os.path.getsize(os.path.join(cfg.preprocess_dir, f))
+                   for f in os.listdir(cfg.preprocess_dir))
+        print(f"[train_dp] seeded WikiMEL store at make_config's widths: {DP_MENTIONS} mentions, "
+              f"{DP_ENTITIES} entities (token-level table [{DP_ENTITIES}, "
+              f"{cfg.max_entity_attr_token_len}, {cfg.bert_embed_dim}]), {size / 2 ** 30:.2f} GiB "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        spec = {"store": cfg.preprocess_dir, "out": tmp}
+        t0 = time.perf_counter()
+        (one,), out1 = _run_ranks(spec, 1)
+        t1 = time.perf_counter()
+        ranks, out2 = _run_ranks(spec, 2)
+        t2 = time.perf_counter()
+        print(f"[train_dp] one process {t1 - t0:.1f} s, two ranks {t2 - t1:.1f} s (wall, start-up "
+              f"and data loading included); backend {ranks[0]['backend']}, devices "
+              f"{[r['device'] for r in ranks]}, torch.cuda.device_count() "
+              f"{[r['device_count'] for r in ranks]}: two ranks share one card over gloo through "
+              "the host (overhead, not scaling)")
+
+        # the steps: two ranks against one process, and the planted faults
+        ref = torch.load(os.path.join(out1, "steps-ok.pt"), weights_only=True)
+        steps = {}
+        for mode in ("ok", "local_loss", "no_allreduce"):
+            rel = _param_rel(torch, torch.load(os.path.join(out2, f"steps-{mode}.pt"),
+                                               weights_only=True), ref)
+            worst = max(rel, key=rel.get)
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(ranks[0]["steps"][mode]["losses"], one["steps"]["ok"]["losses"]))
+            steps[mode] = {"param_rel_max": rel[worst], "loss_rel_err": loss_err}
+            print(f"[train_dp] Trainer steps, two ranks ({mode}) against one process after 2 "
+                  f"steps: parameters {worst} {rel[worst]:.3g} (limit {DP_PARAM_REL}), the first "
+                  f"two losses' relative error {loss_err:.3g} (limit {DP_LOSS_RTOL})")
+        assert steps["ok"]["param_rel_max"] <= DP_PARAM_REL and steps["ok"]["loss_rel_err"] <= DP_LOSS_RTOL, steps
+        for fault in ("local_loss", "no_allreduce"):
+            assert steps[fault]["param_rel_max"] > DP_PARAM_REL, \
+                f"the check cannot see the planted fault {fault}: {steps[fault]}"
+        s1, s2 = one["steps"]["ok"], ranks[0]["steps"]["ok"]
+        coll = s2["collectives_ms"]
+        print(f"[train_dp] DRIN f32 train step B=64, host clock (median of 3 after the first): one "
+              f"process {s1['step_ms']:.2f} ms, two ranks {s2['step_ms']:.2f} ms on one card; in "
+              f"one step with its collectives timed between synchronises "
+              f"({s2['step_with_timed_collectives_ms']:.2f} ms): all_gather "
+              f"{coll.get('all_gather', 0):.2f} ms in {coll.get('all_gather_calls', 0)} calls, "
+              f"all_reduce {coll.get('all_reduce', 0):.2f} ms in {coll.get('all_reduce_calls', 0)} "
+              "calls")
+
+        results = {"steps": steps, "step_ms": {"one": s1["step_ms"], "two_ranks": s2["step_ms"]},
+                   "collectives_ms": coll}
+        paths = {}
+        for run in ("dp", "rows"):
+            launches = [r[run]["launches"] for r in ranks]
+            per = make_config("drin", "wikimel").num_gcn_layers
+            print(f"[train_{run}] kernel 1's launches by rank {launches} (dtypes "
+                  f"{[r[run]['dtypes'] for r in ranks]}; one process {one[run]['launches']}; "
+                  f"{per} a forward); peak memory by rank "
+                  f"{[round(r[run]['peak_gib'], 3) for r in ranks]} GiB, one process "
+                  f"{one[run]['peak_gib']:.3f} GiB; seconds in main by rank "
+                  f"{[round(r[run]['seconds'], 1) for r in ranks]}, one process "
+                  f"{one[run]['seconds']:.1f}")
+            assert all(n > 0 and n % per == 0 for n in launches), launches
+            assert all(r[run]["dtypes"] == ["float32"] for r in ranks + [one]), run
+            # every rank holds a replica of the parameters: the same bits after every epoch
+            digests = [[e["digest"] for e in r[run]["epochs"]] for r in ranks]
+            assert all(d == digests[0] for d in digests), (run, digests)
+            print(f"[train_{run}] the ranks' parameters bit-equal after each of "
+                  f"{len(digests[0])} epochs (SHA-256 of the state dict)")
+            results[run] = _compare_runs(torch, np, run, ranks, one, out2, out1)
+            results[run].update(peak_gib=[r[run]["peak_gib"] for r in ranks],
+                                one_peak_gib=one[run]["peak_gib"],
+                                seconds=[r[run]["seconds"] for r in ranks],
+                                one_seconds=one[run]["seconds"])
+            paths[f"train_{run}"] = {"gcn_layer": sum(launches)}
+        og = [r["owner_gather"] for r in ranks]
+        print(f"[train_rows] the owner gather of one batch (64 x 101 rows of the token-level "
+              f"tables) on each rank against the full tables' rows: bit-equal {[g['bit_equal'] for g in og]}; "
+              f"each rank holds {og[0]['block']} of {og[0]['n_rows']} rows, "
+              f"{og[0]['rank_bytes'] / 2 ** 20:.0f} MiB")
+        assert all(g["bit_equal"] for g in og), og
+    return paths, results
+
+
+def phase_retrieve_sharded(torch, np, kernels, served):
+    """Stage-1 retrieval with the table row-sharded: ``ShardedRetrieval``
+    over phase_retrieve's 32,768 x 768 table in 4 shards on the one card,
+    and the serve CLI's ``shard_retrieval=true`` (every visible CUDA device:
+    1 shard) behind /retrieve, in the three modes at B=1 and B=16, against
+    ``Ranker.retrieve`` on one device; no kernel may launch."""
+    import tempfile
+
+    from drin_tpu_torch import serve as tserve
+
+    ranker = served["ranker"]
+    table = ranker._ensure_retrieval_table()
+    source = table.float().cpu().numpy()
+    N, D = source.shape
+    rng = np.random.default_rng(SEED + 650)
+    own = np.array([5, N // 3, N - 2])
+    q16 = np.concatenate([source[own], rng.standard_normal((13, D), dtype=np.float32)])
+    qn = q16 / np.linalg.norm(q16, axis=-1, keepdims=True)
+    k = 10
+    zero_counts(kernels)
+    sharded = tserve.ShardedRetrieval(table, devices=["cuda:0"] * 4)
+    got, one = {}, {}
+    for mode in ("exact", "approx", "int8"):
+        kc = k if mode == "exact" else 4 * k
+        for B in (1, 16):
+            s, i = sharded(q16[:B], k, kc, quantized=mode == "int8", exact=mode == "exact")
+            got["shards", mode, B] = (s.numpy(), i.numpy())
+            one[mode, B] = ranker.retrieve(q16[:B], k=k, mode=mode)
+    with tempfile.TemporaryDirectory() as bundle:
+        ranker.save_bundle(bundle)
+        server = tserve.main([f"bundle={bundle}", "shard_retrieval=true", "device=cuda", "port=0"])
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        stats = _get_json(url, "/stats")
+        n_shards = server.front._sharded.n
+        for mode in ("exact", "approx", "int8"):
+            for B in (1, 16):
+                out = _post_json(url, "/retrieve", {"query": tserve._encode_arrays({"q": q16[:B]}),
+                                                    "k": k, "mode": mode})
+                got["cli", mode, B] = (np.asarray(out["scores"], np.float32), np.asarray(out["indices"]))
+    finally:
+        server.shutdown()
+        server.server_close()
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels)
+    assert not any(counts.values()), f"sharded retrieval launched a kernel: {counts}"
+    assert stats["sharded_retrieval"] and n_shards == torch.cuda.device_count(), (stats, n_shards)
+    unit = source / np.maximum(np.linalg.norm(source, axis=-1, keepdims=True), 1e-30)
+    worst, exact_diff, exact_bit_equal = 0.0, 0.0, True
+    for (how, mode, B), (s, i) in got.items():
+        assert s.shape == i.shape == (B, k) and np.isfinite(s).all() and (i < N).all(), (how, mode, B)
+        assert (i[:len(own[:B]), 0] == own[:B]).all(), (how, mode, B, i[:3, 0])
+        err = float(np.abs(s - np.einsum("bd,bkd->bk", qn[:B], unit[i])).max())
+        assert err <= RETRIEVE_SCORE_ATOL, (how, mode, B, err)
+        worst = max(worst, err)
+        if mode == "exact":  # against the one-device exact scan
+            ws, wi = one[mode, B]
+            exact_diff = max(exact_diff, float(np.abs(s - ws).max()))
+            exact_bit_equal &= bool(np.array_equal(s, ws))
+            for b in range(B):  # the rows agree wherever the score is not tied
+                untied = np.array([np.sum(ws[b] == v) == 1 for v in ws[b]])
+                untied[-1] &= ws[b, -1] != ws[b, -2]  # its (k+1)-th is not returned
+                assert (i[b][untied] == wi[b][untied]).all(), (how, B, b, i[b], wi[b])
+    print(f"[retrieve_sharded] N={N}, D={D}: ShardedRetrieval in 4 shards on cuda:0 and the serve "
+          f"CLI's shard_retrieval=true ({n_shards} shard) at B=1 and B=16, k={k}, in the three modes: "
+          f"each table row finds itself first; scores vs the f32 recompute of the returned rows: "
+          f"max abs err {worst:.3g} (tol {RETRIEVE_SCORE_ATOL}); exact mode against Ranker.retrieve's "
+          f"exact scan on one device: scores max abs diff {exact_diff:.3g} (bit-equal "
+          f"{exact_bit_equal}), indices equal wherever the score is not tied; launches {counts}")
+    assert exact_bit_equal, exact_diff
+    times = {}
+    for mode in ("exact", "approx", "int8"):
+        kc = k if mode == "exact" else 4 * k
+        for B in (1, 16):
+            t_sh = host_ms(lambda: sharded(q16[:B], k, kc, quantized=mode == "int8",
+                                           exact=mode == "exact"))
+            t_one = host_ms(lambda: ranker.retrieve(q16[:B], k=k, mode=mode))
+            times[f"{mode}_B{B}"] = {"shards4_ms": t_sh, "one_device_ms": t_one}
+        print(f"[retrieve_sharded] {mode}: 4 shards on one card B=1 {times[f'{mode}_B1']['shards4_ms']:.3f} "
+              f"ms, B=16 {times[f'{mode}_B16']['shards4_ms']:.3f} ms; one device B=1 "
+              f"{times[f'{mode}_B1']['one_device_ms']:.3f} ms, B=16 "
+              f"{times[f'{mode}_B16']['one_device_ms']:.3f} ms (host clock, median of 10)")
+    return {}, {"times": times, "exact_bit_equal": exact_bit_equal}
+
+
+def phase_preprocess_dp(torch, np, attn, cfg):
+    """BertStage through the data-parallel dispatch on [cuda:0, cuda:0]
+    against the one-device stage, on phase_preprocess's seeded corpus and
+    bert-base checkpoint: its mention texts (3 splits, 128 tokens kept) and
+    entity texts (64 kept), written to .npy by both, rows within
+    PRE_BERT_REL.  Kernel 3 runs in float32 in the dispatch's buckets of 256
+    and more."""
+    import tempfile
+
+    from drin_tpu_torch.common.npy_io import load_field
+    from drin_tpu_torch.preprocess import stages
+
+    mentions = np.concatenate([load_field(cfg.preprocess_dir, "mention_text_raw", s)
+                               for s in ("train", "valid", "test")])
+    entities, _ = stages.wikimel_entity_texts(cfg)
+    one = stages.BertStage(cfg, device="cuda")
+    dp = stages.BertStage(cfg, device="cuda", devices=["cuda:0", "cuda:0"])
+    assert dp.dp.n == 2 and len(dp.dp.replicas) == 1
+    errs, launches, secs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, texts, max_len in (("mentions", mentions, cfg.max_mention_sentence_len),
+                                     ("entities", entities, cfg.max_entity_attr_token_len)):
+            files = {}
+            for tag, stage in (("one", one), ("dp", dp)):
+                files[tag] = (os.path.join(tmp, f"{name}-{tag}.npy"), os.path.join(tmp, f"{name}-{tag}-mask.npy"))
+                attn.launches = 0
+                t = time.perf_counter()
+                stage.encode_texts_npy(texts, "last_hidden_state", max_len, *files[tag])
+                torch.cuda.synchronize()
+                secs[name, tag] = time.perf_counter() - t
+                launches[name, tag] = attn.launches
+            a, b = np.load(files["one"][0]), np.load(files["dp"][0])
+            assert a.shape == b.shape == (len(texts), max_len, cfg.bert_embed_dim), (a.shape, b.shape)
+            assert np.array_equal(np.load(files["one"][1]), np.load(files["dp"][1])), name
+            errs[name] = _rel_err(np, b, a)
+    n_dp = sum(v for (n, tag), v in launches.items() if tag == "dp")
+    print(f"[preprocess_dp] BertStage through RowShardedDispatch on [cuda:0, cuda:0] (one replica, "
+          f"{dp.dp.n} shares of {cfg.preprocess_batch_size} rows a dispatch) against the one-device "
+          f"stage: {len(mentions)} mention and {len(entities)} entity texts, max |got - want| / max "
+          f"|want| {errs} (limit {PRE_BERT_REL}); kernel 3 launches (f32) {dict((f'{n}/{t}', v) for (n, t), v in launches.items())}; "
+          f"seconds {dict((f'{n}/{t}', round(v, 2)) for (n, t), v in secs.items())}")
+    assert all(e <= PRE_BERT_REL for e in errs.values()), errs
+    assert n_dp > 0, launches
+    return {"attention": n_dp}, {"errors": errs, "seconds": {f"{n}/{t}": v for (n, t), v in secs.items()}}
 
 
 def profile_rank(torch, ranker, feats, label: str, reps: int = 5):
@@ -4417,6 +4997,10 @@ def main() -> int:
     paths["serve_batched"], served = timed("serve_batched", phase_serve_batched, torch, np,
                                            mods, drin)
     paths["retrieve"], _ = timed("retrieve", phase_retrieve, torch, np, mods, served)
+    # the same table row-sharded: 4 shards on the card, and the serve CLI's
+    # shard_retrieval=true (one shard a visible device)
+    paths["retrieve_sharded"], retrieve_sharded = timed("retrieve_sharded", phase_retrieve_sharded,
+                                                        torch, np, mods, served)
     del drin, served
     paths["serve_online"] = {"attention": timed("serve_online", phase_online, torch, np, attn)[0]}
     paths["serve_text"], _ = timed("serve_text", phase_serve_text, torch, np, attn)
@@ -4437,7 +5021,24 @@ def main() -> int:
     # the offline preprocessing pipeline writes a store and DRIN evaluates it:
     # kernel 3 in float32 in BertStage, the NMS kernel in the ResNet stage's
     # detector, kernel 1 in the eval
-    paths["preprocess"], pre = timed("preprocess", phase_preprocess, torch, np, attn, gcn, nms_mod)
+    # the same stage's encoder through the data-parallel dispatch on
+    # [cuda:0, cuda:0], over that corpus and checkpoint (kernel 3 in f32)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as pre_tmp:
+        paths["preprocess"], pre = timed("preprocess", phase_preprocess, torch, np, attn, gcn,
+                                         nms_mod, pre_tmp)
+        paths["preprocess_dp"], pre_dp = timed("preprocess_dp", phase_preprocess_dp, torch, np,
+                                               attn, pre.pop("cfg"))
+    # several ranks: DRIN trained by two processes that share the card over
+    # gloo, through the entry point (data-parallel, and row-sharded tables),
+    # against one process; each rank's kernel-1 launches come back in its
+    # report (the main process launches none in the phase)
+    ranks_paths, ranks = timed("train_ranks", phase_train_ranks, torch, np)
+    assert not gcn_by_dtype.pop("train_ranks"), "the main process launched kernel 1"
+    for path, counts in ranks_paths.items():
+        paths[path] = counts
+        gcn_by_dtype[path] = {"float32": counts["gcn_layer"]}
     measured["attention"]["f32_bert_stage"] = pre["f32"]
     measured["nms"]["detector"] = {k: detector[k] for k in ("ms_per_image", "peak_gib",
                                                             "stage_chunk_ms", "errors")}
@@ -4451,14 +5052,17 @@ def main() -> int:
         "train_text": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"],
         "train_drin_f32": ["gcn_layer"],
         "serve_ghmfc": ["gather_dequant"], "serve_ghmfc_transformer": [], "serve_melhi": [],
-        "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer", "nms"]}, paths
+        "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer", "nms"],
+        "retrieve_sharded": [], "preprocess_dp": ["attention"], "train_dp": ["gcn_layer"],
+        "train_rows": ["gcn_layer"]}, paths
     for path, counts in paths.items():
         assert all(counts.values()), f"{path} never launched one of its kernels: {counts}"
     # kernel 1 by dtype: the default-dtype paths launch only its float32 form,
     # every other path only its bf16 form
     print(f"kernel 1's launches by path and dtype (whole phases): {gcn_by_dtype}")
+    f32_paths = ("serve_drin_f32", "train_drin_f32", "train_dp", "train_rows")
     for path, by_dt in gcn_by_dtype.items():
-        want = "float32" if path.endswith("_f32") else "bfloat16"
+        want = "float32" if path in f32_paths else "bfloat16"
         assert set(by_dt) <= {want} and bool(by_dt) == ("gcn_layer" in paths[path]), (path, by_dt)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "drin_tpu"))
     assert not bad, f"the port imported {bad}"
@@ -4484,6 +5088,8 @@ def main() -> int:
     measured["gcn_layer"]["dtype_by_path"] = {path: next(iter(by_dt)) for path, by_dt in gcn_by_dtype.items()
                                               if by_dt}
     measured["gcn_layer"]["f32_paths"] = {"serve_drin_f32": serve_f32, "train_drin_f32": train_f32}
+    measured["gcn_layer"]["ranks"] = ranks
+    measured["attention"]["preprocess_dp"] = pre_dp
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"drin_tpu_torch/csrc/{src}", "replaces": tpu,

@@ -1,8 +1,7 @@
 # -*- coding: utf-8 -*-
-"""Device-resident entity tables (port of ``drin_tpu/data/device_store.py``,
-single device).
+"""Device-resident entity tables (port of ``drin_tpu/data/device_store.py``).
 
-The global WikiMEL entity tables are uploaded once to one device; a request
+The global WikiMEL entity tables are uploaded once to the device; a request
 carries only a [B, C] row-index matrix and the store rebuilds the model's
 entity features from it (:meth:`DeviceEntityStore.drin_feats_fn` for DRIN,
 :meth:`DeviceEntityStore.baseline_feats_fn` for offline GHMFC).  ``include``
@@ -20,7 +19,15 @@ Row indices follow the JAX package's indexing semantics in every layout:
 negatives wrap once, the rest clamp (``ops.cuda.gather.sanitize_rows``).  A
 fused store hands the rows to the kernel as they come (it checks them
 itself) and checks them once more only for the tables it indexes in torch.
-The row-sharded store is on the ROADMAP (multi-device).
+
+Row-sharded (``shard_rows=True`` on a mesh): every rank of a model group
+holds one block of N / n_model rows (zero-padded to an even split), which is
+what makes the token-level tables (``cache_entity_pooling=false``) fit.  A
+gather resolves each row to its owner: every rank looks up the rows it owns
+and contributes exact zeros for the rest, and one sum over the model group
+rebuilds the gather bit for bit (one nonzero term per element).  The
+gathered tensors come back whole on every rank of the group: the model's
+compute is replicated along the model axis.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from drin_tpu_torch.common.config import Config
+from drin_tpu_torch.parallel import collectives
 from drin_tpu_torch.ops.cuda.gather import (fused_gather_supported, gather_dequant,
                                             pack_quantized_tables, sanitize_rows)
 
@@ -94,14 +102,19 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
 class DeviceEntityStore:
     """Upload the ``include``d global entity tables once to ``device``;
     :meth:`drin_feats_fn` / :meth:`baseline_feats_fn` rebuild the model's
-    feature tuple from a rows batch."""
+    feature tuple from a rows batch.
+
+    ``shard_rows=True`` (with ``mesh``) keeps this rank's block of rows only
+    and gathers collectively over the mesh's model group: every rank of the
+    group must run the same gathers.  It composes with ``quantize``, not
+    with ``fused_gather``."""
 
     def __init__(self, cfg: Config, tables: dict, *, device, dtype=None,
                  quantize: bool = False, fused_gather: bool = False,
-                 include: tuple = ("text", "image", "obj")):
-        assert cfg.entity_pooling_cached, (
-            "the single-device store holds the pooled entity cache; token-level "
-            "tables need the row-sharded store (ROADMAP: multi-device)")
+                 include: tuple = ("text", "image", "obj"), shard_rows: bool = False, mesh=None):
+        assert cfg.entity_pooling_cached or shard_rows, (
+            "token-level (non-pooled) entity tables need the row-sharded store: shard_rows=True "
+            "on a mesh with a model axis (or enable the pooled entity cache)")
         assert {"text"} <= set(include) <= {"text", "image", "obj"}, (
             f"include must keep the text table, got {include}")
         # canonical order: the fused slab's layout and _tables() are stable
@@ -110,13 +123,36 @@ class DeviceEntityStore:
         self.dtype = dt = dtype or getattr(torch, cfg.compute_dtype)
         self.quantized = bool(quantize)
         self.fused = bool(fused_gather)
-        self.n_rows = int(np.asarray(tables["entity_text_feature"]).shape[0])
+        self.pooled = cfg.entity_pooling_cached
+        self.sharded = bool(shard_rows)
+        self.n_rows = n = int(np.asarray(tables["entity_text_feature"]).shape[0])
+        self.mesh = mesh
+        # this rank's rows [row_lo, row_lo + block) of the table padded to
+        # block * n_model rows (the whole table unsharded)
+        self.row_lo, self.block = 0, n
+        if self.sharded:
+            assert mesh is not None and mesh.active, "shard_rows needs this rank's mesh"
+            assert not self.fused, ("fused_gather reads a whole packed table: it needs a store "
+                                    "that is not row-sharded")
+            nm = mesh.shape["model"]
+            self.block = -(-n // nm)
+            self.row_lo = mesh.model_index * self.block
 
-        def put(x, cast=True):
-            t = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+        def rows_of(x):
+            x = np.asarray(x)
+            if not self.sharded:
+                return x
+            part = np.asarray(x[self.row_lo:self.row_lo + self.block])
+            pad = self.block - len(part)  # indices never address the padding
+            return np.concatenate([part, np.zeros((pad,) + x.shape[1:], x.dtype)]) if pad else part
+
+        def upload(x, cast=True):
+            t = torch.from_numpy(np.ascontiguousarray(x))
             if cast and t.is_floating_point():
                 t = t.to(dt)
             return t.to(self.device)
+
+        put = lambda x, cast=True: upload(rows_of(x), cast)
 
         keys = {"text": "entity_text_feature", "image": "entity_image_feature",
                 "obj": "entity_object_feature"}
@@ -144,16 +180,20 @@ class DeviceEntityStore:
             self.packed_scales = put(psc, cast=False)
         elif quantize:
             def put_q(x, per_slot=False):
-                q, s = quantize_entity_rows(x, per_slot=per_slot)
-                return put(q), put(s, cast=False)  # scales stay f32
+                # per-row scales: a block quantizes as the whole table does
+                q, s = quantize_entity_rows(rows_of(x), per_slot=per_slot)
+                return upload(q), upload(s, cast=False)  # scales stay f32
 
             for name in self.include:
-                q, sc = put_q(tables[keys[name]], per_slot=name == "text")
+                # per-slot scales for the pooled text table's (projected, CLS) pair
+                q, sc = put_q(tables[keys[name]], per_slot=name == "text" and self.pooled)
                 setattr(self, name, q)
                 setattr(self, f"{name}_scale", sc)
         else:
-            for name in self.include:  # text [N, 2, D], image [N, 1, Dr], obj [N, Te, 1, Dr]
+            # text [N, 2, D] pooled or [N, Le, D], image [N, 1, Dr], obj [N, Te, 1, Dr]
+            for name in self.include:
                 setattr(self, name, put(tables[keys[name]]))
+        self.text_mask = None if self.pooled else put(tables["entity_text_mask"])  # [N, Le]
         self.obj_score = (put(tables["entity_object_score"])  # [N, Te]
                           if "obj" in self.include else None)
         self.nbytes = sum(t.numel() * t.element_size() for t in self._tables())
@@ -162,11 +202,32 @@ class DeviceEntityStore:
         if self.fused:
             ts = [self.packed, self.packed_scales, self.obj_score]
         elif self.quantized:
-            ts = [self.text, self.text_scale, self.image, self.image_scale, self.obj,
-                  self.obj_scale, self.obj_score]
+            ts = [self.text, self.text_scale, self.text_mask, self.image, self.image_scale,
+                  self.obj, self.obj_scale, self.obj_score]
         else:
-            ts = [self.text, self.image, self.obj, self.obj_score]
+            ts = [self.text, self.text_mask, self.image, self.obj, self.obj_score]
         return tuple(t for t in ts if t is not None)  # excluded tables are None
+
+    def gather(self, names, rows: torch.Tensor) -> list:
+        """The tables ``names`` (attribute names: ``text``, ``text_scale``,
+        ``text_mask``, ...) at ``rows`` [B, C], each [B, C, ...].  Indices
+        follow :func:`sanitize_rows`.  On a row-sharded store each rank
+        looks up the rows it owns, zeros elsewhere, and one exact sum over
+        the model group completes every table at once."""
+        shape = tuple(rows.shape)
+        flat = sanitize_rows(rows, self.n_rows)
+        tables = [getattr(self, name) for name in names]
+        if not self.sharded:
+            return [t[flat].reshape(shape + tuple(t.shape[1:])) for t in tables]
+        local = flat - self.row_lo
+        mine = (local >= 0) & (local < self.block)
+        local = torch.where(mine, local, torch.zeros_like(local))
+        parts = []
+        for t in tables:
+            v = t[local]
+            v = v.masked_fill(~mine.reshape(mine.shape + (1,) * (v.ndim - 1)), 0)
+            parts.append(v.reshape(shape + tuple(t.shape[1:])))
+        return collectives.sum_exact_(parts, self.mesh.model_group)
 
     def _qview(self, name: str, lo: int, hi: int):
         """Quantized ``(rows, scales)`` of ``table[lo:hi]`` in the per-table
@@ -180,10 +241,17 @@ class DeviceEntityStore:
         ss = self.packed_scales[lo:hi, s0:s1:(s1 - s0) // nslots]
         return q, (ss if nslots > 1 else ss[:, 0])
 
-    def float_table(self, name: str, chunk: int = 32768) -> torch.Tensor:
+    def float_table(self, name: str, chunk: int = 32768):
         """Float view of ``'text'`` / ``'image'`` / ``'obj'``: a quantized
-        store dequantizes in ``chunk``-row pieces into one output tensor."""
+        store dequantizes in ``chunk``-row pieces into one output tensor.  A
+        row-sharded store gathers the pieces to the host and returns a numpy
+        array of the padded table (padding rows zero): a whole table on one
+        device is what the sharding avoids."""
         assert name in self.include, f"unknown table {name!r}"
+        if self.sharded:
+            total = self.block * self.mesh.shape["model"]
+            return np.concatenate([self.float_rows(name, lo, min(lo + chunk, total))
+                                   for lo in range(0, total, chunk)])
         if not self.quantized:
             return getattr(self, name)
         n = self.n_rows
@@ -194,9 +262,14 @@ class DeviceEntityStore:
             out[lo:hi] = _dequantize(*self._qview(name, lo, hi), self.dtype)
         return out
 
-    def float_rows(self, name: str, lo: int, hi: int, slot=None) -> torch.Tensor:
-        """Dequantized ``table[lo:hi]`` (optionally one second-axis slot)."""
+    def float_rows(self, name: str, lo: int, hi: int, slot=None):
+        """Dequantized ``table[lo:hi]`` (optionally one second-axis slot).  On
+        a row-sharded store every rank of the model group must call it: each
+        contributes its overlap and the slice comes back to the host, as a
+        numpy array."""
         assert name in self.include, f"unknown table {name!r}"
+        if self.sharded:
+            return self._sharded_rows(name, lo, hi, slot)
         if not self.quantized:
             q = getattr(self, name)
             return q[lo:hi] if slot is None else q[lo:hi, slot]
@@ -206,6 +279,21 @@ class DeviceEntityStore:
             if ss.ndim > 1:
                 ss = ss[:, slot]
         return _dequantize(qs, ss, self.dtype)
+
+    def _sharded_rows(self, name: str, lo: int, hi: int, slot=None) -> np.ndarray:
+        """``float_rows`` of a row-sharded store: this rank's overlap of
+        [lo, hi), zeros elsewhere, summed over the model group."""
+        table = getattr(self, name)
+        a, b = max(lo, self.row_lo), min(hi, self.row_lo + self.block)
+        own = table[max(a - self.row_lo, 0):max(b - self.row_lo, 0)]
+        if self.quantized:
+            scale = getattr(self, f"{name}_scale")[max(a - self.row_lo, 0):max(b - self.row_lo, 0)]
+            own = _dequantize(own, scale, self.dtype)
+        own = own if slot is None else own[:, slot]
+        piece = torch.zeros((hi - lo,) + tuple(own.shape[1:]), dtype=self.dtype, device=self.device)
+        if a < b:
+            piece[a - lo:b - lo] = own
+        return collectives.sum_exact_([piece], self.mesh.model_group)[0].cpu().numpy()
 
     def drin_feats_fn(self):
         """``feats_fn(feats) -> feature tuple``: rows-batch features (the
@@ -235,21 +323,33 @@ class DeviceEntityStore:
 
             return feats_fn
 
+        names = self._names(("text", "image", "obj")) + ["obj_score"]
+
         def feats_fn(feats):
             (mtf, mtm, sp, ep, mif, mof, mos, rows, miet, mtei) = feats
-            shape = tuple(rows.shape)
-            flat = sanitize_rows(rows, n)
-            take = lambda t: t[flat].reshape(shape + tuple(t.shape[1:]))
-            if self.quantized:
-                etf = _dequantize(take(self.text), take(self.text_scale), dt)
-                eif = _dequantize(take(self.image), take(self.image_scale), dt)
-                eof = _dequantize(take(self.obj), take(self.obj_scale), dt)
-            else:
-                etf, eif, eof = take(self.text), take(self.image), take(self.obj)
-            return (mtf, mtm, sp, ep, mif, mof, mos, etf, etm_for(rows), eif, eof,
-                    take(self.obj_score), miet, mtei)
+            got = dict(zip(names, self.gather(names, rows)))
+            etm = got["text_mask"] if "text_mask" in got else etm_for(rows)
+            return (mtf, mtm, sp, ep, mif, mof, mos, self._deq(got, "text"), etm,
+                    self._deq(got, "image"), self._deq(got, "obj"), got["obj_score"], miet, mtei)
 
         return feats_fn
+
+    def _names(self, tables) -> list:
+        """The attributes a gather of ``tables`` reads: each table, its
+        scales when quantized, and the text mask of a token-level store."""
+        out = []
+        for name in tables:
+            out.append(name)
+            if self.quantized:
+                out.append(f"{name}_scale")
+            if name == "text" and not self.pooled:
+                out.append("text_mask")
+        return out
+
+    def _deq(self, got: dict, name: str) -> torch.Tensor:
+        if not self.quantized:
+            return got[name]
+        return _dequantize(got[name], got[f"{name}_scale"], self.dtype)
 
     def baseline_feats_fn(self):
         """``feats_fn(feats) -> feature tuple``: rows-batch features (the
@@ -258,17 +358,18 @@ class DeviceEntityStore:
         entity tower reads the text table alone, so a text-only store fills
         the entity-image slot with a [B, C, 1] zero placeholder; a fused
         store reads its rows through the gather+dequant kernel."""
-        dt, n = self.dtype, self.n_rows
+        dt = self.dtype
         has_img = "image" in self.include
 
-        def finish(feats, rows, etf, eif):
+        def finish(feats, rows, etf, eif, etm=None):
             mtf, mtm, sp, ep, mif = feats[:5]
             B, C = rows.shape
             if eif is None:  # the model never reads this slot
                 eif = torch.zeros((B, C, 1), dtype=dt, device=rows.device)
             elif eif.ndim == 4:  # [B, C, 1, Dr] pooler rows -> [B, C, Dr]
                 eif = eif.reshape(B, C, -1)
-            etm = torch.zeros((B,), dtype=torch.int64, device=rows.device)
+            if etm is None:  # the pooled cache consumed the mask
+                etm = torch.zeros((B,), dtype=torch.int64, device=rows.device)
             return (mtf, mtm, sp, ep, mif, etf, etm, eif)
 
         if self.fused:
@@ -287,17 +388,13 @@ class DeviceEntityStore:
 
             return feats_fn
 
+        names = self._names(("text", "image") if has_img else ("text",))
+
         def feats_fn(feats):
             rows = feats[5]
-            shape = tuple(rows.shape)
-            flat = sanitize_rows(rows, n)
-            take = lambda t: t[flat].reshape(shape + tuple(t.shape[1:]))
-            if self.quantized:
-                etf = _dequantize(take(self.text), take(self.text_scale), dt)
-                eif = _dequantize(take(self.image), take(self.image_scale), dt) if has_img else None
-            else:
-                etf, eif = take(self.text), take(self.image) if has_img else None
-            return finish(feats, rows, etf, eif)
+            got = dict(zip(names, self.gather(names, rows)))
+            return finish(feats, rows, self._deq(got, "text"),
+                          self._deq(got, "image") if has_img else None, got.get("text_mask"))
 
         return feats_fn
 

@@ -1,0 +1,239 @@
+# -*- coding: utf-8 -*-
+"""The (data, model) grid of ranks (port of ``drin_tpu/parallel/mesh.py``).
+
+In the JAX package a mesh lays out devices and GSPMD inserts the
+collectives.  Here one process is one rank with one device, the mesh lays out
+the ranks of the process group, and the code that needs a collective names
+its group:
+
+  * ``data``: the batch axis.  Each data index owns a contiguous block of the
+    global batch's rows; the loss gathers the scores of its *data group* (the
+    ranks of one model column) and the gradients are summed over it.
+  * ``model``: the entity-row axis of the row-sharded store
+    (``data/device_store.py``); its *model group* (the ranks of one data row)
+    rebuilds every gathered batch with one sum.  The model's compute is
+    replicated along this axis: candidate-parallel compute is not ported.
+
+``make_hybrid_mesh`` lays the model axis within a host and the data axis
+across hosts: the per-step gathers of the store stay on one host, and only
+the gradient and counter sums cross hosts.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Optional, Sequence
+
+import numpy as np
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+class Mesh:
+    """``ranks`` [data, model] laid out over the process group, seen from
+    rank ``rank``.  With ``groups=True`` (the process group must be joined)
+    every rank of the world builds every group in the same order, as
+    ``torch.distributed.new_group`` requires, and keeps its own:
+    ``data_group`` (its model column), ``model_group`` (its data row) and
+    ``group`` (all of the mesh's ranks; ``None``, the world, when the mesh
+    covers it).  A rank outside the grid is idle: ``active`` is False and
+    its groups are None."""
+
+    def __init__(self, ranks, rank: int = 0, groups: bool = False):
+        self.ranks = np.asarray(ranks, dtype=np.int64)
+        assert self.ranks.ndim == 2 and len(set(self.ranks.ravel())) == self.ranks.size, self.ranks
+        self.rank = int(rank)
+        where = np.argwhere(self.ranks == self.rank)
+        self.active = len(where) == 1
+        self.data_index, self.model_index = (int(i) for i in where[0]) if self.active else (-1, -1)
+        self.group = self.data_group = self.model_group = None
+        # the data group's ranks in data-index order, as group ranks (a group
+        # numbers its members in ascending global rank)
+        column = self.ranks[:, max(self.model_index, 0)].tolist()
+        self.data_order = [sorted(column).index(r) for r in column]
+        if groups:
+            self._new_groups()
+
+    def _new_groups(self):
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        nd, nm = self.ranks.shape
+        columns = [dist.new_group(self.ranks[:, m].tolist()) for m in range(nm)]
+        rows = [dist.new_group(self.ranks[d, :].tolist()) for d in range(nd)]
+        whole = None if self.ranks.size == world else dist.new_group(sorted(self.ranks.ravel().tolist()))
+        if self.active:
+            self.data_group = columns[self.model_index]
+            self.model_group = rows[self.data_index]
+            self.group = whole
+
+    @property
+    def shape(self) -> dict:
+        nd, nm = self.ranks.shape
+        return {DATA_AXIS: nd, MODEL_AXIS: nm}
+
+    @property
+    def size(self) -> int:
+        return int(self.ranks.size)
+
+    @property
+    def main(self) -> bool:
+        """The rank that logs, writes checkpoints and dumps test results."""
+        return self.rank == int(self.ranks[0, 0])
+
+    def __repr__(self):
+        return f"Mesh(data={self.shape[DATA_AXIS]}, model={self.shape[MODEL_AXIS]}, rank={self.rank})"
+
+
+def _world(world_size: Optional[int], rank: Optional[int]) -> tuple:
+    if world_size is not None:
+        return world_size, rank or 0
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def make_mesh(cfg=None, data: Optional[int] = None, model: Optional[int] = None, *,
+              world_size: Optional[int] = None, rank: Optional[int] = None) -> Mesh:
+    """A (data, model) mesh over the world's ranks in rank order.
+
+    Sizes come from ``cfg.mesh_data`` / ``cfg.mesh_model`` or the explicit
+    ``data`` / ``model``; ``data = -1`` means "all remaining ranks".  The
+    world is the joined process group (its groups are built), or
+    ``world_size`` / ``rank`` given without one (a layout only)."""
+    n, me = _world(world_size, rank)
+    nd = data if data is not None else (cfg.mesh_data if cfg else -1)
+    nm = model if model is not None else (cfg.mesh_model if cfg else 1)
+    if nd == -1:
+        nd = n // nm
+    if nd < 1 or nm < 1 or nd * nm > n:
+        raise ValueError(f"a mesh of data={nd} x model={nm} needs {max(nd, 1) * max(nm, 1)} "
+                         f"ranks; the process group has {n} (num_processes)")
+    if nd * nm < n:
+        # loud, like make_hybrid_mesh: a non-dividing mesh_model silently
+        # idling ranks is invisible on divisible test meshes
+        print(f"make_mesh: using {nd * nm} of {n} ranks ({n - nd * nm} idle — data={nd} x "
+              f"model={nm} does not cover the process group)", file=sys.stderr, flush=True)
+    return Mesh(np.arange(nd * nm).reshape(nd, nm), me, groups=world_size is None and n > 1)
+
+
+def group_by_host(hostnames: Optional[Sequence[str]] = None,
+                  local_world_size: Optional[int] = None, world_size: Optional[int] = None) -> list:
+    """The world's ranks grouped by host, in host order of first rank, rank
+    order within a host.  The host of each rank comes from ``hostnames`` (one
+    per rank), else from ``local_world_size`` (``LOCAL_WORLD_SIZE``, which
+    launchers set: consecutive ranks share a host), else from every rank's
+    host name, gathered over the joined process group (one group without
+    one)."""
+    n = world_size if world_size is not None else _world(None, None)[0]
+    if hostnames is None:
+        local = local_world_size or int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
+        if local:
+            return [list(range(i, min(i + local, n))) for i in range(0, n, local)]
+        if n == 1:
+            return [[0]]
+        import socket
+
+        import torch.distributed as dist
+
+        hostnames = [None] * n
+        dist.all_gather_object(hostnames, socket.gethostname())
+    groups: dict = {}
+    for r, h in enumerate(hostnames):
+        groups.setdefault(h, []).append(r)
+    return list(groups.values())
+
+
+def hybrid_layout(slices: Sequence[Sequence[int]], model: int = 1,
+                  data: Optional[int] = None, main: bool = True) -> np.ndarray:
+    """The [data, model] rank grid of :func:`make_hybrid_mesh`: every host
+    (``slices``: one list of ranks a host) gives the same number of rows of
+    ``model`` ranks, the model axis within a host.  Hosts contribute
+    ``min(len(slice)) // model`` rows each, or ``data // n_hosts`` when the
+    total ``data`` width is given; ranks beyond that are left out with a
+    warning, and an implicit layout that would idle half the ranks or more
+    is refused."""
+    smallest = min(len(s) for s in slices)
+    if data is not None:
+        if data % len(slices):
+            raise ValueError(f"data={data} must divide over {len(slices)} hosts")
+        rows = data // len(slices)
+        if rows * model > smallest:
+            raise ValueError(f"data={data} x model={model} needs {rows * model} ranks a host; "
+                             f"the smallest host has {smallest}")
+    else:
+        rows = smallest // model
+    per = rows * model
+    if per < model or rows < 1:
+        raise ValueError(f"each host must hold >= model={model} ranks (smallest: {smallest})")
+    total = sum(len(s) for s in slices)
+    dropped = total - per * len(slices)
+    if dropped:
+        msg = (f"hybrid mesh uses {per} ranks per host; {dropped}/{total} rank(s) left out of "
+               "the mesh")
+        # an explicit data width asks for a smaller mesh (warn only); an
+        # implicit one dropping half the ranks means the hosts do not fit the
+        # layout at all
+        if data is None and dropped * 2 >= total:
+            raise ValueError(msg + " — over half the ranks would sit idle; fix "
+                             "mesh_data/mesh_model to match the hosts")
+        import warnings
+
+        warnings.warn(msg)
+        if main:
+            print(f"WARNING: {msg}", file=sys.stderr, flush=True)
+    return np.concatenate([np.asarray(s[:per], np.int64).reshape(rows, model) for s in slices])
+
+
+def make_hybrid_mesh(slices: Optional[Sequence[Sequence[int]]] = None, model: int = 1,
+                     data: Optional[int] = None) -> Mesh:
+    """(data, model) mesh over several hosts (:func:`hybrid_layout`), its
+    groups built over the joined process group.  ``slices`` defaults to
+    :func:`group_by_host`."""
+    n, me = _world(None, None)
+    if slices is None:
+        slices = group_by_host()
+    return Mesh(hybrid_layout(slices, model, data, main=me == 0), me, groups=n > 1)
+
+
+def padded_candidate_count(C: int, nm: int) -> int:
+    """Smallest multiple of the model-axis size >= C (C itself when it
+    already divides)."""
+    return ((C + nm - 1) // nm) * nm
+
+
+def pad_candidates_to(batch, batch_fields: Sequence[str], c_from: int, c_to: int):
+    """Pad the candidate dim (axis 1) of every candidate-carrying field from
+    ``c_from`` to ``c_to`` with zeros (row indices pad with 0, a valid row;
+    the models mask the padded candidates and slice the scores back to C)."""
+    if c_to == c_from:
+        return batch
+    out = []
+    for name, x in zip(batch_fields, batch):
+        x = np.asarray(x)
+        if (name.startswith("entity_") or name.endswith("_similarity")) and x.ndim >= 2 \
+                and x.shape[1] == c_from and name != "answer":
+            pad = np.zeros((x.shape[0], c_to - c_from) + x.shape[2:], x.dtype)
+            x = np.concatenate([x, pad], axis=1)
+        out.append(x)
+    return tuple(out) if type(batch) is tuple else type(batch)(*out)
+
+
+def pad_batch_to(batch, n: int):
+    """Pad every field's leading dim to ``n`` rows by repeating row 0 and
+    return (padded_batch, valid_mask[n])."""
+    b = len(batch[0])
+    valid = np.zeros((n,), np.float32)
+    valid[:b] = 1.0
+    if b == n:
+        return batch, valid
+    out = []
+    for x in batch:
+        x = np.asarray(x)
+        pad = np.broadcast_to(x[:1], (n - b,) + x.shape[1:])
+        out.append(np.concatenate([x, pad], axis=0))
+    return type(batch)(*out), valid

@@ -13,7 +13,11 @@ device; unset, a whole-image stub stands in, with a warning.  Migrating a
 store the reference already preprocessed (with its pretrained torchvision
 detector): ``resnet import_objects_from=/path/to/ref/store`` adopts the
 detector-derived object arrays verbatim, while whole-image features are
-recomputed here."""
+recomputed here.
+
+With ``preprocess_data_parallel`` (the default) and several CUDA devices
+visible, every stage spreads each encoder batch over all of them
+(``stages.RowShardedDispatch``)."""
 
 from __future__ import annotations
 
@@ -56,18 +60,20 @@ def main(argv=None):
     ran = {}
     if stage == "prepare":
         return ran
+    devices = None
     if device.type == "cuda" and cfg.preprocess_data_parallel and torch.cuda.device_count() > 1:
-        print(f"{torch.cuda.device_count()} CUDA devices are visible; the stages run on "
-              f"{device} alone (the row-sharded dispatch is not ported: ROADMAP item 7)",
+        # every visible card takes a share of each encoder batch
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        print(f"the stages' encoders run data-parallel over {len(devices)} CUDA devices",
               flush=True)
     if stage in ("bert", "all"):
-        ran["bert"] = stages.BertStage(cfg, device=device)
+        ran["bert"] = stages.BertStage(cfg, device=device, devices=devices)
         ran["bert"].run()
     if stage in ("resnet", "all"):
-        ran["resnet"] = stages.ResnetStage(cfg, device=device)
+        ran["resnet"] = stages.ResnetStage(cfg, device=device, devices=devices)
         ran["resnet"].run()
     if stage in ("clip", "all"):
-        ran["clip"] = stages.ClipStage(cfg, device=device)
+        ran["clip"] = stages.ClipStage(cfg, device=device, devices=devices)
         ran["clip"].run()
     return ran
 

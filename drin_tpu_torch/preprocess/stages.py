@@ -22,14 +22,17 @@ names, shapes and dtypes:
   * :class:`ClipStage`: ``similarity-{miet,eimt}_*``, each unique image and
     text embedded once; a file already there is kept (resumable).
 
-The JAX package's row-sharded dispatch over several chips is not ported:
-the stages run on their one device (ROADMAP item 7).  On CUDA nothing falls
+Given ``devices`` (several), a stage spreads every host batch over a
+replica of its encoder on each (:class:`RowShardedDispatch`, the
+counterpart of the JAX package's ``RowShardedJit``): each device takes
+``preprocess_batch_size`` rows of a dispatch.  On CUDA nothing falls
 back: a kernel that does not build or launch raises, and no encoder is moved
 to the CPU.  Each stage keeps host and encoder seconds in ``clock`` and
 prints them at the end of ``run``."""
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -56,6 +59,70 @@ def stage_device(device) -> torch.device:
         raise RuntimeError("device=cuda was asked for and CUDA is not available "
                            "(pass device=cpu to preprocess on the CPU)")
     return device
+
+
+def _canonical(device) -> torch.device:
+    device = stage_device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class RowShardedDispatch:
+    """Data-parallel dispatch of a stage's frozen encoder over ``devices`` in
+    one process: a replica of the encoder on each distinct device (a device
+    named twice takes two shares of rows on one replica), a host batch split
+    over the devices in order, a tail that does not divide padded with
+    repeats of row 0, and the results concatenated on the host in order and
+    cut back.  The ``.npy`` writer sees the rows the one-device stage
+    writes."""
+
+    def __init__(self, model: torch.nn.Module, devices: Sequence):
+        self.devices = [_canonical(d) for d in devices]
+        self.n = len(self.devices)
+        home = next(model.parameters()).device
+        self.replicas = {}
+        for d in self.devices:
+            if d not in self.replicas:
+                self.replicas[d] = model if d == home else copy.deepcopy(model).to(d)
+
+    def __call__(self, fn: Callable, *arrays: np.ndarray) -> tuple:
+        """``fn(model, *tensors) -> tuple of tensors``, every one with the
+        batch as its leading dim, over ``arrays`` split row-wise; returns the
+        outputs as numpy arrays of all the rows."""
+        n = arrays[0].shape[0]
+        pad = -n % self.n
+        if pad:
+            arrays = tuple(np.concatenate([a, np.repeat(a[:1], pad, 0)]) for a in arrays)
+        per = (n + pad) // self.n
+        parts = []
+        for i, d in enumerate(self.devices):
+            ins = (torch.from_numpy(np.ascontiguousarray(a[i * per:(i + 1) * per])).to(d)
+                   for a in arrays)
+            parts.append(fn(self.replicas[d], *ins))
+        return tuple(torch.cat([p[j].cpu() for p in parts])[:n].numpy()
+                     for j in range(len(parts[0])))
+
+
+def dispatch_for(model: torch.nn.Module, devices: Optional[Sequence]):
+    """A :class:`RowShardedDispatch` over ``devices``, or None for one
+    device (or none given)."""
+    return RowShardedDispatch(model, devices) if devices is not None and len(devices) > 1 else None
+
+
+def rows_per_dispatch(cfg: Config, dp) -> int:
+    """Host batch rows per encoder dispatch: the per-device batch size times
+    the number of devices when data-parallel."""
+    return cfg.preprocess_batch_size * (dp.n if dp else 1)
+
+
+def _encode(stage, fn: Callable, *arrays: np.ndarray) -> tuple:
+    """``fn`` over ``arrays`` on the stage's device, or through its dispatch;
+    numpy outputs."""
+    if stage.dp is not None:
+        return stage.dp(fn, *arrays)
+    ins = (torch.from_numpy(np.ascontiguousarray(a)).to(stage.device) for a in arrays)
+    return tuple(o.cpu().numpy() for o in fn(stage.model, *ins))
 
 
 @contextmanager
@@ -121,7 +188,8 @@ class _Clock:
 
 
 class BertStage:
-    def __init__(self, cfg: Config, state_dict=None, bert_cfg=None, device="cuda"):
+    def __init__(self, cfg: Config, state_dict=None, bert_cfg=None, device="cuda",
+                 devices: Optional[Sequence] = None):
         from drin_tpu_torch.encoders.bert import BertModel
         from drin_tpu_torch.text.wordpiece import BertTokenizer
 
@@ -135,6 +203,7 @@ class BertStage:
         with torch.device("meta"):
             model = BertModel(bert_cfg, fused_attention=cfg.bert_fused_attention)
         self.model = _frozen(model, state_dict, self.device)
+        self.dp = dispatch_for(self.model, devices)
         self.tokenizer = BertTokenizer(vocab_file=cfg.bert_vocab, do_lower_case=False,
                                        model_max_length=cfg.max_bert_len)
         self.clock = _Clock()
@@ -152,7 +221,12 @@ class BertStage:
     def _encode_chunks(self, texts: Sequence[str], output: str, max_len: int):
         """Yield per-dispatch (features, mask-or-None) numpy chunks."""
         cfg = self.cfg
-        B_ = cfg.preprocess_batch_size
+        B_ = rows_per_dispatch(cfg, self.dp)
+
+        def encoder(model, ids, mask):
+            h, pooled = model(ids, mask)
+            return (pooled if output == "pooler_output" else h[:, :max_len]),
+
         for i in range(0, len(texts), B_):
             with self.clock.timed("host"):
                 chunk = [str(t) for t in texts[i : i + B_]]
@@ -160,9 +234,7 @@ class BertStage:
                                      max_length=cfg.max_bert_len)
                 ids, mask = self.bucket(enc["input_ids"], enc["attention_mask"])
             with self.clock.timed("encoder"), torch.inference_mode(), full_float32():
-                h, pooled = self.model(torch.from_numpy(ids).to(self.device),
-                                       torch.from_numpy(mask).to(self.device))
-                h = (pooled if output == "pooler_output" else h[:, :max_len]).cpu().numpy()
+                (h,) = _encode(self, encoder, ids, mask)
             self.clock.chunks += 1
             self.clock.items += len(chunk)
             if output == "pooler_output":
@@ -261,14 +333,10 @@ def wikimel_entity_texts(cfg: Config):
 # ResNet stage
 
 
-def _nchw(x: np.ndarray, device) -> torch.Tensor:
-    """NHWC float32 images on the host -> an NCHW view on ``device``."""
-    return torch.from_numpy(x).to(device).permute(0, 3, 1, 2)
-
-
 class ResnetStage:
     def __init__(self, cfg: Config, state_dict=None, resnet_cfg=None,
-                 detector: Optional[Callable] = None, device="cuda"):
+                 detector: Optional[Callable] = None, device="cuda",
+                 devices: Optional[Sequence] = None):
         from drin_tpu_torch.encoders.resnet import ResNetModel
 
         self.cfg = cfg
@@ -281,8 +349,9 @@ class ResnetStage:
         with torch.device("meta"):
             model = ResNetModel(resnet_cfg)
         self.model = _frozen(model, state_dict, self.device)
+        self.dp = dispatch_for(self.model, devices)
         self.batcher = ImageBatcher(cfg.default_image, cfg.min_image_size, cfg.image_decode_workers)
-        # the detector is never built when the object arrays are imported: that
+        # the detector (on the stage's device) is never built when the object arrays are imported: that
         # path must not warn about a stub detector it will never run
         if detector is None and not cfg.import_objects_from:
             from drin_tpu_torch.preprocess.detector import make_detector
@@ -293,7 +362,13 @@ class ResnetStage:
 
     def _run_images(self, paths, crops, output: str, writer: NpyWriter):
         cfg = self.cfg
-        B_ = cfg.preprocess_batch_size
+        B_ = rows_per_dispatch(cfg, self.dp)
+
+        def encoder(model, x):
+            h, pooled = model(x.permute(0, 3, 1, 2))  # NHWC on the host, NCHW here
+            # [B, 1, C], or [B, R, C] with the regions row-major over (h, w)
+            return (pooled[:, None, :] if output == "pooler_output" else h.contiguous()),
+
         for i in range(0, len(paths), B_):
             chunk = paths[i : i + B_]
             c = crops[i : i + B_] if crops is not None else None
@@ -304,11 +379,7 @@ class ResnetStage:
                                                  cfg.resnet_crop_pct, cfg.resnet_resample),
                     c, chunk=cfg.preprocess_batch_size)
             with self.clock.timed("encoder"), torch.inference_mode(), full_float32():
-                h, pooled = self.model(_nchw(x, self.device))
-                if output == "pooler_output":
-                    out = pooled[:, None, :].cpu().numpy()  # [B, 1, C]
-                else:
-                    out = h.contiguous().cpu().numpy()  # [B, R, C], regions row-major over (h, w)
+                (out,) = _encode(self, encoder, x)
             self.clock.chunks += 1
             self.clock.items += len(chunk)
             writer.extend(out)
@@ -444,9 +515,13 @@ def _each_once(embed, items: np.ndarray) -> np.ndarray:
     return embed(unique)[inverse.reshape(-1)]
 
 
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+
 class ClipStage:
     def __init__(self, cfg: Config, state_dict=None, clip_cfg=None, tokenizer=None,
-                 device="cuda"):
+                 device="cuda", devices: Optional[Sequence] = None):
         """``tokenizer`` defaults to the ``CLIPTokenizer`` of
         ``cfg.clip_vocab`` / ``cfg.clip_merges``."""
         from drin_tpu_torch.encoders.clip import CLIPModel
@@ -461,6 +536,7 @@ class ClipStage:
         with torch.device("meta"):
             model = CLIPModel(clip_cfg)
         self.model = _frozen(model, state_dict, self.device)
+        self.dp = dispatch_for(self.model, devices)
         if tokenizer is None:
             from drin_tpu_torch.text.clip_bpe import CLIPTokenizer
 
@@ -479,30 +555,29 @@ class ClipStage:
                               truncation=True, max_length=min(77, cap))["input_ids"]
 
     def _embed_texts(self, texts: Sequence[str]) -> np.ndarray:
-        B_ = self.cfg.preprocess_batch_size
+        B_ = rows_per_dispatch(self.cfg, self.dp)
         out = []
         for i in range(0, len(texts), B_):
             with self.clock.timed("host"):
                 ids = self.text_ids(texts[i : i + B_])
             with self.clock.timed("encoder"), torch.inference_mode(), full_float32():
-                t = self.model.get_text_features(torch.from_numpy(ids).to(self.device))
-                out.append((t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)).cpu().numpy())
+                out += _encode(self, lambda m, ids: (_unit(m.get_text_features(ids)),), ids)
             self.clock.chunks += 1
             self.clock.items += len(ids)
         return np.concatenate(out, 0)
 
     def _embed_images(self, paths: Sequence[str]) -> np.ndarray:
-        B_ = self.cfg.preprocess_batch_size
+        B_ = rows_per_dispatch(self.cfg, self.dp)
         size = self.clip_cfg.vision.image_size
         out = []
+        embed = lambda m, x: (_unit(m.get_image_features(x.permute(0, 3, 1, 2))),)
         for i in range(0, len(paths), B_):
             with self.clock.timed("host"):
                 x = self.batcher.load_batch_chunked(paths[i : i + B_],
                                                     lambda im: clip_preprocess(im, size),
-                                                    chunk=B_)
+                                                    chunk=self.cfg.preprocess_batch_size)
             with self.clock.timed("encoder"), torch.inference_mode(), full_float32():
-                v = self.model.get_image_features(_nchw(x, self.device))
-                out.append((v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)).cpu().numpy())
+                out += _encode(self, embed, x)
             self.clock.chunks += 1
             self.clock.items += len(x)
         return np.concatenate(out, 0)

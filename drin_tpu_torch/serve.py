@@ -1,5 +1,5 @@
 # -*- coding: utf-8 -*-
-"""Serving (port of ``drin_tpu/serve.py``, its one-device surface).
+"""Serving (port of ``drin_tpu/serve.py``).
 
   * :class:`Ranker` scores a request and returns top-k, for every model
     family: DRIN and offline GHMFC (a rows batch, mention features + [B, C]
@@ -14,6 +14,8 @@
     mention vector over the whole entity table (modes ``exact``, ``approx``,
     ``int8``).  :meth:`Ranker.save_bundle` / :meth:`Ranker.from_bundle`
     write and read a self-contained deployable directory.
+    :meth:`Ranker.shard_retrieval` row-shards retrieval's table over several
+    devices (:class:`ShardedRetrieval`).
   * :class:`BatchingRanker` is the micro-batching front: concurrent callers'
     requests coalesce into one device call.
   * :func:`serve_http` is the stdlib JSON-over-HTTP wrapper: POST /rank,
@@ -28,8 +30,7 @@ fused attention kernel from 256 tokens on; ``use_pallas`` and
 ``pallas_block_b`` are not read.  Retrieval's scans are library products
 (``torch.matmul``, ``torch._int_mm``), as the JAX package's are XLA's, and
 its shortlist is an exact top-k at every table size (the JAX package takes
-an approximate one from 4096 rows).  Not ported yet (ROADMAP: multi-device):
-``shard_retrieval``.
+an approximate one from 4096 rows).
 """
 
 from __future__ import annotations
@@ -167,6 +168,95 @@ def retrieve_quantized(q, qt, scales, table, k: int, kc: int):
     return _rescore_topk(qn, table, _shortlist(coarse, kc), k)
 
 
+def _merge_topk(scores: torch.Tensor, rows: torch.Tensor, k: int):
+    """Top-k of candidates [B, M] from several shards, ties in ascending
+    row order (``torch.topk`` promises no order among ties): sort by row,
+    then stably by descending score."""
+    by_row = torch.argsort(rows, dim=1, stable=True)
+    scores, rows = torch.gather(scores, 1, by_row), torch.gather(rows, 1, by_row)
+    order = torch.argsort(scores, dim=1, descending=True, stable=True)[:, :k]
+    return torch.gather(scores, 1, order), torch.gather(rows, 1, order)
+
+
+class ShardedRetrieval:
+    """Stage-1 retrieval over a table row-sharded across ``devices`` (default:
+    every visible CUDA device; a list may name one device more than once),
+    in one process: the counterpart of the JAX package's
+    ``ShardedRetrieval``, where a shard is a mesh device.
+
+    Each shard scans its own [N / n, D] rows, shortlists, rescores its own
+    full-precision rows and keeps a local top-k; the merge takes the top-k of
+    the shards' winners, ties in ascending row order.  Every true top-k row
+    is in its own shard's local top-k, so with an exact shortlist the merge
+    equals the one-device scan.  The port's shortlist is exact at every
+    shard size (as :func:`_shortlist`), so every mode keeps that guarantee;
+    ``exact=True`` scans in the table's dtype and takes the local top-k of
+    the scan itself, as ``Ranker.retrieve``'s exact mode does.  Rows are
+    zero-padded to an even split; padded rows score -inf and never surface.
+    ``quantize=True`` builds every shard's int8 cache (:func:`quantize_rows`,
+    per row, so a shard quantizes as the whole table does).  ``table`` is
+    used as given: callers pass row-normalized rows."""
+
+    def __init__(self, table: torch.Tensor, devices=None, quantize: bool = False):
+        if devices is None:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        self.devices = [_check_device(d) for d in devices]
+        if not self.devices:
+            raise RuntimeError("ShardedRetrieval needs devices: no CUDA device is visible "
+                               "(pass devices=[...])")
+        self.n = len(self.devices)
+        self.n_valid = int(table.shape[0])
+        self.rows = nl = -(-self.n_valid // self.n)
+        self.shards = []
+        with torch.inference_mode():
+            for r, dev in enumerate(self.devices):
+                part = table[r * nl:(r + 1) * nl]
+                if part.shape[0] < nl:
+                    part = torch.cat([part, part.new_zeros((nl - part.shape[0],)
+                                                           + tuple(table.shape[1:]))])
+                self.shards.append(part.to(dev).contiguous())
+        self.quant = None
+        if quantize:
+            self.ensure_quant()
+
+    def ensure_quant(self):
+        if self.quant is None:
+            with torch.inference_mode():
+                self.quant = [quantize_rows(t) for t in self.shards]
+
+    def _shard(self, r: int, q: torch.Tensor, k: int, kc: int, quantized: bool, exact: bool):
+        t, dev = self.shards[r], self.devices[r]
+        base, nl = r * self.rows, self.rows
+        q = q.to(dev)
+        pad = (base + torch.arange(nl, device=dev)) >= self.n_valid  # [nl]
+        kl = min(kc, nl)
+        kk = min(k, kl)
+        if exact:  # as the one-device exact mode: the query in the table's dtype
+            qn = _unit(q.to(t.dtype).float()).to(t.dtype)
+            scan = (qn @ t.T).float().masked_fill(pad[None, :], float("-inf"))
+            s, i = torch.topk(scan, kk, dim=-1)
+            return s, i + base
+        qn = _unit(q).float()
+        coarse = _coarse_int8(qn, *self.quant[r]) if quantized else qn.to(t.dtype) @ t.T
+        cand = _shortlist(coarse.masked_fill(pad[None, :], float("-inf")), kl)  # local rows
+        rescored = torch.einsum("bd,bkd->bk", qn.to(t.dtype), t[cand]).float()
+        s, i = torch.topk(rescored.masked_fill(pad[cand], float("-inf")), kk, dim=-1)
+        return s, torch.gather(cand, 1, i) + base
+
+    def __call__(self, q, k: int, kc: int, quantized: bool = False, exact: bool = False):
+        """Top-``k`` (scores float32 [B, k], rows int64 [B, k], on the host)
+        of queries ``q`` [B, D], through shortlists of ``kc`` a shard
+        (``exact``: the scan's own top-k)."""
+        if quantized:
+            self.ensure_quant()
+        with torch.inference_mode():
+            q = torch.as_tensor(np.asarray(q, np.float32))
+            wins = [self._shard(r, q, k, kc, quantized, exact) for r in range(self.n)]
+            scores = torch.cat([s.cpu() for s, _ in wins], 1)
+            rows = torch.cat([i.cpu() for _, i in wins], 1)
+            return _merge_topk(scores, rows, min(k, scores.shape[1]))
+
+
 BUNDLE_STATE = "state.pt"
 
 
@@ -200,6 +290,8 @@ class Ranker:
         self._retrieval_table = None
         self._retrieval_q = None
         self._retrieval_expand = 4
+        self._sharded = None  # shard_retrieval's ShardedRetrieval
+        self._sharded_expand = 4
         # the raw host tables are kept only for DRIN's
         # precompute_entity_projection; any other kind would pin them for
         # the server's lifetime
@@ -251,6 +343,7 @@ class Ranker:
     def _drop_retrieval_caches(self):
         self._retrieval_table = None
         self._retrieval_q = None
+        self._sharded = None
 
     def _feats_fn_for(self, store: DeviceEntityStore):
         """Rows batch -> model batch for DRIN and the offline baselines.  The
@@ -441,6 +534,26 @@ class Ranker:
         # published last: concurrent callers test this field for the cache
         self._retrieval_q = quant
 
+    def shard_retrieval(self, devices=None, expand: int = 4, quantize: bool = False):
+        """Row-shard stage-1 retrieval's table over ``devices`` (default:
+        every visible CUDA device on a CUDA ranker, else this ranker's
+        device; :class:`ShardedRetrieval`).  :meth:`retrieve` then routes
+        every mode through the shards; ``quantize=True`` builds their int8
+        caches now.  The one-device caches are released (the shards hold
+        their own copies); ``set_store`` and the ``precompute_*`` fast paths
+        drop the shards."""
+        if expand < 1:
+            raise ValueError(f"expand must be >= 1, got {expand}")
+        if devices is None and self.device.type != "cuda":
+            devices = [self.device]
+        sharded = ShardedRetrieval(self._ensure_retrieval_table(), devices=devices,
+                                   quantize=quantize)
+        self._sharded_expand = int(expand)
+        self._retrieval_table = None
+        self._retrieval_q = None
+        self._sharded = sharded
+        return sharded
+
     def retrieve(self, mention_repr, k: int = 100, mode: Optional[str] = None,
                  expand: Optional[int] = None):
         """Stage-1 retrieval: cosine top-k of ``mention_repr`` [B, D] over the
@@ -456,13 +569,19 @@ class Ranker:
         int8 scan of the cache that :meth:`quantize_retrieval` builds (here
         on demand), the shortlist and the rescore; ``None``, ``"int8"`` once
         that cache exists, else ``"exact"``.  ``expand`` overrides the
-        shortlist width for this call (default: the cache's, or 4)."""
-        table = self._ensure_retrieval_table()
+        shortlist width for this call (default: the cache's, or 4).
+
+        After :meth:`shard_retrieval` every mode runs over the shards
+        (``None``: ``"int8"`` when their int8 caches exist), without the
+        one-device table."""
         if expand is not None and expand < 1:
             raise ValueError(f"expand must be >= 1, got {expand}")
         k = int(k)
         if k < 0:
             raise ValueError(f"k must be >= 0, got {k}")
+        if self._sharded is not None:
+            return self._retrieve_sharded(self._sharded, mention_repr, k, mode, expand)
+        table = self._ensure_retrieval_table()
         q = np.asarray(mention_repr, np.float32)
         if q.ndim != 2 or q.shape[1] != table.shape[1]:
             raise ValueError(f"the query must be [B, {table.shape[1]}], got {q.shape}")
@@ -487,6 +606,21 @@ class Ranker:
                 qn = _unit(q.to(table.dtype).float()).to(table.dtype)
                 scores, idx = torch.topk((qn @ table.T).float(), min(k, n), dim=-1)
             return scores.cpu().numpy(), idx.cpu().numpy()
+
+    def _retrieve_sharded(self, sharded, mention_repr, k, mode, expand):
+        q = np.asarray(mention_repr, np.float32)
+        width = sharded.shards[0].shape[1]
+        if q.ndim != 2 or q.shape[1] != width:
+            raise ValueError(f"the query must be [B, {width}], got {q.shape}")
+        if mode is None:
+            mode = "int8" if sharded.quant is not None else "exact"
+        if mode not in ("exact", "approx", "int8"):
+            raise ValueError(f"unknown retrieval mode {mode!r} (exact | approx | int8)")
+        kq = min(k, sharded.n_valid)
+        exp = expand if expand is not None else self._sharded_expand
+        kc = kq if mode == "exact" else min(k * exp, sharded.n_valid)
+        scores, idx = sharded(q, kq, kc, quantized=mode == "int8", exact=mode == "exact")
+        return scores.numpy(), idx.numpy()
 
     # ------------------------------------------------------------------
     def save_bundle(self, path: str):
@@ -894,7 +1028,7 @@ def serve_http(ranker, host: str = "127.0.0.1", port: int = 8787,
                        "dataset": ranker.cfg.dataset_name,
                        "micro_batched": base is not ranker,
                        "entity_rows": base.store.n_rows if base.store is not None else None,
-                       "sharded_retrieval": False,
+                       "sharded_retrieval": base._sharded is not None,
                        "device": str(base.device)}
                 if base is not ranker:
                     out["batches_run"] = ranker._batches_run
@@ -952,10 +1086,6 @@ def serve_http(ranker, host: str = "127.0.0.1", port: int = 8787,
     return server
 
 
-# multi-device retrieval (ShardedRetrieval) waits for torch.distributed
-_NOT_PORTED = ("shard_retrieval",)
-
-
 def main(argv=None):
     """Deployment CLI: ``python -m drin_tpu_torch.serve`` stands up the HTTP
     service from a bundle (:meth:`Ranker.save_bundle`) or a port checkpoint
@@ -981,7 +1111,10 @@ def main(argv=None):
     :class:`BatchingRanker` front); ``quantize_store``, ``fused_gather``;
     ``project_entities`` (DRIN) and ``precompute_entities`` (offline GHMFC:
     :meth:`Ranker.precompute_entity_reprs`); ``quantize_retrieval=true`` and
-    ``retrieve_expand=N`` (the int8 retrieval cache).  Every other key is a
+    ``retrieve_expand=N`` (the int8 retrieval cache); ``shard_retrieval=true``
+    (retrieval's table row-sharded over every visible CUDA device,
+    :meth:`Ranker.shard_retrieval`, with ``quantize_retrieval``'s int8
+    caches per shard).  Every other key is a
     Config override.  A WikiMEL server with the pooled entity cache loads
     the entity text table for an online model too: ``/retrieve`` scans it.
     Returns the server object; the ``__main__`` path blocks until
@@ -990,10 +1123,6 @@ def main(argv=None):
     from drin_tpu_torch.common.config import make_config
 
     overrides = parse_overrides(argv if argv is not None else sys.argv[1:])
-    unported = sorted(k for k in overrides if k in _NOT_PORTED)
-    if unported:
-        raise SystemExit(f"not ported yet: {', '.join(unported)} (ROADMAP: multi-device, "
-                         "ShardedRetrieval); one-device retrieval is /retrieve")
     bundle = overrides.pop("bundle", None)
     host = overrides.pop("host", "127.0.0.1")
     port = int(overrides.pop("port", 8787))
@@ -1004,6 +1133,7 @@ def main(argv=None):
     project = overrides.pop("project_entities", False)
     precompute = overrides.pop("precompute_entities", False)
     quant = overrides.pop("quantize_retrieval", False)
+    shard = overrides.pop("shard_retrieval", False)
     expand = int(overrides.pop("retrieve_expand", 4))
     quantize_store = bool(overrides.pop("quantize_store", False))
     fused_gather = bool(overrides.pop("fused_gather", False))
@@ -1031,7 +1161,9 @@ def main(argv=None):
         ranker.precompute_entity_projection()
     if precompute:
         ranker.precompute_entity_reprs()
-    if quant:
+    if shard:
+        ranker.shard_retrieval(expand=expand, quantize=bool(quant))
+    elif quant:
         ranker.quantize_retrieval(expand=expand)
     front = BatchingRanker(ranker, max_batch=max_batch, wait_ms=wait_ms) if micro else ranker
     server = serve_http(front, host=host, port=port, feat_fields=rank_feat_fields(front))

@@ -2,8 +2,8 @@
 """Top-k accuracy with correction (port of ``drin_tpu/train/metrics.py``).
 
 The state is a dict of 0-d float32 tensors on the device, so a step adds to
-it without a host read; the host reads it at log time only.  The
-cross-device reduction of the counters comes with the multi-device port.
+it without a host read; the host reads it at log time only, after summing it
+over the ranks of the data axis (:func:`psum_state`).
 """
 
 from __future__ import annotations
@@ -69,3 +69,18 @@ def compute(state: MetricState, topk: Sequence[int], correction: float = 0.0) ->
     into the reported number, acc / (1 - correction)."""
     total = torch.clamp_min(state["total"], 1.0)
     return {k: state[f"correct_{k}"] / total / (1.0 - correction) for k in topk}
+
+
+def psum_state(state: MetricState, group) -> MetricState:
+    """The counters summed over the ranks of ``group`` (the data axis), in
+    one ``all_reduce``; the port of ``drin_tpu.train.metrics.psum_state``."""
+    import torch.distributed as dist
+
+    from drin_tpu_torch.parallel.collectives import group_size
+
+    if group_size(group) == 1:
+        return dict(state)
+    keys = sorted(state)
+    flat = torch.stack([state[k].reshape(()) for k in keys])
+    dist.all_reduce(flat, group=group)
+    return {k: flat[i] for i, k in enumerate(keys)}

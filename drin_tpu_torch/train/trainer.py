@@ -1,5 +1,6 @@
 # -*- coding: utf-8 -*-
-"""Train/eval harness on one device (port of ``drin_tpu/train/trainer.py``).
+"""Train/eval harness (port of ``drin_tpu/train/trainer.py``), on one device
+or over the ranks of a mesh (``parallel/mesh.py``).
 
   * ``train_step`` / ``eval_step`` hold the model forward, the triplet loss,
     the Adam update and the metric counters; the counters stay on the device
@@ -15,7 +16,15 @@
   * ``torch.profiler`` traces in step windows behind ``cfg.profiling``
     (:class:`WindowedProfiler`).
 
-Not ported yet: everything multi-device.
+Over a mesh every rank walks the same global batches and assembles the rows
+its data index owns; the loss is the global batch's (in-batch negatives over
+every row of the data group), the gradients are summed over the data group
+and averaged over the model axis in one call, so that every rank receives
+the same bits and takes the same Adam step (the model axis replicates the
+compute; its replicas do not rely on the kernels' sums repeating bit for bit
+in every process), and the counters are summed at log time.  Rank 0 logs, writes the checkpoints (every rank reads them) and
+the test dump.  With dropout on, a mesh run equals the one-device run in
+distribution only: every data index draws its own masks.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ import torch
 
 from drin_tpu_torch.common.config import Config
 from drin_tpu_torch.data.prefetch import Prefetcher
+from drin_tpu_torch.parallel import collectives
+from drin_tpu_torch.parallel.distributed import process_row_range
 from drin_tpu_torch.train import metrics as M
 from drin_tpu_torch.train.loss import triplet_loss
 
@@ -65,16 +76,22 @@ class StepFns(NamedTuple):
     loss_and_metrics: Callable  # (batch, valid, mstate, rng=None) -> (loss, mstate, scores)
 
 
-def step_generator(cfg: Config, step: int, device) -> torch.Generator:
-    """The random stream of one train step, made from ``cfg.seed`` and the
-    step count: the same seed and step give the same dropout masks."""
+def step_generator(cfg: Config, step: int, device, data_index: int = 0) -> torch.Generator:
+    """The random stream of one train step, made from ``cfg.seed``, the step
+    count and the rank's data index: the same three give the same dropout
+    masks (data index 0 draws the one-device stream)."""
     g = torch.Generator(device=device)
-    g.manual_seed((cfg.seed * 1_000_003 + step) % (2 ** 63))
+    g.manual_seed((cfg.seed * 1_000_003 + step + data_index * 0x9E3779B97F4A7C15) % (2 ** 63))
     return g
 
 
+def _mesh_or_none(mesh):
+    """A mesh of one rank is one device."""
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
 def build_step_fns(model: torch.nn.Module, cfg: Config,
-                   feats_fn: Optional[Callable] = None) -> StepFns:
+                   feats_fn: Optional[Callable] = None, mesh=None) -> StepFns:
     """``train_step(state, batch, valid, mstate) -> (state, loss, mstate)``
     and ``eval_step(batch, valid, mstate) -> (loss, mstate, scores)``.
 
@@ -84,9 +101,29 @@ def build_step_fns(model: torch.nn.Module, cfg: Config,
     device-resident entity tables' gather, ``data/device_store.py``).  The
     train step runs the model in train mode (attention dropout at
     ``cfg.transformer_dropout`` from the step's generator); eval is always
-    deterministic."""
+    deterministic.
+
+    Over a ``mesh`` with a data axis of several ranks, a batch holds this
+    rank's rows of the global batch (:func:`process_row_range`).  The
+    scores, answers and valid rows of the data group are gathered into the
+    global batch; the loss is this rank's rows' part of the global batch's
+    triplet loss (the parts sum to it), and the gathered scores carry every
+    part's gradient back to the rows' owners.  ``train_step`` sums the
+    gradients and the loss over the mesh in one call before Adam, divided by
+    the model width (the model axis replicates the compute, so each of its
+    ranks holds the data group's sum), and returns the global loss; every
+    rank then takes the same Adam step, even where a kernel's sums are not
+    reproducible bit for bit across processes.  ``eval_step`` returns the
+    global loss too.  The counters hold
+    this rank's rows and its part of the loss: sum them over the data group
+    to read them (the ``Trainer`` does).  Without a mesh, or on a mesh of
+    one rank, this is the one-device step."""
     topk = tuple(cfg.metrics_topk)
     compute_dtype = getattr(torch, cfg.compute_dtype)
+    mesh = _mesh_or_none(mesh)
+    data_parallel = mesh is not None and mesh.shape["data"] > 1
+    data_index = mesh.data_index if mesh is not None else 0
+    own = process_row_range(mesh, cfg.batch_size) if data_parallel else None
 
     def forward(feats, **kw):
         if compute_dtype == torch.float32:
@@ -98,30 +135,57 @@ def build_step_fns(model: torch.nn.Module, cfg: Config,
         weights = {name: cast(p) for name, p in model.named_parameters()}
         return torch.func.functional_call(model, weights, (feats,), kw).float()
 
-    def loss_and_metrics(batch, valid, mstate, rng=None):
+    def global_loss(scores, answer, valid):
+        """This rank's part of the global batch's loss, and the global loss
+        when no gradient is asked for (every rank holds the gathered batch)."""
+        if not data_parallel:
+            return triplet_loss(answer, scores, cfg.triplet_margin, valid), None
+        C = scores.shape[1]
+        # one gather of scores, answers and valid rows: the last two carry no
+        # gradient and travel in the scores' float32 exactly (0/1 values)
+        packed = torch.cat([scores, answer.to(scores.dtype), valid.to(scores.dtype)[:, None]], 1)
+        packed = collectives.gather_rows(packed, mesh.data_group, mesh.data_order)
+        s_all, a_all, v_all = packed[:, :C], packed[:, C:-1], packed[:, -1]
+        part = triplet_loss(a_all, s_all, cfg.triplet_margin, v_all, rows=own)
+        whole = (None if torch.is_grad_enabled()
+                 else triplet_loss(a_all, s_all, cfg.triplet_margin, v_all))
+        return part, whole
+
+    def body(batch, valid, mstate, rng=None):
         feats, answer = tuple(batch[:-1]), batch[-1]
         if feats_fn is not None:
             feats = feats_fn(feats)
         kw = {} if rng is None else {"deterministic": False, "rng": rng}
         scores = forward(feats, **kw)
-        loss = triplet_loss(answer, scores, cfg.triplet_margin, valid)
+        loss, whole = global_loss(scores, answer, valid)
         mstate = M.add_loss(M.update(mstate, scores, answer, topk, valid), loss)
+        return loss, whole, mstate, scores
+
+    def loss_and_metrics(batch, valid, mstate, rng=None):
+        loss, _, mstate, scores = body(batch, valid, mstate, rng)
         return loss, mstate, scores
 
     def train_step(state: TrainState, batch, valid, mstate):
-        rng = step_generator(cfg, state.step, valid.device)
+        rng = step_generator(cfg, state.step, valid.device, data_index)
         state.optimizer.zero_grad(set_to_none=True)
         loss, mstate, _ = loss_and_metrics(batch, valid, mstate, rng)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            # every rank's Adam step must see the global gradient: summed
+            # over the data axis, and averaged over the model axis, whose
+            # ranks hold replicas of it, so that no replica drifts
+            loss = collectives.sum_grads_(list(model.parameters()), mesh.group, loss,
+                                          divide=mesh.shape["model"])
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach(), mstate
+        return state, loss, mstate
 
     @torch.no_grad()
     def eval_step(batch, valid, mstate):
-        # also returns the raw [B, C] scores for the test-result dump
-        loss, mstate, scores = loss_and_metrics(batch, valid, mstate)
-        return loss, mstate, scores
+        # also returns the raw [B, C] scores (this rank's rows) for the dump
+        loss, whole, mstate, scores = body(batch, valid, mstate)
+        return (loss if whole is None else whole), mstate, scores
 
     return StepFns(train_step, eval_step, loss_and_metrics)
 
@@ -231,16 +295,25 @@ class Trainer:
 
     def __init__(self, cfg: Config, model: torch.nn.Module, *, device,
                  feats_fn: Optional[Callable] = None, log=print,
-                 output_test_result_path: str = "test-result.txt"):
+                 output_test_result_path: str = "test-result.txt", mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device=cuda was asked for and CUDA is not available "
                                "(pass device=cpu to train on the CPU)")
-        self.log = log
+        self.mesh = _mesh_or_none(mesh)
+        self._main = self.mesh is None or self.mesh.main
+        self.log = log if self._main else (lambda *a, **k: None)
         self.feats_fn = feats_fn
         self.state = create_train_state(model.to(self.device), cfg)
-        self.fns = build_step_fns(self.state.model, cfg, feats_fn)
+        # the rows of the global batch this rank assembles (all of them on one device)
+        self._rows = (process_row_range(self.mesh, cfg.batch_size) if self.mesh is not None
+                      else (0, cfg.batch_size))
+        if self.mesh is not None:
+            # every rank starts from the main rank's weights
+            collectives.broadcast_(list(self.state.model.state_dict().values()),
+                                   int(self.mesh.ranks[0, 0]), self.mesh.group)
+        self.fns = build_step_fns(self.state.model, cfg, feats_fn, self.mesh)
         self.epoch = 0
         self._test_result_path = output_test_result_path
         self._profiler = None
@@ -249,9 +322,27 @@ class Trainer:
         self._writer_error = None
         self._ckpt_dir = os.path.abspath(cfg.checkpoint_dir) if cfg.enable_checkpointing else None
         if self._ckpt_dir is not None:
-            os.makedirs(self._ckpt_dir, exist_ok=True)
+            if self._main:
+                os.makedirs(self._ckpt_dir, exist_ok=True)
+            self._barrier()  # every rank sees the directory as the main rank left it
             if cfg.resume_from is not None or self.latest_step() is not None:
                 self.restore(cfg.resume_from)
+
+    # -- the mesh ------------------------------------------------------
+    def _barrier(self):
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.group)
+
+    def _reduced(self, mstate):
+        """The counters over the data axis: summed, the step count as it is
+        (every rank took every step)."""
+        if self.mesh is None or self.mesh.shape["data"] == 1:
+            return mstate
+        out = M.psum_state(mstate, self.mesh.data_group)
+        out["n_batches"] = mstate["n_batches"]
+        return out
 
     # -- checkpointing -------------------------------------------------
     def _steps(self) -> list:
@@ -271,15 +362,21 @@ class Trainer:
         parameters in place.  ``wait=False`` writes the copy in a background
         thread (``fit``'s per-epoch saves, so that the next epoch's compute
         hides the write); a second save, ``restore`` and the end of ``fit``
-        wait for it (:meth:`wait_until_finished`)."""
+        wait for it (:meth:`wait_until_finished`).  Over a mesh the main rank
+        writes, and a waited save returns on every rank once it is written."""
         if self._ckpt_dir is None:
             return
         self.wait_until_finished()
+        if not self._main:  # the main rank writes; every rank holds the same state
+            if wait:
+                self._barrier()
+            return
         payload = {"params": _host_copy(self.state.model.state_dict()),
                    "opt_state": _host_copy(self.state.optimizer.state_dict()),
                    "step": self.state.step, "epoch": self.epoch}
         if wait:
             self._write(payload)
+            self._barrier()
             return
 
         def write():
@@ -314,6 +411,7 @@ class Trainer:
                 "enable_checkpointing=true (save() silently no-ops without "
                 "it, but restoring from nowhere is always a caller error)")
         self.wait_until_finished()  # a save of this trainer may still be in flight
+        self._barrier()  # and the main rank's: every rank reads what it wrote
         if step is not None:
             try:
                 step = int(step)
@@ -355,11 +453,14 @@ class Trainer:
             yield idx, valid
 
     def _assemble(self, dataset, kind: str, idx: np.ndarray, valid: np.ndarray):
+        """This rank's rows of the global batch ``idx`` (every row on one
+        device)."""
+        lo, hi = self._rows
         if getattr(dataset, "accepts_bucket_idx", False):
             # online datasets take the length bucket from the global batch's
-            # indices (one process: the batch's own)
-            return self._put(dataset.make_batch(idx, kind, bucket_idx=idx), valid)
-        return self._put(dataset.make_batch(idx, kind), valid)
+            # indices, so that every rank trims to the same shape
+            return self._put(dataset.make_batch(idx[lo:hi], kind, bucket_idx=idx), valid[lo:hi])
+        return self._put(dataset.make_batch(idx[lo:hi], kind), valid[lo:hi])
 
     def _run_epoch(self, dataset, split: str, train: bool, kind: str):
         cfg = self.cfg
@@ -393,20 +494,24 @@ class Trainer:
                     break
                 n_batches += 1
                 if n_batches % log_every == 0:
-                    accs = M.compute(mstate, cfg.metrics_topk, correction)
-                    acc_str = ", ".join(f"top{k}: {float(v):.4f}" for k, v in accs.items())
-                    print(f"\r{split} loss: {float(M.mean_loss(mstate)):.4f}, {acc_str}",
-                          end="", file=sys.stderr, flush=True)
+                    m = self._reduced(mstate)  # every rank takes part; the main one prints
+                    if self._main:
+                        accs = M.compute(m, cfg.metrics_topk, correction)
+                        acc_str = ", ".join(f"top{k}: {float(v):.4f}" for k, v in accs.items())
+                        print(f"\r{split} loss: {float(M.mean_loss(m)):.4f}, {acc_str}",
+                              end="", file=sys.stderr, flush=True)
         return self._finalize_epoch(mstate, split, time.time() - t0)
 
     def _finalize_epoch(self, mstate, split: str, dt: float):
         cfg = self.cfg
         correction = cfg.acc_correction[self.SPLITS.index(split)]
+        mstate = self._reduced(mstate)
         accs = {k: float(v) for k, v in M.compute(mstate, cfg.metrics_topk, correction).items()}
         total = float(mstate["total"])
         mean_loss = float(M.mean_loss(mstate))
         pairs_per_sec = total * cfg.num_candidates_model / max(dt, 1e-9)
-        print("", file=sys.stderr)
+        if self._main:
+            print("", file=sys.stderr)
         acc_str = ", ".join(f"top{k}: {v:.4f}" for k, v in accs.items())
         self.log(
             f"{_now()} {split} epoch {self.epoch} done: loss {mean_loss:.4f}, "
@@ -432,7 +537,7 @@ class Trainer:
             # reference semantics: a fresh optimizer per chunk restarts
             # Adam's moments and step count
             self.state.optimizer = make_optimizer(self.state.model, cfg)
-        if cfg.profiling:
+        if cfg.profiling and self._main:
             # one profiler for the run: windowed cycles continue across chunks
             if self._profiler is None:
                 self._profiler = WindowedProfiler(cfg, self.device)
@@ -485,18 +590,30 @@ class Trainer:
 
     def _dump_test_results(self, dataset, kind: str):
         """Single-pass test epoch that also writes the raw score vectors and
-        labels, one line per mention: ``s_0 ... s_C-1 | label``."""
+        labels, one line per mention: ``s_0 ... s_C-1 | label``.  Over a mesh
+        the scores of every data index are gathered to the main rank, which
+        writes them in the global batch's row order."""
         cfg = self.cfg
         mstate = M.init_state(cfg.metrics_topk, self.device)
         self.log(f"{_now()} test epoch {self.epoch} start")
         t0 = time.time()
-        with open(self._test_result_path, "w") as f:
+        f = open(self._test_result_path, "w") if self._main else None
+        try:
             for idx, valid in self._index_batches(len(dataset), False, 0):
                 put, vput = self._assemble(dataset, kind, idx, valid)
                 _, mstate, scores = self.fns.eval_step(put, vput, mstate)
+                if self.mesh is not None:
+                    with torch.no_grad():
+                        scores = collectives.gather_rows(scores, self.mesh.data_group,
+                                                         self.mesh.data_order)
+                if f is None:
+                    continue
                 b = int(valid.sum())
                 scores = scores[:b].float().cpu().numpy()
                 labels = dataset.labels(idx[:b])
                 for row, lab in zip(scores, labels):
                     f.write(" ".join(f"{v:.6f}" for v in row) + f" | {lab}\n")
+        finally:
+            if f is not None:
+                f.close()
         return self._finalize_epoch(mstate, "test", time.time() - t0)

@@ -31,7 +31,7 @@ def _imports(path: Path):
 def test_the_scan_covers_every_port_subpackage():
     scanned = {p.parent.name for p in PORT_FILES}
     packages = {p.parent.name for p in (ROOT / "drin_tpu_torch").rglob("__init__.py")}
-    assert packages <= scanned and {"text", "preprocess", "data", "ops"} <= packages
+    assert packages <= scanned and {"text", "preprocess", "data", "ops", "parallel"} <= packages
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -181,8 +181,15 @@ def test_serve_main_checkpoint_mode_and_device_guard(wm128, tmp_path, monkeypatc
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(common)
-    with pytest.raises(SystemExit, match="not ported yet: shard_retrieval"):
-        main(common + ["shard_retrieval=true", "device=cpu"])
+    # shard_retrieval: one shard on the ranker's own device, the one-device
+    # caches released
+    sharded = main(common + ["shard_retrieval=true", "device=cpu"])
+    try:
+        assert sharded.front._sharded.n == 1 and sharded.front._retrieval_table is None
+        assert _get(f"http://127.0.0.1:{sharded.server_address[1]}", "/stats")["sharded_retrieval"]
+    finally:
+        sharded.shutdown()
+        sharded.server_close()
     server = main(common + ["device=cpu"])
     try:
         fields = list(type(batch)._fields[:-1])
@@ -486,7 +493,8 @@ def test_melhi_ranker_and_cli_match_jax(tmp_path):
             f"num_candidates_data={cfg.num_candidates_data}",
             f"max_mention_sentence_len={cfg.max_mention_sentence_len}",
             f"resnet_num_region={cfg.resnet_num_region}"]
-    with pytest.raises(SystemExit, match="not ported yet: shard_retrieval"):
+    # no entity tables: sharded retrieval has nothing to scan, refused at start
+    with pytest.raises(RuntimeError, match="retrieve\\(\\) needs device entity tables"):
         main(argv + ["shard_retrieval=true"])
     server = main(argv)
     try:
@@ -504,9 +512,9 @@ def test_melhi_ranker_and_cli_match_jax(tmp_path):
 
 def test_serve_main_online(online, wm128, tmp_path, monkeypatch):
     """The CLI stands up the online model from a checkpoint; bert-base dims
-    are its default, so the tiny checkpoint is refused loudly, and the one
-    unported serving key still is.  The server loads the WikiMEL text table
-    for /retrieve, as the JAX CLI does."""
+    are its default, so the tiny checkpoint is refused loudly.  The server
+    loads the WikiMEL text table for /retrieve, as the JAX CLI does, and
+    ``shard_retrieval=true`` answers it from the row-sharded table."""
     from drin_tpu_torch import serve as tserve
     from drin_tpu_torch.models.convert import ghmfc_online_state_dict_from_jax
 
@@ -521,12 +529,20 @@ def test_serve_main_online(online, wm128, tmp_path, monkeypatch):
             f"mention_final_output_dim={cfg.mention_final_output_dim}",
             f"entity_final_output_dim={cfg.entity_final_output_dim}",
             f"max_mention_sentence_len={cfg.max_mention_sentence_len}"]
-    with pytest.raises(SystemExit, match="not ported yet: shard_retrieval"):
-        main(argv + ["shard_retrieval=true"])
     with pytest.raises(RuntimeError, match="size mismatch"):
         main(argv)  # a bert-base model does not load the tiny checkpoint
     real = tserve.Ranker
     monkeypatch.setattr(tserve, "Ranker", lambda *a, **kw: real(*a, bert_cfg=bert_cfg, **kw))
+    sharded = main(argv + ["shard_retrieval=true"])
+    try:
+        q = np.asarray(wm128[1]["entity_text_feature"][[1, 6], 0], np.float32)
+        code, out = _post(f"http://127.0.0.1:{sharded.server_address[1]}", "/retrieve",
+                          {"query": _encode_arrays({"q": q}), "k": 2})
+        assert code == 200 and [r[0] for r in out["indices"]] == [1, 6]
+        assert sharded.front._sharded is not None
+    finally:
+        sharded.shutdown()
+        sharded.server_close()
     server = main(argv)
     try:
         fields = list(tserve.OnlineBatch._fields[:-1])
@@ -864,7 +880,8 @@ def test_bundle_round_trip(wm128, tmp_path, kind):
 def test_serve_main_from_bundle_micro_batched(wm128, tmp_path):
     """The CLI serves a bundle behind the micro-batching front: /rank with
     named fields, /retrieve over the int8 cache, /stats; bundle mode takes
-    no config overrides and shard_retrieval is refused by name."""
+    no config overrides; ``shard_retrieval`` with ``quantize_retrieval``
+    builds the shards' int8 caches instead of the one-device cache."""
     from drin_tpu_torch.serve import Ranker as TRanker
 
     cfg, tables, params, batch = wm128
@@ -873,8 +890,18 @@ def test_serve_main_from_bundle_micro_batched(wm128, tmp_path):
     argv = [f"bundle={tmp_path / 'b'}", "micro_batch=true", "device=cpu", "port=0"]
     with pytest.raises(SystemExit, match="no config overrides"):
         main(argv + ["batch_size=4"])
-    with pytest.raises(SystemExit, match="shard_retrieval"):
-        main(argv + ["shard_retrieval=true"])
+    sharded = main(argv + ["shard_retrieval=true", "quantize_retrieval=true"])
+    try:
+        ranker = sharded.front.ranker
+        assert ranker._sharded.quant is not None and ranker._retrieval_q is None
+        q = np.asarray(tables["entity_text_feature"][[2, 9], 0], np.float32)
+        code, out = _post(f"http://127.0.0.1:{sharded.server_address[1]}", "/retrieve",
+                          {"query": _encode_arrays({"q": q}), "k": 3})
+        assert code == 200 and [r[0] for r in out["indices"]] == [2, 9]
+    finally:
+        sharded.shutdown()
+        sharded.server_close()
+        sharded.front.close()
     server = main(argv + ["quantize_store=true", "fused_gather=true", "quantize_retrieval=true",
                           "retrieve_expand=3", "wait_ms=5", "max_batch=8"])
     url = f"http://127.0.0.1:{server.server_address[1]}"

@@ -522,7 +522,13 @@ def test_train_entry_refuses_by_name(stores):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_main(args(device="cuda"))
-    for kw, what in ((dict(mesh_data=2), "mesh_data=2"), (dict(num_processes=2), "num_processes=2")):
-        with pytest.raises(NotImplementedError, match="not ported yet") as err:
+    # several ranks are ported: what is refused is a mesh larger than the
+    # process group, a group without its coordinator, and NCCL on ranks that
+    # would share a device (before joining anything)
+    for kw, what in ((dict(mesh_data=2), "data=2 x model=1 needs 2 ranks"),
+                     (dict(num_processes=2), "num_processes=2 needs coordinator_address"),
+                     (dict(num_processes=2, coordinator_address="127.0.0.1:1",
+                           dist_backend="nccl"), "dist_backend=gloo")):
+        with pytest.raises(ValueError) as err:
             train_main(args(**kw))
         assert what in str(err.value)
