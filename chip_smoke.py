@@ -7,12 +7,13 @@
 Builds the CUDA kernels from ``drin_tpu_torch/csrc`` (one nvcc per source,
 started together, sm_90a), holds each against its plain PyTorch version on
 the card (gather+dequant at DRIN's and offline GHMFC's two packed layouts,
-the GCN layer with its per-launch device times in bf16 and float32, the
+the GCN layer with its per-launch device times in bf16 and float32, on
+padded candidates whole and as two halves through its split entry, the
 attention forward, the attention backward with and without a mask, the
 vertex update in both dtypes, and the port-only NMS kernel on the detector's
 RPN and class problems and its edge cases), runs the full-width Faster R-CNN
 detector from a seeded torchvision-keyed checkpoint against its CPU forward,
-then drives sixteen paths at the full width of their models with seeded
+then drives twenty-one paths at the full width of their models with seeded
 random weights.  Served, through ``Ranker`` and ``serve_http``:
 
   * DRIN's rank stage at the WikiMEL width over an int8 fused store of
@@ -72,8 +73,14 @@ the sharded code and measures its overhead; it does not scale):
     entry point by two ranks against one process, over a seeded store on
     disk: the batch split over the data axis (the global batch's loss, the
     gradients summed), then the token-level tables row-sharded over the
-    model axis (the GCN-layer kernel in every rank); before them, train
-    steps through Trainer with two planted faults that the checks must see;
+    model axis, candidate-parallel (C=101 padded to 102, 51 candidates a
+    rank, the GCN-layer kernel's split entry in every rank); before them,
+    train steps through Trainer on each axis with two planted faults each
+    that the checks must see;
+  * a Ranker over a row-sharded DRIN store (bf16, 4,096 entities) on two
+    ranks behind the HTTP front (the first rank serves and leads, the other
+    follows), against one process over the unsharded store (the GCN-layer
+    kernel's split entry in both ranks);
   * stage-1 retrieval with the table row-sharded: ``ShardedRetrieval`` in 4
     shards on the card and the serve CLI's ``shard_retrieval=true``.
 
@@ -725,6 +732,12 @@ def phase_gcn(torch, gcn):
                   f"{dev_ms / bound_ms:.2f}")
             result["f32"] = {"shape": [B, C, D], **times, "bound_ms": bound_ms, "bound_by": bound_by,
                              "fma_bound_ms": fma_ms, "one_tf32_pass_err": one_pass}
+    result["split_entry"] = {"cases": []}
+    for B, dt in SPLIT_CASES:
+        checks, times = _gcn_padded_and_split(torch, gcn, dt, B)
+        result["split_entry"]["cases"].append(checks)
+        if times:  # the timed case of each dtype
+            result["split_entry"][dt] = {**checks, **times}
     for D, dt in ((96, bf16), (256, bf16), (32, f32), (48, f32)):
         vertexes, edges, weights = _gcn_inputs(torch, 2, 5, D, dt, SEED)
         try:
@@ -733,6 +746,132 @@ def phase_gcn(torch, gcn):
         except ValueError as e:
             assert "built for D in" in str(e), e
     return result
+
+
+# kernel 1 on padded candidates: WikiMEL's C=101 padded to 102 over a model
+# axis of 2, at the shapes the main paths give a rank's layer: train_rows'
+# candidate-parallel steps [64, 51, 768] in float32 (B=64 a rank on a (1, 2)
+# mesh), serve_ranks' requests at B=64, 3 and 1 in bf16; and B=32.  The
+# first case of each dtype is timed
+SPLIT_CP, SPLIT_C = 102, 101
+SPLIT_CASES = ((64, "float32"), (64, "bfloat16"), (32, "float32"), (32, "bfloat16"),
+               (3, "bfloat16"), (1, "bfloat16"))
+
+
+def gcn_blocks(gcn, vertexes, edges, weights, n=2, **kw):
+    """Kernel 1's split entry on ``n`` blocks of the candidates on one
+    device, as the ``n`` ranks of a model group run it: part 1 on each block,
+    the message sums added in block order (what the group's sum does), part
+    2 on each.  Returns each block's (new vertexes, new edges)."""
+    Cp = vertexes[2].shape[1]
+    per = Cp // n
+    # a copy of each block, as a rank holds its own tensors: a [1, 51] view is
+    # contiguous but starts off the kernel's 16-byte alignment
+    cut = lambda t, i: t[:, i * per:(i + 1) * per].clone().contiguous()
+    blocks = [(vertexes[:2] + [cut(v, i) for v in vertexes[2:]], [cut(e, i) for e in edges])
+              for i in range(n)]
+    outs = [None] * n
+
+    def run(i, acc):
+        total = {}
+
+        def summed(m):
+            t = m.clone() if acc is None else acc + m
+            total["t"] = run(i + 1, t) if i + 1 < n else t
+            return total["t"]
+
+        outs[i] = gcn.fused_gcn_layer(*blocks[i], *weights, sum_messages=summed, **kw)
+        return total["t"]
+
+    run(0, None)
+    return outs
+
+
+def _gcn_padded_and_split(torch, gcn, dt, B):
+    """Kernel 1 on padded candidates: [B, 102, 768] whole with the real
+    C=101 as the mean's divisor (candidate 101's edges zeroed, as the model
+    zeroes a padded candidate's), and as two [B, 51, 768] halves through the
+    split entry with their message sums added between the parts, against
+    gcn_layer_plain(num_candidates=101) on the whole.  The plain version with
+    the divisor 102 (the planted fault) must fail the float32 check; whether
+    it shows in bf16 is printed.  The first case of a dtype in SPLIT_CASES
+    is timed in both forms."""
+    bf16 = torch.bfloat16
+    timed = next(b for b, d in SPLIT_CASES if d == dt) == B
+    dt = getattr(torch, dt)
+    Cp, C, D = SPLIT_CP, SPLIT_C, 768
+    vertexes, edges, weights = _gcn_inputs(torch, B, Cp, D, dt, SEED + 70)
+    for e in edges:
+        e[:, C:] = 0
+    kw = dict(vact="gelu", eact="sigmoid", dynamic=True)
+    tol = GCN_BF16_TOL if dt == bf16 else GCN_F32_TOL
+    names = ("mt", "mi", "et", "ei", "tt", "ti", "it", "ii")
+    with torch.inference_mode():
+        want_v, want_e = gcn.gcn_layer_plain(vertexes, edges, *weights, num_candidates=C, **kw)
+        want = want_v + want_e
+        got_v, got_e = gcn.fused_gcn_layer(vertexes, edges, *weights, num_candidates=C, **kw)
+        split0 = gcn.split_launches
+        halves = gcn_blocks(gcn, vertexes, edges, weights, num_candidates=C, **kw)
+        split_calls = gcn.split_launches - split0
+        bad_v, bad_e = gcn.gcn_layer_plain(vertexes, edges, *weights, num_candidates=Cp, **kw)
+    torch.cuda.synchronize()
+    (h0v, h0e), (h1v, h1e) = halves
+    assert all(torch.equal(a, b) for a, b in zip(h0v[:2], h1v[:2])), \
+        "the halves' mention rows differ: part 2 saw different sums"
+    joined = h0v[:2] + [torch.cat([a, b], 1) for a, b in zip(h0v[2:], h1v[2:])] + \
+        [torch.cat([a, b], 1) for a, b in zip(h0e, h1e)]
+    err_whole = max(check_close(f"gcn_layer C=101 of 102 {n}", a, b, **tol)
+                    for n, a, b in zip(names, got_v + got_e, want))
+    err_split = max(check_close(f"gcn_layer halves {n}", a, b, **tol)
+                    for n, a, b in zip(names, joined, want))
+    fault = sum(outside(a, b, **tol) for a, b in zip(bad_v + bad_e, want))
+    fault_dev = max((a.float() - b.float()).abs().max().item() for a, b in zip(bad_v[:2], want[:2]))
+    print(f"[gcn_layer] padded C: B={B} Cp={Cp} (C={C}) D={D} {str(dt)[6:]}: whole with "
+          f"num_candidates={C} max abs err {err_whole:.3g}; two [{B}, {Cp // 2}, {D}] halves "
+          f"through the split entry ({split_calls} split calls), their message sums added: max "
+          f"abs err {err_split:.3g} (tol {tol}); the divisor {Cp} for {C} (planted) moves the "
+          f"mention rows by up to {fault_dev:.3g}, {fault} values outside tol")
+    assert split_calls == 2, split_calls
+    if dt != bf16:
+        assert fault, f"gcn_layer f32 B={B}: the check cannot see the divisor 102 for 101"
+    checks = {"shape_whole": [B, Cp, D], "num_candidates": C, "shape_half": [B, Cp // 2, D],
+              "dtype": str(dt)[6:], "max_abs_err_whole": err_whole, "max_abs_err_split": err_split,
+              "divisor_fault_outside": fault, "divisor_fault_dev": fault_dev}
+    if not timed:
+        return checks, None
+    whole = lambda: gcn.fused_gcn_layer(vertexes, edges, *weights, num_candidates=C, **kw)
+    split = lambda: gcn_blocks(gcn, vertexes, edges, weights, num_candidates=C, **kw)
+    half_v = [v[:, :Cp // 2].contiguous() if v.ndim == 3 else v for v in vertexes]
+    half_e = [e[:, :Cp // 2].contiguous() for e in edges]
+    one = lambda: gcn.fused_gcn_layer(half_v, half_e, *weights, num_candidates=C,
+                                      sum_messages=lambda m: m + m, **kw)
+    with torch.inference_mode():
+        ms_whole, ms_split, ms_half = cuda_ms(whole), cuda_ms(split), cuda_ms(one)
+        dev_whole = by_launch(kernel_device_ms(torch, whole))
+        dev_half = by_launch(kernel_device_ms(torch, one))
+        plain_ms = cuda_ms(lambda: gcn.gcn_layer_plain(vertexes, edges, *weights,
+                                                       num_candidates=C, **kw))
+    # a rank's half: x.W_h^T over 2*B*Cp/2 + 2*B rows, the fold's two
+    # products over 2*B rows; its inputs read and outputs written once, with
+    # the message sums [2, B, D] f32 out of part 1 and back into part 2
+    half_rows = 2 * B * (Cp // 2) + 2 * B
+    flops = 2 * half_rows * D * D + 2 * 2 * (2 * B) * D * D
+    moved = 2 * nbytes(*half_v, *half_e) + nbytes(*weights) + 2 * 2 * B * D * 4
+    if dt == bf16:
+        bound_ms, bound_by = bound(moved, flops)
+        fma = None
+    else:
+        bound_ms, bound_by, fma = f32_bound(moved, flops)
+    print(f"[gcn_layer]   {str(dt)[6:]} times: whole [{B}, {Cp}, {D}] {ms_whole:.4f} ms (device "
+          f"{sum(dev_whole.values()):.4f}); two halves through the split entry {ms_split:.4f} ms; "
+          f"one rank's half, its sum a device add: {ms_half:.4f} ms (device "
+          f"{sum(dev_half.values()):.4f}: {dev_half}); plain whole {plain_ms:.4f} ms; a half's "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)")
+    return checks, {"ms_whole": ms_whole, "device_ms_whole": sum(dev_whole.values()),
+                    "ms_two_halves": ms_split, "ms_half": ms_half,
+                    "device_ms_half": sum(dev_half.values()), "device_ms_half_by_launch": dev_half,
+                    "plain_ms_whole": plain_ms, "half_bound_ms": bound_ms, "half_bound_by": bound_by,
+                    "half_fma_bound_ms": fma}
 
 
 def _attn_inputs(torch, np, B, H, L, dt, seed, lens=None, drop=None):
@@ -4343,6 +4482,15 @@ DP_LOSS_RTOL = 2e-5
 DP_PARAM_REL = 3e-4
 # accuracies: a near-tie may flip one mention's rank
 DP_ACC_MENTIONS = 2
+# the first step's gradients of the candidate-parallel step (a model axis of
+# 2, C=101 padded to 102) against one process's, relative L2 per tensor.
+# First readings (NVIDIA H100 80GB HBM3, 700 W): 1.2e-6 sound, the planted
+# faults 0.50 (shares averaged) and 0.76 (message sum without its
+# collective in the backward).  The limit is ~10x the sound reading, so a
+# partial fault (one layer's message sum left out) fails it too.  Adam
+# divides each gradient element by its own running scale, so a gradient off
+# by one constant factor barely moves a step: the gradients are where it shows
+DP_GRAD_REL = 1e-5
 # the steps' triplet margin.  At random weights every DRIN cosine lies within
 # ~0.03 of 1 (the first run on the card), under the configured margin of 0.25:
 # then every hinge is active, the loss is linear in the scores, and a rank's
@@ -4400,7 +4548,7 @@ def _dp_fault(mode: str, nd: int):
 
         T.triplet_loss = local
     elif mode == "no_allreduce":
-        collectives.sum_grads_ = lambda params, group, extra, divide=1: extra
+        collectives.sum_grads_ = lambda params, group, extra: extra
     try:
         yield
     finally:
@@ -4409,11 +4557,17 @@ def _dp_fault(mode: str, nd: int):
 
 @contextlib.contextmanager
 def _timed_collectives(torch, into: dict):
-    """Every all_reduce / all_gather in the block timed on the host clock
-    between two synchronises (gloo stages CUDA tensors through the host)."""
+    """Every all_reduce / all_gather / reduce / broadcast in the block timed
+    on the host clock between two synchronises (gloo stages CUDA tensors
+    through the host), with the bytes each rank hands it."""
     import torch.distributed as dist
 
-    saved = dist.all_reduce, dist.all_gather
+    names = ("all_reduce", "all_gather", "reduce", "broadcast")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def sent(name, a):
+        t = a[1] if name == "all_gather" else a[0]  # all_gather: this rank's tensor
+        return t.numel() * t.element_size()
 
     def timed(name, fn):
         def call(*a, **kw):
@@ -4423,14 +4577,114 @@ def _timed_collectives(torch, into: dict):
             torch.cuda.synchronize()
             into[name] = into.get(name, 0.0) + (time.perf_counter() - t) * 1e3
             into[name + "_calls"] = into.get(name + "_calls", 0) + 1
+            into[name + "_bytes"] = into.get(name + "_bytes", 0) + sent(name, a)
             return out
         return call
 
-    dist.all_reduce, dist.all_gather = timed("all_reduce", saved[0]), timed("all_gather", saved[1])
+    for n in names:
+        setattr(dist, n, timed(n, saved[n]))
     try:
         yield into
     finally:
-        dist.all_reduce, dist.all_gather = saved
+        for n in names:
+            setattr(dist, n, saved[n])
+
+
+@contextlib.contextmanager
+def _scatter_memory(torch, into: dict):
+    """Device memory around every ``collectives.reduce_scatter_exact_`` in
+    the block (the row-sharded gather's sum over the candidates): the bytes
+    allocated before the call, the call's input, and the peak within the
+    call above what was allocated before it (the peak counter is reset for
+    each call; ``into["peak"]`` keeps the block's peak across the resets,
+    so read the block's peak as the larger of it and the counter)."""
+    from drin_tpu_torch.parallel import collectives
+
+    saved = collectives.reduce_scatter_exact_
+    into.setdefault("calls", [])
+
+    def call(tensors, *a, **kw):
+        torch.cuda.synchronize()
+        into["peak"] = max(into.get("peak", 0), torch.cuda.max_memory_allocated())
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = saved(tensors, *a, **kw)
+        torch.cuda.synchronize()
+        into["calls"].append({"before": before, "input": sum(t.numel() * t.element_size()
+                                                              for t in tensors),
+                              "extra": torch.cuda.max_memory_allocated() - before})
+        return out
+
+    collectives.reduce_scatter_exact_ = call
+    try:
+        yield into
+    finally:
+        collectives.reduce_scatter_exact_ = saved
+
+
+@contextlib.contextmanager
+def _model_axis_fault(mode: str):
+    """A planted fault of candidate-parallel training, for the block:
+    ``nosum`` (the mention means' message sum without its collective in the
+    backward), ``nosum1`` (the same for the first message sum's backward
+    of the block only: one layer's vertex set) or ``avg`` (the model axis's
+    gradient shares averaged over the model width, the rule of a replicated
+    model axis, where the rule sums them)."""
+    from drin_tpu_torch.parallel import collectives
+
+    saved = collectives._AllSum.backward, collectives.sum_grads_
+    if mode == "nosum":
+        collectives._AllSum.backward = staticmethod(lambda ctx, g: (g, None))
+    elif mode == "nosum1":
+        seen = []
+
+        def first_unsummed(ctx, g):
+            seen.append(1)
+            return (g, None) if len(seen) == 1 else saved[0](ctx, g)
+
+        collectives._AllSum.backward = staticmethod(first_unsummed)
+    elif mode == "avg":
+        def averaged(params, group, extra):
+            out = saved[1](params, group, extra)
+            width = collectives.group_size(group)  # the (1, n) mesh's model width
+            for p in params:
+                if p.grad is not None:
+                    p.grad /= width
+            return out
+
+        collectives.sum_grads_ = averaged
+    try:
+        yield
+    finally:
+        collectives._AllSum.backward, collectives.sum_grads_ = saved
+
+
+@contextlib.contextmanager
+def _timed_steps(torch, into: list):
+    """The host clock of every train step that build_step_fns builds in the
+    block, between two synchronises."""
+    from drin_tpu_torch.train import trainer as T
+
+    saved = T.build_step_fns
+
+    def build(*a, **kw):
+        fns = saved(*a, **kw)
+
+        def step(*sa, **skw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fns.train_step(*sa, **skw)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        return fns._replace(train_step=step)
+
+    T.build_step_fns = build
+    try:
+        yield into
+    finally:
+        T.build_step_fns = saved
 
 
 def _dp_steps(torch, np, spec: dict, world: int, mesh) -> dict:
@@ -4449,12 +4703,19 @@ def _dp_steps(torch, np, spec: dict, world: int, mesh) -> dict:
     cfg = make_config("drin", "wikimel", preprocess_dir=spec["store"], batch_size=64,
                       transformer_dropout=0.0, seed=SEED, triplet_margin=DP_STEP_MARGIN)
     train = create_datasets(cfg)[0]
-    store = DeviceEntityStore(cfg, train.tables, device="cuda")
+    store = DeviceEntityStore(cfg, train.tables, device="cuda", mesh=mesh)
     ones = np.ones((64,), np.float32)
     out = {}
-    for mode in ("ok",) + (("local_loss", "no_allreduce") if world > 1 else ()):
+    model_axis = mesh is not None and mesh.shape["model"] > 1
+    if model_axis:
+        modes, fault = ("ok", "nosum", "nosum1", "avg"), _model_axis_fault
+    else:
+        modes, fault = ("ok",) + (("local_loss", "no_allreduce") if world > 1 else ()), \
+            lambda m: _dp_fault(m, world)
+    tag = "m" if model_axis else ""
+    for mode in modes:
         model = DRIN(cfg, generator=torch.Generator().manual_seed(SEED))
-        with _dp_fault(mode, world):
+        with fault(mode):
             tr = Trainer(cfg, model, device="cuda", feats_fn=store.drin_feats_fn(), mesh=mesh,
                          log=lambda *a: None)
             mstate = M.init_state(cfg.metrics_topk, "cuda")
@@ -4469,9 +4730,13 @@ def _dp_steps(torch, np, spec: dict, world: int, mesh) -> dict:
                     torch.cuda.synchronize()
                 times.append((time.perf_counter() - t) * 1e3)
                 losses.append(float(loss))
+                if step == 0 and tr._main:  # the gradient Adam took, summed over the mesh
+                    torch.save({k: p.grad.cpu() for k, p in tr.state.model.named_parameters()
+                                if p.grad is not None},
+                               os.path.join(spec["out"], f"{tag}grads-{mode}.pt"))
                 if step == 1 and tr._main:
                     torch.save({k: v.cpu() for k, v in tr.state.model.state_dict().items()},
-                               os.path.join(spec["out"], f"steps-{mode}.pt"))
+                               os.path.join(spec["out"], f"{tag}steps-{mode}.pt"))
         out[mode] = {"losses": losses}
         if mode == "ok":
             out[mode].update(step_ms=statistics.median(times[1:4]), collectives_ms=coll,
@@ -4544,7 +4809,10 @@ def dp_worker(spec_path: str, rank: int) -> None:
         mesh = make_mesh(data=world, model=1) if world > 1 else None
         out["steps"] = _dp_steps(torch, np, spec, world, mesh)
         if world > 1:
-            out["owner_gather"] = _owner_gather_check(torch, np, spec, make_mesh(data=1, model=world))
+            rows_mesh = make_mesh(data=1, model=world)
+            # candidate-parallel steps: DRIN's candidates split over the model axis
+            out["model_steps"] = _dp_steps(torch, np, spec, world, rows_mesh)
+            out["owner_gather"] = _owner_gather_check(torch, np, spec, rows_mesh)
         for run in ("dp", "rows"):
             epochs = []
             plain_epoch = Trainer._run_epoch
@@ -4558,19 +4826,27 @@ def dp_worker(spec_path: str, rank: int) -> None:
                 return r
 
             Trainer._run_epoch = recording
-            gcn.launches = 0
+            gcn.launches = gcn.split_launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
+            coll, steps, mem = {}, [], {}
+            timing = run == "rows" and world > 1
             try:
-                with gcn_dtypes(gcn) as seen:
+                with gcn_dtypes(gcn) as seen, \
+                        (_timed_collectives(torch, coll) if timing else contextlib.nullcontext()), \
+                        (_scatter_memory(torch, mem) if timing else contextlib.nullcontext()), \
+                        _timed_steps(torch, steps):
                     cli.main(_dp_argv(spec, run, rank))
                     torch.cuda.synchronize()
             finally:
                 Trainer._run_epoch = plain_epoch
-            out[run] = {"epochs": epochs, "launches": gcn.launches, "dtypes": sorted(set(seen)),
-                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                        "seconds": time.perf_counter() - t}
+            peak = max(mem.get("peak", 0), torch.cuda.max_memory_allocated())
+            out[run] = {"epochs": epochs, "launches": gcn.launches,
+                        "split_launches": gcn.split_launches, "dtypes": sorted(set(seen)),
+                        "peak_gib": peak / 2 ** 30, "scatter_memory": mem.get("calls", []),
+                        "seconds": time.perf_counter() - t, "collectives": coll,
+                        "step_ms": steps}
     finally:
         distributed.shutdown()
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
@@ -4611,6 +4887,13 @@ def _run_ranks(spec: dict, world: int) -> list:
         with open(os.path.join(spec["out"], f"rank{r}.json")) as f:
             results.append(json.load(f))
     return results, spec["out"]
+
+
+def _coll_line(c: dict) -> str:
+    """ms, calls and bytes a rank handed each kind of collective."""
+    kinds = sorted(k for k in c if not k.endswith(("_calls", "_bytes")))
+    return "; ".join(f"{k} {c[k]:.2f} ms in {c[k + '_calls']} calls, "
+                     f"{c[k + '_bytes'] / 1e6:.1f} MB" for k in kinds) or "none"
 
 
 def _param_rel(torch, got: dict, want: dict) -> dict:
@@ -4705,6 +4988,32 @@ def phase_train_ranks(torch, np):
         for fault in ("local_loss", "no_allreduce"):
             assert steps[fault]["param_rel_max"] > DP_PARAM_REL, \
                 f"the check cannot see the planted fault {fault}: {steps[fault]}"
+        # the candidate-parallel steps on a (1, 2) mesh: C=101 padded to 102,
+        # each rank its 51 candidates, against one process, and their faults
+        gref = torch.load(os.path.join(out1, "grads-ok.pt"), weights_only=True)
+        msteps = {}
+        for mode in ("ok", "nosum", "nosum1", "avg"):
+            rel = _param_rel(torch, torch.load(os.path.join(out2, f"msteps-{mode}.pt"),
+                                               weights_only=True), ref)
+            grel = _param_rel(torch, torch.load(os.path.join(out2, f"mgrads-{mode}.pt"),
+                                                weights_only=True), gref)
+            worst, gworst = max(rel, key=rel.get), max(grel, key=grel.get)
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(ranks[0]["model_steps"][mode]["losses"], one["steps"]["ok"]["losses"]))
+            msteps[mode] = {"param_rel_max": rel[worst], "loss_rel_err": loss_err,
+                            "grad_rel_max": grel[gworst], "grad_worst": gworst}
+            print(f"[train_rows] candidate-parallel Trainer steps, two ranks of a (1, 2) mesh "
+                  f"({mode}) against one process: first-step gradients {gworst} {grel[gworst]:.3g} "
+                  f"(limit {DP_GRAD_REL}); parameters after 2 steps {worst} {rel[worst]:.3g} (limit "
+                  f"{DP_PARAM_REL}); the first two losses' relative error {loss_err:.3g} (limit "
+                  f"{DP_LOSS_RTOL})")
+        ok = msteps["ok"]
+        assert ok["param_rel_max"] <= DP_PARAM_REL and ok["loss_rel_err"] <= DP_LOSS_RTOL \
+            and ok["grad_rel_max"] <= DP_GRAD_REL, msteps
+        for fault in ("nosum", "nosum1", "avg"):
+            f = msteps[fault]
+            assert f["grad_rel_max"] > DP_GRAD_REL or f["param_rel_max"] > DP_PARAM_REL, \
+                f"the check cannot see the planted fault {fault}: {f}"
         s1, s2 = one["steps"]["ok"], ranks[0]["steps"]["ok"]
         coll = s2["collectives_ms"]
         print(f"[train_dp] DRIN f32 train step B=64, host clock (median of 3 after the first): one "
@@ -4715,8 +5024,15 @@ def phase_train_ranks(torch, np):
               f"all_reduce {coll.get('all_reduce', 0):.2f} ms in {coll.get('all_reduce_calls', 0)} "
               "calls")
 
-        results = {"steps": steps, "step_ms": {"one": s1["step_ms"], "two_ranks": s2["step_ms"]},
-                   "collectives_ms": coll}
+        m2 = ranks[0]["model_steps"]["ok"]
+        mcoll = m2["collectives_ms"]
+        print(f"[train_rows] candidate-parallel DRIN f32 train step B=64 (pooled tables, C 101 -> "
+              f"102, 51 a rank), host clock (median of 3 after the first): {m2['step_ms']:.2f} ms "
+              f"against one process {s1['step_ms']:.2f} ms; in one step with its collectives timed "
+              f"({m2['step_with_timed_collectives_ms']:.2f} ms): {_coll_line(mcoll)}")
+        results = {"steps": steps, "step_ms": {"one": s1["step_ms"], "two_ranks": s2["step_ms"],
+                                               "model_axis": m2["step_ms"]},
+                   "collectives_ms": coll, "model_steps": msteps, "model_collectives": mcoll}
         paths = {}
         for run in ("dp", "rows"):
             launches = [r[run]["launches"] for r in ranks]
@@ -4730,6 +5046,25 @@ def phase_train_ranks(torch, np):
                   f"{one[run]['seconds']:.1f}")
             assert all(n > 0 and n % per == 0 for n in launches), launches
             assert all(r[run]["dtypes"] == ["float32"] for r in ranks + [one]), run
+            split = [r[run]["split_launches"] for r in ranks]
+            # the rows run is candidate-parallel: every layer through the split entry
+            assert split == (launches if run == "rows" else [0, 0]), (run, split, launches)
+            steps_ms = [r[run]["step_ms"] for r in ranks]
+            print(f"[train_{run}] split-entry launches by rank {split}; train steps' host clock "
+                  f"by rank (ms, each between synchronises) "
+                  f"{[[round(x, 1) for x in st] for st in steps_ms]}, one process "
+                  f"{[round(x, 1) for x in one[run]['step_ms']]}")
+            if run == "rows":
+                c = ranks[0][run]["collectives"]
+                print(f"[train_rows] collectives in rank 0's run (1 epoch and a test, each timed "
+                      f"between synchronises): {_coll_line(c)}")
+                sm = ranks[0][run]["scatter_memory"]
+                big = max(sm, key=lambda m: m["input"])
+                print(f"[train_rows] device memory around the gather's {len(sm)} reduce-scatters "
+                      f"(rank 0): the largest input {big['input'] / 2 ** 20:.1f} MiB, allocated "
+                      f"before it {big['before'] / 2 ** 30:.3f} GiB, peak within it "
+                      f"{big['extra'] / 2 ** 20:.1f} MiB above that; the most any call added "
+                      f"{max(m['extra'] for m in sm) / 2 ** 20:.1f} MiB")
             # every rank holds a replica of the parameters: the same bits after every epoch
             digests = [[e["digest"] for e in r[run]["epochs"]] for r in ranks]
             assert all(d == digests[0] for d in digests), (run, digests)
@@ -4739,7 +5074,11 @@ def phase_train_ranks(torch, np):
             results[run].update(peak_gib=[r[run]["peak_gib"] for r in ranks],
                                 one_peak_gib=one[run]["peak_gib"],
                                 seconds=[r[run]["seconds"] for r in ranks],
-                                one_seconds=one[run]["seconds"])
+                                one_seconds=one[run]["seconds"], split_launches=split,
+                                step_ms=steps_ms, one_step_ms=one[run]["step_ms"],
+                                collectives=ranks[0][run]["collectives"],
+                                scatter_extra_max=max([m["extra"] for m in
+                                                       ranks[0][run]["scatter_memory"]], default=None))
             paths[f"train_{run}"] = {"gcn_layer": sum(launches)}
         og = [r["owner_gather"] for r in ranks]
         print(f"[train_rows] the owner gather of one batch (64 x 101 rows of the token-level "
@@ -4748,6 +5087,216 @@ def phase_train_ranks(torch, np):
               f"{og[0]['rank_bytes'] / 2 ** 20:.0f} MiB")
         assert all(g["bit_equal"] for g in og), og
     return paths, results
+
+
+# a Ranker over a row-sharded DRIN store on two ranks of one card: the
+# store's entities (cut for set-up time, as the train phases' store)
+SERVE_RANKS_ENTITIES = 4096
+# the two ranks' bf16 scores against one process's over the unsharded store:
+# candidate-parallel, kernel 1 runs [B, 51, 768] blocks through its split
+# entry where one process runs [B, 101, 768] whole, so a vertex may round to
+# the neighbouring bf16: two bf16 ulps at 0.5-1, as the micro-batched replies
+SERVE_RANKS_ATOL = BATCHED_ATOL
+
+
+def _serve_ranks_inputs(torch, np):
+    """(cfg, tables, weights, requests by B) of serve_ranks, the same in
+    every process: DRIN at the WikiMEL width in bf16, seeded."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.models.drin import DRIN
+
+    cfg = make_config("drin", "wikimel", compute_dtype="bfloat16")
+    weights = DRIN(cfg, generator=torch.Generator().manual_seed(SEED + 80)).state_dict()
+    tables = _tables(np, cfg, SERVE_RANKS_ENTITIES)
+    reqs = {}
+    for B in (1, 3, 64):
+        feats = list(_rows_batch(np, cfg, B, SEED + 80 + B))
+        feats[7] = feats[7] % SERVE_RANKS_ENTITIES
+        reqs[B] = tuple(feats)
+    return cfg, tables, weights, reqs
+
+
+def serve_worker(spec_path: str, rank: int) -> None:
+    """One rank of serve_ranks: a Ranker over the row-sharded store (a
+    (1, 2) mesh), the bundle written in lockstep, then ``serve_http``: rank
+    0 serves and leads, rank 1 follows until rank 0 stops.  Writes
+    ``serve<rank>.json`` and rank 0's scores beside the spec."""
+    import numpy as np
+    import torch
+
+    from drin_tpu_torch.ops.cuda import gcn_layer as gcn
+    from drin_tpu_torch.parallel import distributed
+    from drin_tpu_torch.parallel.mesh import make_mesh
+    from drin_tpu_torch.serve import (Ranker, _encode_arrays, rank_feat_fields, serve_http)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(coordinator_address=spec["coordinator"], num_processes=2,
+                           process_id=rank, backend="gloo", device="cuda")
+    out = {"rank": rank}
+    try:
+        cfg, tables, weights, reqs = _serve_ranks_inputs(torch, np)
+        mesh = make_mesh(data=1, model=2)
+        gcn.launches = gcn.split_launches = 0
+        r = Ranker(cfg, weights, tables, device="cuda", store_mesh=mesh)
+        out.update(n_rows=r.store.n_rows, block=r.store.block, rank_bytes=r.store.nbytes)
+        r.save_bundle(spec["bundle"])  # collective: both ranks, before the front starts
+        fields = rank_feat_fields(r)
+        if rank != 0:
+            assert serve_http(r, port=0, feat_fields=fields) is None
+        else:
+            server = serve_http(r, port=0, feat_fields=fields)
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            try:
+                # counted: the lockstep calls of the main path
+                scores = {B: r.score(reqs[B]) for B in (64, 3)}
+                top = r.rank(reqs[64], k=5)
+                b1 = post_rank(np, url, fields, reqs[1])
+                torch.cuda.synchronize()
+                out["launches_main"] = {"gcn_layer": gcn.launches, "split": gcn.split_launches}
+                for B, v in scores.items():
+                    np.save(os.path.join(spec["out"], f"scores{B}.npy"), v)
+                np.save(os.path.join(spec["out"], "top64.npy"), top[0])
+                out["b1"] = [b1[0].tolist(), b1[1].tolist()]
+                out["b1_ms"] = host_ms(lambda: post_rank(np, url, fields, reqs[1]))
+                own = np.array([5, SERVE_RANKS_ENTITIES // 3, SERVE_RANKS_ENTITIES - 2])
+                q = tables["entity_text_feature"][own, 0]
+                ret = {}
+                for mode in ("exact", "approx", "int8"):
+                    rs, ri = r.retrieve(q, k=10, mode=mode)
+                    ret[mode] = {"first": ri[:, 0].tolist(), "max_index": int(ri.max()),
+                                 "finite": bool(np.isfinite(rs).all())}
+                body = json.dumps({"query": _encode_arrays({"q": q}), "k": 10}).encode()
+                req = urllib.request.Request(url + "/retrieve", data=body,
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    got = json.loads(resp.read())
+                ret["http"] = {"first": [row[0] for row in got["indices"]],
+                               "max_index": max(max(row) for row in got["indices"])}
+                with urllib.request.urlopen(url + "/stats", timeout=60) as resp:
+                    out["stats"] = json.loads(resp.read())
+                out["retrieve"] = ret
+                out["own"] = own.tolist()
+                bundled = Ranker.from_bundle(spec["bundle"], device="cuda")
+                out["bundle"] = {"n_rows": bundled.store.n_rows,
+                                 "text_rows": int(bundled.store.text.shape[0]),
+                                 "obj_score_rows": int(bundled.store.obj_score.shape[0])}
+                np.save(os.path.join(spec["out"], "bundle64.npy"), bundled.score(reqs[64]))
+            finally:
+                server.stop()
+        torch.cuda.synchronize()
+        out["launches"] = {"gcn_layer": gcn.launches, "split": gcn.split_launches}
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(spec["out"], f"serve{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_serve_ranks(torch, np):
+    """A Ranker over a row-sharded DRIN store on two gloo ranks of the one
+    card (DRIN at the WikiMEL width, bf16, 4,096 entities; C=101 padded to
+    102, 51 candidates a rank through kernel 1's split entry), behind the
+    HTTP front: scores at B=64 and B=3 against one process's over the
+    unsharded store, /rank B=1, /retrieve and /stats, retrieval in the three
+    modes, and the bundle the two ranks wrote, served by one process.
+    Returns the path's kernel-1 launches (both ranks')."""
+    import subprocess as sp
+    import tempfile
+
+    from drin_tpu_torch.serve import Ranker, rank_feat_fields, serve_http
+
+    cfg, tables, weights, reqs = _serve_ranks_inputs(torch, np)
+    one = Ranker(cfg, weights, tables, device="cuda")
+    want = {B: one.score(reqs[B]) for B in (64, 3)}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {"out": tmp, "bundle": os.path.join(tmp, "bundle"),
+                "coordinator": f"127.0.0.1:{_free_port()}"}
+        path = os.path.join(tmp, "spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        procs = [sp.Popen([sys.executable, "-c", "import sys, chip_smoke as cs; "
+                           "cs.serve_worker(sys.argv[1], int(sys.argv[2]))", path, str(r)],
+                          cwd=tmp, env=env, stdout=sp.PIPE, stderr=sp.PIPE, text=True)
+                 for r in range(2)]
+        try:
+            for r, p in enumerate(procs):
+                so, se = p.communicate(timeout=DP_TIMEOUT)
+                assert p.returncode == 0, f"serve rank {r} exited {p.returncode}:\n{so[-3000:]}\n{se[-6000:]}"
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"serve{r}.json")) as f:
+                ranks.append(json.load(f))
+        got = {B: np.load(os.path.join(tmp, f"scores{B}.npy")) for B in (64, 3)}
+        bundle64 = np.load(os.path.join(tmp, "bundle64.npy"))
+        top64 = np.load(os.path.join(tmp, "top64.npy"))
+        # the same bundle served by one process: /rank B=1
+        single = Ranker.from_bundle(spec["bundle"], device="cuda")
+        fields = rank_feat_fields(single)
+        server = serve_http(single, port=0, feat_fields=fields)
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            one_b1 = post_rank(np, url, fields, reqs[1])
+            one_b1_ms = host_ms(lambda: post_rank(np, url, fields, reqs[1]))
+        finally:
+            server.shutdown()
+            server.server_close()
+    front = ranks[0]
+    n = SERVE_RANKS_ENTITIES
+    errs = {}
+    for B in (64, 3):
+        assert got[B].shape == want[B].shape == (B, cfg.num_candidates_model), (B, got[B].shape)
+        assert np.isfinite(got[B]).all()
+        errs[B] = float(np.abs(got[B] - want[B]).max())
+    errs["bundle"] = float(np.abs(bundle64 - got[64]).max())
+    bundle_equal = bool(np.array_equal(bundle64, want[64]))
+    errs["b1"] = float(np.abs(np.asarray(front["b1"][0]) - one_b1[0]).max())
+    np.testing.assert_allclose(top64[:, 0], got[64].max(-1), rtol=0, atol=1e-6)
+    print(f"[serve_ranks] two gloo ranks on one card, a Ranker over the row-sharded DRIN store "
+          f"({n} entities, {front['block']} rows and {front['rank_bytes'] / 2 ** 20:.0f} MiB a "
+          f"rank; C=101 padded to 102, 51 candidates a rank), started and run in {wall:.1f} s: "
+          f"scores against one process over the unsharded store, max abs diff B=64 "
+          f"{errs[64]:.3g}, B=3 {errs[3]:.3g}; /rank B=1 {errs['b1']:.3g}; the bundle served by "
+          f"one process against the ranks {errs['bundle']:.3g} (bit-equal to one process's "
+          f"store: {bundle_equal}) (tol {SERVE_RANKS_ATOL})")
+    assert all(e <= SERVE_RANKS_ATOL for e in errs.values()), errs
+    b = front["bundle"]
+    assert b["n_rows"] == b["text_rows"] == b["obj_score_rows"] == n, b
+    assert front["stats"]["entity_rows"] == n, front["stats"]
+    for mode, res in front["retrieve"].items():
+        assert res["first"] == front["own"] and res["max_index"] < n, (mode, res)
+        assert res.get("finite", True), mode
+    launches = [rk["launches"] for rk in ranks]
+    per = cfg.num_gcn_layers
+    # four forwards on the front's main path: score B=64 and B=3, rank B=64, /rank B=1
+    assert front["launches_main"]["gcn_layer"] == front["launches_main"]["split"] == 4 * per, front
+    # every lockstep forward goes through the split entry; the front's one
+    # more forward is the bundle's, served whole by one rank
+    assert launches[0]["gcn_layer"] == launches[0]["split"] + per, launches
+    assert launches[1]["gcn_layer"] == launches[1]["split"] == launches[0]["split"] > 0, launches
+    print(f"[serve_ranks] retrieval in the three modes and /retrieve: each table row finds itself "
+          f"first, every index < {n}; /stats entity_rows {front['stats']['entity_rows']}; the "
+          f"bundle holds {b['n_rows']} rows of every table and of obj_score; kernel 1's launches "
+          f"by rank {launches} (all through the split entry; {front['launches_main']} on the "
+          f"front's main path: score B=64 and B=3, rank B=64, /rank B=1); peak memory by rank "
+          f"{[round(rk['peak_gib'], 3) for rk in ranks]} GiB")
+    print(f"[serve_ranks] /rank B=1: {front['b1_ms']:.3f} ms through the front and its follower "
+          f"(HTTP, median of 10) against {one_b1_ms:.3f} ms for the same bundle served by one "
+          f"process (two ranks share the card over gloo: overhead, not scaling)")
+    return ({"gcn_layer": sum(x["split"] for x in launches)},
+            {"errors": errs, "bundle_bit_equal": bundle_equal, "b1_ms": front["b1_ms"],
+             "one_process_b1_ms": one_b1_ms, "launches": launches,
+             "peak_gib": [rk["peak_gib"] for rk in ranks]})
 
 
 def phase_retrieve_sharded(torch, np, kernels, served):
@@ -5039,6 +5588,10 @@ def main() -> int:
     for path, counts in ranks_paths.items():
         paths[path] = counts
         gcn_by_dtype[path] = {"float32": counts["gcn_layer"]}
+    # a Ranker over a row-sharded store: two ranks behind the HTTP front; the
+    # main process's own launches (its one-process references) are not the path's
+    paths["serve_ranks"], serve_ranks = timed("serve_ranks", phase_serve_ranks, torch, np)
+    gcn_by_dtype["serve_ranks"] = {"bfloat16": paths["serve_ranks"]["gcn_layer"]}
     measured["attention"]["f32_bert_stage"] = pre["f32"]
     measured["nms"]["detector"] = {k: detector[k] for k in ("ms_per_image", "peak_gib",
                                                             "stage_chunk_ms", "errors")}
@@ -5054,7 +5607,7 @@ def main() -> int:
         "serve_ghmfc": ["gather_dequant"], "serve_ghmfc_transformer": [], "serve_melhi": [],
         "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer", "nms"],
         "retrieve_sharded": [], "preprocess_dp": ["attention"], "train_dp": ["gcn_layer"],
-        "train_rows": ["gcn_layer"]}, paths
+        "train_rows": ["gcn_layer"], "serve_ranks": ["gcn_layer"]}, paths
     for path, counts in paths.items():
         assert all(counts.values()), f"{path} never launched one of its kernels: {counts}"
     # kernel 1 by dtype: the default-dtype paths launch only its float32 form,
@@ -5089,6 +5642,7 @@ def main() -> int:
                                               if by_dt}
     measured["gcn_layer"]["f32_paths"] = {"serve_drin_f32": serve_f32, "train_drin_f32": train_f32}
     measured["gcn_layer"]["ranks"] = ranks
+    measured["gcn_layer"]["serve_ranks"] = serve_ranks
     measured["attention"]["preprocess_dp"] = pre_dp
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": [

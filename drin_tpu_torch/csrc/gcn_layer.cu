@@ -153,10 +153,12 @@ template <typename E> struct RowsArgs {
   E* e_out[2][2];       // new edges [B * C] by [set][mention]
   float* msg;           // [2 sets][T][S][2 mentions][D] message slots: B writes them, C reads them
   E* xbuf;              // [2B, D] C's x rows, written by B (the workspace of round(a))
+  float* msg_sum;       // split entry: [2 mentions][B][D] the message sums B writes in place of x; else null
   int* count;           // [B] B's tiles done with each b, from 0
   float* s_out;         // A1: [2][B][D / 64]
   const float* w;       // f32: W's split image [D / 16][2][D][16] (split_w_f32; A2: Kv^T's)
   int B, C, D, T, S;    // T: row tiles per vertex set; S: slots per tile
+  int Cn;               // the candidate mean's divisor: the real candidate count (C, or less when padded)
   float eps;
   int vact, eact;
 };
@@ -484,9 +486,11 @@ __device__ __forceinline__ void rows_body(const CUtensorMap& a0, const CUtensorM
   if (kMode == M_ENTITY) {
     // Launch C's x rows.  The last of launch B's blocks to finish with a b
     // (its tiles in both vertex sets; a counter per b says which block is
-    // last, so the sums need no atomics) forms x = round(u + msg / C) of
+    // last, so the sums need no atomics) forms x = round(u + msg / Cn) of
     // both mentions of b from the slots, set 0's tiles then set 1's, in
-    // order: the same bits whichever block does it.
+    // order: the same bits whichever block does it.  The split entry stops
+    // there with the sums themselves (msg_sum), to be added over the ranks
+    // that hold the other candidates before form_x divides them.
     int* last_s = reinterpret_cast<int*>(red_s);  // free until the LayerNorm below
     const int seg0 = row0 / C, n_seg = (row0 + rows - 1) / C - seg0 + 1;
     __threadfence();  // this block's slots, before its count
@@ -517,9 +521,16 @@ __device__ __forceinline__ void rows_body(const CUtensorMap& a0, const CUtensorM
               msg[4 * h] += v.x, msg[4 * h + 1] += v.y, msg[4 * h + 2] += v.z, msg[4 * h + 3] += v.w;
             }
           }
+        if (args.msg_sum) {
+          float4* dst = reinterpret_cast<float4*>(args.msg_sum + ((size_t)m * B + b) * D + k);
+#pragma unroll
+          for (int h = 0; h < kPer / 4; ++h)
+            dst[h] = make_float4(msg[4 * h], msg[4 * h + 1], msg[4 * h + 2], msg[4 * h + 3]);
+          continue;
+        }
         Chunk<E>::load(args.u[m] + (size_t)b * D + k, x);
 #pragma unroll
-        for (int c = 0; c < kPer; ++c) x[c] = x[c] + msg[c] / C;
+        for (int c = 0; c < kPer; ++c) x[c] = x[c] + msg[c] / args.Cn;
         Chunk<E>::store(args.xbuf + ((size_t)m * B + b) * D + k, x);
       }
     }
@@ -642,6 +653,29 @@ gcn_rows_f32(const __grid_constant__ CUtensorMap a0, const __grid_constant__ CUt
   rows_body<float, kMode, kNW, kGelu>(a0, a1, wmap, args);
 }
 
+// The split entry's second part: launch C's x rows from the message sums
+// added over the ranks, x = round(u + msg / Cn), as launch B's last block
+// forms them.  u = mt, mi [B, D]; msg [2][B][D] f32; x [2B, D].  A thread a
+// 16-byte chunk of x.
+template <typename E>
+__global__ void __launch_bounds__(256) form_x(const E* mt, const E* mi, const float* msg, E* x,
+                                             int B, int D, int Cn) {
+  constexpr int kPer = Chunk<E>::N;
+  const long long id = (long long)blockIdx.x * 256 + threadIdx.x, per_m = (long long)B * D / kPer;
+  if (id >= 2 * per_m) return;
+  const int m = (int)(id / per_m);
+  const long long at = (id % per_m) * kPer;  // b * D + k
+  float v[kPer];
+  Chunk<E>::load((m ? mi : mt) + at, v);
+  const float4* src = reinterpret_cast<const float4*>(msg + m * (long long)B * D + at);
+#pragma unroll
+  for (int h = 0; h < kPer / 4; ++h) {
+    const float4 s = src[h];
+    v[4 * h] += s.x / Cn, v[4 * h + 1] += s.y / Cn, v[4 * h + 2] += s.z / Cn, v[4 * h + 3] += s.w / Cn;
+  }
+  Chunk<E>::store(x + m * (long long)B * D + at, v);
+}
+
 // W's split image for gcn_rows_f32: each matrix W [D, D] (torch [out, in];
 // with trans its transpose, Kv^T) as [D / 16][2][D][16] f32: K-slice i, hi |
 // lo, output n, the slice's 16 columns in a 64-byte-swizzled row, so that a
@@ -716,13 +750,17 @@ bool built_width(int D) { return (D == 768 || D == 128) && D % DRIN_GCN_PROJ_COL
 
 // The layer in element type E: in = mt, mi, et, ei, tt, ti, it, ii, wh, bh,
 // lns, lnb, wu, bu, wv, bv; out = mt', mi', et', ei', tt', ti', it', ii';
-// split (f32 only) = the images of W_h, Ku and Kv^T.
+// split (f32 only) = the images of W_h, Ku and Kv^T.  part 0 is the whole
+// layer; part 1 stops after launch B with the message sums in msg_sum_ws;
+// part 2, on the same workspace with msg_sum_ws summed over the ranks that
+// hold the other candidates, forms launch C's x rows and runs launch C.
 template <typename E>
-int gcn_layer(int B, int C, int D, float eps, int vact, int eact, int dynamic, const void* const* in,
-              void* ar_ws, void* sp_ws, void* p_ws, void* msg_ws, void* count_ws, int slots,
-              float* const* split, void* const* out, cudaStream_t s) {
+int gcn_layer(int B, int C, int D, float eps, int vact, int eact, int dynamic, int Cn, int part,
+              const void* const* in, void* ar_ws, void* sp_ws, void* p_ws, void* msg_ws, void* count_ws,
+              int slots, void* msg_sum_ws, float* const* split, void* const* out, cudaStream_t s) {
   constexpr bool kF32 = std::is_same<E, float>::value;
-  if (B < 1 || C < 1 || !built_width(D) || slots < 1 || (long long)B * C > 0x7fffffffLL / 64)
+  if (B < 1 || C < 1 || Cn < 1 || !built_width(D) || slots < 1 || (long long)B * C > 0x7fffffffLL / 64 ||
+      part < 0 || part > 2 || (part != 0 && msg_sum_ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int T = (B * C + kRT - 1) / kRT, BT = (B + kRT - 1) / kRT;
   const E* const* w = reinterpret_cast<const E* const*>(in + 8);  // wh, bh, lns, lnb, wu, bu, wv, bv
@@ -733,8 +771,28 @@ int gcn_layer(int B, int C, int D, float eps, int vact, int eact, int dynamic, c
   if (!err) err = matrix_map<E>(&m_ei, in[3], B * C, D);
   if (!err) err = kF32 ? 0 : matrix_map<E>(&m_wh, w[0], D, D);  // f32 reads W's split image
   if (err) return err;
+  RowsArgs<E> a;
+  memset(&a, 0, sizeof a);
+  a.B = B, a.C = C, a.D = D, a.T = T, a.S = slots, a.Cn = Cn, a.eps = eps, a.vact = vact, a.eact = eact;
+  E* const* o = reinterpret_cast<E* const*>(out);
+  const E* const* v = reinterpret_cast<const E* const*>(in);
+  a.u[0] = v[0], a.u[1] = v[1];
+  a.bias = w[1], a.lns = w[2], a.lnb = w[3];
+  a.w = kF32 ? split[0] : nullptr;
+  if (kF32) m_wh = m_mt;  // not read
+  if (part == 2) {  // x from the summed messages, then launch C
+    const long long chunks = 2LL * B * D / (16 / sizeof(E));
+    form_x<E><<<(unsigned)((chunks + 255) / 256), 256, 0, s>>>(v[0], v[1], static_cast<const float*>(msg_sum_ws),
+                                                               static_cast<E*>(ar_ws), B, D, Cn);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    a.out[0] = o[0], a.out[1] = o[1];
+    CUtensorMap m_x;
+    err = matrix_map<E>(&m_x, ar_ws, 2 * B, D);
+    if (err) return err;
+    return launch_norm<E, M_MENTION>(D, dim3(BT, 2), m_x, m_x, m_wh, a, s);
+  }
   if (kF32) {
-    m_wh = m_mt;  // not read
     SplitArgs sa;
     memset(&sa, 0, sizeof sa);
     const void* mats[3] = {w[0], w[4], w[6]};
@@ -743,9 +801,6 @@ int gcn_layer(int B, int C, int D, float eps, int vact, int eact, int dynamic, c
     err = split_weights(sa, dynamic ? 3 : 1, D, s);
     if (err) return err;
   }
-  RowsArgs<E> a;
-  memset(&a, 0, sizeof a);
-  a.B = B, a.C = C, a.D = D, a.T = T, a.S = slots, a.eps = eps, a.vact = vact, a.eact = eact;
   if (dynamic) {
     CUtensorMap m_wu, m_wv, m_ar;
     err = matrix_map<E>(&m_ar, ar_ws, 2 * B, D);
@@ -766,18 +821,14 @@ int gcn_layer(int B, int C, int D, float eps, int vact, int eact, int dynamic, c
     if (err) return err;
     a.p = static_cast<const E*>(p_ws), a.s_part = static_cast<const float*>(sp_ws);
   }
-  const E* const* v = reinterpret_cast<const E* const*>(in);
-  a.u[0] = v[0], a.u[1] = v[1];
   a.e[0][0] = v[4], a.e[0][1] = v[6], a.e[1][0] = v[5], a.e[1][1] = v[7];  // (tt, it) with et, (ti, ii) with ei
-  E* const* o = reinterpret_cast<E* const*>(out);
   a.e_out[0][0] = o[4], a.e_out[0][1] = o[6], a.e_out[1][0] = o[5], a.e_out[1][1] = o[7];
-  a.bias = w[1], a.lns = w[2], a.lnb = w[3];
-  a.w = kF32 ? split[0] : nullptr;
   a.msg = static_cast<float*>(msg_ws), a.xbuf = static_cast<E*>(ar_ws), a.count = static_cast<int*>(count_ws);
+  a.msg_sum = part == 1 ? static_cast<float*>(msg_sum_ws) : nullptr;
   if (cudaMemsetAsync(count_ws, 0, (size_t)B * sizeof(int), s) != cudaSuccess) return static_cast<int>(cudaGetLastError());
   a.out[0] = o[2], a.out[1] = o[3];
   err = launch_norm<E, M_ENTITY>(D, dim3(T, 2), m_et, m_ei, m_wh, a, s);
-  if (err) return err;
+  if (err || part == 1) return err;
   a.out[0] = o[0], a.out[1] = o[1];
   CUtensorMap m_x;  // C's x rows, written by launch B into the workspace of round(a)
   err = matrix_map<E>(&m_x, ar_ws, 2 * B, D);
@@ -791,42 +842,52 @@ int gcn_layer(int B, int C, int D, float eps, int vact, int eact, int dynamic, c
 // float32 a first launch splits the weights.  Inputs, all contiguous in the
 // compute type: mt, mi [B, D]; et, ei [B, C, D]; tt, ti, it, ii [B, C]; W_h
 // [D, D] (torch [out, in]); b_h, ln scale, ln bias [D]; Wu, bu, Wv, bv (torch
-// layout; unused when dynamic == 0).  Workspace: round(a) [2B, D] in the
+// layout; unused when dynamic == 0).  num_candidates is the candidate mean's
+// divisor: C, or the real count when the candidates past it are padding with
+// zeroed edges, or the count over every rank when this call holds one
+// rank's candidates.  Workspace: round(a) [2B, D] in the
 // compute type (then launch C's x rows), the partials of s [2, B, D / 64]
 // f32, p [B, 2, D], the message slots [2, T, slots, 2, D] f32 with T =
-// ceil(B C / 64), a count [B] int32 (zeroed here).  Outputs: mt', mi' [B,
-// D]; et', ei' [B, C, D]; tt', ti', it', ii' [B, C] (written only when
-// dynamic).  D is 128 or 768.
+// ceil(B C / 64), a count [B] int32 (zeroed here), and for parts 1 and 2 the
+// message sums [2, B, D] f32.  Outputs: mt', mi' [B, D] (parts 0 and 2);
+// et', ei' [B, C, D]; tt', ti', it', ii' [B, C] (written only when dynamic;
+// parts 0 and 1).  part: 0 the whole layer; 1 up to launch B, which writes
+// the message sums (before any division) and no x; 2 on part 1's workspace
+// once the caller has summed the message sums over the ranks: x = round(u +
+// msg / num_candidates), then launch C.  D is 128 or 768.
 DRIN_EXPORT int drin_gcn_layer_bf16(int B, int C, int D, float eps, int vact, int eact, int dynamic,
+                                    int num_candidates, int part,
                                     const void* mt, const void* mi, const void* et, const void* ei,
                                     const void* tt, const void* ti, const void* it, const void* ii,
                                     const void* wh, const void* bh, const void* lns, const void* lnb,
                                     const void* wu, const void* bu, const void* wv, const void* bv,
                                     void* ar_ws, void* sp_ws, void* p_ws, void* msg_ws, void* count_ws, int slots,
-                                    void* mt_o, void* mi_o, void* et_o, void* ei_o, void* tt_o,
+                                    void* msg_sum_ws, void* mt_o, void* mi_o, void* et_o, void* ei_o, void* tt_o,
                                     void* ti_o, void* it_o, void* ii_o, void* stream) {
   const void* in[16] = {mt, mi, et, ei, tt, ti, it, ii, wh, bh, lns, lnb, wu, bu, wv, bv};
   void* out[8] = {mt_o, mi_o, et_o, ei_o, tt_o, ti_o, it_o, ii_o};
-  return gcn_layer<bf16>(B, C, D, eps, vact, eact, dynamic, in, ar_ws, sp_ws, p_ws, msg_ws, count_ws, slots,
-                         nullptr, out, static_cast<cudaStream_t>(stream));
+  return gcn_layer<bf16>(B, C, D, eps, vact, eact, dynamic, num_candidates, part, in, ar_ws, sp_ws, p_ws,
+                         msg_ws, count_ws, slots, msg_sum_ws, nullptr, out, static_cast<cudaStream_t>(stream));
 }
 
 // The float32 layer: the same arguments, and the split images of W_h, Ku and
-// Kv^T, [D / 16, 2, D, 16] f32 each (written here; Ku's and Kv's only when
-// dynamic).
+// Kv^T, [D / 16, 2, D, 16] f32 each (written by parts 0 and 1; Ku's and Kv's
+// only when dynamic; part 2 reads W_h's).
 DRIN_EXPORT int drin_gcn_layer_f32(int B, int C, int D, float eps, int vact, int eact, int dynamic,
+                                   int num_candidates, int part,
                                    const void* mt, const void* mi, const void* et, const void* ei,
                                    const void* tt, const void* ti, const void* it, const void* ii,
                                    const void* wh, const void* bh, const void* lns, const void* lnb,
                                    const void* wu, const void* bu, const void* wv, const void* bv,
                                    void* ar_ws, void* sp_ws, void* p_ws, void* msg_ws, void* count_ws, int slots,
-                                   void* wh_s, void* wu_s, void* wv_s, void* mt_o, void* mi_o, void* et_o,
-                                   void* ei_o, void* tt_o, void* ti_o, void* it_o, void* ii_o, void* stream) {
+                                   void* msg_sum_ws, void* wh_s, void* wu_s, void* wv_s, void* mt_o, void* mi_o,
+                                   void* et_o, void* ei_o, void* tt_o, void* ti_o, void* it_o, void* ii_o,
+                                   void* stream) {
   const void* in[16] = {mt, mi, et, ei, tt, ti, it, ii, wh, bh, lns, lnb, wu, bu, wv, bv};
   void* out[8] = {mt_o, mi_o, et_o, ei_o, tt_o, ti_o, it_o, ii_o};
   float* split[3] = {static_cast<float*>(wh_s), static_cast<float*>(wu_s), static_cast<float*>(wv_s)};
-  return gcn_layer<float>(B, C, D, eps, vact, eact, dynamic, in, ar_ws, sp_ws, p_ws, msg_ws, count_ws, slots,
-                          split, out, static_cast<cudaStream_t>(stream));
+  return gcn_layer<float>(B, C, D, eps, vact, eact, dynamic, num_candidates, part, in, ar_ws, sp_ws, p_ws,
+                          msg_ws, count_ws, slots, msg_sum_ws, split, out, static_cast<cudaStream_t>(stream));
 }
 
 // v, out [B, C, D]; e1, e2 [B, C]; m1, m2 [B, D]; w [D, D] (torch [out, in]);

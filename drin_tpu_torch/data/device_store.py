@@ -25,9 +25,17 @@ holds one block of N / n_model rows (zero-padded to an even split), which is
 what makes the token-level tables (``cache_entity_pooling=false``) fit.  A
 gather resolves each row to its owner: every rank looks up the rows it owns
 and contributes exact zeros for the rest, and one sum over the model group
-rebuilds the gather bit for bit (one nonzero term per element).  The
-gathered tensors come back whole on every rank of the group: the model's
-compute is replicated along the model axis.
+rebuilds the gather bit for bit (one nonzero term per element).  DRIN's
+gather (:meth:`DeviceEntityStore.drin_feats_fn`) given the caller's
+candidate split takes the JAX package's ``psum_scatter`` branch: the sum
+is a reduce-scatter over the candidate dim, and each rank keeps its block
+of the candidates for its candidate-parallel compute.  Without a split, and
+for the baselines, whose compute is replicated along the model axis, the
+gathered tensors come back whole on every rank.  On a replicated store,
+DRIN's gather with a split indexes only this rank's block of the
+candidates.  Whole-table reads of a row-sharded store
+(:meth:`~DeviceEntityStore.float_rows`, :meth:`~DeviceEntityStore.float_table`)
+are collective: every rank of the model group makes the same calls.
 """
 
 from __future__ import annotations
@@ -208,26 +216,50 @@ class DeviceEntityStore:
             ts = [self.text, self.text_mask, self.image, self.obj, self.obj_score]
         return tuple(t for t in ts if t is not None)  # excluded tables are None
 
-    def gather(self, names, rows: torch.Tensor) -> list:
+    def gather(self, names, rows: torch.Tensor, split=None) -> list:
         """The tables ``names`` (attribute names: ``text``, ``text_scale``,
-        ``text_mask``, ...) at ``rows`` [B, C], each [B, C, ...].  Indices
-        follow :func:`sanitize_rows`.  On a row-sharded store each rank
-        looks up the rows it owns, zeros elsewhere, and one exact sum over
-        the model group completes every table at once."""
+        ``text_mask``, ...) at ``rows`` [B, C], each [B, C, ...], or with
+        ``split`` (a :class:`~drin_tpu_torch.parallel.mesh.CandidateSplit`
+        that divides C) this rank's block of the candidates, [B, C / n, ...].
+        Indices follow :func:`sanitize_rows`.  On a row-sharded store each
+        rank looks up the rows it owns, zeros elsewhere, and one exact sum
+        over the model group completes the tables: one all-reduce of them
+        all, or with ``split`` a reduce-scatter over the candidate dim a
+        table."""
         shape = tuple(rows.shape)
         flat = sanitize_rows(rows, self.n_rows)
         tables = [getattr(self, name) for name in names]
         if not self.sharded:
+            if split is not None:
+                lo, hi = split.bounds(shape[1])
+                flat, shape = flat.reshape(shape)[:, lo:hi], (shape[0], hi - lo)
             return [t[flat].reshape(shape + tuple(t.shape[1:])) for t in tables]
         local = flat - self.row_lo
         mine = (local >= 0) & (local < self.block)
         local = torch.where(mine, local, torch.zeros_like(local))
-        parts = []
+        if split is None:
+            parts = []
+            for t in tables:
+                v = t[local]  # a copy: zeroed in place
+                v.masked_fill_(~mine.reshape(mine.shape + (1,) * (v.ndim - 1)), 0)
+                parts.append(v.reshape(shape + tuple(t.shape[1:])))
+            return collectives.sum_exact_(parts, self.mesh.model_group)
+        # the caller's split must be this store's model axis
+        assert (split.n, split.index) == (self.mesh.shape["model"], self.mesh.model_index), split
+        # candidate-major [C, B, ...], so that the reduce-scatter's blocks
+        # along dim 0 are the model ranks' blocks of the candidates; a table
+        # at a time, so that one table's whole gather is alive at once.  The
+        # indices are made contiguous: indexing with a transposed index
+        # tensor lays the gather out transposed, and the reduce-scatter
+        # would copy all of it into order
+        local, mine = local.reshape(shape).t().contiguous(), mine.reshape(shape).t()
+        out = []
         for t in tables:
             v = t[local]
-            v = v.masked_fill(~mine.reshape(mine.shape + (1,) * (v.ndim - 1)), 0)
-            parts.append(v.reshape(shape + tuple(t.shape[1:])))
-        return collectives.sum_exact_(parts, self.mesh.model_group)
+            v.masked_fill_(~mine.reshape(mine.shape + (1,) * (v.ndim - 2)), 0)
+            got, = collectives.reduce_scatter_exact_([v], split.group, split.order)
+            out.append(got.transpose(0, 1).contiguous())
+        return out
 
     def _qview(self, name: str, lo: int, hi: int):
         """Quantized ``(rows, scales)`` of ``table[lo:hi]`` in the per-table
@@ -244,14 +276,14 @@ class DeviceEntityStore:
     def float_table(self, name: str, chunk: int = 32768):
         """Float view of ``'text'`` / ``'image'`` / ``'obj'``: a quantized
         store dequantizes in ``chunk``-row pieces into one output tensor.  A
-        row-sharded store gathers the pieces to the host and returns a numpy
-        array of the padded table (padding rows zero): a whole table on one
-        device is what the sharding avoids."""
+        row-sharded store reads the ``n_rows`` rows collectively
+        (:meth:`float_rows`, every rank of the model group must call it) into
+        one tensor on the store's device; a consumer that needs no whole
+        table on the device reads :meth:`float_rows` in pieces."""
         assert name in self.include, f"unknown table {name!r}"
         if self.sharded:
-            total = self.block * self.mesh.shape["model"]
-            return np.concatenate([self.float_rows(name, lo, min(lo + chunk, total))
-                                   for lo in range(0, total, chunk)])
+            return torch.cat([self.float_rows(name, lo, min(lo + chunk, self.n_rows))
+                              for lo in range(0, self.n_rows, chunk)])
         if not self.quantized:
             return getattr(self, name)
         n = self.n_rows
@@ -263,14 +295,18 @@ class DeviceEntityStore:
         return out
 
     def float_rows(self, name: str, lo: int, hi: int, slot=None):
-        """Dequantized ``table[lo:hi]`` (optionally one second-axis slot).  On
-        a row-sharded store every rank of the model group must call it: each
-        contributes its overlap and the slice comes back to the host, as a
-        numpy array."""
-        assert name in self.include, f"unknown table {name!r}"
+        """Dequantized ``table[lo:hi]`` (optionally one second-axis slot) of
+        ``'text'``, ``'image'``, ``'obj'`` or ``'obj_score'``, rows past
+        ``n_rows`` left out.  On a row-sharded store every rank of the model
+        group must make the same call: each contributes its overlap, and one
+        exact sum over the group gives every rank the rows, on the store's
+        device."""
+        assert name in self.include or (name == "obj_score" and self.obj_score is not None), (
+            f"unknown table {name!r}")
+        hi = min(hi, self.n_rows)
         if self.sharded:
             return self._sharded_rows(name, lo, hi, slot)
-        if not self.quantized:
+        if name == "obj_score" or not self.quantized:
             q = getattr(self, name)
             return q[lo:hi] if slot is None else q[lo:hi, slot]
         qs, ss = self._qview(name, lo, hi)
@@ -280,25 +316,29 @@ class DeviceEntityStore:
                 ss = ss[:, slot]
         return _dequantize(qs, ss, self.dtype)
 
-    def _sharded_rows(self, name: str, lo: int, hi: int, slot=None) -> np.ndarray:
+    def _sharded_rows(self, name: str, lo: int, hi: int, slot=None) -> torch.Tensor:
         """``float_rows`` of a row-sharded store: this rank's overlap of
         [lo, hi), zeros elsewhere, summed over the model group."""
         table = getattr(self, name)
         a, b = max(lo, self.row_lo), min(hi, self.row_lo + self.block)
         own = table[max(a - self.row_lo, 0):max(b - self.row_lo, 0)]
-        if self.quantized:
+        if self.quantized and name != "obj_score":
             scale = getattr(self, f"{name}_scale")[max(a - self.row_lo, 0):max(b - self.row_lo, 0)]
             own = _dequantize(own, scale, self.dtype)
         own = own if slot is None else own[:, slot]
         piece = torch.zeros((hi - lo,) + tuple(own.shape[1:]), dtype=self.dtype, device=self.device)
         if a < b:
             piece[a - lo:b - lo] = own
-        return collectives.sum_exact_([piece], self.mesh.model_group)[0].cpu().numpy()
+        return collectives.sum_exact_([piece], self.mesh.model_group)[0]
 
     def drin_feats_fn(self):
-        """``feats_fn(feats) -> feature tuple``: rows-batch features (the
-        :class:`DrinRowsBatch` fields minus the answer, as tensors on the
-        store's device) -> the 14-tensor DRIN batch."""
+        """``feats_fn(feats, split=None) -> feature tuple``: rows-batch
+        features (the :class:`DrinRowsBatch` fields minus the answer, as
+        tensors on the store's device) -> the 14-tensor DRIN batch.  With
+        ``split`` (the caller's :class:`~drin_tpu_torch.parallel.mesh.CandidateSplit`,
+        which the batch's C divides) the entity tensors and the two
+        similarities are this rank's block of the candidates, for DRIN's
+        candidate-parallel forward with the same split."""
         assert {"image", "obj"} <= set(self.include), (
             "DRIN reads the entity image and object tables; this store was built "
             f"with include={self.include} (a baseline layout)")
@@ -310,8 +350,11 @@ class DeviceEntityStore:
         if self.fused:
             chunks, tails = self._chunks, self._tails
 
-            def feats_fn(feats):
+            def feats_fn(feats, split=None):
                 (mtf, mtm, sp, ep, mif, mof, mos, rows, miet, mtei) = feats
+                if split is not None:  # this rank's block of the candidates
+                    lo, hi = split.bounds(rows.shape[1])
+                    rows, miet, mtei = rows[:, lo:hi].contiguous(), miet[:, lo:hi], mtei[:, lo:hi]
                 # the kernel checks the raw rows; obj_score is indexed in torch
                 tf, imf, of = gather_dequant(self.packed, self.packed_scales, rows, chunks, dt)
                 shape = tuple(rows.shape)
@@ -325,9 +368,12 @@ class DeviceEntityStore:
 
         names = self._names(("text", "image", "obj")) + ["obj_score"]
 
-        def feats_fn(feats):
+        def feats_fn(feats, split=None):
             (mtf, mtm, sp, ep, mif, mof, mos, rows, miet, mtei) = feats
-            got = dict(zip(names, self.gather(names, rows)))
+            if split is not None:
+                lo, hi = split.bounds(rows.shape[1])
+                miet, mtei = miet[:, lo:hi], mtei[:, lo:hi]
+            got = dict(zip(names, self.gather(names, rows, split)))
             etm = got["text_mask"] if "text_mask" in got else etm_for(rows)
             return (mtf, mtm, sp, ep, mif, mof, mos, self._deq(got, "text"), etm,
                     self._deq(got, "image"), self._deq(got, "obj"), got["obj_score"], miet, mtei)

@@ -14,6 +14,16 @@ port ``state_dict()`` unchanged.
 The scalar-edge GCN layer runs the fused layer kernel on CUDA tensors
 (``ops/cuda/gcn_layer.py``) whatever ``use_pallas`` says; on CPU tensors the
 same wrapper runs its plain version.
+
+Candidate-parallel (``split``, a :class:`~drin_tpu_torch.parallel.mesh.CandidateSplit`
+of the model axis): the entity tensors and the similarities of the batch
+are this rank's block of the (padded) candidates, and the mention side is
+computed alike on every rank of the model group.  The GCN layers sum the
+mention means' messages over the group before dividing by the real C
+(``collectives.all_sum``), and the forward gathers the score blocks
+(``collectives.gather_blocks``) before it slices the scores to C.  This is
+what GSPMD does for the JAX model on a mesh whose model axis shards the
+candidates.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ from drin_tpu_torch.models.ghmfc import EntityEncoder, MentionEncoder
 from drin_tpu_torch.nn.layers import LayerNorm, Linear, get_activation
 from drin_tpu_torch.ops.core import cosine_similarity, object_pair_similarity, span_mean
 from drin_tpu_torch.ops.cuda.gcn_layer import fused_gcn_layer
+from drin_tpu_torch.parallel import collectives
+from drin_tpu_torch.parallel.mesh import padded_candidate_count
 
 
 class VertexEncoder(nn.Module):
@@ -118,26 +130,31 @@ class GCNLayer(nn.Module):
                 self.w_u = Linear(D, D, generator)
                 self.w_v = Linear(D, D, generator)
 
-    def forward(self, vertexes, edges):
+    def forward(self, vertexes, edges, split=None):
+        """One layer; with ``split`` the entity vertices and the edges hold
+        this rank's block of the candidates (the module docstring)."""
         cfg = self.cfg
         C = cfg.num_candidates_model
         vector = cfg.gcn_edge_feature == "vector"
         edges = [e * m for e, m in zip(edges, cfg.gcn_edge_enabled)]  # ablation mask
         # candidate padding: fake candidates' edges are zeroed every layer so
         # they add nothing to the candidate means, which divide by the real C
-        Cp = vertexes[2].shape[1]
+        Cb = vertexes[2].shape[1]
+        lo, Cp = (0, Cb) if split is None else (split.index * Cb, split.n * Cb)
         if Cp > C:
-            cmask = (torch.arange(Cp, device=edges[0].device) < C).to(edges[0].dtype)
+            cmask = ((torch.arange(Cb, device=edges[0].device) + lo) < C).to(edges[0].dtype)
             cm = cmask[None, :, None] if vector else cmask[None, :]
             edges = [e * cm for e in edges]
+        total = None if split is None else (lambda x: collectives.all_sum(x, split.group))
         if vector:
-            return self._vector(vertexes, edges)
-        return self._scalar(vertexes, edges)
+            return self._vector(vertexes, edges, total)
+        return self._scalar(vertexes, edges, total)
 
-    def _scalar(self, vertexes, edges):
+    def _scalar(self, vertexes, edges, total=None):
         """Scalar edges: the fused layer kernel on CUDA, which raises for
-        padded candidates or activations it does not implement; its plain
-        version on the CPU, which averages over the real C."""
+        activations it does not implement; its plain version on the CPU.
+        Both average over the real C; ``total`` sums the message sums over
+        the model group (candidate-parallel)."""
         cfg = self.cfg
         dt = vertexes[2].dtype
         dynamic = cfg.gcn_edge_type == "dynamic"
@@ -149,25 +166,34 @@ class GCNLayer(nn.Module):
             w(self.w_h.weight), w(self.w_h.bias), w(self.layer_norm.weight),
             w(self.layer_norm.bias), *dyn, vact=cfg.gcn_vertex_activation,
             eact=cfg.gcn_edge_activation, eps=self.layer_norm.eps, dynamic=dynamic,
-            num_candidates=cfg.num_candidates_model)
+            num_candidates=cfg.num_candidates_model, sum_messages=total)
 
-    def _vector(self, vertexes, edges):
-        """Vector edges [B, C, D], plain torch as in JAX."""
+    def _vector(self, vertexes, edges, total=None):
+        """Vector edges [B, C, D], plain torch as in JAX; ``total`` sums the
+        mentions' candidate sums over the model group before the division
+        (candidate-parallel)."""
         cfg = self.cfg
         C = cfg.num_candidates_model
         vact = get_activation(cfg.gcn_vertex_activation)
         eact = get_activation(cfg.gcn_edge_activation)
 
+        # mention <- entity: the sums over this block's candidates, one
+        # collective for all four, then the average over the real C
+        sums = [[torch.sum(edges[ei_] * vertexes[vi], dim=1) for ei_, vi in neighbors]
+                for neighbors in self.vertex_graph[:2]]
+        if total is not None:
+            summed = total(torch.stack([x for pair in sums for x in pair]))
+            sums = [[summed[0], summed[1]], [summed[2], summed[3]]]
+
         def conv_vertex(e, v):
-            if v.ndim == 3:  # mention <- entity: average message over candidates
-                return torch.sum(e * v, dim=1) / C
             return e * v[:, None, :]  # entity <- mention: broadcast
 
         aggs = []
-        for u, neighbors in zip(vertexes, self.vertex_graph):
+        for ui, (u, neighbors) in enumerate(zip(vertexes, self.vertex_graph)):
             agg = u
-            for ei_, vi in neighbors:
-                agg = agg + conv_vertex(edges[ei_], vertexes[vi])
+            for j, (ei_, vi) in enumerate(neighbors):
+                agg = agg + (sums[ui][j] / C if vertexes[vi].ndim == 3
+                             else conv_vertex(edges[ei_], vertexes[vi]))
             aggs.append(agg)
         new_vertexes = [vact(self.layer_norm(self.w_h(a))) for a in aggs]
         if cfg.gcn_edge_type != "dynamic":
@@ -195,13 +221,23 @@ class DRIN(nn.Module):
                                         for _ in range(cfg.num_gcn_layers))
 
     def forward(self, batch, deterministic: bool = True,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None, split=None):
+        """Scores [B, C]; with ``split`` the batch's entity tensors and
+        similarities are this rank's block of the padded candidates, and
+        every rank of the model group returns the gathered scores."""
         cfg = self.cfg
         (mention_text_feature, mention_text_mask, mention_start_pos, mention_end_pos,
          mention_image_feature, mention_object_feature, mention_object_score,
          entity_text_feature, entity_text_mask, entity_image_feature,
          entity_object_feature, entity_object_score, miet_similarity,
          mtei_similarity) = batch
+        if split is not None:  # the caller's blocks of C padded to the axis
+            Cb = entity_image_feature.shape[1]
+            assert miet_similarity.shape[1] == mtei_similarity.shape[1] == Cb and \
+                Cb * split.n <= padded_candidate_count(cfg.num_candidates_model, split.n), (
+                    f"candidate blocks of {Cb} (similarities {miet_similarity.shape[1]}) over "
+                    f"{split.n} ranks are not a split of C={cfg.num_candidates_model} padded "
+                    "to the model axis")
         vertexes = self.vertex_encoder(
             mention_text_feature, mention_text_mask, mention_start_pos, mention_end_pos,
             mention_image_feature, entity_text_feature, entity_text_mask,
@@ -215,8 +251,11 @@ class DRIN(nn.Module):
         if cfg.gcn_edge_feature == "vector":
             edges = [e[..., None].expand(*e.shape, cfg.gcn_embed_dim) for e in edges]
         for layer in self.gcn_layers:
-            vertexes, edges = layer(vertexes, edges)
+            vertexes, edges = layer(vertexes, edges, split)
         mention, entity = vertexes[0], vertexes[2]
         mention = mention[:, None, :].expand(entity.shape)
+        scores = cosine_similarity(mention, entity)
+        if split is not None:  # the model group's blocks, in candidate order
+            scores = collectives.gather_blocks(scores, split.group, split.order)
         # padded fake candidates are sliced away: scores are always [B, C]
-        return cosine_similarity(mention, entity)[:, : cfg.num_candidates_model]
+        return scores[:, : cfg.num_candidates_model]

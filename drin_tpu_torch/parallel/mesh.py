@@ -9,10 +9,16 @@ its group:
   * ``data``: the batch axis.  Each data index owns a contiguous block of the
     global batch's rows; the loss gathers the scores of its *data group* (the
     ranks of one model column) and the gradients are summed over it.
-  * ``model``: the entity-row axis of the row-sharded store
-    (``data/device_store.py``); its *model group* (the ranks of one data row)
-    rebuilds every gathered batch with one sum.  The model's compute is
-    replicated along this axis: candidate-parallel compute is not ported.
+  * ``model``: the candidate axis of DRIN's compute and the entity-row axis
+    of the row-sharded store (``data/device_store.py``).  The ranks of one
+    data row form its *model group*.  DRIN computes its entity side over
+    this rank's block of the candidates (:class:`CandidateSplit`; the
+    trainer pads C to a multiple of the axis, :func:`padded_candidate_count`),
+    sums the mention means' messages over the group and gathers the score
+    blocks.  A row-sharded store's gather hands each rank its block of the
+    candidates with one reduce-scatter (whole on every rank when the axis
+    does not divide C).  GHMFC and MELHI replicate their compute along this
+    axis.
 
 ``make_hybrid_mesh`` lays the model axis within a host and the data axis
 across hosts: the per-step gathers of the store stay on one host, and only
@@ -23,9 +29,10 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -53,6 +60,9 @@ class Mesh:
         # numbers its members in ascending global rank)
         column = self.ranks[:, max(self.model_index, 0)].tolist()
         self.data_order = [sorted(column).index(r) for r in column]
+        # and the model group's ranks in model-index order
+        row = self.ranks[max(self.data_index, 0), :].tolist()
+        self.model_order = [sorted(row).index(r) for r in row]
         if groups:
             self._new_groups()
 
@@ -82,6 +92,14 @@ class Mesh:
     def main(self) -> bool:
         """The rank that logs, writes checkpoints and dumps test results."""
         return self.rank == int(self.ranks[0, 0])
+
+    def candidate_split(self) -> Optional["CandidateSplit"]:
+        """This rank's share of the candidate dim over its model group, or
+        None when the model axis has one rank."""
+        nm = self.shape[MODEL_AXIS]
+        if nm == 1 or not self.active:
+            return None
+        return CandidateSplit(self.model_group, self.model_index, nm, self.model_order)
 
     def __repr__(self):
         return f"Mesh(data={self.shape[DATA_AXIS]}, model={self.shape[MODEL_AXIS]}, rank={self.rank})"
@@ -200,6 +218,55 @@ def make_hybrid_mesh(slices: Optional[Sequence[Sequence[int]]] = None, model: in
     return Mesh(hybrid_layout(slices, model, data, main=me == 0), me, groups=n > 1)
 
 
+def candidate_range(Cp: int, n: int, index: int) -> tuple:
+    """The [lo, hi) candidates of model index ``index`` when ``n`` ranks
+    split ``Cp`` candidates in contiguous blocks (``n`` must divide ``Cp``)."""
+    if Cp % n:
+        raise ValueError(f"{Cp} candidates do not split over {n} ranks; pad them first "
+                         "(padded_candidate_count)")
+    per = Cp // n
+    return index * per, (index + 1) * per
+
+
+class CandidateSplit(NamedTuple):
+    """A rank's block of the candidate dim on the model axis: its model
+    ``group``, its model ``index``, the axis width ``n`` and the group ranks
+    in model-index ``order``."""
+
+    group: object
+    index: int
+    n: int
+    order: list
+
+    def divides(self, Cp: int) -> bool:
+        return Cp % self.n == 0
+
+    def bounds(self, Cp: int) -> tuple:
+        """This rank's [lo, hi) of ``Cp`` candidates."""
+        return candidate_range(Cp, self.n, self.index)
+
+
+def slice_candidates(batch, batch_fields: Sequence[str], split: Optional[CandidateSplit]):
+    """This rank's candidates of a host batch: ``batch_specs``' rule of the
+    JAX package as a slice.  The entity tensors of ndim >= 3 ([B, C, ...])
+    and the [B, C] similarities (the model's edges) keep this rank's block
+    of the candidate dim; the answer stays whole (the loss sees every
+    candidate).  A rows batch (``entity_rows``) stays whole: the store's
+    gather takes the block of its rows and of its similarities.  Without a
+    split the batch as it is; the split must divide C (pad it first,
+    :func:`pad_candidates_to`)."""
+    if split is None or "entity_rows" in batch_fields:
+        return batch
+    out = []
+    for name, x in zip(batch_fields, batch):
+        x = np.asarray(x)
+        if (name.startswith("entity_") and x.ndim >= 3) or name.endswith("_similarity"):
+            lo, hi = split.bounds(x.shape[1])
+            x = x[:, lo:hi]
+        out.append(x)
+    return tuple(out) if type(batch) is tuple else type(batch)(*out)
+
+
 def padded_candidate_count(C: int, nm: int) -> int:
     """Smallest multiple of the model-axis size >= C (C itself when it
     already divides)."""
@@ -209,16 +276,18 @@ def padded_candidate_count(C: int, nm: int) -> int:
 def pad_candidates_to(batch, batch_fields: Sequence[str], c_from: int, c_to: int):
     """Pad the candidate dim (axis 1) of every candidate-carrying field from
     ``c_from`` to ``c_to`` with zeros (row indices pad with 0, a valid row;
-    the models mask the padded candidates and slice the scores back to C)."""
+    the models mask the padded candidates and slice the scores back to C).
+    Fields may be numpy arrays or tensors; a tensor pads on its device."""
     if c_to == c_from:
         return batch
     out = []
     for name, x in zip(batch_fields, batch):
-        x = np.asarray(x)
+        x = x if torch.is_tensor(x) else np.asarray(x)
         if (name.startswith("entity_") or name.endswith("_similarity")) and x.ndim >= 2 \
                 and x.shape[1] == c_from and name != "answer":
-            pad = np.zeros((x.shape[0], c_to - c_from) + x.shape[2:], x.dtype)
-            x = np.concatenate([x, pad], axis=1)
+            shape = (x.shape[0], c_to - c_from) + tuple(x.shape[2:])
+            x = (torch.cat([x, x.new_zeros(shape)], 1) if torch.is_tensor(x)
+                 else np.concatenate([x, np.zeros(shape, x.dtype)], axis=1))
         out.append(x)
     return tuple(out) if type(batch) is tuple else type(batch)(*out)
 

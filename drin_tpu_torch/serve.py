@@ -23,6 +23,18 @@
     status-code rules.
   * :func:`main` is the CLI, ``python -m drin_tpu_torch.serve``.
 
+Over a row-sharded store (``DeviceEntityStore(shard_rows=True)`` on a mesh)
+every rank of the store's model group holds a Ranker, and the rank stage's
+gathers are collectives: every rank makes the same ``score`` / ``rank``
+calls in the same order.  A DRIN ranker computes its candidates in parallel
+over the group (C padded to the group's multiple; the module docstring of
+``models/drin.py``).  :meth:`Ranker.set_store` reads retrieval's table in
+lockstep, so that ``retrieve`` needs no collective; ``save_bundle`` is
+collective.  Behind the HTTP front (:func:`serve_http`) the model group's
+first rank leads (:meth:`Ranker.lead`: every ``score`` / ``rank`` is
+broadcast to the others first) and the others follow
+(:meth:`Ranker.follow`), one process a rank.
+
 Everything runs under ``torch.inference_mode()``.  On CUDA the scalar-edge
 GCN layer always runs the fused layer kernel, a fused store reads its int8
 tables through the gather+dequant kernel and BERT's self-attention runs the
@@ -57,6 +69,8 @@ from drin_tpu_torch.data.online import OnlineBatch, assemble_online_feats
 from drin_tpu_torch.models import get_model
 from drin_tpu_torch.ops.core import cosine_similarity
 from drin_tpu_torch.ops.cuda.gather import sanitize_rows
+from drin_tpu_torch.parallel import collectives
+from drin_tpu_torch.parallel.mesh import pad_candidates_to, padded_candidate_count
 
 
 def _check_device(device) -> torch.device:
@@ -258,6 +272,15 @@ class ShardedRetrieval:
 
 
 BUNDLE_STATE = "state.pt"
+BUNDLE_READ_ROWS = 32768  # save_bundle's rows a read: the device holds one piece of a table
+
+# the request's faults: the HTTP front answers 400 for these
+REQUEST_ERRORS = (KeyError, ValueError, TypeError, AssertionError, IndexError)
+
+
+class FollowerFault(RuntimeError):
+    """A rank of a row-sharded Ranker's model group failed a lockstep call
+    (or left the group): the front cannot score any more."""
 
 
 class Ranker:
@@ -268,13 +291,15 @@ class Ranker:
     the weights come from ``<checkpoint_dir>/params.pt`` (``torch.save``
     of a state_dict).  Parameters are cast to ``cfg.compute_dtype`` on
     ``device``.  ``bert_cfg`` overrides the online model's bert-base
-    dimensions.  An online model with entity tables keeps them in a store
+    dimensions.  ``store_mesh`` row-shards the store over that mesh's model
+    axis (every rank of its model group builds its Ranker alike; the
+    token-level tables then need no pooled cache).  An online model with entity tables keeps them in a store
     for :meth:`retrieve` alone: its requests carry token ids, never rows."""
 
     def __init__(self, cfg: Config, params: Optional[Mapping] = None,
                  entity_tables: Optional[dict] = None, checkpoint_dir: Optional[str] = None,
                  *, device, quantize_store: bool = False, fused_gather: bool = False,
-                 bert_cfg=None):
+                 bert_cfg=None, store_mesh=None):
         self.cfg = cfg
         self.device = _check_device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
@@ -292,11 +317,12 @@ class Ranker:
         self._retrieval_expand = 4
         self._sharded = None  # shard_retrieval's ShardedRetrieval
         self._sharded_expand = 4
+        self._lead = None  # the lock of a leading rank (lead())
         # the raw host tables are kept only for DRIN's
         # precompute_entity_projection; any other kind would pin them for
         # the server's lifetime
         self._tables = entity_tables if self.kind == "drin" else None
-        if entity_tables is not None and cfg.entity_pooling_cached:
+        if entity_tables is not None and (cfg.entity_pooling_cached or store_mesh is not None):
             if fused_gather and cfg.model_type not in ("drin", "ghmfc"):
                 raise ValueError("fused_gather packs the DRIN or GHMFC table layouts; "
                                  f"model_type={cfg.model_type} uses the standard quantized store")
@@ -305,8 +331,10 @@ class Ranker:
             self.store = DeviceEntityStore(cfg, entity_tables, device=self.device,
                                            dtype=self.dtype, quantize=quantize_store,
                                            fused_gather=fused_gather,
-                                           include=include_for(self.kind))
+                                           include=include_for(self.kind),
+                                           shard_rows=store_mesh is not None, mesh=store_mesh)
             self._feats_fn = self._feats_fn_for(self.store)
+            self._read_sharded_retrieval_table()
         elif quantize_store or fused_gather:
             raise ValueError(
                 ("quantize_store" if quantize_store else "fused_gather")
@@ -333,17 +361,28 @@ class Ranker:
 
     def set_store(self, store: DeviceEntityStore, entity_tables: Optional[dict] = None):
         """Swap in a different store (and the host tables a later
-        projection reads; None makes a projection fail loudly)."""
+        projection reads; None makes a projection fail loudly).  A
+        row-sharded store's retrieval table is read here, collectively:
+        every rank of its model group calls ``set_store``."""
         self.store = store
         self._feats_fn = self._feats_fn_for(store)
         self._tables = entity_tables if self.kind == "drin" else None
         self._entity_reprs = None  # encoded from the old tables: rank_rows must refuse
         self._drop_retrieval_caches()
+        self._read_sharded_retrieval_table()
 
     def _drop_retrieval_caches(self):
         self._retrieval_table = None
         self._retrieval_q = None
         self._sharded = None
+
+    def _read_sharded_retrieval_table(self):
+        """On a row-sharded store, read retrieval's table now, in lockstep
+        with the model group: a lazy read on the first ``retrieve`` would be
+        a collective that only the rank with the request reaches."""
+        if self.store is not None and self.store.sharded:
+            with torch.inference_mode():
+                self._retrieval_table = _unit_rows(self._retrieval_source())
 
     def _feats_fn_for(self, store: DeviceEntityStore):
         """Rows batch -> model batch for DRIN and the offline baselines.  The
@@ -366,12 +405,16 @@ class Ranker:
         self.cfg = self.cfg.replace(entity_projected=True)
         self.model, _ = self._build_model(self.cfg, sd)
         # the rebuilt store keeps the old one's quantization and layout
+        old = self.store
         self.store = DeviceEntityStore(self.cfg, proj, device=self.device, dtype=self.dtype,
-                                       quantize=self.store is not None and self.store.quantized,
-                                       fused_gather=self.store is not None and self.store.fused)
+                                       quantize=old is not None and old.quantized,
+                                       fused_gather=old is not None and old.fused,
+                                       shard_rows=old is not None and old.sharded,
+                                       mesh=old.mesh if old is not None else None)
         self._feats_fn = self.store.drin_feats_fn()
         self._tables = proj
         self._drop_retrieval_caches()  # the retrieval source is now slot 1
+        self._read_sharded_retrieval_table()
 
     def precompute_entity_reprs(self, chunk: int = 8192) -> np.ndarray:
         """Offline GHMFC's serving fast path: its entity tower reads only the
@@ -448,26 +491,172 @@ class Ranker:
             raise ValueError(f"entity_rows must be [B, C], got {tuple(out[5].shape)}")
         return tuple(out)
 
+    def _candidate_split(self, feats: tuple):
+        """The one decision of a request's candidate split: DRIN over a
+        store on a mesh whose model axis has several ranks is
+        candidate-parallel, with the rows batch padded to the axis's
+        multiple of C (row 0 and zero similarities, masked in the model, as
+        the ``Trainer`` pads) and the mesh's split, which both the gather
+        and the model take.  Otherwise (another model, one rank on the axis,
+        or a request of another C that the axis does not divide) the batch
+        as it is and None."""
+        mesh = self.store.mesh if self.kind == "drin" else None
+        split = mesh.candidate_split() if mesh is not None else None
+        if split is None:
+            return feats, None
+        C = feats[7].shape[1]
+        Cp = padded_candidate_count(C, split.n) if C == self.cfg.num_candidates_model else C
+        if not split.divides(Cp):
+            return feats, None
+        return pad_candidates_to(feats, _batch_type(self)._fields[:-1], C, Cp), split
+
     def _scores(self, feats) -> torch.Tensor:
         feats = self._prepare(feats)
-        if self._feats_fn is not None:
-            feats = self._feats_fn(feats)
-        return self.model(feats).float()
+        if self._feats_fn is None:
+            return self.model(feats).float()
+        feats, split = self._candidate_split(feats)
+        if split is None:
+            return self.model(self._feats_fn(feats)).float()
+        return self.model(self._feats_fn(feats, split), split=split).float()
 
     def score(self, feats) -> np.ndarray:
         """Raw candidate scores [B, C] for a feature tuple (the batch fields
         of :func:`rank_feat_fields`, in order)."""
-        with torch.inference_mode():
-            return self._scores(feats).cpu().numpy()
+        if self._lead is not None:
+            return self._lockstep("score", feats, 0)
+        return self._scores_numpy(feats)
 
     def rank(self, feats, k: int = 5):
         """(top-k scores, top-k candidate indices) per mention."""
+        if self._lead is not None:
+            return self._lockstep("rank", feats, k)
+        return self._rank(feats, k)
+
+    def _rank(self, feats, k: int):
         with torch.inference_mode():
             s = self._scores(feats)
             if not 0 <= k <= s.shape[-1]:
                 raise ValueError(f"k must be in [0, {s.shape[-1]}], got {k}")
             vals, idx = torch.topk(s, k, dim=-1)
             return vals.cpu().numpy(), idx.cpu().numpy()
+
+    # -- lockstep over a row-sharded store's model group ---------------
+    def _group(self):
+        """(model group, the global rank of its first rank) of the store."""
+        if self.store is None or not self.store.sharded:
+            raise RuntimeError("lead() and follow() serve a Ranker over a row-sharded store")
+        mesh = self.store.mesh
+        return mesh.model_group, int(mesh.ranks[mesh.data_index, 0])
+
+    def lead(self):
+        """Make this rank, the first of the store's model group, the front:
+        every later ``score`` / ``rank`` (from any thread, one at a time) is
+        broadcast to the group's other ranks, which run it in
+        :meth:`follow`.  A follower that fails or leaves the group raises
+        :class:`FollowerFault` here.  :meth:`stop_followers` ends them."""
+        group, first = self._group()
+        if self.store.mesh.rank != first:
+            raise RuntimeError(f"rank {self.store.mesh.rank} is not the first rank ({first}) of "
+                               "its model group: it follows")
+        self._lead = threading.Lock()
+
+    def _send(self, call: str, k: int, arrays):
+        """Broadcast a call from the front to the model group: the call, k
+        and each array's (dtype, shape) as one pickled object, then the
+        arrays.  After the call every rank reports one status
+        (:meth:`_statuses`: 0 done, 1 the request's fault, 2 the server's)."""
+        import torch.distributed as dist
+
+        group, first = self._group()
+        tensors = [t if torch.is_tensor(t) else torch.as_tensor(np.asarray(t)) for t in arrays]
+        head = [(call, k, [(t.dtype, tuple(t.shape)) for t in tensors])]
+        dist.broadcast_object_list(head, src=first, group=group)
+        collectives.broadcast_([t.to(self.device) for t in tensors], first, group)
+
+    def _receive(self):
+        """A follower's side of :meth:`_send`: (call, k, tensors)."""
+        import torch.distributed as dist
+
+        group, first = self._group()
+        head = [None]
+        dist.broadcast_object_list(head, src=first, group=group)
+        call, k, specs = head[0]
+        tensors = [torch.empty(shape, dtype=dt, device=self.device) for dt, shape in specs]
+        collectives.broadcast_(tensors, first, group)
+        return call, k, tensors
+
+    def _statuses(self, status: int) -> int:
+        """The worst status over the model group (every rank calls it)."""
+        group, _ = self._group()
+        t = torch.tensor([status], dtype=torch.int64, device=self.device)
+        if collectives.group_size(group) > 1:
+            import torch.distributed as dist
+
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return int(t.item())
+
+    def _lockstep(self, call: str, feats, k: int):
+        """The front's side of a call: broadcast it, run it with the
+        followers, and agree on how it ended.  A fault of the front itself
+        or of the group's collectives raises :class:`FollowerFault`: the
+        group can no longer run in step."""
+        with self._lead:
+            try:
+                self._send(call, k, feats)
+            except ValueError:
+                raise  # nothing was sent
+            except Exception as e:
+                raise FollowerFault(f"broadcasting the request to the model group failed: {e}") from e
+            try:
+                out = self._scores_numpy(feats) if call == "score" else self._rank(feats, k)
+            except REQUEST_ERRORS as e:
+                failed = e
+            except Exception as e:  # a collective broke, or the front failed mid-call
+                raise FollowerFault(f"the lockstep {call} failed: {type(e).__name__}: {e}") from e
+            else:
+                failed = None
+            try:
+                worst = self._statuses(1 if failed is not None else 0)
+            except Exception as e:
+                raise FollowerFault(f"a follower left the model group: {e}") from e
+            if worst == 2 or (worst == 1 and failed is None):
+                raise FollowerFault(f"a follower failed the lockstep {call}")
+            if failed is not None:
+                raise failed
+            return out
+
+    def _scores_numpy(self, feats) -> np.ndarray:
+        with torch.inference_mode():
+            return self._scores(feats).cpu().numpy()
+
+    def follow(self):
+        """Run the front's calls (:meth:`lead`) on this rank of the model
+        group until it stops them.  A call
+        that fails here for the request's reason fails on the front too; any
+        other failure raises, and the caller must leave the process group
+        (exiting does), so that the front sees the group broken and never
+        waits on this rank."""
+        while True:
+            call, k, tensors = self._receive()
+            if call == "stop":
+                return
+            status = 0
+            try:
+                if call == "score":
+                    self._scores_numpy(tensors)
+                else:
+                    self._rank(tensors, k)
+            except REQUEST_ERRORS:
+                status = 1
+            self._statuses(status)
+
+    def stop_followers(self):
+        """End the followers' :meth:`follow` loops (the front's shutdown)."""
+        if self._lead is None:
+            return
+        with self._lead:
+            self._send("stop", 0, [])
+            self._lead = None
 
     # ------------------------------------------------------------------
     def rank_text(self, sentences, char_spans, candidate_texts, k: int = 5,
@@ -510,10 +699,14 @@ class Ranker:
         n = self.store.n_rows
         if self._entity_reprs is not None:
             return self._entity_reprs[:n]
+        # a row-sharded store reads the n rows collectively (set_store)
         return self.store.float_rows("text", 0, n, slot=1 if self.cfg.entity_projected else 0)
 
     def _ensure_retrieval_table(self) -> torch.Tensor:
         if self._retrieval_table is None:
+            if self.store is not None and self.store.sharded and self._entity_reprs is None:
+                raise RuntimeError("a row-sharded store's retrieval table is read by set_store, "
+                                   "on every rank of its model group; it was dropped since")
             with torch.inference_mode():
                 self._retrieval_table = _unit_rows(self._retrieval_source())
         return self._retrieval_table
@@ -629,32 +822,44 @@ class Ranker:
         ``state.pt``, a ``torch.save`` of ``{"params": state_dict,
         "tables": float32 tensors}``.  A quantized store persists its
         dequantized floats, so the bundle loads into any store layout; a
-        narrowed store (GHMFC, online: text alone) persists what it holds."""
-        os.makedirs(path, exist_ok=True)
-        with open(os.path.join(path, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(self.cfg), f, indent=1)
+        narrowed store (GHMFC, online: text alone) persists what it holds.
+        The tables hold the store's ``n_rows`` rows, read
+        ``BUNDLE_READ_ROWS`` rows at a time.  Over a row-sharded store the reads are collective: every rank
+        of the store's mesh calls ``save_bundle`` with the same path, the
+        mesh's main rank writes, and every rank returns once it has."""
+        store = self.store
+        sharded = store is not None and store.sharded
         payload = {"params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()}}
-        if self.store is not None:
-            n = self.store.n_rows
+        if store is not None:
             names = {"text": "entity_text_feature", "image": "entity_image_feature",
                      "obj": "entity_object_feature"}
-            tables = {names[t]: self.store.float_table(t)[:n].float().cpu()
-                      for t in self.store.include}
-            if "obj" in self.store.include:
-                tables["entity_object_score"] = self.store.obj_score[:n].float().cpu()
-            payload["tables"] = tables
-        # written beside and renamed: refreshing a bundle in place never
-        # leaves a torn file
-        tmp = os.path.join(path, BUNDLE_STATE + ".tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, os.path.join(path, BUNDLE_STATE))
+            if "obj" in store.include:
+                names["obj_score"] = "entity_object_score"
+            with torch.inference_mode():
+                payload["tables"] = {
+                    key: torch.cat([store.float_rows(t, lo, lo + BUNDLE_READ_ROWS).float().cpu()
+                                    for lo in range(0, store.n_rows, BUNDLE_READ_ROWS)])
+                    for t, key in names.items() if t == "obj_score" or t in store.include}
+        if not sharded or store.mesh.main:
+            os.makedirs(path, exist_ok=True)
+            with open(os.path.join(path, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(self.cfg), f, indent=1)
+            # written beside and renamed: refreshing a bundle in place never
+            # leaves a torn file
+            tmp = os.path.join(path, BUNDLE_STATE + ".tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, os.path.join(path, BUNDLE_STATE))
+        if sharded and collectives.group_size(store.mesh.group) > 1:
+            import torch.distributed as dist
+
+            dist.barrier(group=store.mesh.group)
 
     @classmethod
     def from_bundle(cls, path: str, *, device, quantize_store: bool = False,
-                    fused_gather: bool = False, bert_cfg=None) -> "Ranker":
+                    fused_gather: bool = False, bert_cfg=None, store_mesh=None) -> "Ranker":
         """A Ranker from a :meth:`save_bundle` directory.  ``quantize_store``
         / ``fused_gather`` load the bundled float tables into the int8 or
-        fused store; ``bert_cfg`` as in the constructor."""
+        fused store; ``bert_cfg`` and ``store_mesh`` as in the constructor."""
         with open(os.path.join(path, "config.json")) as f:
             raw = json.load(f)
         # JSON turns tuples into lists; restore the tuple-typed fields
@@ -665,7 +870,7 @@ class Ranker:
         if tables is not None:
             tables = {k: v.numpy() for k, v in tables.items()}
         return cls(cfg, state["params"], tables, device=device, quantize_store=quantize_store,
-                   fused_gather=fused_gather, bert_cfg=bert_cfg)
+                   fused_gather=fused_gather, bert_cfg=bert_cfg, store_mesh=store_mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1002,11 +1207,32 @@ def serve_http(ranker, host: str = "127.0.0.1", port: int = 8787,
     request gets 400; a fault of the server (a ``RuntimeError`` such as no
     entity tables or a closed batcher, a device fault) gets 500.  Returns the
     server object, its front as ``server.front`` (call ``.shutdown()`` from
-    another thread, then close the front)."""
+    another thread, then close the front).
+
+    Over a row-sharded store, one process a rank of the store's model group
+    (a mesh of one data row) calls ``serve_http``.  The group's first rank
+    serves HTTP and leads (:meth:`Ranker.lead`); ``serve_http`` returns its
+    server at once.  Every other rank follows (:meth:`Ranker.follow`):
+    ``serve_http`` returns None there once the front stops it, and raises
+    if its part of a call fails.  ``server.stop()`` shuts the front down and
+    ends the followers.  A follower that fails makes the front answer 500,
+    set ``server.fault`` and shut down (the CLI then exits non-zero);
+    ``server.stopped`` is set once the front has shut down."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     fields = feat_fields
     base = getattr(ranker, "ranker", ranker)
+    lockstep = base.store is not None and base.store.sharded and \
+        collectives.group_size(base.store.mesh.model_group) > 1
+    if lockstep:
+        mesh = base.store.mesh
+        if mesh.shape["data"] != 1:
+            raise ValueError("a row-sharded Ranker serves over one model group: build its "
+                             f"store on a mesh of one data row, got {mesh}")
+        if mesh.model_index != 0:
+            base.follow()
+            return None
+        base.lead()
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -1067,10 +1293,15 @@ def serve_http(ranker, host: str = "127.0.0.1", port: int = 8787,
             try:
                 scores, idx = call()
                 self._reply(200, {"scores": scores.tolist(), "indices": idx.tolist()})
-            except (KeyError, ValueError, TypeError, AssertionError, IndexError) as e:
+            except REQUEST_ERRORS as e:
                 # bad shapes, dtypes, modes or spans in a well-formed payload:
                 # the request's fault
                 self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+            except FollowerFault as e:  # the model group is broken: stop serving
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+                server.fault = e
+                # closed too: a later client is refused, never left waiting
+                threading.Thread(target=server.stop, daemon=True).start()
             except Exception as e:  # serving must not die on a failed request
                 self._reply(500, {"error": f"{type(e).__name__}: {e}"})
 
@@ -1079,9 +1310,25 @@ def serve_http(ranker, host: str = "127.0.0.1", port: int = 8787,
         # connect at once beyond it are reset before a thread can accept them
         request_queue_size = 128
 
+        def stop(self):
+            """Shut the front down and end the followers' loops."""
+            self.shutdown()
+            self.server_close()
+            if lockstep and self.fault is None:
+                base.stop_followers()
+
     server = Server((host, port), Handler)
     server.front = ranker
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server.fault = None
+    server.stopped = threading.Event()
+
+    def serve():
+        try:
+            server.serve_forever()
+        finally:
+            server.stopped.set()
+
+    thread = threading.Thread(target=serve, daemon=True)
     thread.start()
     return server
 
@@ -1114,8 +1361,17 @@ def main(argv=None):
     ``retrieve_expand=N`` (the int8 retrieval cache); ``shard_retrieval=true``
     (retrieval's table row-sharded over every visible CUDA device,
     :meth:`Ranker.shard_retrieval`, with ``quantize_retrieval``'s int8
-    caches per shard).  Every other key is a
-    Config override.  A WikiMEL server with the pooled entity cache loads
+    caches per shard).  ``shard_store=true`` with ``num_processes``,
+    ``process_id``, ``coordinator_address`` (and ``dist_backend``; gloo for
+    ranks that share a card) row-shards the rank-stage store over that many
+    ranks, one command a rank: the first serves HTTP and leads the others
+    (:func:`serve_http`)::
+
+        python -m drin_tpu_torch.serve bundle=/path/to/bundle shard_store=true \
+            num_processes=2 process_id=$RANK coordinator_address=127.0.0.1:29500 \
+            dist_backend=gloo device=cuda port=8787
+
+    Every other key is a Config override.  A WikiMEL server with the pooled entity cache loads
     the entity text table for an online model too: ``/retrieve`` scans it.
     Returns the server object; the ``__main__`` path blocks until
     interrupted."""
@@ -1137,26 +1393,37 @@ def main(argv=None):
     expand = int(overrides.pop("retrieve_expand", 4))
     quantize_store = bool(overrides.pop("quantize_store", False))
     fused_gather = bool(overrides.pop("fused_gather", False))
+    mesh = None
+    if overrides.pop("shard_store", False):
+        from drin_tpu_torch.parallel import distributed
+        from drin_tpu_torch.parallel.mesh import make_mesh
+
+        n, rank = int(overrides.pop("num_processes", 1)), int(overrides.pop("process_id", 0))
+        distributed.initialize(coordinator_address=overrides.pop("coordinator_address", ""),
+                               num_processes=n, process_id=rank,
+                               backend=overrides.pop("dist_backend", None), device=device)
+        device = distributed.local_device(device, rank)
+        mesh = make_mesh(data=1, model=n) if n > 1 else None
     if bundle is not None:
         if overrides:
             raise SystemExit("bundle mode takes no config overrides, got: "
                              + ", ".join(sorted(overrides)))
         ranker = Ranker.from_bundle(bundle, device=device, quantize_store=quantize_store,
-                                    fused_gather=fused_gather)
+                                    fused_gather=fused_gather, store_mesh=mesh)
     else:
         model_type = overrides.pop("model_type", "drin")
         dataset_name = overrides.pop("dataset_name", "wikidiverse")
         cfg = make_config(model_type, dataset_name, **overrides)
         tables = None
-        if cfg.dataset_name == "wikimel" and cfg.entity_pooling_cached:
+        if cfg.dataset_name == "wikimel" and (cfg.entity_pooling_cached or mesh is not None):
             # an online model never reads the tables in its forward, but
             # /retrieve scans the pooled text table
             from drin_tpu_torch.data.dataset import load_wikimel_entity_tables
 
             kind = "drin" if cfg.model_type == "drin" else "baseline"
             tables = load_wikimel_entity_tables(cfg, include=include_for(kind))
-        ranker = Ranker(cfg, entity_tables=tables, device=device,
-                        quantize_store=quantize_store, fused_gather=fused_gather)
+        ranker = Ranker(cfg, entity_tables=tables, device=device, quantize_store=quantize_store,
+                        fused_gather=fused_gather, store_mesh=mesh)
     if project:
         ranker.precompute_entity_projection()
     if precompute:
@@ -1166,16 +1433,27 @@ def main(argv=None):
     elif quant:
         ranker.quantize_retrieval(expand=expand)
     front = BatchingRanker(ranker, max_batch=max_batch, wait_ms=wait_ms) if micro else ranker
+    if mesh is not None and mesh.model_index != 0:
+        print(f"rank {mesh.rank} follows the front of its model group", flush=True)
     server = serve_http(front, host=host, port=port, feat_fields=rank_feat_fields(front))
+    if server is None:  # a follower whose front has stopped
+        return None
     print(f"serving {ranker.cfg.model_type}/{ranker.cfg.dataset_name} on {device} at "
           f"http://{host}:{server.server_address[1]}" + (" (micro-batched)" if micro else ""),
           flush=True)
     return server
 
 
+def _serve_until_stopped(server) -> int:
+    """Block until the front shuts down (an interrupt stops it and its
+    followers); 1 when a follower failed."""
+    try:
+        server.stopped.wait()
+    except KeyboardInterrupt:
+        server.stop()
+    return 1 if server.fault is not None else 0
+
+
 if __name__ == "__main__":
     _srv = main()
-    try:
-        threading.Event().wait()
-    except KeyboardInterrupt:
-        _srv.shutdown()
+    sys.exit(0 if _srv is None else _serve_until_stopped(_srv))

@@ -18,13 +18,16 @@ or over the ranks of a mesh (``parallel/mesh.py``).
 
 Over a mesh every rank walks the same global batches and assembles the rows
 its data index owns; the loss is the global batch's (in-batch negatives over
-every row of the data group), the gradients are summed over the data group
-and averaged over the model axis in one call, so that every rank receives
-the same bits and takes the same Adam step (the model axis replicates the
-compute; its replicas do not rely on the kernels' sums repeating bit for bit
-in every process), and the counters are summed at log time.  Rank 0 logs, writes the checkpoints (every rank reads them) and
-the test dump.  With dropout on, a mesh run equals the one-device run in
-distribution only: every data index draws its own masks.
+every row of the data group).  DRIN computes its entity side over this
+rank's block of the candidates on the model axis (candidate-parallel; the
+candidate dim is padded to a multiple of the axis, as the JAX ``Trainer``
+pads it); GHMFC and MELHI replicate their compute along it.  Every rank's
+backward gives its share of the gradient, and the shares are summed over
+the whole mesh in one call (``parallel/collectives.py`` states the rule), so
+that every rank receives the same bits and takes the same Adam step; the
+counters are summed at log time.  Rank 0 logs, writes the checkpoints (every
+rank reads them) and the test dump.  With dropout on, a mesh run equals the
+one-device run in distribution only: every data index draws its own masks.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 from drin_tpu_torch.common.config import Config
 from drin_tpu_torch.data.prefetch import Prefetcher
 from drin_tpu_torch.parallel import collectives
+from drin_tpu_torch.parallel import mesh as pmesh
 from drin_tpu_torch.parallel.distributed import process_row_range
 from drin_tpu_torch.train import metrics as M
 from drin_tpu_torch.train.loss import triplet_loss
@@ -90,6 +94,15 @@ def _mesh_or_none(mesh):
     return mesh if mesh is not None and mesh.size > 1 else None
 
 
+def candidate_split(cfg: Config, mesh):
+    """The model axis's split of the candidates for a model that computes
+    them in parallel (DRIN), or None: one rank on the axis, or a model whose
+    compute is replicated along it."""
+    if mesh is None or cfg.model_type != "drin":
+        return None
+    return mesh.candidate_split()
+
+
 def build_step_fns(model: torch.nn.Module, cfg: Config,
                    feats_fn: Optional[Callable] = None, mesh=None) -> StepFns:
     """``train_step(state, batch, valid, mstate) -> (state, loss, mstate)``
@@ -109,12 +122,22 @@ def build_step_fns(model: torch.nn.Module, cfg: Config,
     global batch; the loss is this rank's rows' part of the global batch's
     triplet loss (the parts sum to it), and the gathered scores carry every
     part's gradient back to the rows' owners.  ``train_step`` sums the
-    gradients and the loss over the mesh in one call before Adam, divided by
-    the model width (the model axis replicates the compute, so each of its
-    ranks holds the data group's sum), and returns the global loss; every
+    gradients and the loss over the mesh in one call before Adam and returns
+    the global loss; every
     rank then takes the same Adam step, even where a kernel's sums are not
     reproducible bit for bit across processes.  ``eval_step`` returns the
-    global loss too.  The counters hold
+    global loss too.
+
+    DRIN over a model axis of several ranks is candidate-parallel: a batch
+    holds this rank's block of the (padded) candidates (the ``Trainer``
+    slices it, or ``feats_fn(feats, split)`` gathers only that block: the
+    step passes the split it gives the model), the forward returns
+    the gathered scores, and the loss and the counters see every candidate.
+    Gradients follow ``parallel/collectives.py``'s rule: each rank's
+    backward gives its share, and the step sums the shares over the mesh.  A
+    model whose compute is replicated along the model axis backpropagates
+    its loss over the axis width, so that its ``n_model`` replicas' shares
+    add up to one gradient.  The counters hold
     this rank's rows and its part of the loss: sum them over the data group
     to read them (the ``Trainer`` does).  Without a mesh, or on a mesh of
     one rank, this is the one-device step."""
@@ -124,8 +147,12 @@ def build_step_fns(model: torch.nn.Module, cfg: Config,
     data_parallel = mesh is not None and mesh.shape["data"] > 1
     data_index = mesh.data_index if mesh is not None else 0
     own = process_row_range(mesh, cfg.batch_size) if data_parallel else None
+    n_model = mesh.shape["model"] if mesh is not None else 1
+    split = candidate_split(cfg, mesh)
 
     def forward(feats, **kw):
+        if split is not None:
+            kw["split"] = split
         if compute_dtype == torch.float32:
             return model(feats, **kw)
         # mixed precision: float32 masters, the model body in the compute
@@ -154,7 +181,7 @@ def build_step_fns(model: torch.nn.Module, cfg: Config,
     def body(batch, valid, mstate, rng=None):
         feats, answer = tuple(batch[:-1]), batch[-1]
         if feats_fn is not None:
-            feats = feats_fn(feats)
+            feats = feats_fn(feats) if split is None else feats_fn(feats, split)
         kw = {} if rng is None else {"deterministic": False, "rng": rng}
         scores = forward(feats, **kw)
         loss, whole = global_loss(scores, answer, valid)
@@ -169,14 +196,16 @@ def build_step_fns(model: torch.nn.Module, cfg: Config,
         rng = step_generator(cfg, state.step, valid.device, data_index)
         state.optimizer.zero_grad(set_to_none=True)
         loss, mstate, _ = loss_and_metrics(batch, valid, mstate, rng)
-        loss.backward()
+        # this rank's share: candidate-parallel, the score gather's backward
+        # already splits the gradient over the model group; replicated
+        # compute holds all of it on each of the n_model ranks
+        (loss if split is not None else loss / n_model).backward()
         loss = loss.detach()
         if mesh is not None:
-            # every rank's Adam step must see the global gradient: summed
-            # over the data axis, and averaged over the model axis, whose
-            # ranks hold replicas of it, so that no replica drifts
-            loss = collectives.sum_grads_(list(model.parameters()), mesh.group, loss,
-                                          divide=mesh.shape["model"])
+            # every rank's Adam step must see the global gradient: the sum of
+            # the shares over the whole mesh, with the loss's shares (every
+            # rank of a model group holds the same loss)
+            loss = collectives.sum_grads_(list(model.parameters()), mesh.group, loss / n_model)
         state.optimizer.step()
         state.step += 1
         return state, loss, mstate
@@ -304,6 +333,18 @@ class Trainer:
         self.mesh = _mesh_or_none(mesh)
         self._main = self.mesh is None or self.mesh.main
         self.log = log if self._main else (lambda *a, **k: None)
+        # candidate-parallel DRIN: a C that does not divide the model axis
+        # (WikiMEL's prime 101) is padded; the model masks the fake
+        # candidates and slices the scores back to C
+        self._split = candidate_split(cfg, self.mesh)
+        self._cand_pad = None
+        if self._split is not None:
+            C = cfg.num_candidates_model
+            cp = pmesh.padded_candidate_count(C, self._split.n)
+            if cp != C:
+                self._cand_pad = (C, cp)
+                self.log(f"candidate dim padded {C} -> {cp} to shard over the "
+                         f"{self._split.n}-way model axis")
         self.feats_fn = feats_fn
         self.state = create_train_state(model.to(self.device), cfg)
         # the rows of the global batch this rank assembles (all of them on one device)
@@ -454,13 +495,22 @@ class Trainer:
 
     def _assemble(self, dataset, kind: str, idx: np.ndarray, valid: np.ndarray):
         """This rank's rows of the global batch ``idx`` (every row on one
-        device)."""
+        device), the candidate dim padded and, for candidate-parallel DRIN,
+        this rank's block of it (a rows batch keeps its rows whole: the
+        store's gather takes the block)."""
         lo, hi = self._rows
         if getattr(dataset, "accepts_bucket_idx", False):
             # online datasets take the length bucket from the global batch's
             # indices, so that every rank trims to the same shape
-            return self._put(dataset.make_batch(idx[lo:hi], kind, bucket_idx=idx), valid[lo:hi])
-        return self._put(dataset.make_batch(idx[lo:hi], kind), valid[lo:hi])
+            batch = dataset.make_batch(idx[lo:hi], kind, bucket_idx=idx)
+        else:
+            batch = dataset.make_batch(idx[lo:hi], kind)
+        if self._split is not None:
+            fields = type(batch)._fields
+            if self._cand_pad is not None:
+                batch = pmesh.pad_candidates_to(batch, fields, *self._cand_pad)
+            batch = pmesh.slice_candidates(batch, fields, self._split)
+        return self._put(batch, valid[lo:hi])
 
     def _run_epoch(self, dataset, split: str, train: bool, kind: str):
         cfg = self.cfg

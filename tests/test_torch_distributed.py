@@ -13,6 +13,20 @@ counters' sum over four ranks against ``drin_tpu.train.metrics.psum_state``
 on four devices; the training entry point with ``num_processes=2``; and
 NCCL's refusal of two ranks on one device.
 
+The model axis: DRIN candidate-parallel on a (2, 2) mesh with a prime C = 11
+padded to 12, against the JAX ``Trainer`` on a padded (2, 2) mesh of
+virtual devices at rtol 2e-4 and against one process's first-step
+gradients, with two planted faults that must fail (the message sum without
+its collective in the backward; the model axis's gradient shares averaged
+where the rule sums them); the row-sharded WikiMEL run candidate-parallel
+too (C = 11 -> 12), against the JAX ``Trainer`` on one device; a ``Ranker``
+over a row-sharded store on two ranks, held to every check of
+``tests/test_serve.py::test_ranker_over_row_sharded_store`` and
+``::test_save_load_bundle_roundtrip`` and to the JAX ``Ranker``'s scores;
+and the HTTP front over it, its clean shutdown and a follower's failure.
+One single-process test holds the split plain GCN layer against
+``drin_tpu``'s ``GCNLayer`` on padded candidates.
+
 The ranks are processes of ``tests/torch_dist_worker.py`` (file rendezvous,
 one launch a world size for the whole module, a timeout on every wait)."""
 
@@ -30,10 +44,14 @@ import numpy as np
 import pytest
 import torch
 
+from drin_tpu.data.dataset import MELFeatureDataset as JaxMELFeatureDataset
 from drin_tpu.data.dataset import create_datasets as jax_create_datasets
+from drin_tpu.data.dataset import load_wikimel_entity_tables as jax_load_tables
 from drin_tpu.data.synthetic import make_synthetic_online_store, make_synthetic_store, tiny_config
 from drin_tpu.models.drin import DRIN as JaxDRIN
+from drin_tpu.models.drin import GCNLayer as JaxGCNLayer
 from drin_tpu.parallel import mesh as jax_mesh
+from drin_tpu.serve import Ranker as JaxRanker
 from drin_tpu.train import metrics as JM
 from drin_tpu.train.trainer import Trainer as JaxTrainer
 from drin_tpu_torch.common.config import make_config
@@ -47,8 +65,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_dist_worker.py")
 RTOL = 2e-4
 TIMEOUT = 300
-FOUR = "drin@4x1,drin@2x2,psum@4x1,drin_local_loss@4x1"
-TWO = "wm_rows@1x2,ckpt@2x1,online@2x1"
+FOUR = ("drin@4x1,drin@2x2,psum@4x1,drin_local_loss@4x1,drin_cand@2x2,drin_cand_nosum@2x2,"
+        "drin_cand_avg@2x2")
+# http_front leaves the process group: it runs last
+TWO = "wm_rows@1x2,ckpt@2x1,online@2x1,serve_rows@1x2,http_front@1x2"
 
 
 def _port_cfg(cfg):
@@ -88,25 +108,40 @@ def _collect(out, procs):
     return results
 
 
-def _jax_drin(cfg, params, dump):
-    """The JAX Trainer on a (4, 1) mesh of virtual CPU devices."""
+def _jax_drin(cfg, params, dump, shape=(4, 1)):
+    """The JAX Trainer on a (data, model) mesh of virtual CPU devices, or on
+    one device (``shape`` None).  A model axis that does not divide C pads
+    it (the JAX Trainer's own padding, logged)."""
     train, valid, test = jax_create_datasets(cfg)
     model = JaxDRIN(cfg)
     example = next(test.batches(cfg.batch_size, kind="drin", pad_to_full=True))
-    mesh = jax_mesh.make_mesh(devices=jax.devices()[:4], data=4, model=1)
+    mesh = None
+    if shape is not None:
+        mesh = jax_mesh.make_mesh(devices=jax.devices()[:shape[0] * shape[1]], data=shape[0],
+                                  model=shape[1])
+    logs = []
     tr = JaxTrainer(cfg, lambda p, f: model.apply({"params": p}, f), params, mesh,
-                    batch_fields=type(example)._fields, example_batch=example, log=lambda *a: None,
+                    batch_fields=type(example)._fields, example_batch=example, log=logs.append,
                     output_test_result_path=dump)
     epochs = []
     W._record_epochs(tr, epochs)
     tr.fit(train, valid, W.FIT_EPOCHS, kind="drin")
     test_out = tr.test(test, kind="drin")
     sd = drin_state_dict_from_jax(jax.device_get(tr.state.params), _port_cfg(cfg))
-    with open(dump) as f:
-        text = f.read()
-    return {"epochs": epochs, "test_loss": test_out["loss"],
-            "test_accs": {str(k): v for k, v in test_out["accs"].items()},
-            "digest": W.digest(sd), "step": int(tr.state.step), "dump": text}
+    out = {"epochs": epochs, "test_loss": test_out["loss"],
+           "test_accs": {str(k): v for k, v in test_out["accs"].items()},
+           "digest": W.digest(sd), "step": int(tr.state.step), "cand_pad": tr._cand_pad,
+           "logs": [str(x) for x in logs]}
+    if cfg.output_test_result:
+        with open(dump) as f:
+            out["dump"] = f.read()
+    return out
+
+
+def _jax_init(cfg, seed=0):
+    example = next(jax_create_datasets(cfg)[2].batches(cfg.batch_size, kind="drin", pad_to_full=True))
+    return jax.tree.map(np.asarray, JaxDRIN(cfg).init(
+        jax.random.key(seed), tuple(np.asarray(x) for x in example[:-1]))["params"])
 
 
 @pytest.fixture(scope="module")
@@ -116,28 +151,45 @@ def runs(tmp_path_factory):
     wd_cfg = tiny_config("wikidiverse", "drin", preprocess_dir=wd).replace(
         batch_size=8, learning_rate=3e-3, transformer_dropout=0.0, output_test_result=True)
     make_synthetic_store(wd_cfg, n_mentions=19, seed=6)  # ragged tails in every split
-    wm_cfg = tiny_config("wikimel", "drin", preprocess_dir=wm).replace(cache_entity_pooling=False)
+    wm_cfg = tiny_config("wikimel", "drin", preprocess_dir=wm, num_candidates_data=10).replace(
+        batch_size=8, learning_rate=3e-3, transformer_dropout=0.0, cache_entity_pooling=False)
     make_synthetic_store(wm_cfg, n_mentions=14, n_entities=30, seed=27)
     make_synthetic_online_store(online, n=8, write=True)
-    example = next(jax_create_datasets(wd_cfg)[2].batches(8, kind="drin", pad_to_full=True))
-    params = jax.tree.map(np.asarray, JaxDRIN(wd_cfg).init(
-        jax.random.key(0), tuple(np.asarray(x) for x in example[:-1]))["params"])
+    wd11 = str(root / "wd11")
+    cand_cfg = wd_cfg.replace(preprocess_dir=wd11, num_candidates_data=10)  # C = 11, prime
+    make_synthetic_store(cand_cfg, n_mentions=19, seed=6)
+    serve = str(root / "serve")  # tests/test_serve.py's served store
+    serve_cfg = tiny_config("wikimel", "drin", preprocess_dir=serve).replace(compute_dtype="float32")
+    make_synthetic_store(serve_cfg, n_mentions=10, n_entities=25, seed=13)
+    params = _jax_init(wd_cfg)  # DRIN's parameters do not depend on C: drin_cand takes them too
+    wm_params = _jax_init(wm_cfg)
+    serve_params = _jax_init(serve_cfg)
     scratch = root / "scratch"
     scratch.mkdir()
-    spec = {"wd": wd, "wm": wm, "online": online, "scratch": str(scratch),
-            "drin_weights": str(root / "drin.pt"), "wm_weights": str(root / "wm.pt")}
+    spec = {"wd": wd, "wm": wm, "online": online, "wd11": wd11, "serve": serve,
+            "scratch": str(scratch), "drin_weights": str(root / "drin.pt"),
+            "wm_weights": str(root / "wm.pt"), "serve_weights": str(root / "serve.pt")}
     torch.save(drin_state_dict_from_jax(params, _port_cfg(wd_cfg)), spec["drin_weights"])
-    torch.save(get_model(W.wm_cfg(wm), torch.Generator().manual_seed(0))[0].state_dict(),
-               spec["wm_weights"])
+    torch.save(drin_state_dict_from_jax(wm_params, _port_cfg(wm_cfg)), spec["wm_weights"])
+    torch.save(drin_state_dict_from_jax(serve_params, _port_cfg(serve_cfg)), spec["serve_weights"])
     spec_path = str(root / "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     # both worlds run while this process computes the references
     four, two = _launch(4, FOUR, spec_path, root), _launch(2, TWO, spec_path, root)
     torch.set_num_threads(1)
+    tables = jax_load_tables(serve_cfg)
+    ds = JaxMELFeatureDataset(serve_cfg, "train", tables)
+    jr = JaxRanker(serve_cfg, params=serve_params, entity_tables=tables)
     single = {"drin": W.scenario_drin(spec, None), "wm_rows": W.scenario_wm_rows(spec, None),
               "online": W.scenario_online(spec, None),
-              "jax": _jax_drin(wd_cfg, params, str(scratch / "jax-dump.txt"))}
+              "drin_cand": W.scenario_drin_cand(spec, None),
+              "jax": _jax_drin(wd_cfg, params, str(scratch / "jax-dump.txt")),
+              "jax_cand": _jax_drin(cand_cfg, params, str(scratch / "jax-cand-dump.txt"),
+                                    shape=(2, 2)),
+              "jax_wm": _jax_drin(wm_cfg, wm_params, str(scratch / "jax-wm-dump.txt"), shape=None),
+              "jax_serve": {"score4": np.asarray(jr.score(ds.drin_rows_batch(np.arange(4))[:-1])),
+                            "score3": np.asarray(jr.score(ds.drin_rows_batch(np.arange(3))[:-1]))}}
     return {"single": single, "four": _collect(*four), "two": _collect(*two)}
 
 
@@ -210,6 +262,166 @@ def test_row_sharded_token_tables_equal_the_host_gather(runs):
     assert ranks[0]["nbytes"] == ranks[1]["nbytes"] > 0
     _assert_same_run(ranks[0], runs["single"]["wm_rows"])
     assert ranks[0]["digest"] == ranks[1]["digest"]
+
+
+def test_row_sharded_candidate_parallel_run_equals_jax(runs):
+    """The row-sharded WikiMEL run is candidate-parallel (C = 11 padded to
+    12 over the model axis of 2; each rank's gather a reduce-scatter that
+    keeps its block, bit-equal to the full tables' rows) and equals the
+    JAX Trainer's unpadded one-device run, as
+    ``tests/test_multichip.py::test_device_tables_with_candidate_padding``
+    holds the JAX package's padded row-sharded step."""
+    ranks = [r["wm_rows@1x2"] for r in runs["two"]]
+    assert all(r["block_gather_bit_equal"] for r in ranks)
+    _assert_same_run(runs["single"]["wm_rows"], runs["single"]["jax_wm"])
+    _assert_same_run(ranks[0], runs["single"]["jax_wm"])
+
+
+def _grads_close(got, want, rtol=RTOL):
+    """Relative L2 of every parameter's gradient within ``rtol``."""
+    assert set(got) == set(want)
+    worst = max(float(np.linalg.norm(np.subtract(got[k], want[k]))
+                      / max(np.linalg.norm(want[k]), 1e-30)) for k in want)
+    assert worst <= rtol, worst
+    return worst
+
+
+def test_candidate_parallel_drin_equals_jax_padded_mesh(runs):
+    """DRIN on a (2, 2) mesh, its candidates split over the model axis (C =
+    11 padded to 12), equals the JAX Trainer on a padded (2, 2) mesh, as
+    ``tests/test_multichip.py::test_candidate_padding_matches_unpadded`` and
+    ``::test_trainer_autopads_candidates`` hold JAX; its first step's
+    gradients equal one process's; every rank ends with the same weights."""
+    ranks = [r["drin_cand@2x2"] for r in runs["four"]]
+    jax_run = runs["single"]["jax_cand"]
+    assert tuple(jax_run["cand_pad"]) == (11, 12)
+    assert any("padded 11 -> 12" in line for line in jax_run["logs"])
+    _assert_same_run(runs["single"]["drin_cand"], jax_run)  # one process, unpadded
+    _assert_same_run(ranks[0], jax_run)
+    assert len({r["digest"] for r in ranks}) == 1
+    _grads_close(ranks[0]["grads"], runs["single"]["drin_cand"]["grads"])
+
+
+@pytest.mark.parametrize("fault", ["nosum", "avg"])
+def test_candidate_parallel_faults_fail_the_check(runs, fault):
+    """Planted faults of the model axis must fail the check above: the
+    message sum without its collective in the backward, and the gradient
+    shares averaged over the model axis where the rule sums them.  Adam
+    divides every gradient element by its own running scale, so a gradient
+    off by one constant factor moves its steps by no more than Adam's eps
+    does: the first step's gradients are where the averaged fault shows."""
+    faulty = runs["four"][0][f"drin_cand_{fault}@2x2"]
+    with pytest.raises(AssertionError):
+        _grads_close(faulty["grads"], runs["single"]["drin_cand"]["grads"])
+    if fault == "nosum":
+        with pytest.raises(AssertionError):
+            _assert_same_run(faulty, runs["single"]["jax_cand"])
+
+
+def test_ranker_over_row_sharded_store_equals_jax(runs):
+    """Every check of ``tests/test_serve.py::test_ranker_over_row_sharded_store``
+    and ``::test_save_load_bundle_roundtrip``, on two ranks of the port."""
+    want = runs["single"]["jax_serve"]
+    for rank in runs["two"]:
+        r = rank["serve_rows@1x2"]
+        assert r["split"]  # C = 8 splits over the model axis: the reduce-scatter path
+        np.testing.assert_allclose(r["base4"], want["score4"], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(r["score4"], r["base4"], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(r["score4"], want["score4"], rtol=1e-5, atol=1e-6)
+        got3 = np.asarray(r["score3"])
+        assert got3.shape == np.asarray(r["base3"]).shape == (3, 8)
+        np.testing.assert_allclose(got3, r["base3"], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got3, want["score3"], rtol=1e-5, atol=1e-6)
+        s, i = (np.asarray(x) for x in r["rank3"])
+        assert s.shape == (3, 3)
+        np.testing.assert_allclose(s[:, 0], got3.max(-1), rtol=1e-6)
+        # the store pads 25 -> 26 rows (13 a rank); nothing past n surfaces
+        n = 25
+        assert r["n_rows"] == n and r["block"] == r["text_rows"] == 13
+        assert r["retrieval_rows"] == n and r["retrieval_finite"]
+        for mode, (rs, ri) in r["retrieve"].items():
+            rs, ri = np.asarray(rs), np.asarray(ri)
+            assert ri.max() < n and np.isfinite(rs).all(), mode
+            assert ri[0, 0] == 3 and ri[1, 0] == 17, mode
+        # the bundle: n rows of every table and of obj_score, no phantom rows
+        b = r["bundle"]
+        assert b["n_rows"] == b["text_rows"] == b["obj_score_rows"] == n
+        assert b["obj_score_equal"]
+        np.testing.assert_allclose(b["score4"], want["score4"], rtol=1e-6, atol=1e-7)
+
+
+def test_http_front_over_row_sharded_store(runs):
+    """The front answers /rank (B=1, equal to one process's rank),
+    /retrieve and /stats, refuses a bad k with 400, and stops its follower
+    cleanly; a follower that fails makes the front answer 500 and stop with
+    its fault set and its socket closed."""
+    front, follower = (r["http_front@1x2"] for r in runs["two"])
+    clean = front["clean"]
+    code, body = clean["rank"]
+    assert code == 200
+    np.testing.assert_allclose(body["scores"], front["want"][0], rtol=1e-5, atol=1e-6)
+    assert body["indices"] == front["want"][1]
+    code, body = clean["retrieve"]
+    assert code == 200 and [row[0] for row in body["indices"]] == [3, 17]
+    assert max(max(row) for row in body["indices"]) < 25
+    code, body = clean["stats"]
+    assert code == 200 and body["entity_rows"] == 25
+    assert clean["bad"][0] == 400
+    assert clean["stopped"] and clean["fault"] is None
+    assert follower["clean"] == {"returned": None}
+    fault = front["fault"]
+    assert fault["rank"][0] == 500 and "FollowerFault" in fault["rank"][1]["error"]
+    assert fault["stopped"] and "FollowerFault" not in (fault["fault"] or "") and fault["fault"]
+    assert fault["refused"]  # a later client is refused, not left waiting
+    assert follower["fault"] == {"raised": "planted follower fault"}
+
+
+def test_split_plain_gcn_layer_equals_jax_on_padded_candidates():
+    """The plain GCN layer's split (part 1's message sums over two halves
+    of the candidates, added, then part 2) against ``drin_tpu``'s
+    ``GCNLayer`` on C = 11 padded to 12, and the whole layer likewise."""
+    from drin_tpu_torch.models.drin import GCNLayer
+    from drin_tpu_torch.ops.cuda import gcn_layer as tgcn
+
+    cfg = tiny_config("wikimel", "drin", preprocess_dir="/tmp/unused-split-gcn",
+                      num_candidates_data=10)
+    C, Cp, B, D = cfg.num_candidates_model, 12, 3, cfg.gcn_embed_dim
+    rng = np.random.default_rng(5)
+    vertexes = [rng.standard_normal(s).astype(np.float32)
+                for s in ((B, D), (B, D), (B, Cp, D), (B, Cp, D))]
+    edges = [rng.uniform(0, 1, (B, Cp)).astype(np.float32) for _ in range(4)]
+    jl = JaxGCNLayer(cfg)
+    jparams = jl.init(jax.random.key(3), [jnp.asarray(v) for v in vertexes],
+                      [jnp.asarray(e) for e in edges])
+    want_v, want_e = jl.apply(jparams, [jnp.asarray(v) for v in vertexes],
+                              [jnp.asarray(e) for e in edges])
+    layer = GCNLayer(_port_cfg(cfg))
+    sd = drin_state_dict_from_jax(
+        {"vertex_encoder": {}, "gcn_0": jax.tree.map(np.asarray, jparams["params"])},
+        cfg.replace(num_gcn_layers=1))
+    layer.load_state_dict({k[len("gcn_layers.0."):]: v for k, v in sd.items()})
+    T = lambda x: torch.from_numpy(x)
+    edges_t = [T(e) * (torch.arange(Cp) < C).float()[None] for e in edges]  # the model's mask
+    w = lambda m: m.detach()
+    weights = [w(layer.w_h.weight), w(layer.w_h.bias), w(layer.layer_norm.weight),
+               w(layer.layer_norm.bias), w(layer.w_u.weight), w(layer.w_u.bias),
+               w(layer.w_v.weight), w(layer.w_v.bias)]
+    kw = dict(vact=cfg.gcn_vertex_activation, eact=cfg.gcn_edge_activation, eps=1e-5)
+    whole = tgcn.gcn_layer_plain([T(v) for v in vertexes], edges_t, *weights, num_candidates=C, **kw)
+    # two halves of 6 candidates: part 1 on each, the sums added, part 2
+    halves = []
+    for lo, hi in ((0, 6), (6, 12)):
+        halves.append(tgcn.gcn_layer_plain_entities(
+            [T(vertexes[0]), T(vertexes[1])] + [T(v[:, lo:hi]).contiguous() for v in vertexes[2:]],
+            [e[:, lo:hi].contiguous() for e in edges_t], *weights, **kw))
+    msg = halves[0][0] + halves[1][0]
+    men = tgcn.gcn_layer_plain_mentions(T(vertexes[0]), T(vertexes[1]), msg, *weights[:4], C,
+                                        vact=kw["vact"], eps=1e-5)
+    split_v = men + [torch.cat([halves[0][1][i], halves[1][1][i]], 1) for i in range(2)]
+    split_e = [torch.cat([halves[0][2][i], halves[1][2][i]], 1) for i in range(4)]
+    for got in ((whole[0], whole[1]), (split_v, split_e)):
+        for g, w_ in zip(list(got[0]) + list(got[1]), list(want_v) + list(want_e)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=RTOL, atol=1e-6)
 
 
 def test_two_rank_checkpoint_save_and_restore(runs):

@@ -163,7 +163,7 @@ def test_function_gradients_match_jax_grad_of_the_reference(dynamic):
     leaves = [t.requires_grad_(True) for t in tv + te + tw]
     if not dynamic:
         leaves[12:] = [None] * 4
-    out = _FusedGCNLayer.apply(("gelu", "sigmoid", 1e-5, dynamic, None), *leaves)
+    out = _FusedGCNLayer.apply(("gelu", "sigmoid", 1e-5, dynamic, None, None), *leaves)
     assert len(out) == n_out
     live = [t for t in leaves if t is not None]
     got = torch.autograd.grad(out, live, [torch.from_numpy(c) for c in cot], allow_unused=True)

@@ -113,6 +113,89 @@ def scenario_drin(spec, mesh):
     return _drin(spec, mesh)
 
 
+def drin_cand_cfg(store: str):
+    """Tiny WikiDiverse with a prime C = 11: padded to 12 over a model axis
+    of 2."""
+    return drin_cfg(store).replace(num_candidates_data=10)
+
+
+def first_step_grads(cfg, model, kind, dataset, mesh, feats_fn=None) -> dict:
+    """The gradient that the first train step of the epoch's first global
+    batch gives Adam (summed over the mesh), per parameter, as lists."""
+    from drin_tpu_torch.train import metrics as M
+    from drin_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, model, device="cpu", log=lambda *a: None, mesh=mesh, feats_fn=feats_fn)
+    idx, valid = next(tr._index_batches(len(dataset), False, 0))
+    batch, valid = tr._assemble(dataset, kind, idx, valid)
+    tr.fns.train_step(tr.state, batch, valid, M.init_state(cfg.metrics_topk, "cpu"))
+    return {name: p.grad.reshape(-1).tolist() for name, p in tr.state.model.named_parameters()
+            if p.grad is not None}
+
+
+def planted_model_axis_fault(fault):
+    """A context with one planted fault of candidate-parallel training:
+    ``nosum``, the mention means' message sum without its collective in the
+    backward; ``avg``, the model axis's gradient shares averaged where the
+    rule sums them (the rule of a replicated model axis: the sum over the
+    mesh over the model width)."""
+    import contextlib
+
+    from drin_tpu_torch.parallel import collectives as coll
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = coll._AllSum.backward, coll.sum_grads_
+        if fault == "nosum":
+            coll._AllSum.backward = staticmethod(lambda c, g: (g, None))
+        elif fault == "avg":
+            def averaged(params, group, extra):
+                out = saved[1](params, group, extra)
+                width = 2  # the scenarios' model axis
+                for p in params:
+                    if p.grad is not None:
+                        p.grad /= width
+                return out
+
+            coll.sum_grads_ = averaged
+        try:
+            yield
+        finally:
+            coll._AllSum.backward, coll.sum_grads_ = saved
+
+    return ctx()
+
+
+def _drin_cand(spec, mesh, fault=None):
+    from drin_tpu_torch.data.dataset import create_datasets
+    from drin_tpu_torch.models import get_model
+
+    cfg = drin_cand_cfg(spec["wd11"])
+    datasets = create_datasets(cfg)
+    with planted_model_axis_fault(fault):
+        model, kind = get_model(cfg)
+        model.load_state_dict(torch.load(spec["drin_weights"], weights_only=True))
+        grads = first_step_grads(cfg, model, kind, datasets[0], mesh)
+        model.load_state_dict(torch.load(spec["drin_weights"], weights_only=True))
+        out = _fit_and_test(cfg, model, kind, datasets, mesh,
+                            dump=os.path.join(spec["scratch"], f"dump-cand-{mesh}-{fault}.txt"))
+    out["grads"] = grads
+    return out
+
+
+def scenario_drin_cand(spec, mesh):
+    """DRIN candidate-parallel over the model axis, C = 11 padded to 12."""
+    return _drin_cand(spec, mesh)
+
+
+def scenario_drin_cand_nosum(spec, mesh):
+    return _drin_cand(spec, mesh, fault="nosum")
+
+
+def scenario_drin_cand_avg(spec, mesh):
+    return _drin_cand(spec, mesh, fault="avg")
+
+
 def scenario_drin_local_loss(spec, mesh):
     return _drin(spec, mesh, fault="local_loss")
 
@@ -129,15 +212,18 @@ def scenario_psum(spec, mesh):
 
 
 def wm_cfg(store: str):
+    """Tiny WikiMEL with token-level tables and a prime C = 11."""
     from drin_tpu_torch.data.synthetic import tiny_config
 
-    return tiny_config("wikimel", "drin", preprocess_dir=store).replace(
+    return tiny_config("wikimel", "drin", preprocess_dir=store, num_candidates_data=10).replace(
         batch_size=8, learning_rate=3e-3, transformer_dropout=0.0, cache_entity_pooling=False)
 
 
 def scenario_wm_rows(spec, mesh):
     """Token-level WikiMEL tables: row-sharded over the model axis on a
-    mesh, gathered on the host in one process."""
+    mesh (DRIN candidate-parallel, C = 11 padded to 12: each rank's gather
+    is a reduce-scatter over the candidates), gathered on the host in one
+    process."""
     from drin_tpu_torch.data.dataset import create_datasets
     from drin_tpu_torch.data.device_store import DeviceEntityStore
     from drin_tpu_torch.models import get_model
@@ -164,6 +250,15 @@ def scenario_wm_rows(spec, mesh):
         out["gather_bit_equal"] = all(
             np.array_equal(g.numpy(), np.asarray(tables[k])[want_rows].astype(g.numpy().dtype))
             for g, k in zip(got, keys))
+        # the candidate-parallel gather: this rank's block of 12 padded candidates
+        padded = torch.cat([rows, rows[:, :1]], 1)
+        split = mesh.candidate_split()
+        lo, hi = split.bounds(padded.shape[1])
+        want_block = np.concatenate([want_rows, want_rows[:, :1]], 1)[:, lo:hi]
+        got = store.gather(names, padded, split)
+        out["block_gather_bit_equal"] = all(
+            np.array_equal(g.numpy(), np.asarray(tables[k])[want_block].astype(g.numpy().dtype))
+            for g, k in zip(got, keys))
         out["nbytes"] = store.nbytes
         feats_fn, kind = store.drin_feats_fn(), "drin_rows"
     out.update(_fit_and_test(cfg, model, kind, datasets, mesh, feats_fn=feats_fn))
@@ -189,6 +284,155 @@ def scenario_ckpt(spec, mesh):
             "restored_digest": digest(again.state.model.state_dict()),
             "restored_epoch": again.epoch, "restored_step": again.state.step,
             "step": tr.state.step, "files": sorted(os.listdir(cfg.checkpoint_dir))}
+
+
+def serve_cfg(store: str):
+    """``tests/test_serve.py``'s served store: tiny WikiMEL DRIN in f32,
+    C = 8 (a model axis of 2 divides it), 25 entities."""
+    from drin_tpu_torch.data.synthetic import tiny_config
+
+    return tiny_config("wikimel", "drin", preprocess_dir=store).replace(compute_dtype="float32")
+
+
+def _served(spec):
+    from drin_tpu_torch.data.dataset import MELFeatureDataset, load_wikimel_entity_tables
+
+    cfg = serve_cfg(spec["serve"])
+    tables = load_wikimel_entity_tables(cfg)
+    ds = MELFeatureDataset(cfg, "train", tables)
+    batch = ds.drin_rows_batch(np.arange(4))
+    b3 = ds.drin_rows_batch(np.arange(3))
+    params = torch.load(spec["serve_weights"], weights_only=True)
+    return cfg, tables, batch, b3, params
+
+
+def scenario_serve_rows(spec, mesh):
+    """A Ranker over the served store row-sharded on the model axis:
+    ``tests/test_serve.py::test_ranker_over_row_sharded_store`` and
+    ``::test_save_load_bundle_roundtrip``'s checks, every rank in lockstep."""
+    from drin_tpu_torch.data.device_store import DeviceEntityStore
+    from drin_tpu_torch.parallel import collectives
+    from drin_tpu_torch.serve import Ranker
+
+    cfg, tables, batch, b3, params = _served(spec)
+    r = Ranker(cfg, params, tables, device="cpu")
+    base4, base3 = r.score(batch[:-1]), r.score(b3[:-1])
+    store = DeviceEntityStore(cfg, tables, device="cpu", dtype=torch.float32, mesh=mesh,
+                              shard_rows=True)
+    r.set_store(store, tables)
+    n = int(tables["entity_text_feature"].shape[0])
+    scattered = []  # the gather's reduce-scatters over the candidates in one score
+    plain_scatter = collectives.reduce_scatter_exact_
+    collectives.reduce_scatter_exact_ = lambda *a, **k: scattered.append(1) or plain_scatter(*a, **k)
+    try:
+        score4 = r.score(batch[:-1]).tolist()
+    finally:
+        collectives.reduce_scatter_exact_ = plain_scatter
+    out = {"n_rows": store.n_rows, "block": store.block, "text_rows": int(store.text.shape[0]),
+           "split": bool(scattered), "base4": base4.tolist(), "base3": base3.tolist(),
+           "score4": score4, "score3": r.score(b3[:-1]).tolist()}
+    s, i = r.rank(b3[:-1], k=3)
+    out["rank3"] = [s.tolist(), i.tolist()]
+    rt = r._ensure_retrieval_table()
+    out["retrieval_rows"] = int(rt.shape[0])
+    out["retrieval_finite"] = bool(torch.isfinite(rt).all())
+    q = np.asarray(tables["entity_text_feature"][[3, 17], 0])
+    out["retrieve"] = {}
+    for mode in ("exact", "approx", "int8"):
+        rs, ri = r.retrieve(q, k=5, mode=mode)
+        out["retrieve"][mode] = [rs.tolist(), ri.tolist()]
+    path = os.path.join(spec["scratch"], "bundle-sharded")
+    r.save_bundle(path)
+    r4 = Ranker.from_bundle(path, device="cpu")
+    out["bundle"] = {"n_rows": r4.store.n_rows, "text_rows": int(r4.store.text.shape[0]),
+                     "obj_score_rows": int(r4.store.obj_score.shape[0]),
+                     "score4": r4.score(batch[:-1]).tolist(),
+                     "obj_score_equal": bool(np.array_equal(
+                         r4.store.obj_score.numpy(),
+                         np.asarray(tables["entity_object_score"], np.float32)))}
+    assert n == out["n_rows"]
+    return out
+
+
+def _http(url, path, obj=None, timeout=60):
+    """(status, JSON body) of a GET (obj None) or a POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url + path, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _refused(address, wait_s: float = 30.0) -> bool:
+    """Whether a connection to ``address`` is refused within ``wait_s``
+    (the front closes its socket just after its serving loop ends)."""
+    import socket
+    import time
+
+    end = time.monotonic() + wait_s
+    while time.monotonic() < end:
+        try:
+            socket.create_connection(address, timeout=5).close()
+        except ConnectionRefusedError:
+            return True
+        time.sleep(0.1)
+    return False
+
+
+def scenario_http_front(spec, mesh):
+    """The HTTP front over the row-sharded served store: the first rank
+    serves /rank (B=1), /retrieve and /stats and leads, the other follows,
+    and ``server.stop()`` ends both.  Then a follower that fails: the front
+    answers 500 and stops with ``server.fault`` set; the follower leaves
+    the process group (as its process would by exiting).  Run it last: the
+    group is gone after it."""
+    import torch.distributed as dist
+
+    from drin_tpu_torch.serve import Ranker, _encode_arrays, rank_feat_fields, serve_http
+
+    cfg, tables, batch, b3, params = _served(spec)
+    want = Ranker(cfg, params, tables, device="cpu").rank(tuple(x[:1] for x in batch[:-1]), k=3)
+    out = {}
+    for mode in ("clean", "fault"):
+        r = Ranker(cfg, params, tables, device="cpu", store_mesh=mesh)
+        fields = rank_feat_fields(r)
+        if mesh.model_index != 0:
+            if mode == "fault":
+                def planted(*a, **kw):
+                    raise RuntimeError("planted follower fault")
+
+                r._rank = planted
+                try:
+                    serve_http(r, port=0, feat_fields=fields)
+                except RuntimeError as e:
+                    out[mode] = {"raised": str(e)}
+                    dist.destroy_process_group()  # what the follower's exit does
+                continue
+            out[mode] = {"returned": serve_http(r, port=0, feat_fields=fields)}
+            continue
+        server = serve_http(r, port=0, feat_fields=fields)
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        feats = _encode_arrays({name: np.asarray(v)[:1] for name, v in zip(fields, batch[:-1])})
+        res = {"rank": _http(url, "/rank", {"features": feats, "k": 3})}
+        if mode == "clean":
+            q = np.asarray(tables["entity_text_feature"][[3, 17], 0], np.float32)
+            res["retrieve"] = _http(url, "/retrieve", {"query": _encode_arrays({"q": q}), "k": 5})
+            res["stats"] = _http(url, "/stats")
+            res["bad"] = _http(url, "/rank", {"features": feats, "k": 99})
+            server.stop()
+        res["stopped"] = server.stopped.wait(60)
+        res["fault"] = None if server.fault is None else str(server.fault)
+        if mode == "fault":
+            res["refused"] = _refused(server.server_address)
+            server.stop()
+        out[mode] = res
+    out["want"] = [want[0].tolist(), want[1].tolist()]
+    return out
 
 
 ONLINE_BERT = dict(vocab_size=64, hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
@@ -237,7 +481,7 @@ def main():
             # every rank builds every mesh's groups in the same order
             out[run] = globals()[f"scenario_{name}"](spec, make_mesh(data=nd, model=nm))
     finally:
-        distributed.shutdown()
+        distributed.shutdown()  # a no-op where a scenario left the group
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
