@@ -26,14 +26,15 @@ what makes the token-level tables (``cache_entity_pooling=false``) fit.  A
 gather resolves each row to its owner: every rank looks up the rows it owns
 and contributes exact zeros for the rest, and one sum over the model group
 rebuilds the gather bit for bit (one nonzero term per element).  DRIN's
-gather (:meth:`DeviceEntityStore.drin_feats_fn`) given the caller's
-candidate split takes the JAX package's ``psum_scatter`` branch: the sum
-is a reduce-scatter over the candidate dim, and each rank keeps its block
-of the candidates for its candidate-parallel compute.  Without a split, and
-for the baselines, whose compute is replicated along the model axis, the
-gathered tensors come back whole on every rank.  On a replicated store,
-DRIN's gather with a split indexes only this rank's block of the
-candidates.  Whole-table reads of a row-sharded store
+gather, DRIN's (:meth:`DeviceEntityStore.drin_feats_fn`) and offline
+GHMFC's (:meth:`DeviceEntityStore.baseline_feats_fn`, its token-level text
+table included), given the caller's candidate split takes the JAX package's
+``psum_scatter`` branch: the sum is a reduce-scatter over the candidate
+dim, and each rank keeps its block of the candidates for its
+candidate-parallel compute.  Without a split the gathered tensors come back
+whole on every rank.  On a replicated store a gather with a split indexes
+only this rank's block of the candidates, and a fused store hands that
+block's rows to the kernel.  Whole-table reads of a row-sharded store
 (:meth:`~DeviceEntityStore.float_rows`, :meth:`~DeviceEntityStore.float_table`)
 are collective: every rank of the model group makes the same calls.
 """
@@ -82,7 +83,10 @@ class BaselineRowsBatch(NamedTuple):
 
 def include_for(kind: str) -> tuple:
     """The entity tables a model kind reads: DRIN all three, the baselines
-    only the text table."""
+    only the text table.  The one baseline over a store is offline GHMFC:
+    MELHI runs on WikiDiverse alone, whose batches carry each mention's own
+    candidate features, and no WikiDiverse configuration has an entity table
+    to hold (``Config.entity_pooling_cached`` is WikiMEL's)."""
     return ("text", "image", "obj") if kind == "drin" else ("text",)
 
 
@@ -398,18 +402,29 @@ class DeviceEntityStore:
         return _dequantize(got[name], got[f"{name}_scale"], self.dtype)
 
     def baseline_feats_fn(self):
-        """``feats_fn(feats) -> feature tuple``: rows-batch features (the
-        :class:`BaselineRowsBatch` fields minus the answer, as tensors on the
-        store's device) -> the 8-tensor offline baseline batch.  GHMFC's
-        entity tower reads the text table alone, so a text-only store fills
-        the entity-image slot with a [B, C, 1] zero placeholder; a fused
-        store reads its rows through the gather+dequant kernel."""
+        """``feats_fn(feats, split=None) -> feature tuple``: rows-batch
+        features (the :class:`BaselineRowsBatch` fields minus the answer, as
+        tensors on the store's device) -> the 8-tensor offline baseline
+        batch.  GHMFC's entity tower reads the text table alone, so a
+        text-only store fills the entity-image slot with a [B, C, 1] zero
+        placeholder; a fused store reads its rows through the gather+dequant
+        kernel.  With ``split`` (the caller's
+        :class:`~drin_tpu_torch.parallel.mesh.CandidateSplit`, which the
+        batch's C divides) the entity tensors are this rank's block of the
+        candidates, for GHMFC's candidate-parallel forward with the same
+        split."""
         dt = self.dtype
         has_img = "image" in self.include
 
+        def block(rows, split):
+            if split is None:
+                return rows
+            lo, hi = split.bounds(rows.shape[1])
+            return rows[:, lo:hi].contiguous()
+
         def finish(feats, rows, etf, eif, etm=None):
             mtf, mtm, sp, ep, mif = feats[:5]
-            B, C = rows.shape
+            B, C = rows.shape  # the block's C under a split
             if eif is None:  # the model never reads this slot
                 eif = torch.zeros((B, C, 1), dtype=dt, device=rows.device)
             elif eif.ndim == 4:  # [B, C, 1, Dr] pooler rows -> [B, C, Dr]
@@ -425,8 +440,8 @@ class DeviceEntityStore:
                 f"{self.include})")
             chunks, tails = self._chunks, self._tails
 
-            def feats_fn(feats):
-                rows = feats[5]
+            def feats_fn(feats, split=None):
+                rows = block(feats[5], split)
                 got = gather_dequant(self.packed, self.packed_scales, rows, chunks, dt)
                 shape = tuple(rows.shape)
                 return finish(feats, rows, got[0].reshape(shape + tails[0]),
@@ -436,10 +451,10 @@ class DeviceEntityStore:
 
         names = self._names(("text", "image") if has_img else ("text",))
 
-        def feats_fn(feats):
+        def feats_fn(feats, split=None):
             rows = feats[5]
-            got = dict(zip(names, self.gather(names, rows)))
-            return finish(feats, rows, self._deq(got, "text"),
+            got = dict(zip(names, self.gather(names, rows, split)))
+            return finish(feats, block(rows, split), self._deq(got, "text"),
                           self._deq(got, "image") if has_img else None, got.get("text_mask"))
 
         return feats_fn

@@ -39,7 +39,6 @@ from drin_tpu_torch.nn.layers import LayerNorm, Linear, get_activation
 from drin_tpu_torch.ops.core import cosine_similarity, object_pair_similarity, span_mean
 from drin_tpu_torch.ops.cuda.gcn_layer import fused_gcn_layer
 from drin_tpu_torch.parallel import collectives
-from drin_tpu_torch.parallel.mesh import padded_candidate_count
 
 
 class VertexEncoder(nn.Module):
@@ -233,11 +232,10 @@ class DRIN(nn.Module):
          mtei_similarity) = batch
         if split is not None:  # the caller's blocks of C padded to the axis
             Cb = entity_image_feature.shape[1]
-            assert miet_similarity.shape[1] == mtei_similarity.shape[1] == Cb and \
-                Cb * split.n <= padded_candidate_count(cfg.num_candidates_model, split.n), (
-                    f"candidate blocks of {Cb} (similarities {miet_similarity.shape[1]}) over "
-                    f"{split.n} ranks are not a split of C={cfg.num_candidates_model} padded "
-                    "to the model axis")
+            split.check_block(Cb, cfg.num_candidates_model)
+            assert miet_similarity.shape[1] == mtei_similarity.shape[1] == Cb, (
+                f"similarities of {miet_similarity.shape[1]} / {mtei_similarity.shape[1]} "
+                f"candidates for entity blocks of {Cb}")
         vertexes = self.vertex_encoder(
             mention_text_feature, mention_text_mask, mention_start_pos, mention_end_pos,
             mention_image_feature, entity_text_feature, entity_text_mask,

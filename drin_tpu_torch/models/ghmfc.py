@@ -6,6 +6,13 @@ by cosine against pooled candidate entity text.
 :class:`MentionEncoder` and :class:`EntityEncoder` also give DRIN its text
 vertices.  :class:`GHMFC` runs over precomputed BERT features;
 :class:`GHMFCOnline` runs BERT inside the forward pass.
+
+Both forwards take a candidate ``split`` (``parallel/mesh.py``) with DRIN's
+contract: the batch's entity tensors are the caller's block (of the
+candidates, or in zipped mode of the entity sentences), the mention tower
+runs whole on every rank of the model group, and every rank returns the
+group's score blocks gathered in model-index order, cut to C after the
+gather.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from drin_tpu_torch.nn.layers import (Avg, AvgLinear, CrossAttention, Linear, Ma
                                       MultilayerTransformer, MultimodalFusion)
 from drin_tpu_torch.ops.core import (cosine_similarity, token_span_max, token_span_mean,
                                      unzip_entities)
+from drin_tpu_torch.parallel import collectives
 
 
 class MentionEncoder(nn.Module):
@@ -108,10 +116,15 @@ class EntityEncoder(nn.Module):
         return encoded
 
 
-def _cosine_scores(mention, entity, num_candidates: int):
+def _cosine_scores(mention, entity, num_candidates: int, split=None):
     """cos(mention [B, D], entity [B, C, D]) cut to the model's candidates
-    (padded fake candidates sit past them)."""
-    return cosine_similarity(mention[:, None, :].expand_as(entity), entity)[:, :num_candidates]
+    (padded fake candidates sit past them).  With ``split``, ``entity`` is
+    this rank's block: the group's blocks are gathered first, then cut."""
+    scores = cosine_similarity(mention[:, None, :].expand_as(entity), entity)
+    if split is not None:
+        scores = collectives.gather_blocks(scores, split.group, split.order)
+    return scores[:, :num_candidates]
+
 
 
 class GHMFC(nn.Module):
@@ -125,13 +138,18 @@ class GHMFC(nn.Module):
         self.entity_encoder = EntityEncoder(cfg, generator)
 
     def forward(self, batch, deterministic: bool = True,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None, split=None):
+        """Scores [B, C]; with ``split`` the entity tensors are this rank's
+        block of the padded candidates, and every rank of the model group
+        returns the gathered scores."""
         (sentence_feature, attention_mask, begin, end, mention_image,
          entity_feature, entity_mask, _entity_image) = batch
+        if split is not None:
+            split.check_block(entity_feature.shape[1], self.cfg.num_candidates_model)
         mention = self.mention_encoder(sentence_feature, attention_mask, begin, end,
                                        mention_image, deterministic, rng)
         entity = self.entity_encoder(entity_feature, entity_mask)
-        return _cosine_scores(mention, entity, self.cfg.num_candidates_model)
+        return _cosine_scores(mention, entity, self.cfg.num_candidates_model, split)
 
 
 class GHMFCOnline(nn.Module):
@@ -146,6 +164,10 @@ class GHMFCOnline(nn.Module):
 
     One shared BERT serves the mention and the entity tower, and the entity
     sentences go through it as one batched [B*S, L] call.
+    With a candidate ``split`` BERT encodes only this rank's entity
+    sequences: [B*Cb, Le] candidates in direct mode, [B*S/n, L] sentences in
+    zipped mode, whose S/n sentences pool to this rank's (S/n)*E candidate
+    slots.
     ``bert_fused_attention=None`` is settled at each call from where the
     tensors lie (the kernel on CUDA, the written-out product on the CPU), so
     the model may be built anywhere and moved.  BERT is frozen (it runs
@@ -178,10 +200,17 @@ class GHMFCOnline(nn.Module):
             return self.bert(ids, mask)
 
     def forward(self, batch, deterministic: bool = True,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None, split=None):
         cfg = self.cfg
         (mention_ids, mention_mask, begin, end, mention_image,
          entity_ids, entity_mask, sep_idx, _entity_image) = batch
+        if split is not None and cfg.num_entity_sentence:  # the caller's block of sentences
+            assert entity_ids.shape[1] * split.n == cfg.num_entity_sentence == \
+                sep_idx.shape[1] * split.n, (
+                    f"sentence blocks of {entity_ids.shape[1]} over {split.n} ranks are not a "
+                    f"split of S={cfg.num_entity_sentence}")
+        elif split is not None:
+            split.check_block(entity_ids.shape[1], cfg.num_candidates_model)
         # mention tower: BERT, clipped to max_mention_sentence_len
         h, _ = self._encode(mention_ids, mention_mask)
         Lm = cfg.max_mention_sentence_len
@@ -192,9 +221,10 @@ class GHMFCOnline(nn.Module):
         flat_ids = entity_ids.reshape((-1,) + entity_ids.shape[2:])
         flat_mask = entity_mask.reshape(flat_ids.shape)
         eh, epooled = self._encode(flat_ids, flat_mask)
-        if cfg.num_entity_sentence:  # zipped
-            zipped = eh.reshape(B, cfg.num_entity_sentence, *eh.shape[1:])
-            encoded = unzip_entities(zipped, sep_idx, C, cfg.entity_final_pooling)
+        if cfg.num_entity_sentence:  # zipped; a block's slots are cut after the gather
+            zipped = eh.reshape(B, entity_ids.shape[1], *eh.shape[1:])
+            encoded = unzip_entities(zipped, sep_idx, C if split is None else None,
+                                     cfg.entity_final_pooling)
         else:  # per candidate; Ci may exceed C under candidate padding
             Ci = entity_ids.shape[1]
             if cfg.entity_final_pooling == "bert default":
@@ -204,4 +234,4 @@ class GHMFCOnline(nn.Module):
                 encoded = pool(eh, flat_mask.sum(-1)).reshape(B, Ci, -1)
         if cfg.entity_final_layer_name == "linear":
             encoded = self.entity_final_layer(encoded)
-        return _cosine_scores(mention, encoded, C)
+        return _cosine_scores(mention, encoded, C, split)

@@ -17,6 +17,12 @@ the right one (tokens ``end:len``, gathered left-aligned with the same clip)
 run as 2B rows of one LSTM loop over L steps; the left rows' lengths are
 clipped to the L - 1 steps they have, so the extra step never runs for them.
 
+With a candidate ``split`` (``parallel/mesh.py``) the entity tensors are
+this rank's block of the padded candidates: the mention side runs whole on
+every rank of the model group, the gate's "any candidate" is this rank's
+``any`` ORed over the group (``collectives.any_over``), so every rank uses
+the same gate, and the score blocks are gathered, then cut to C.
+
 Parameter names are the upstream state_dict's (``image_map_text``,
 ``entity_final_map``, ``mention_encoder.mention_lstm.weight_ih_l0``, ...), so
 ``drin_tpu.models.torch_import.melhi_params_from_torch`` reads a port
@@ -33,6 +39,7 @@ from torch import nn
 from drin_tpu_torch.common.config import Config
 from drin_tpu_torch.nn.layers import LSTM, Linear
 from drin_tpu_torch.ops.core import cosine_similarity, span_mean
+from drin_tpu_torch.parallel import collectives
 
 
 class MentionEncoder(nn.Module):
@@ -76,37 +83,49 @@ class MELHI(nn.Module):
         self.entity_final_map = Linear(2 * D, D, generator)
         self.mention_encoder = MentionEncoder(cfg, generator)
 
-    def similarities(self, mention_feature, mention_image, entity_image):
+    def similarities(self, mention_feature, mention_image, entity_image, split=None):
         """The gate's two cosines and the mapped mention image: ``sim_tmim``
-        [B] (first token vs the mapped mean image), ``sim_imie`` [B, Cp]
-        (mean mention image vs each candidate's image, padded candidates at
-        -inf) and ``image_map_text(mean image)`` [B, D]."""
+        [B] (first token vs the mapped mean image), ``sim_imie`` [B, Cb]
+        (mean mention image vs each candidate's image of this block, padded
+        candidates at -inf) and ``image_map_text(mean image)`` [B, D].  The
+        padded candidates are those at global index C and past: with
+        ``split`` this block's candidates are ``split.index * Cb`` on."""
         mention_image = mention_image.mean(-2)  # [B, Dr]
         mapped = self.image_map_text(mention_image)
         sim_tmim = cosine_similarity(mention_feature[:, 0], mapped)
         sim_imie = cosine_similarity(mention_image[:, None, :].expand_as(entity_image),
                                      entity_image)
-        Cp = entity_image.shape[1]
-        if Cp > self.cfg.num_candidates_model:  # padded fake candidates never open the gate
-            real = torch.arange(Cp, device=sim_imie.device) < self.cfg.num_candidates_model
+        Cb, C = entity_image.shape[1], self.cfg.num_candidates_model
+        lo = 0 if split is None else split.index * Cb
+        if lo + Cb > C:  # padded fake candidates never open the gate
+            real = torch.arange(lo, lo + Cb, device=sim_imie.device) < C
             sim_imie = sim_imie.masked_fill(~real[None, :], float("-inf"))
         return sim_tmim, sim_imie, mapped
 
-    def _gate(self, sim_tmim, sim_imie):
-        return (sim_tmim > self.cfg.thres_tmim) & torch.any(sim_imie > self.cfg.thres_imie, -1)
+    def _gate(self, sim_tmim, sim_imie, split=None):
+        opened = torch.any(sim_imie > self.cfg.thres_imie, -1)
+        if split is not None:  # any candidate of the model group's blocks
+            opened = collectives.any_over(opened, split.group)
+        return (sim_tmim > self.cfg.thres_tmim) & opened
 
-    def gates(self, batch):
+    def gates(self, batch, split=None):
         """The image gate of each mention of a batch, [B] bool: ``sim_tmim >
-        thres_tmim`` and any candidate's ``sim_imie > thres_imie``."""
-        return self._gate(*self.similarities(batch[0], batch[4], batch[7])[:2])
+        thres_tmim`` and any candidate's ``sim_imie > thres_imie`` (with
+        ``split``, any candidate of the model group's blocks)."""
+        return self._gate(*self.similarities(batch[0], batch[4], batch[7], split)[:2], split)
 
     def forward(self, batch, deterministic: bool = True,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None, split=None):
+        """Scores [B, C]; with ``split`` the entity tensors are this rank's
+        block of the padded candidates, and every rank of the model group
+        returns the gathered scores."""
         (mention_feature, mention_mask, start, end, mention_image,
          entity_feature, _entity_mask, entity_image) = batch
+        if split is not None:
+            split.check_block(entity_image.shape[1], self.cfg.num_candidates_model)
         sim_tmim, sim_imie, mapped = self.similarities(mention_feature, mention_image,
-                                                       entity_image)
-        gate = self._gate(sim_tmim, sim_imie).to(mention_feature.dtype)
+                                                       entity_image, split)
+        gate = self._gate(sim_tmim, sim_imie, split).to(mention_feature.dtype)
         mention_image_mapped = mapped * gate[:, None]
         entity_image_mapped = self.image_map_text(entity_image) * gate[:, None, None]
         mention_word = span_mean(mention_feature, start, end)  # [B, D]
@@ -117,4 +136,6 @@ class MELHI(nn.Module):
         mention = self.mention_encoder(mention_cat, mention_mask, start, end)
         entity = self.entity_final_map(torch.cat([entity_feature, entity_image_mapped], dim=-1))
         scores = cosine_similarity(mention[:, None, :].expand_as(entity), entity)
+        if split is not None:  # the model group's blocks, in candidate order
+            scores = collectives.gather_blocks(scores, split.group, split.order)
         return scores[:, :self.cfg.num_candidates_model]

@@ -17,6 +17,8 @@ module runs them at ``Precision.HIGHEST`` for the same reason).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -91,14 +93,18 @@ def object_pair_similarity(mention_obj: torch.Tensor,  # [B, Tm, D]
     return (num / (den + eps)).to(mention_obj.dtype)
 
 
-def unzip_entities(zipped: torch.Tensor, sep_idx: torch.Tensor, num_candidates: int,
+def unzip_entities(zipped: torch.Tensor, sep_idx: torch.Tensor, num_candidates: Optional[int],
                    pooling: str = "avg") -> torch.Tensor:
     """Split zipped-sentence BERT features back into per-candidate vectors:
     candidate k of sentence j spans token positions ``[prev_sep + 1, sep_jk)``
     (position 0 is CLS; spans start at 1).
 
-    zipped [B, S, L, D], sep_idx [B, S, E] -> [B, num_candidates, D].
-    Zero-width spans (padding seps) pool to 0 instead of NaN."""
+    zipped [B, S, L, D], sep_idx [B, S, E] -> [B, num_candidates, D], the
+    slots sentence-major (sentence s holds slots s*E .. s*E+E-1), so a block
+    of sentences pools to its own contiguous block of slots: with
+    ``num_candidates=None`` every one of the S*E slots is kept (a model
+    rank's block, cut to C after the gather).  Zero-width spans (padding
+    seps) pool to 0 instead of NaN."""
     B, S, L, D = zipped.shape
     sep_idx = sep_idx.to(torch.int32)
     E = sep_idx.shape[-1]
@@ -115,4 +121,5 @@ def unzip_entities(zipped: torch.Tensor, sep_idx: torch.Tensor, num_candidates: 
         neg = torch.finfo(zipped.dtype).min
         pooled = torch.amax(zipped[:, :, None].masked_fill(~mask[..., None], neg), dim=-2)
         pooled = pooled.masked_fill(~torch.any(mask, dim=-1)[..., None], 0.0)
-    return pooled.reshape(B, S * E, D)[:, :num_candidates]
+    pooled = pooled.reshape(B, S * E, D)
+    return pooled if num_candidates is None else pooled[:, :num_candidates]

@@ -1,10 +1,12 @@
 # -*- coding: utf-8 -*-
 """The few collectives the port runs, each in one call over its group.
 
-Only ``all_reduce``, ``all_gather``, ``broadcast`` and ``reduce`` are used:
-gloo takes them on CUDA tensors (staged through the host; ``reduce`` was
-probed on the card, two ranks, float32, bfloat16 and uint8), so two ranks
-can share one card, and NCCL takes them on a card each.  (The serving
+Only ``all_reduce`` (a sum, or the maximum of :func:`any_over`),
+``all_gather``, ``broadcast`` and ``reduce`` are used: gloo takes them on
+CUDA tensors (staged through the host; ``reduce`` was probed on the card,
+two ranks, float32, bfloat16 and uint8; ``tools/gloo_probe.py`` probes the
+maximum too), so two ranks can share one card, and NCCL takes them on a
+card each.  (The serving
 front also sends each call's description with ``broadcast_object_list``.)
 A group of one rank costs no call.  Many small tensors go as one flat buffer:
 through the host every call has a fixed cost.
@@ -26,9 +28,21 @@ add up to the gradient:
   * :func:`all_sum` (the model axis, the mention means' message sums): the
     sum feeds every rank's replicated mention vertices, so its backward sums
     the gradient over the group.
-  * A model whose compute is replicated along the model axis (GHMFC, MELHI)
-    holds the whole gradient on each of its ``n_model`` ranks: its share is
-    the gradient of the loss over ``n_model`` (the trainer scales it).
+  * :func:`any_over` (the model axis, MELHI's image gate over every
+    candidate) carries no gradient: a gate is a comparison.
+
+Every model computes its entity side over this rank's block of the
+candidates and its mention side whole, replicated along the model axis
+(DRIN, GHMFC offline and online, MELHI).  The replicated mention tower's
+gradient reaches it only through this rank's block of the scores (the
+score gather's backward keeps the block), so each rank holds the share of
+its block, and the sum over the mesh is the whole gradient; a parameter
+that both towers read (the online model's BERT, MELHI's image map) sums
+both towers' shares alike.  A model whose compute is replicated along the
+model axis as a whole (the model axis does not divide its candidate or
+sentence dim: ``train.trainer.candidate_split``) holds the whole gradient on
+each of its ``n_model`` ranks: its share is the gradient of the loss over
+``n_model`` (the trainer scales it).  One step never mixes the two rules.
 """
 
 from __future__ import annotations
@@ -131,6 +145,17 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _AllSum.apply(x, group)
+
+
+def any_over(flag: torch.Tensor, group) -> torch.Tensor:
+    """The logical OR of the bool tensor ``flag`` over ``group``, every rank
+    receiving the same bits; no gradient.  One ``all_reduce`` of the maximum
+    of a uint8 copy: no float is reduced."""
+    if group_size(group) == 1:
+        return flag
+    x = flag.detach().to(torch.uint8).contiguous()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x.bool()
 
 
 def sum_grads_(params: Sequence[torch.nn.Parameter], group, extra: torch.Tensor):

@@ -9,16 +9,20 @@ its group:
   * ``data``: the batch axis.  Each data index owns a contiguous block of the
     global batch's rows; the loss gathers the scores of its *data group* (the
     ranks of one model column) and the gradients are summed over it.
-  * ``model``: the candidate axis of DRIN's compute and the entity-row axis
-    of the row-sharded store (``data/device_store.py``).  The ranks of one
-    data row form its *model group*.  DRIN computes its entity side over
-    this rank's block of the candidates (:class:`CandidateSplit`; the
-    trainer pads C to a multiple of the axis, :func:`padded_candidate_count`),
-    sums the mention means' messages over the group and gathers the score
-    blocks.  A row-sharded store's gather hands each rank its block of the
-    candidates with one reduce-scatter (whole on every rank when the axis
-    does not divide C).  GHMFC and MELHI replicate their compute along this
-    axis.
+  * ``model``: the candidate axis of every model's compute and the
+    entity-row axis of the row-sharded store (``data/device_store.py``).
+    The ranks of one data row form its *model group*.  Each model computes
+    its entity side over this rank's block of the candidates
+    (:class:`CandidateSplit`; the trainer pads C to a multiple of the axis,
+    :func:`padded_candidate_count`), its mention side whole on every rank,
+    and gathers the score blocks: DRIN also sums the mention means'
+    messages over the group, MELHI ORs its image gate over it, and the
+    online GHMFC in zipped mode splits its entity sentences (S) instead,
+    each rank's sentences pooling to its own contiguous block of candidate
+    slots.  A model whose split dim the axis does not divide (a zipped S)
+    replicates its compute along the axis.  A row-sharded store's gather
+    hands each rank its block of the candidates with one reduce-scatter
+    (whole on every rank when the axis does not divide C).
 
 ``make_hybrid_mesh`` lays the model axis within a host and the data axis
 across hosts: the per-step gathers of the store stay on one host, and only
@@ -245,16 +249,39 @@ class CandidateSplit(NamedTuple):
         """This rank's [lo, hi) of ``Cp`` candidates."""
         return candidate_range(Cp, self.n, self.index)
 
+    def check_block(self, Cb: int, C: int):
+        """Assert that blocks of ``Cb`` candidates are a split of a model's
+        ``C`` padded to the axis (or of a request's C that the axis
+        divides), as DRIN's forward asserts."""
+        assert Cb * self.n <= padded_candidate_count(C, self.n), (
+            f"candidate blocks of {Cb} over {self.n} ranks are not a split of C={C} padded to "
+            "the model axis")
+
 
 def slice_candidates(batch, batch_fields: Sequence[str], split: Optional[CandidateSplit]):
     """This rank's candidates of a host batch: ``batch_specs``' rule of the
-    JAX package as a slice.  The entity tensors of ndim >= 3 ([B, C, ...])
-    and the [B, C] similarities (the model's edges) keep this rank's block
-    of the candidate dim; the answer stays whole (the loss sees every
-    candidate).  A rows batch (``entity_rows``) stays whole: the store's
-    gather takes the block of its rows and of its similarities.  Without a
-    split the batch as it is; the split must divide C (pad it first,
-    :func:`pad_candidates_to`)."""
+    JAX package as a slice.  The entity tensors of ndim >= 3 and the [B, C]
+    similarities (DRIN's edges) keep this rank's block of dim 1; the answer
+    stays whole (the loss sees every candidate).  Dim 1 is, by model:
+
+      * DRIN: C of every ``entity_*`` tensor and of the similarities;
+      * offline GHMFC: C of ``entity_feature`` ([B, C, 2, D] pooled,
+        [B, C, Le, D] token level, [B, C, D] WikiDiverse), of a token-level
+        ``entity_mask`` [B, C, Le] and of ``entity_image`` [B, C, Dr];
+      * MELHI: C of ``entity_feature`` and ``entity_image``;
+      * online GHMFC in direct mode: C of ``entity_ids`` / ``entity_mask``
+        [B, C, Le];
+      * online GHMFC in zipped mode: S, the zipped sentences, of
+        ``entity_ids`` / ``entity_mask`` [B, S, L] and ``entity_sep_idx``
+        [B, S, E].
+
+    A placeholder of ndim < 3 (the [B] ``entity_mask`` of a pooled store,
+    direct mode's [B] ``entity_sep_idx``, the online batch's [B]
+    ``entity_image``) passes through whole; a [B, C, 1] image placeholder is
+    sliced like the tensor it stands for.  A rows batch (``entity_rows``)
+    stays whole: the store's gather takes the block of its rows and of its
+    similarities.  Without a split the batch as it is; the split must
+    divide dim 1 (pad C first, :func:`pad_candidates_to`)."""
     if split is None or "entity_rows" in batch_fields:
         return batch
     out = []

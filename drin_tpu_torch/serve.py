@@ -422,7 +422,11 @@ class Ranker:
         once, ``chunk`` rows at a time (a quantized store dequantizes one
         chunk, never the table), into [N, D] representations.  A request
         then costs a mention encoding, a row gather and a cosine
-        (:meth:`rank_rows`).  Returns the representations as float32."""
+        (:meth:`rank_rows`).  Returns the representations as float32.  On a
+        row-sharded store the rows are read collectively
+        (``DeviceEntityStore.float_rows``): every rank of the model group
+        must call it, and each ends with every row's representation
+        (:meth:`rank_rows` stays a one-device path)."""
         assert self.store is not None, "needs device entity tables"
         assert self.cfg.model_type == "ghmfc", "entity precompute is the GHMFC fast path"
         if self.cfg.online_bert:
@@ -492,19 +496,19 @@ class Ranker:
         return tuple(out)
 
     def _candidate_split(self, feats: tuple):
-        """The one decision of a request's candidate split: DRIN over a
-        store on a mesh whose model axis has several ranks is
+        """The one decision of a request's candidate split: DRIN or offline
+        GHMFC over a store on a mesh whose model axis has several ranks is
         candidate-parallel, with the rows batch padded to the axis's
-        multiple of C (row 0 and zero similarities, masked in the model, as
-        the ``Trainer`` pads) and the mesh's split, which both the gather
-        and the model take.  Otherwise (another model, one rank on the axis,
-        or a request of another C that the axis does not divide) the batch
-        as it is and None."""
-        mesh = self.store.mesh if self.kind == "drin" else None
+        multiple of C (row 0 and, for DRIN, zero similarities, masked in the
+        model, as the ``Trainer`` pads) and the mesh's split, which both the
+        gather and the model take.  Otherwise (one rank on the axis, or a
+        request of another C that the axis does not divide) the batch as it
+        is and None.  (MELHI and the online model never read a store.)"""
+        mesh = self.store.mesh
         split = mesh.candidate_split() if mesh is not None else None
         if split is None:
             return feats, None
-        C = feats[7].shape[1]
+        C = feats[_batch_type(self)._fields.index("entity_rows")].shape[1]
         Cp = padded_candidate_count(C, split.n) if C == self.cfg.num_candidates_model else C
         if not split.divides(Cp):
             return feats, None

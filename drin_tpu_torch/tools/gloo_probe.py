@@ -2,9 +2,10 @@
 """Probe which collectives gloo takes on CUDA tensors, and time two of them.
 
 Two ranks on one card over gloo (which stages CUDA tensors through the
-host) try ``reduce_scatter_tensor``, ``reduce``, ``all_reduce``,
+host) try ``reduce_scatter_tensor``, ``reduce``, ``all_reduce`` (a sum,
+and the maximum that ``collectives.any_over`` takes of a uint8 tensor),
 ``broadcast`` and ``all_gather_into_tensor`` on a small tensor in float32,
-uint8 and bfloat16.  Then a 256 MB uint8 input goes through
+uint8 and bfloat16, and ``collectives.any_over`` on a bool tensor.  Then a 256 MB uint8 input goes through
 ``all_reduce``, ``reduce_scatter_tensor`` and the port's
 ``collectives.reduce_scatter_exact_`` (``reduce`` calls): for each, the host
 clock between synchronises and the device memory the call allocates beyond
@@ -31,7 +32,8 @@ import time
 import torch
 import torch.distributed as dist
 
-CALLS = ("reduce_scatter_tensor", "reduce", "all_reduce", "broadcast", "all_gather_into_tensor")
+CALLS = ("reduce_scatter_tensor", "reduce", "all_reduce", "all_reduce_max", "broadcast",
+         "all_gather_into_tensor")
 BIG_BYTES = 256 << 20
 
 
@@ -48,6 +50,8 @@ def _call(name: str, x: torch.Tensor) -> torch.Tensor:
         dist.reduce(x, dst=0)
     elif name == "all_reduce":
         dist.all_reduce(x)
+    elif name == "all_reduce_max":
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
     else:
         dist.broadcast(x, 0)
     return x
@@ -72,6 +76,11 @@ def worker(rank: int, port: int, out_dir: str) -> None:
                 dist.barrier()
         from drin_tpu_torch.parallel import collectives
 
+        flag = torch.tensor([rank == 0, rank == 1, False], device=dev)
+        try:
+            res["any_over/torch.bool"] = ["ok", collectives.any_over(flag, None).cpu().tolist()]
+        except RuntimeError as e:
+            res["any_over/torch.bool"] = ["refused", f"{type(e).__name__}: {str(e)[:200]}"]
         scatter = lambda x: collectives.reduce_scatter_exact_([x], None)[0]
         for name in ("all_reduce", "reduce_scatter_tensor", "reduce_scatter_exact_"):
             big = torch.zeros(BIG_BYTES, dtype=torch.uint8, device=dev)

@@ -26,10 +26,14 @@ Several processes, one rank each (``parallel/``): ``num_processes``,
 ``mesh_data`` x ``mesh_model`` lay the ranks out (``mesh_data=-1``: all
 remaining ranks; over several hosts the model axis stays within a host).
 ``mesh_data`` splits every global batch of ``batch_size`` rows over its
-ranks.  ``mesh_model`` splits DRIN's candidates over its ranks (C padded to
-a multiple of it: WikiMEL's 101 -> 102 on 2 ranks) and row-shards the
-token-level entity tables (``cache_entity_pooling=false``) over them; GHMFC
-and MELHI replicate their compute along it.  ``dist_backend`` (default:
+ranks.  ``mesh_model`` splits every model's candidates over its ranks (C
+padded to a multiple of it: WikiMEL's 101 -> 102 on 2 ranks; DRIN, offline
+GHMFC, MELHI, the online GHMFC in direct mode) or, for the online GHMFC in
+zipped mode, its entity sentences (12 -> 6 a rank on 2; a model axis that
+does not divide them replicates the model), and row-shards the token-level
+entity tables (``cache_entity_pooling=false``) over them: DRIN's and
+GHMFC's gathers then keep each rank's block of the candidates.
+``dist_backend`` (default:
 NCCL on CUDA, gloo on the CPU) is the process group's backend; two ranks on
 one card need ``dist_backend=gloo``::
 

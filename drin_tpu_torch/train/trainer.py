@@ -18,10 +18,14 @@ or over the ranks of a mesh (``parallel/mesh.py``).
 
 Over a mesh every rank walks the same global batches and assembles the rows
 its data index owns; the loss is the global batch's (in-batch negatives over
-every row of the data group).  DRIN computes its entity side over this
-rank's block of the candidates on the model axis (candidate-parallel; the
-candidate dim is padded to a multiple of the axis, as the JAX ``Trainer``
-pads it); GHMFC and MELHI replicate their compute along it.  Every rank's
+every row of the data group).  Every model computes its entity side over
+this rank's block of the candidates on the model axis (candidate-parallel:
+DRIN, offline GHMFC, MELHI, the online GHMFC in direct mode; in zipped mode
+the online GHMFC's block of entity sentences), its mention side whole on
+every rank.  The candidate dim is padded to a multiple of the axis for
+every model, as the JAX ``Trainer`` pads it; a model whose split dim the
+axis does not divide (a zipped S) replicates its compute along the axis
+(:func:`candidate_split`).  Every rank's
 backward gives its share of the gradient, and the shares are summed over
 the whole mesh in one call (``parallel/collectives.py`` states the rule), so
 that every rank receives the same bits and takes the same Adam step; the
@@ -95,12 +99,20 @@ def _mesh_or_none(mesh):
 
 
 def candidate_split(cfg: Config, mesh):
-    """The model axis's split of the candidates for a model that computes
-    them in parallel (DRIN), or None: one rank on the axis, or a model whose
-    compute is replicated along it."""
-    if mesh is None or cfg.model_type != "drin":
+    """The model axis's split of a step's candidates, decided for every
+    model: the mesh's split when the model axis has several ranks and
+    divides the dim being split (C padded to the axis, or for the online
+    GHMFC in zipped mode its S entity sentences), else None, and the model
+    replicates its compute along the axis (the JAX package too leaves a
+    tensor replicated where its dim does not divide the axis)."""
+    split = mesh.candidate_split() if mesh is not None else None
+    if split is None:
         return None
-    return mesh.candidate_split()
+    if cfg.model_type == "ghmfc" and cfg.online_bert and cfg.num_entity_sentence:
+        dim = cfg.num_entity_sentence
+    else:
+        dim = pmesh.padded_candidate_count(cfg.num_candidates_model, split.n)
+    return split if split.divides(dim) else None
 
 
 def build_step_fns(model: torch.nn.Module, cfg: Config,
@@ -128,11 +140,12 @@ def build_step_fns(model: torch.nn.Module, cfg: Config,
     reproducible bit for bit across processes.  ``eval_step`` returns the
     global loss too.
 
-    DRIN over a model axis of several ranks is candidate-parallel: a batch
-    holds this rank's block of the (padded) candidates (the ``Trainer``
-    slices it, or ``feats_fn(feats, split)`` gathers only that block: the
-    step passes the split it gives the model), the forward returns
-    the gathered scores, and the loss and the counters see every candidate.
+    Over a model axis of several ranks a step is candidate-parallel where
+    :func:`candidate_split` gives a split: a batch holds this rank's block
+    of the (padded) candidates or zipped sentences (the ``Trainer`` slices
+    it, or ``feats_fn(feats, split)`` gathers only that block: the step
+    passes the split it gives the model), the forward returns the gathered
+    scores, and the loss and the counters see every candidate.
     Gradients follow ``parallel/collectives.py``'s rule: each rank's
     backward gives its share, and the step sums the shares over the mesh.  A
     model whose compute is replicated along the model axis backpropagates
@@ -333,18 +346,19 @@ class Trainer:
         self.mesh = _mesh_or_none(mesh)
         self._main = self.mesh is None or self.mesh.main
         self.log = log if self._main else (lambda *a, **k: None)
-        # candidate-parallel DRIN: a C that does not divide the model axis
-        # (WikiMEL's prime 101) is padded; the model masks the fake
-        # candidates and slices the scores back to C
+        # a C that does not divide the model axis (WikiMEL's prime 101) is
+        # padded for every model, as the JAX Trainer pads it, even where no
+        # field has a dim of C (the zipped online batch: only the answer,
+        # which is never padded); the models mask the fake candidates and
+        # slice the scores back to C
         self._split = candidate_split(cfg, self.mesh)
         self._cand_pad = None
-        if self._split is not None:
-            C = cfg.num_candidates_model
-            cp = pmesh.padded_candidate_count(C, self._split.n)
-            if cp != C:
-                self._cand_pad = (C, cp)
-                self.log(f"candidate dim padded {C} -> {cp} to shard over the "
-                         f"{self._split.n}-way model axis")
+        nm = self.mesh.shape["model"] if self.mesh is not None else 1
+        C = cfg.num_candidates_model
+        cp = pmesh.padded_candidate_count(C, nm)
+        if nm > 1 and cp != C:
+            self._cand_pad = (C, cp)
+            self.log(f"candidate dim padded {C} -> {cp} to shard over the {nm}-way model axis")
         self.feats_fn = feats_fn
         self.state = create_train_state(model.to(self.device), cfg)
         # the rows of the global batch this rank assembles (all of them on one device)
@@ -495,9 +509,9 @@ class Trainer:
 
     def _assemble(self, dataset, kind: str, idx: np.ndarray, valid: np.ndarray):
         """This rank's rows of the global batch ``idx`` (every row on one
-        device), the candidate dim padded and, for candidate-parallel DRIN,
-        this rank's block of it (a rows batch keeps its rows whole: the
-        store's gather takes the block)."""
+        device), the candidate dim padded and, for a candidate-parallel
+        step, this rank's block of it (a rows batch keeps its rows whole:
+        the store's gather takes the block)."""
         lo, hi = self._rows
         if getattr(dataset, "accepts_bucket_idx", False):
             # online datasets take the length bucket from the global batch's
@@ -505,7 +519,7 @@ class Trainer:
             batch = dataset.make_batch(idx[lo:hi], kind, bucket_idx=idx)
         else:
             batch = dataset.make_batch(idx[lo:hi], kind)
-        if self._split is not None:
+        if self._cand_pad is not None or self._split is not None:
             fields = type(batch)._fields
             if self._cand_pad is not None:
                 batch = pmesh.pad_candidates_to(batch, fields, *self._cand_pad)

@@ -27,6 +27,20 @@ and the HTTP front over it, its clean shutdown and a follower's failure.
 One single-process test holds the split plain GCN layer against
 ``drin_tpu``'s ``GCNLayer`` on padded candidates.
 
+The baselines on the model axis: offline GHMFC and MELHI on a (1, 4) mesh
+with C = 10 padded to 12 (``test_multichip.py::test_baseline_padding_on_mesh_matches_single``'s
+setup, the images laid out so that MELHI's gate opens through the last
+rank's block alone for some mentions), against one process and the JAX
+``Trainer`` on a (1, 4) mesh; GHMFC through the training entry point over
+row-sharded token-level tables (C = 11 -> 12); the online GHMFC in direct
+mode on a (2, 2) mesh (C = 7 -> 8) against the JAX step, in zipped mode on
+(1, 2) (its sentences split) and with S = 3 (replicated) against one
+process; a GHMFC ``Ranker`` over a row-sharded store behind the HTTP front
+against the JAX ``Ranker``; and four planted faults that must fail their
+checks (MELHI's gate without its OR, its padded candidates masked at local
+indices, the score gather's backward summing over the group, the loss
+backpropagated by the replicated rule while the entity side is split).
+
 The ranks are processes of ``tests/torch_dist_worker.py`` (file rendezvous,
 one launch a world size for the whole module, a timeout on every wait)."""
 
@@ -47,16 +61,23 @@ import torch
 from drin_tpu.data.dataset import MELFeatureDataset as JaxMELFeatureDataset
 from drin_tpu.data.dataset import create_datasets as jax_create_datasets
 from drin_tpu.data.dataset import load_wikimel_entity_tables as jax_load_tables
+from drin_tpu.common.config import make_config as jax_make_config
 from drin_tpu.data.synthetic import make_synthetic_online_store, make_synthetic_store, tiny_config
-from drin_tpu.models.drin import DRIN as JaxDRIN
+from drin_tpu.encoders.bert import BertConfig as JaxBertConfig
+from drin_tpu.models import get_model as jax_get_model
 from drin_tpu.models.drin import GCNLayer as JaxGCNLayer
+from drin_tpu.models.ghmfc import GHMFCOnline as JaxGHMFCOnline
 from drin_tpu.parallel import mesh as jax_mesh
 from drin_tpu.serve import Ranker as JaxRanker
 from drin_tpu.train import metrics as JM
 from drin_tpu.train.trainer import Trainer as JaxTrainer
+from drin_tpu.train.trainer import build_step_fns as jax_build_step_fns
+from drin_tpu.train.trainer import create_train_state as jax_create_train_state
 from drin_tpu_torch.common.config import make_config
+from drin_tpu_torch.encoders.bert import BertConfig
 from drin_tpu_torch.models import get_model
-from drin_tpu_torch.models.convert import drin_state_dict_from_jax
+from drin_tpu_torch.models.convert import (drin_state_dict_from_jax, ghmfc_online_state_dict_from_jax,
+                                           ghmfc_state_dict_from_jax, melhi_state_dict_from_jax)
 from drin_tpu_torch.parallel import distributed
 
 import torch_dist_worker as W
@@ -66,14 +87,31 @@ WORKER = str(REPO / "tests" / "torch_dist_worker.py")
 RTOL = 2e-4
 TIMEOUT = 300
 FOUR = ("drin@4x1,drin@2x2,psum@4x1,drin_local_loss@4x1,drin_cand@2x2,drin_cand_nosum@2x2,"
-        "drin_cand_avg@2x2")
+        "drin_cand_avg@2x2,ghmfc_cand@1x4,melhi_cand@1x4,ghmfc_cand_gsum@1x4,"
+        "melhi_cand_noor@1x4,melhi_cand_localmask@1x4,online_cand@2x2")
 # http_front leaves the process group: it runs last
-TWO = "wm_rows@1x2,ckpt@2x1,online@2x1,serve_rows@1x2,http_front@1x2"
+TWO = ("wm_rows@1x2,ckpt@2x1,online@2x1,serve_rows@1x2,ghmfc_rows_cand@1x2,online_zip@1x2,"
+       "online_zip3@1x2,online_zip_replicated@1x2,serve_ghmfc_rows@1x2,http_front@1x2")
 
 
 def _port_cfg(cfg):
     d = dataclasses.asdict(cfg)
     return make_config(d.pop("model_type"), d.pop("dataset_name"), **d)
+
+
+def _jax_cfg(cfg):
+    """The JAX package's Config of a port Config (the same fields)."""
+    d = dataclasses.asdict(cfg)
+    return jax_make_config(d.pop("model_type"), d.pop("dataset_name"), **d)
+
+
+def _port_weights(params, cfg):
+    """A JAX model's params -> the port's state_dict of the same model."""
+    if cfg.model_type == "drin":
+        return drin_state_dict_from_jax(params, _port_cfg(cfg))
+    if cfg.model_type == "melhi":
+        return melhi_state_dict_from_jax(params)
+    return ghmfc_state_dict_from_jax(params, _port_cfg(cfg))
 
 
 def _env():
@@ -108,13 +146,14 @@ def _collect(out, procs):
     return results
 
 
-def _jax_drin(cfg, params, dump, shape=(4, 1)):
-    """The JAX Trainer on a (data, model) mesh of virtual CPU devices, or on
-    one device (``shape`` None).  A model axis that does not divide C pads
-    it (the JAX Trainer's own padding, logged)."""
+def _jax_run(cfg, params, dump, shape=(4, 1)):
+    """The JAX Trainer of ``cfg``'s model (DRIN, GHMFC or MELHI) on a (data,
+    model) mesh of virtual CPU devices, or on one device (``shape`` None).
+    A model axis that does not divide C pads it (the JAX Trainer's own
+    padding, logged)."""
     train, valid, test = jax_create_datasets(cfg)
-    model = JaxDRIN(cfg)
-    example = next(test.batches(cfg.batch_size, kind="drin", pad_to_full=True))
+    model, kind = jax_get_model(cfg)
+    example = next(test.batches(cfg.batch_size, kind=kind, pad_to_full=True))
     mesh = None
     if shape is not None:
         mesh = jax_mesh.make_mesh(devices=jax.devices()[:shape[0] * shape[1]], data=shape[0],
@@ -125,9 +164,9 @@ def _jax_drin(cfg, params, dump, shape=(4, 1)):
                     output_test_result_path=dump)
     epochs = []
     W._record_epochs(tr, epochs)
-    tr.fit(train, valid, W.FIT_EPOCHS, kind="drin")
-    test_out = tr.test(test, kind="drin")
-    sd = drin_state_dict_from_jax(jax.device_get(tr.state.params), _port_cfg(cfg))
+    tr.fit(train, valid, W.FIT_EPOCHS, kind=kind)
+    test_out = tr.test(test, kind=kind)
+    sd = _port_weights(jax.device_get(tr.state.params), cfg)
     out = {"epochs": epochs, "test_loss": test_out["loss"],
            "test_accs": {str(k): v for k, v in test_out["accs"].items()},
            "digest": W.digest(sd), "step": int(tr.state.step), "cand_pad": tr._cand_pad,
@@ -139,9 +178,34 @@ def _jax_drin(cfg, params, dump, shape=(4, 1)):
 
 
 def _jax_init(cfg, seed=0):
-    example = next(jax_create_datasets(cfg)[2].batches(cfg.batch_size, kind="drin", pad_to_full=True))
-    return jax.tree.map(np.asarray, JaxDRIN(cfg).init(
+    """A JAX model's initial params (its init jitted: one compile, where the
+    op-by-op init compiles every op)."""
+    model, kind = jax_get_model(cfg)
+    example = next(jax_create_datasets(cfg)[2].batches(cfg.batch_size, kind=kind, pad_to_full=True))
+    return jax.tree.map(np.asarray, jax.jit(model.init)(
         jax.random.key(seed), tuple(np.asarray(x) for x in example[:-1]))["params"])
+
+
+def _jax_online_step(cfg, params, batch, shape=(2, 2)):
+    """One JAX train step of the online GHMFC on a (data, model) mesh of
+    virtual CPU devices, C padded to the model axis as the JAX Trainer pads
+    it: the loss, the counters and the scores after the step."""
+    model = JaxGHMFCOnline(cfg, JaxBertConfig(**W.ONLINE_MESH_BERT))
+    apply_fn = lambda p, f: model.apply({"params": p}, f)
+    fields = type(batch)._fields
+    C, nm = cfg.num_candidates_model, shape[1]
+    batch = tuple(jax_mesh.pad_candidates_to(tuple(batch), fields, C,
+                                             jax_mesh.padded_candidate_count(C, nm)))
+    mesh = jax_mesh.make_mesh(devices=jax.devices()[:shape[0] * nm], data=shape[0], model=nm)
+    st, tx = jax_create_train_state(jax.tree.map(jnp.asarray, params), cfg)
+    fns = jax_build_step_fns(apply_fn, cfg, tx, mesh, fields, batch)
+    put = jax_mesh.put_batch(batch, fns.batch_shardings)
+    valid = jax.device_put(np.ones((cfg.batch_size,), np.float32), fns.valid_sharding)
+    init = lambda: jax.device_put(JM.init_state(cfg.metrics_topk), fns.replicated)
+    st, loss, m = fns.train_step(jax.device_put(st, fns.replicated), put, valid, init())
+    _, _, scores = fns.eval_step(st.params, put, valid, init())
+    return {"loss": float(loss), "counters": {k: float(v) for k, v in jax.device_get(m).items()},
+            "scores": np.asarray(jax.device_get(scores))}
 
 
 @pytest.fixture(scope="module")
@@ -164,14 +228,38 @@ def runs(tmp_path_factory):
     params = _jax_init(wd_cfg)  # DRIN's parameters do not depend on C: drin_cand takes them too
     wm_params = _jax_init(wm_cfg)
     serve_params = _jax_init(serve_cfg)
+    # the baselines on the model axis: one WikiDiverse store (C = 10) with
+    # MELHI's gate images, GHMFC and MELHI weights, the online model's, and
+    # GHMFC's over the served store
+    base = str(root / "base")
+    base_cfgs = {mt: _jax_cfg(W.baseline_cfg(base, mt)) for mt in ("ghmfc", "melhi")}
+    make_synthetic_store(base_cfgs["ghmfc"], n_mentions=8, seed=23)
+    W.melhi_gate_store(base, base_cfgs["ghmfc"].num_candidates_model)
+    base_params = {mt: _jax_init(c) for mt, c in base_cfgs.items()}
+    online_cfg = W.online_mesh_cfg()
+    online_batch = W.online_mesh_batch(online_cfg)
+    online_params = jax.tree.map(np.asarray, jax.jit(JaxGHMFCOnline(
+        _jax_cfg(online_cfg), JaxBertConfig(**W.ONLINE_MESH_BERT)).init)(
+            jax.random.key(0), tuple(online_batch[:-1]))["params"])
+    ghmfc_serve_cfg = _jax_cfg(W.ghmfc_serve_cfg(serve))
+    ghmfc_serve_params = _jax_init(ghmfc_serve_cfg)
     scratch = root / "scratch"
     scratch.mkdir()
     spec = {"wd": wd, "wm": wm, "online": online, "wd11": wd11, "serve": serve,
             "scratch": str(scratch), "drin_weights": str(root / "drin.pt"),
-            "wm_weights": str(root / "wm.pt"), "serve_weights": str(root / "serve.pt")}
+            "wm_weights": str(root / "wm.pt"), "serve_weights": str(root / "serve.pt"),
+            "base_cand": base, "ghmfc_weights": str(root / "ghmfc.pt"),
+            "melhi_weights": str(root / "melhi.pt"), "online_weights": str(root / "online.pt"),
+            "ghmfc_serve_weights": str(root / "ghmfc-serve.pt")}
     torch.save(drin_state_dict_from_jax(params, _port_cfg(wd_cfg)), spec["drin_weights"])
     torch.save(drin_state_dict_from_jax(wm_params, _port_cfg(wm_cfg)), spec["wm_weights"])
     torch.save(drin_state_dict_from_jax(serve_params, _port_cfg(serve_cfg)), spec["serve_weights"])
+    for mt, c in base_cfgs.items():
+        torch.save(_port_weights(base_params[mt], c), spec[f"{mt}_weights"])
+    torch.save(ghmfc_online_state_dict_from_jax(online_params, online_cfg,
+                                                BertConfig(**W.ONLINE_MESH_BERT)),
+               spec["online_weights"])
+    torch.save(_port_weights(ghmfc_serve_params, ghmfc_serve_cfg), spec["ghmfc_serve_weights"])
     spec_path = str(root / "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -181,15 +269,28 @@ def runs(tmp_path_factory):
     tables = jax_load_tables(serve_cfg)
     ds = JaxMELFeatureDataset(serve_cfg, "train", tables)
     jr = JaxRanker(serve_cfg, params=serve_params, entity_tables=tables)
+    gds = JaxMELFeatureDataset(ghmfc_serve_cfg, "train", tables)
+    gjr = JaxRanker(ghmfc_serve_cfg, params=ghmfc_serve_params, entity_tables=tables)
     single = {"drin": W.scenario_drin(spec, None), "wm_rows": W.scenario_wm_rows(spec, None),
               "online": W.scenario_online(spec, None),
               "drin_cand": W.scenario_drin_cand(spec, None),
-              "jax": _jax_drin(wd_cfg, params, str(scratch / "jax-dump.txt")),
-              "jax_cand": _jax_drin(cand_cfg, params, str(scratch / "jax-cand-dump.txt"),
+              "jax": _jax_run(wd_cfg, params, str(scratch / "jax-dump.txt")),
+              "jax_cand": _jax_run(cand_cfg, params, str(scratch / "jax-cand-dump.txt"),
                                     shape=(2, 2)),
-              "jax_wm": _jax_drin(wm_cfg, wm_params, str(scratch / "jax-wm-dump.txt"), shape=None),
+              "jax_wm": _jax_run(wm_cfg, wm_params, str(scratch / "jax-wm-dump.txt"), shape=None),
               "jax_serve": {"score4": np.asarray(jr.score(ds.drin_rows_batch(np.arange(4))[:-1])),
-                            "score3": np.asarray(jr.score(ds.drin_rows_batch(np.arange(3))[:-1]))}}
+                            "score3": np.asarray(jr.score(ds.drin_rows_batch(np.arange(3))[:-1]))},
+              "ghmfc_cand": W.scenario_ghmfc_cand(spec, None),
+              "melhi_cand": W.scenario_melhi_cand(spec, None),
+              "ghmfc_rows_cand": W.scenario_ghmfc_rows_cand(spec, None),
+              "online_zip": W._online_zip(None, 4), "online_zip3": W._online_zip(None, 3),
+              "jax_online_cand": _jax_online_step(_jax_cfg(online_cfg), online_params, online_batch),
+              "jax_serve_ghmfc": {
+                  "score4": np.asarray(gjr.score(gds.baseline_rows_batch(np.arange(4))[:-1])),
+                  "score3": np.asarray(gjr.score(gds.baseline_rows_batch(np.arange(3))[:-1]))}}
+    for mt, c in base_cfgs.items():
+        single[f"jax_{mt}_cand"] = _jax_run(c, base_params[mt], str(scratch / f"jax-{mt}-dump.txt"),
+                                            shape=(1, 4))
     return {"single": single, "four": _collect(*four), "two": _collect(*two)}
 
 
@@ -492,3 +593,129 @@ def test_nccl_refuses_two_ranks_on_one_device(monkeypatch):
     monkeypatch.delenv("LOCAL_WORLD_SIZE")
     assert distributed.local_world_size(2, "10.0.0.9:1") == 1
     assert distributed.local_world_size(2, "localhost:1") == 2
+
+
+@pytest.mark.parametrize("model_type", ["ghmfc", "melhi"])
+def test_candidate_parallel_baseline_equals_one_process_and_jax(runs, model_type):
+    """Offline GHMFC and MELHI on a (1, 4) mesh, their candidates split over
+    the model axis (C = 10 padded to 12, 3 a rank), equal one process and
+    the JAX Trainer on a (1, 4) mesh, as
+    ``tests/test_multichip.py::test_baseline_padding_on_mesh_matches_single``
+    holds JAX: both Trainers pad (10, 12) and log it; every rank ends with
+    the same weights, and the first step's gradients equal one process's."""
+    ranks = [r[f"{model_type}_cand@1x4"] for r in runs["four"]]
+    single, jax_run = runs["single"][f"{model_type}_cand"], runs["single"][f"jax_{model_type}_cand"]
+    assert tuple(jax_run["cand_pad"]) == tuple(ranks[0]["cand_pad"]) == (10, 12)
+    assert all(r["split"] for r in ranks) and single["cand_pad"] is None
+    for logs in (jax_run["logs"], ranks[0]["logs"]):
+        assert any("candidate dim padded 10 -> 12" in line for line in logs), logs
+    _assert_same_run(single, jax_run)
+    _assert_same_run(ranks[0], single)
+    _assert_same_run(ranks[0], jax_run)
+    assert len({r["digest"] for r in ranks}) == 1
+    _grads_close(ranks[0]["grads"], single["grads"])
+
+
+@pytest.mark.parametrize("fault", ["melhi_cand_noor", "melhi_cand_localmask", "ghmfc_cand_gsum"])
+def test_baseline_candidate_parallel_faults_fail_the_check(runs, fault):
+    """Planted faults of the baselines' model axis must fail the first-step
+    gradient check above: MELHI's gate without its OR over the group (some
+    mentions' only open candidate lies in the last rank's block), MELHI's
+    padded candidates masked at the block's local indices (the last rank's
+    fakes then open a closed gate), and the score gather's backward summing
+    the gradient over the group where it keeps the block."""
+    faulty = runs["four"][0][f"{fault}@1x4"]
+    with pytest.raises(AssertionError):
+        _grads_close(faulty["grads"], runs["single"][f"{fault.split('_')[0]}_cand"]["grads"])
+
+
+def test_row_sharded_ghmfc_candidate_parallel_equals_one_process(runs):
+    """Offline GHMFC through the training entry point over WikiMEL's
+    token-level tables row-sharded on a model axis of 2: candidate-parallel
+    (C = 11 padded to 12), each gather a reduce-scatter that keeps the
+    rank's block, equal to one process gathering on the host."""
+    ranks = [r["ghmfc_rows_cand@1x2"] for r in runs["two"]]
+    assert all(r["split"] and r["scattered"] and tuple(r["cand_pad"]) == (11, 12) for r in ranks)
+    single = runs["single"]["ghmfc_rows_cand"]
+    assert not single["split"] and not single["scattered"]
+    _assert_same_run(ranks[0], single)
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+
+
+def _no_key_bias(grads):
+    """Every gradient but BERT's key biases: adding a constant to every key
+    leaves the softmax as it is, so their exact gradient is 0 and both
+    sides hold rounding noise (~1e-10 here)."""
+    return {k: v for k, v in grads.items() if not k.endswith("attention.self.key.bias")}
+
+
+def _same_step(got, want, rtol=RTOL):
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=rtol)
+    for k, v in want["counters"].items():
+        assert got["counters"][k] == pytest.approx(v, rel=rtol, abs=1e-6), (k, got["counters"], v)
+
+
+def test_candidate_parallel_online_direct_equals_jax_step(runs):
+    """The online GHMFC in direct mode on a (2, 2) mesh (C = 7 padded to 8:
+    each rank's BERT encodes 4 candidates of its 4 rows, rank 1 of each
+    model group one all-masked fake) against the JAX step on a padded (2, 2)
+    mesh, as ``tests/test_multichip.py::test_online_ghmfc_on_mesh_matches_single_device``
+    holds JAX: the loss and counters of the step, and the scores after it
+    (the parameters are not compared, for the reason that test gives)."""
+    ranks = [r["online_cand@2x2"] for r in runs["four"]]
+    want = runs["single"]["jax_online_cand"]
+    assert all(r["split"] and tuple(r["cand_pad"]) == (7, 8) for r in ranks)
+    for r in ranks:
+        _same_step(r, want)
+    # model index 0 of data rows 0 and 1; its model group holds the same scores
+    assert ranks[0]["scores"] == ranks[1]["scores"] and ranks[2]["scores"] == ranks[3]["scores"]
+    assert [ranks[0]["rows"], ranks[2]["rows"]] == [[0, 4], [4, 8]]
+    scores = np.concatenate([ranks[0]["scores"], ranks[2]["scores"]])
+    np.testing.assert_allclose(scores, want["scores"], rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("S", [4, 3])
+def test_online_zipped_on_the_model_axis_equals_one_process(runs, S):
+    """The online GHMFC in zipped mode on a (1, 2) mesh: with S = 4 each
+    rank's BERT encodes its 2 sentences and they pool to its 2 * E candidate
+    slots; with S = 3, which the axis does not divide, the model runs
+    replicated.  Both equal one process: the loss, the counters, the first
+    step's gradients and the scores after the step."""
+    name = "online_zip" if S == 4 else "online_zip3"
+    ranks = [r[f"{name}@1x2"] for r in runs["two"]]
+    single = runs["single"][name]
+    assert [r["split"] for r in ranks] == [S == 4] * 2 and not single["split"]
+    for r in ranks:
+        _same_step(r, single)
+        np.testing.assert_allclose(r["scores"], single["scores"], rtol=RTOL, atol=1e-6)
+        _grads_close(_no_key_bias(r["grads"]), _no_key_bias(single["grads"]))
+
+
+def test_online_replicated_rule_under_a_split_fails_the_check(runs):
+    """The loss backpropagated over the model width, the replicated rule,
+    while the entity side is split (zipped, S = 4): the first step's
+    gradients must fail the check above."""
+    faulty = runs["two"][0]["online_zip_replicated@1x2"]
+    assert faulty["split"]
+    with pytest.raises(AssertionError):
+        _grads_close(_no_key_bias(faulty["grads"]), _no_key_bias(runs["single"]["online_zip"]["grads"]))
+
+
+def test_ghmfc_ranker_over_row_sharded_store_equals_jax(runs):
+    """A GHMFC ``Ranker`` over the served store row-sharded on two ranks,
+    candidate-parallel (every gather a reduce-scatter on both ranks), behind
+    the HTTP front and its follower: ``score`` at B = 4 and B = 3, ``rank``
+    and /rank B = 1 equal the one-device JAX ``Ranker``'s."""
+    front, follower = (r["serve_ghmfc_rows@1x2"] for r in runs["two"])
+    want = runs["single"]["jax_serve_ghmfc"]
+    assert front["scattered"] and follower["scattered"] and follower["returned"] is None
+    assert front["stopped"]
+    np.testing.assert_allclose(front["score4"], want["score4"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(front["score3"], want["score3"], rtol=1e-5, atol=1e-6)
+    s, i = (np.asarray(x) for x in front["rank3"])
+    np.testing.assert_allclose(s, -np.sort(-want["score3"], -1)[:, :3], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.take_along_axis(want["score3"], i, -1), s, rtol=1e-5, atol=1e-6)
+    code, body = front["http_rank"]
+    assert code == 200
+    np.testing.assert_allclose(body["scores"], -np.sort(-want["score4"][:1], -1)[:, :3], rtol=1e-5,
+                               atol=1e-6)

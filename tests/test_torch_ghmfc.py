@@ -286,3 +286,25 @@ def test_bucket_trim_equals_jax(bucket, floor, used):
 
 def test_online_batch_fields_equal_jax():
     assert tonline.OnlineBatch._fields == jonline.OnlineBatch._fields
+
+
+@pytest.mark.parametrize("pooling", ["avg", "max"])
+@pytest.mark.parametrize("n", [2, 3])
+def test_unzip_entities_on_a_block_of_sentences_equals_the_whole_calls_slice(pooling, n):
+    """A model rank's block of S / n zipped sentences pools, uncut, to its
+    own contiguous block of (S / n) * E candidate slots of the whole call's;
+    the whole call cut to C is the uncut one's first C slots."""
+    rng = np.random.default_rng(n)
+    B, S, L, D, E, C = 2, 6, 20, 8, 3, 16
+    zipped = torch.from_numpy(rng.standard_normal((B, S, L, D)).astype(np.float32))
+    sep = np.sort(rng.integers(2, L, (B, S, E)), axis=-1)
+    sep[1, -1] = [5, 0, 0]  # padding seps in the last block
+    sep = torch.from_numpy(sep)
+    whole = unzip_entities(zipped, sep, None, pooling)
+    assert whole.shape == (B, S * E, D)
+    torch.testing.assert_close(unzip_entities(zipped, sep, C, pooling), whole[:, :C], rtol=0, atol=0)
+    per = S // n
+    for i in range(n):
+        block = unzip_entities(zipped[:, i * per:(i + 1) * per], sep[:, i * per:(i + 1) * per],
+                               None, pooling)
+        torch.testing.assert_close(block, whole[:, i * per * E:(i + 1) * per * E], rtol=0, atol=0)

@@ -131,3 +131,60 @@ def test_group_by_host():
     m = tmesh.Mesh(tmesh.hybrid_layout([[0, 2], [1, 3]], model=1, main=False), rank=2)
     assert m.ranks[:, 0].tolist() == [0, 2, 1, 3] and m.data_index == 1
     assert m.data_order == [0, 2, 1, 3]
+
+
+def _layout_batch(rng, layout, B=3, C=12, S=4, E=3):
+    """A host batch of one baseline layout, its entity placeholders included."""
+    from drin_tpu_torch.data.dataset import BaselineBatch
+    from drin_tpu_torch.data.device_store import BaselineRowsBatch
+    from drin_tpu_torch.data.online import OnlineBatch
+
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    i = lambda *s: rng.integers(0, 9, s)
+    mention = (f(B, 5, 4), i(B, 5), i(B), i(B), f(B, 3, 6))
+    answer = f(B, C - 1)
+    if layout == "rows":
+        return BaselineRowsBatch(*mention, i(B, C), answer)
+    if layout.startswith("online"):
+        if layout == "online-zipped":  # dim 1 is S, the zipped sentences
+            entity = (i(B, S, 16), i(B, S, 16), i(B, S, E), np.zeros((B,), np.float32))
+        else:  # direct: [B] placeholders for the separators and the image
+            entity = (i(B, C, 7), i(B, C, 7), np.zeros((B,), np.int64), np.zeros((B,), np.float32))
+        return OnlineBatch(*((i(B, 9), i(B, 9), i(B), i(B), f(B, 3, 6)) + entity + (answer,)))
+    text, mask = {"pooled": (f(B, C, 2, 4), i(B)), "tokens": (f(B, C, 7, 4), i(B, C, 7)),
+                  "wikidiverse": (f(B, C, 4), i(B))}[layout.split("+")[0]]
+    image = f(B, C, 1) if layout.endswith("+placeholder") else f(B, C, 6)
+    return BaselineBatch(*mention, text, mask, image, answer)
+
+
+@pytest.mark.parametrize("layout", ["pooled", "tokens", "wikidiverse", "pooled+placeholder",
+                                    "rows", "online-direct", "online-zipped"])
+@pytest.mark.parametrize("nm", [2, 4])
+def test_slice_candidates_on_baseline_layouts_equals_jax_specs(layout, nm):
+    """``slice_candidates`` on every baseline layout keeps each rank's block
+    of dim 1 of exactly the fields that ``drin_tpu``'s ``batch_specs``
+    shards over the model axis: C of GHMFC's and MELHI's entity tensors (a
+    [B, C, 1] image placeholder too) and of the online direct mode, S of the
+    zipped mode; a [B] placeholder (a pooled store's mask, direct mode's
+    separators, the online image) passes whole, and so does a rows batch,
+    whose store gathers the block."""
+    batch = _layout_batch(np.random.default_rng(nm), layout)
+    fields = type(batch)._fields
+    mesh = jmesh.make_mesh(devices=jax.devices()[:nm], data=1, model=nm)
+    specs = jmesh.batch_specs(mesh, fields, batch)
+    for index in range(nm):
+        got = tmesh.slice_candidates(batch, fields, tmesh.CandidateSplit(None, index, nm, None))
+        assert type(got) is type(batch)
+        for name, x, g, spec in zip(fields, batch, got, specs):
+            if layout != "rows" and spec == P("data", "model"):
+                lo, hi = index * x.shape[1] // nm, (index + 1) * x.shape[1] // nm
+                np.testing.assert_array_equal(g, x[:, lo:hi], err_msg=name)
+            else:
+                np.testing.assert_array_equal(g, x, err_msg=name)
+    sliced = {name for name, spec in zip(fields, specs) if spec == P("data", "model")}
+    want = {"pooled": {"entity_text_feature", "entity_image_feature"},
+            "tokens": {"entity_text_feature", "entity_text_mask", "entity_image_feature"},
+            "online-direct": {"entity_ids", "entity_mask"},
+            "online-zipped": {"entity_ids", "entity_mask", "entity_sep_idx"}, "rows": set()}
+    want["wikidiverse"] = want["pooled+placeholder"] = want["pooled"]
+    assert sliced == want[layout]

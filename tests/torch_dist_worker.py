@@ -46,12 +46,12 @@ def _record_epochs(trainer, out: list):
     trainer._run_epoch = recording
 
 
-def _fit_and_test(cfg, model, kind, datasets, mesh, feats_fn=None, dump=None):
+def _fit_and_test(cfg, model, kind, datasets, mesh, feats_fn=None, dump=None, logs=None):
     from drin_tpu_torch.train.trainer import Trainer
 
     train, valid, test = datasets
-    tr = Trainer(cfg, model, device="cpu", log=lambda *a: None, mesh=mesh, feats_fn=feats_fn,
-                 output_test_result_path=dump or "unused")
+    tr = Trainer(cfg, model, device="cpu", log=(lambda *a: None) if logs is None else logs.append,
+                 mesh=mesh, feats_fn=feats_fn, output_test_result_path=dump or "unused")
     epochs = []
     _record_epochs(tr, epochs)
     tr.fit(train, valid, FIT_EPOCHS, kind=kind)
@@ -62,6 +62,10 @@ def _fit_and_test(cfg, model, kind, datasets, mesh, feats_fn=None, dump=None):
     if dump and (mesh is None or mesh.main):
         with open(dump) as f:
             out["dump"] = f.read()
+    if logs is not None:
+        out.update(cand_pad=tr._cand_pad, split=tr._split is not None,
+                   logs=[" ".join(str(a) for a in x) if isinstance(x, tuple) else str(x)
+                         for x in logs])
     return out
 
 
@@ -380,6 +384,8 @@ def _refused(address, wait_s: float = 30.0) -> bool:
             socket.create_connection(address, timeout=5).close()
         except ConnectionRefusedError:
             return True
+        except ConnectionResetError:
+            pass  # accepted into the backlog as the socket closed: ask again
         time.sleep(0.1)
     return False
 
@@ -433,6 +439,348 @@ def scenario_http_front(spec, mesh):
         out[mode] = res
     out["want"] = [want[0].tolist(), want[1].tolist()]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the baselines over the model axis: offline GHMFC and MELHI on WikiDiverse
+# with C = 10 padded to 12 over 4 ranks (3 candidates a rank, rank 3 holding
+# candidate 9 and two fakes), the JAX package's
+# test_baseline_padding_on_mesh_matches_single setup
+
+
+def baseline_cfg(store: str, model_type: str):
+    """Tiny WikiDiverse GHMFC or MELHI, C = 10.  MELHI's thresholds make
+    the image gate turn on the candidates' images alone (``melhi_gate_store``
+    lays them out): every text-image cosine clears ``thres_tmim``, and a
+    candidate opens the gate at a mention-image cosine above -0.5."""
+    from drin_tpu_torch.data.synthetic import tiny_config
+
+    return tiny_config("wikidiverse", model_type, preprocess_dir=store).replace(
+        num_candidates_data=9, metrics_topk=(1, 5), batch_size=4, transformer_dropout=0.0,
+        thres_tmim=-2.0, thres_imie=-0.5)
+
+
+def melhi_gate_store(store: str, C: int):
+    """Rewrite a WikiDiverse store's candidate images so that MELHI's gate
+    depends on where its open candidate lies: for mention i, i % 3 == 0,
+    every candidate's image is the negated mean mention image (cosine -1,
+    closed) but candidate C - 1's, which is the mean image itself (cosine 1,
+    open): on a model axis of 4 it lies in the last rank's block alone;
+    i % 3 == 1, every candidate closed (an unmasked padded candidate, whose
+    zero image gives cosine 0, would open it); i % 3 == 2, random images."""
+    for split in ("train", "valid", "test"):
+        mention = np.load(os.path.join(store, f"mention-image-feature_{split}.npy")).mean(1)
+        path = os.path.join(store, f"entity-image-feature_{split}.npy")
+        ent = np.load(path)
+        ent = ent.reshape(len(mention), C, *ent.shape[1:])
+        for i, m in enumerate(mention):
+            if i % 3 == 2:
+                continue
+            ent[i] = -m.reshape(ent.shape[2:])
+            if i % 3 == 0:
+                ent[i, C - 1] = m.reshape(ent.shape[2:])
+        np.save(path, ent.reshape(-1, *ent.shape[2:]))
+
+
+def planted_baseline_fault(fault, width: int = 1):
+    """A context with one planted fault of the baselines' candidate-parallel
+    compute: ``noor``, MELHI's gate without its OR over the model group;
+    ``localmask``, MELHI's padded candidates masked at the block's local
+    indices; ``gsum``, the score gather's backward summing the gradient over
+    the group in place of keeping its block; ``replicated``, the loss
+    backpropagated by the replicated rule (over the model width) while the
+    entity side is split (``width``: the model axis's)."""
+    import contextlib
+
+    from drin_tpu_torch.models.melhi import MELHI
+    from drin_tpu_torch.parallel import collectives as coll
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = coll.any_over, MELHI.similarities, coll.gather_blocks, torch.Tensor.backward
+        if fault == "noor":
+            coll.any_over = lambda flag, group: flag
+        elif fault == "localmask":
+            MELHI.similarities = lambda self, mf, mi, ei, split=None: saved[1](self, mf, mi, ei)
+        elif fault == "gsum":
+            def summed(x, group, order=None, dim=1):
+                return coll.gather_rows(x.transpose(0, dim).contiguous(), group,
+                                        order).transpose(0, dim)
+
+            coll.gather_blocks = summed
+        elif fault == "replicated":
+            def over_width(loss, *a, **kw):
+                return saved[3](loss / width, *a, **kw)
+
+            torch.Tensor.backward = over_width
+        try:
+            yield
+        finally:
+            coll.any_over, MELHI.similarities, coll.gather_blocks, torch.Tensor.backward = saved
+
+    return ctx()
+
+
+def _baseline_cand(spec, mesh, model_type, fault=None):
+    from drin_tpu_torch.data.dataset import create_datasets
+    from drin_tpu_torch.models import get_model
+
+    cfg = baseline_cfg(spec["base_cand"], model_type)
+    datasets = create_datasets(cfg)
+    weights = torch.load(spec[f"{model_type}_weights"], weights_only=True)
+    with planted_baseline_fault(fault):
+        model, kind = get_model(cfg)
+        model.load_state_dict(weights)
+        grads = first_step_grads(cfg, model, kind, datasets[0], mesh)
+        if fault is not None:  # the first step's gradients are the check it must fail
+            return {"grads": grads}
+        model.load_state_dict(weights)
+        out = _fit_and_test(cfg, model, kind, datasets, mesh, logs=[])
+    out["grads"] = grads
+    return out
+
+
+def scenario_ghmfc_cand(spec, mesh):
+    """Offline GHMFC candidate-parallel, C = 10 padded to 12."""
+    return _baseline_cand(spec, mesh, "ghmfc")
+
+
+def scenario_melhi_cand(spec, mesh):
+    """MELHI candidate-parallel, C = 10 padded to 12, its gate ORed over the
+    model group."""
+    return _baseline_cand(spec, mesh, "melhi")
+
+
+def scenario_ghmfc_cand_gsum(spec, mesh):
+    return _baseline_cand(spec, mesh, "ghmfc", fault="gsum")
+
+
+def scenario_melhi_cand_noor(spec, mesh):
+    return _baseline_cand(spec, mesh, "melhi", fault="noor")
+
+
+def scenario_melhi_cand_localmask(spec, mesh):
+    return _baseline_cand(spec, mesh, "melhi", fault="localmask")
+
+
+def ghmfc_rows_args(store: str, mesh) -> list:
+    """The training entry point's arguments for tiny WikiMEL GHMFC over
+    token-level tables (C = 11): row-sharded over a model axis of 2 on a
+    mesh (candidate-parallel, C padded to 12), gathered on the host in one
+    process."""
+    args = dict(model_type="ghmfc", dataset_name="wikimel", preprocess_dir=store,
+                dataset_root="unused", num_candidates_data=10, metrics_topk=(1, 5),
+                bert_embed_dim=16, resnet_embed_dim=24, gcn_embed_dim=16,
+                mention_final_output_dim=16, entity_final_output_dim=16,
+                max_mention_sentence_len=12, max_entity_attr_token_len=8, resnet_num_region=4,
+                batch_size=8, transformer_num_layers=2, transformer_num_heads=2,
+                transformer_ffn_hidden_size=16, num_epoch=FIT_EPOCHS, test_epoch_interval=FIT_EPOCHS,
+                transformer_dropout=0.0, cache_entity_pooling="false",
+                device="cpu")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        args.update(num_processes=mesh.size, process_id=dist.get_rank(),
+                    coordinator_address="unused:0", mesh_data=1, mesh_model=mesh.size)
+    return [f"{k}={v}" for k, v in args.items()]
+
+
+def scenario_ghmfc_rows_cand(spec, mesh):
+    """Offline GHMFC through ``cli.main`` over WikiMEL's token-level tables:
+    row-sharded over the model axis on a mesh (each gather a reduce-scatter
+    that keeps this rank's block of the 12 padded candidates)."""
+    from drin_tpu_torch.parallel import collectives
+    from drin_tpu_torch.train import cli
+    from drin_tpu_torch.train.trainer import Trainer
+
+    epochs, scattered = [], []
+    plain_epoch, plain_scatter = Trainer._run_epoch, collectives.reduce_scatter_exact_
+
+    def recording(self, dataset, split, train, kind):
+        r = plain_epoch(self, dataset, split, train, kind)
+        epochs.append({"split": split, "loss": r["loss"],
+                       "accs": {str(k): v for k, v in r["accs"].items()}})
+        return r
+
+    Trainer._run_epoch = recording
+    collectives.reduce_scatter_exact_ = lambda *a, **k: scattered.append(1) or plain_scatter(*a, **k)
+    try:
+        tr = cli.main(ghmfc_rows_args(spec["wm"], mesh))
+    finally:
+        Trainer._run_epoch, collectives.reduce_scatter_exact_ = plain_epoch, plain_scatter
+    tests = [e for e in epochs if e["split"] == "test"]
+    return {"epochs": epochs, "test_loss": tests[-1]["loss"], "test_accs": tests[-1]["accs"],
+            "digest": digest(tr.state.model.state_dict()), "step": tr.state.step,
+            "cand_pad": tr._cand_pad, "split": tr._split is not None, "scattered": len(scattered)}
+
+
+# the online GHMFC over the model axis: BERT and the batch of
+# tests/test_multichip.py::test_online_ghmfc_on_mesh_matches_single_device
+ONLINE_MESH_BERT = dict(vocab_size=64, hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
+                        intermediate_size=32, max_position_embeddings=64)
+
+
+def online_mesh_cfg(zipped_sentences: int = 0, C: int = 7):
+    """Tiny online GHMFC, fine-tuned: direct mode (C = 7, padded to 8 over a
+    model axis of 2, as the JAX test's one padded candidate) or zipped into
+    ``zipped_sentences`` sentences of 32 tokens (C = 8)."""
+    from drin_tpu_torch.data.synthetic import tiny_config
+
+    return tiny_config("wikimel", "ghmfc", preprocess_dir="unused-online-mesh").replace(
+        num_candidates_data=C - 1, batch_size=8, metrics_topk=(1, 5), online_bert=True,
+        num_entity_sentence=zipped_sentences, finetune_bert=True,
+        mention_final_layer_name="linear", max_mention_sentence_len=16, max_bert_len=32,
+        max_entity_attr_token_len=12, transformer_dropout=0.0, learning_rate=3e-3)
+
+
+def online_mesh_batch(cfg, seed: int = 31):
+    """A seeded ``OnlineBatch`` of B = 8 (answer included): 24 mention
+    tokens, candidates of 4-11 tokens per candidate (direct) or of 4-7
+    zipped."""
+    from drin_tpu_torch.data.online import OnlineBatch, zip_entities
+
+    rng = np.random.default_rng(seed)
+    B, C, V, Lm, Le = cfg.batch_size, cfg.num_candidates_model, 64, 24, cfg.max_entity_attr_token_len
+    mids, mmask = np.zeros((B, Lm), np.int64), np.zeros((B, Lm), np.int64)
+    for b in range(B):
+        n = rng.integers(8, Lm)
+        mids[b, 0], mids[b, 1:n - 1], mids[b, n - 1] = 1, rng.integers(5, V, n - 2), 2
+        mmask[b, :n] = 1
+    longest = 6 if cfg.num_entity_sentence else Le - 1  # three texts fill a zipped sentence
+    texts = [[[1] + list(rng.integers(5, V, rng.integers(2, longest))) + [2] for _ in range(C)]
+             for _ in range(B)]
+    if cfg.num_entity_sentence:
+        packed = [zip_entities(t, cfg.num_entity_sentence, cfg.max_bert_len, 1) for t in texts]
+        eids, emask, sep = (np.stack(x) for x in zip(*packed))
+    else:
+        eids, emask = np.zeros((B, C, Le), np.int64), np.zeros((B, C, Le), np.int64)
+        for b in range(B):
+            for c, t in enumerate(texts[b]):
+                eids[b, c, :len(t)], emask[b, c, :len(t)] = t, 1
+        sep = np.zeros((B,), np.int64)
+    answer = np.eye(C, dtype=np.float32)[rng.integers(0, C - 1, B)][:, :-1]
+    return OnlineBatch(mids, mmask, np.full((B,), 2, np.int64), np.full((B,), 4, np.int64),
+                       rng.standard_normal((B, 4, cfg.resnet_embed_dim)).astype(np.float32),
+                       eids, emask, sep, np.zeros((B,), np.float32), answer)
+
+
+class _Fixed:
+    """A dataset of one fixed batch, for ``Trainer._assemble``."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def make_batch(self, idx, kind):
+        return type(self.batch)(*(np.asarray(x)[idx] for x in self.batch))
+
+
+def online_step(cfg, model, batch, mesh, fault=None) -> dict:
+    """One train step of the online model on ``batch`` through the
+    Trainer's assembly (padding and slicing): the global loss, the counters
+    summed over the data group, the gradient Adam took, and the scores of
+    this rank's rows after the step."""
+    from drin_tpu_torch.train import metrics as M
+    from drin_tpu_torch.train.trainer import Trainer
+
+    B = cfg.batch_size
+    tr = Trainer(cfg, model, device="cpu", log=lambda *a: None, mesh=mesh)
+    b, v = tr._assemble(_Fixed(batch), "online", np.arange(B), np.ones((B,), np.float32))
+    with planted_baseline_fault(fault, mesh.shape["model"] if mesh is not None else 1):
+        tr.state, loss, mstate = tr.fns.train_step(tr.state, b, v, M.init_state(cfg.metrics_topk, "cpu"))
+    grads = {name: p.grad.reshape(-1).tolist() for name, p in tr.state.model.named_parameters()
+             if p.grad is not None}
+    _, _, scores = tr.fns.eval_step(b, v, M.init_state(cfg.metrics_topk, "cpu"))
+    return {"loss": float(loss), "counters": {k: float(x) for k, x in tr._reduced(mstate).items()},
+            "grads": grads, "scores": scores.tolist(), "rows": list(tr._rows),
+            "cand_pad": tr._cand_pad, "split": tr._split is not None}
+
+
+def _online_mesh_model(cfg, weights=None):
+    from drin_tpu_torch.encoders.bert import BertConfig
+    from drin_tpu_torch.models import get_model
+
+    model, kind = get_model(cfg, torch.Generator().manual_seed(0),
+                            bert_cfg=BertConfig(**ONLINE_MESH_BERT))
+    assert kind == "online"
+    if weights is not None:
+        model.load_state_dict(torch.load(weights, weights_only=True))
+    return model
+
+
+def scenario_online_cand(spec, mesh):
+    """Direct mode, C = 7 padded to 8: each rank's BERT encodes its 4
+    candidates of its rows (rank 1 of a model group one all-masked fake)."""
+    cfg = online_mesh_cfg()
+    return online_step(cfg, _online_mesh_model(cfg, spec["online_weights"]), online_mesh_batch(cfg),
+                       mesh)
+
+
+def _online_zip(mesh, S, fault=None):
+    cfg = online_mesh_cfg(zipped_sentences=S, C=8)
+    return online_step(cfg, _online_mesh_model(cfg), online_mesh_batch(cfg), mesh, fault)
+
+
+def scenario_online_zip(spec, mesh):
+    """Zipped mode, S = 4 sentences: 2 a rank on a model axis of 2."""
+    return _online_zip(mesh, 4)
+
+
+def scenario_online_zip3(spec, mesh):
+    """Zipped mode, S = 3 sentences, which a model axis of 2 does not
+    divide: the model replicates its compute along the axis."""
+    return _online_zip(mesh, 3)
+
+
+def scenario_online_zip_replicated(spec, mesh):
+    return _online_zip(mesh, 4, fault="replicated")
+
+
+def ghmfc_serve_cfg(store: str):
+    """``serve_cfg``'s store served by offline GHMFC in f32 (pooled text
+    table, C = 8)."""
+    from drin_tpu_torch.data.synthetic import tiny_config
+
+    return tiny_config("wikimel", "ghmfc", preprocess_dir=store).replace(compute_dtype="float32")
+
+
+def scenario_serve_ghmfc_rows(spec, mesh):
+    """A GHMFC Ranker over the served store row-sharded on the model axis,
+    candidate-parallel, behind the HTTP front: the first rank scores B = 4
+    and B = 3 and ranks B = 3 in lockstep and answers /rank B = 1; the other
+    follows until the front stops."""
+    from drin_tpu_torch.data.dataset import MELFeatureDataset, load_wikimel_entity_tables
+    from drin_tpu_torch.parallel import collectives
+    from drin_tpu_torch.serve import Ranker, _encode_arrays, rank_feat_fields, serve_http
+
+    cfg = ghmfc_serve_cfg(spec["serve"])
+    tables = load_wikimel_entity_tables(cfg)
+    ds = MELFeatureDataset(cfg, "train", tables)
+    b4, b3 = ds.baseline_rows_batch(np.arange(4)), ds.baseline_rows_batch(np.arange(3))
+    params = torch.load(spec["ghmfc_serve_weights"], weights_only=True)
+    r = Ranker(cfg, params, tables, device="cpu", store_mesh=mesh)
+    fields = rank_feat_fields(r)
+    scattered = []
+    plain_scatter = collectives.reduce_scatter_exact_
+    collectives.reduce_scatter_exact_ = lambda *a, **k: scattered.append(1) or plain_scatter(*a, **k)
+    try:
+        if mesh.model_index != 0:
+            return {"returned": serve_http(r, port=0, feat_fields=fields),
+                    "scattered": len(scattered)}
+        server = serve_http(r, port=0, feat_fields=fields)
+        try:
+            out = {"score4": r.score(b4[:-1]).tolist(), "score3": r.score(b3[:-1]).tolist()}
+            s, i = r.rank(b3[:-1], k=3)
+            out["rank3"] = [s.tolist(), i.tolist()]
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            feats = _encode_arrays({name: np.asarray(v)[:1] for name, v in zip(fields, b4[:-1])})
+            out["http_rank"] = _http(url, "/rank", {"features": feats, "k": 3})
+        finally:
+            server.stop()
+        out["stopped"] = server.stopped.wait(60)
+        out["scattered"] = len(scattered)
+        return out
+    finally:
+        collectives.reduce_scatter_exact_ = plain_scatter
 
 
 ONLINE_BERT = dict(vocab_size=64, hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
