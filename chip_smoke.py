@@ -344,12 +344,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_events(prof) -> list:
+    """The averaged device-side events of a stopped profiler: kernels,
+    copies, memsets.  A host range (``record_function``: the port's spans,
+    the optimizer's step) also shows on the device's row under its own name,
+    covering what it launched; those rows are left out, as
+    ``portbench/trace.read`` leaves them out, or they would count as busy."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    ranges = {e.key for e in events if e.device_type == DeviceType.CPU}
+    return [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def kernel_device_ms(torch, fn, reps: int = 10) -> dict:
     """Device time in ms per call of ``fn``, by kernel name, from torch.profiler.
     A window in which the profiler saw no device activity at all (it happens
     now and then on a repeated profile) is taken again, up to three times;
     an empty result means "not measured", never 0 ms."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -359,8 +372,8 @@ def kernel_device_ms(torch, fn, reps: int = 10) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        times = {e.key: e.self_device_time_total / 1e3 / reps for e in device_events(prof)
+                 if e.self_device_time_total > 0}
         if times:
             return times
     raise RuntimeError("torch.profiler saw no device activity in three windows: device time not measured")
@@ -379,7 +392,6 @@ def kernel_launches(torch, fn) -> dict:
     """The CUDA kernels one call of ``fn`` launches, by name: {name: count},
     from torch.profiler (a window that saw no device activity is taken
     again, up to three times)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -388,7 +400,7 @@ def kernel_launches(torch, fn) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        got = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        got = {e.key: e.count for e in device_events(prof)}
         if got:
             return got
     raise RuntimeError("torch.profiler saw no device activity in three windows")
@@ -6089,8 +6101,7 @@ def profile_call(torch, fn, label: str, reps: int = 5, top: int = 12):
     # device-side events only (kernels, copies): CPU ops also carry the
     # device time of what they launched and would count it twice
     rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            for e in device_events(prof) if e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
         print("[profile] device time not measured (the profiler saw no device activity)")

@@ -14,6 +14,8 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
 
+from drin_tpu_torch.common.spans import span
+
 
 class _Sentinel:
     pass
@@ -92,7 +94,8 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with span("drin.prefetch.wait"):
+            item = self._q.get()
         if item is _END:
             self._thread.join()
             if self._exc is not None:

@@ -24,6 +24,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from drin_tpu_torch.common.spans import span
 from drin_tpu_torch.nn.layers import Linear
 from drin_tpu_torch.ops.cuda.attention import fused_attention
 
@@ -102,6 +103,10 @@ class BertSelfAttention(nn.Module):
                 and L >= FUSED_ATTENTION_MIN_LEN)
 
     def forward(self, x, additive_mask):
+        with span("drin.bert.attention"):
+            return self._forward(x, additive_mask)
+
+    def _forward(self, x, additive_mask):
         B, L, D = x.shape
         H = self.num_heads
         hd = D // H

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from drin_tpu_torch.common.config import Config
+from drin_tpu_torch.common.spans import span
 from drin_tpu_torch.models.ghmfc import EntityEncoder, MentionEncoder
 from drin_tpu_torch.nn.layers import LayerNorm, Linear, get_activation
 from drin_tpu_torch.ops.core import cosine_similarity, object_pair_similarity, span_mean
@@ -132,6 +133,10 @@ class GCNLayer(nn.Module):
     def forward(self, vertexes, edges, split=None):
         """One layer; with ``split`` the entity vertices and the edges hold
         this rank's block of the candidates (the module docstring)."""
+        with span("drin.gcn_layer"):
+            return self._forward(vertexes, edges, split)
+
+    def _forward(self, vertexes, edges, split):
         cfg = self.cfg
         C = cfg.num_candidates_model
         vector = cfg.gcn_edge_feature == "vector"

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from drin_tpu_torch.common.config import Config
+from drin_tpu_torch.common.spans import span
 from drin_tpu_torch.data.dataset import BaselineBatch, DrinBatch
 from drin_tpu_torch.data.device_store import (BaselineRowsBatch, DeviceEntityStore,
                                               DrinRowsBatch, include_for, project_drin_tables)
@@ -515,13 +516,17 @@ class Ranker:
         return pad_candidates_to(feats, _batch_type(self)._fields[:-1], C, Cp), split
 
     def _scores(self, feats) -> torch.Tensor:
-        feats = self._prepare(feats)
-        if self._feats_fn is None:
-            return self.model(feats).float()
-        feats, split = self._candidate_split(feats)
-        if split is None:
-            return self.model(self._feats_fn(feats)).float()
-        return self.model(self._feats_fn(feats, split), split=split).float()
+        with span("drin.serve.prepare"):
+            feats = self._prepare(feats)
+        split = None
+        if self._feats_fn is not None:
+            with span("drin.serve.gather"):
+                feats, split = self._candidate_split(feats)
+                feats = self._feats_fn(feats) if split is None else self._feats_fn(feats, split)
+        with span("drin.serve.forward"):
+            if split is None:
+                return self.model(feats).float()
+            return self.model(feats, split=split).float()
 
     def score(self, feats) -> np.ndarray:
         """Raw candidate scores [B, C] for a feature tuple (the batch fields
@@ -537,12 +542,13 @@ class Ranker:
         return self._rank(feats, k)
 
     def _rank(self, feats, k: int):
-        with torch.inference_mode():
+        with torch.inference_mode(), span("drin.serve.rank"):
             s = self._scores(feats)
             if not 0 <= k <= s.shape[-1]:
                 raise ValueError(f"k must be in [0, {s.shape[-1]}], got {k}")
-            vals, idx = torch.topk(s, k, dim=-1)
-            return vals.cpu().numpy(), idx.cpu().numpy()
+            with span("drin.serve.result"):
+                vals, idx = torch.topk(s, k, dim=-1)
+                return vals.cpu().numpy(), idx.cpu().numpy()
 
     # -- lockstep over a row-sharded store's model group ---------------
     def _group(self):
@@ -630,8 +636,10 @@ class Ranker:
             return out
 
     def _scores_numpy(self, feats) -> np.ndarray:
-        with torch.inference_mode():
-            return self._scores(feats).cpu().numpy()
+        with torch.inference_mode(), span("drin.serve.rank"):
+            s = self._scores(feats)
+            with span("drin.serve.result"):
+                return s.cpu().numpy()
 
     def follow(self):
         """Run the front's calls (:meth:`lead`) on this rank of the model

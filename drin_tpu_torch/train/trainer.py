@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from drin_tpu_torch.common.config import Config
+from drin_tpu_torch.common.spans import span
 from drin_tpu_torch.data.prefetch import Prefetcher
 from drin_tpu_torch.parallel import collectives
 from drin_tpu_torch.parallel import mesh as pmesh
@@ -206,6 +207,10 @@ def build_step_fns(model: torch.nn.Module, cfg: Config,
         return loss, mstate, scores
 
     def train_step(state: TrainState, batch, valid, mstate):
+        with span("drin.train.step"):
+            return _train_step(state, batch, valid, mstate)
+
+    def _train_step(state: TrainState, batch, valid, mstate):
         rng = step_generator(cfg, state.step, valid.device, data_index)
         state.optimizer.zero_grad(set_to_none=True)
         loss, mstate, _ = loss_and_metrics(batch, valid, mstate, rng)
@@ -214,12 +219,14 @@ def build_step_fns(model: torch.nn.Module, cfg: Config,
         # compute holds all of it on each of the n_model ranks
         (loss if split is not None else loss / n_model).backward()
         loss = loss.detach()
-        if mesh is not None:
-            # every rank's Adam step must see the global gradient: the sum of
-            # the shares over the whole mesh, with the loss's shares (every
-            # rank of a model group holds the same loss)
-            loss = collectives.sum_grads_(list(model.parameters()), mesh.group, loss / n_model)
-        state.optimizer.step()
+        with span("drin.train.optimizer"):
+            if mesh is not None:
+                # every rank's Adam step must see the global gradient: the sum
+                # of the shares over the whole mesh, with the loss's shares
+                # (every rank of a model group holds the same loss)
+                loss = collectives.sum_grads_(list(model.parameters()), mesh.group,
+                                              loss / n_model)
+            state.optimizer.step()
         state.step += 1
         return state, loss, mstate
 
