@@ -13,7 +13,9 @@ attention forward, the attention backward with and without a mask, the
 vertex update in both dtypes, and the port-only NMS kernel on the detector's
 RPN and class problems and its edge cases), runs the full-width Faster R-CNN
 detector from a seeded torchvision-keyed checkpoint against its CPU forward,
-then drives twenty-one paths at the full width of their models with seeded
+holds the ranker's pinned input staging against pageable copies (and two
+micro-batched flushes in flight against serial calls), then drives
+twenty-one paths at the full width of their models with seeded
 random weights.  Served, through ``Ranker`` and ``serve_http``:
 
   * DRIN's rank stage at the WikiMEL width over an int8 fused store of
@@ -6069,6 +6071,102 @@ def phase_preprocess_dp(torch, np, attn, cfg):
     return {"attention": n_dp}, {"errors": errs, "seconds": {f"{n}/{t}": v for (n, t), v in secs.items()}}
 
 
+def phase_staging(torch, np, n_rows: int = 4096):
+    """The ranker's pinned input staging (``data/staging.py``) on the card:
+    a DRIN request at the WikiMEL width (B=64, 53.1 MB) and an online GHMFC
+    one (B=8) staged in float32 and bf16, each field bit-equal to the
+    pageable ``.to(device, dtype)`` copy; a second request staged at once,
+    while the first's copies wait behind queued device work, leaving the
+    first's device tensors intact (and counted in ``waits``); ``bytes``
+    counting every field's bytes; then a float32 DRIN Ranker (the int8
+    fused store of ``n_rows`` entities) behind a BatchingRanker with two
+    flushes in flight, whose answers must equal the same requests ranked
+    one after another."""
+    from drin_tpu_torch import make_config
+    from drin_tpu_torch.data import staging
+    from drin_tpu_torch.models.drin import DRIN
+    from drin_tpu_torch.serve import BatchingRanker, Ranker
+    from drin_tpu_torch.tools.staging_sweep import drin_request, online_request
+
+    dev = torch.device("cuda")
+    count = lambda: {n: getattr(staging, n) for n in ("calls", "bytes", "passthrough", "waits",
+                                                      "grows")}
+    moved = lambda before: {n: v - before[n] for n, v in count().items()}
+
+    def pageable(feats, dt):
+        ts = [torch.as_tensor(np.asarray(x)) for x in feats]
+        return [t.to(dev, dt) if t.is_floating_point() else t.to(dev) for t in ts]
+
+    def equal(got, want):
+        return all(g.dtype == w.dtype and g.shape == w.shape and
+                   torch.equal(g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8))
+                   for g, w in zip(got, want))
+
+    rng = np.random.default_rng(SEED + 21)
+    requests = {"drin": [drin_request(rng) for _ in range(2)],
+                "online": [online_request(rng) for _ in range(2)]}
+    stager = staging.PinnedStager(dev)
+    out = {}
+    for kind, (a, b) in requests.items():
+        for dt in (torch.float32, torch.bfloat16):
+            nbytes = sum(np.asarray(x).size * (dt.itemsize if np.asarray(x).dtype.kind == "f"
+                                               else np.asarray(x).itemsize) for x in a)
+            torch.cuda.synchronize()
+            before = count()
+            # ~30 ms of device work queued ahead: the first request's copies
+            # are still in flight when the second is staged, which must wait
+            # for them before it writes the arena
+            torch.cuda._sleep(50_000_000)
+            got_a = stager.stage(a, dt)
+            got_b = stager.stage(b, dt)
+            torch.cuda.synchronize()
+            m = moved(before)
+            ok = equal(got_a, pageable(a, dt)) and equal(got_b, pageable(b, dt))
+            tag = f"{kind} {str(dt).split('.')[-1]}"
+            print(f"[staging] {tag}: {len(a)} fields, {nbytes / 1e6:.2f} MB a request, two "
+                  f"requests staged back to back: bit-equal to the pageable copies {ok}; "
+                  f"counters moved {m}")
+            assert ok, tag
+            assert m["calls"] == 2 and m["bytes"] == 2 * nbytes and m["passthrough"] == 0, m
+            assert m["waits"] == 1, m
+            out[tag] = m
+    torch.cuda.synchronize()
+    before = count()
+    stager.stage(requests["drin"][0], torch.float32)
+    torch.cuda.synchronize()
+    after_sync = moved(before)
+    assert after_sync["waits"] == 0 and after_sync["grows"] == 0, after_sync
+
+    cfg = make_config("drin", "wikimel")  # float32, as the benchmark's cell
+    weights = DRIN(cfg, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    tables = _tables(np, cfg, n_rows)
+    ranker = Ranker(cfg, weights, tables, device="cuda", quantize_store=True, fused_gather=True)
+    reqs = []
+    for i in range(6):
+        feats = list(_rows_batch(np, cfg, 64, SEED + 2100 + i))
+        feats[7] = feats[7] % n_rows
+        reqs.append(tuple(feats))
+    serial = [ranker.rank(f, k=5) for f in reqs]
+    front = BatchingRanker(ranker, max_batch=64, wait_ms=1.0, pipeline_depth=2)
+    try:
+        before = count()
+        got = [r for _ in range(2) for r in _concurrent([lambda f=f: front.rank(f, k=5)
+                                                         for f in reqs])]
+        flushes = front._batches_run
+    finally:
+        front.close()
+    torch.cuda.synchronize()
+    m = moved(before)
+    same = all(np.array_equal(gs, ws) and np.array_equal(gi, wi)
+               for (gs, gi), (ws, wi) in zip(got, serial + serial))
+    print(f"[staging] BatchingRanker, pipeline_depth=2: {len(got)} B=64 requests in {flushes} "
+          f"flushes, answers equal to the serial calls {same}; counters moved {m}")
+    assert same and flushes == len(got) and m["calls"] == flushes, (same, flushes, m)
+    out["batched"] = {"flushes": flushes, **m}
+    print(f"[staging] {json.dumps(out)}")
+    return out
+
+
 def profile_rank(torch, ranker, feats, label: str, reps: int = 5):
     """Where a rank's time goes: host-side input preparation (numpy ->
     device copy and cast), device time by kernel and the device's idle
@@ -6161,6 +6259,8 @@ def main() -> int:
                 "nms": phase_nms(torch, np, nms_mod)}
     measured.update(phase_attention_bwd(torch, np, attn))
     detector = phase_detector(torch, np, nms_mod)
+    # the ranker's pinned input staging, before the paths count their launches
+    phase_staging(torch, np)
     # each main path is driven with its kernels' counts set to 0 just before
     # and read just after; a kernel of a path that the path never launched fails
     mods = (gather, gcn, attn, vu, nms_mod)

@@ -67,6 +67,7 @@ from drin_tpu_torch.data.dataset import BaselineBatch, DrinBatch
 from drin_tpu_torch.data.device_store import (BaselineRowsBatch, DeviceEntityStore,
                                               DrinRowsBatch, include_for, project_drin_tables)
 from drin_tpu_torch.data.online import OnlineBatch, assemble_online_feats
+from drin_tpu_torch.data.staging import PinnedStager
 from drin_tpu_torch.models import get_model
 from drin_tpu_torch.ops.core import cosine_similarity
 from drin_tpu_torch.ops.cuda.gather import sanitize_rows
@@ -310,6 +311,7 @@ class Ranker:
         self.model, self.kind = self._build_model(cfg, params)
         self.store = None
         self._feats_fn = None
+        self._stager = PinnedStager(self.device)
         self._entity_reprs = None
         self._tokenizer = None
         # stage-1 retrieval caches, built on first use from the store
@@ -452,8 +454,7 @@ class Ranker:
         :meth:`precompute_entity_reprs` first."""
         assert self._entity_reprs is not None, "call precompute_entity_reprs() first"
         with torch.inference_mode():
-            feats = self._check_batch([self._to_device(x) for x in mention_feats] +
-                                      [self._to_device(rows)])
+            feats = self._check_batch(self._stager.stage(list(mention_feats) + [rows], self.dtype))
             rows = feats.pop()
             if rows.ndim != 2:
                 raise ValueError(f"rows must be [B, C], got {tuple(rows.shape)}")
@@ -468,10 +469,6 @@ class Ranker:
             return vals.cpu().numpy(), idx.cpu().numpy()
 
     # ------------------------------------------------------------------
-    def _to_device(self, x) -> torch.Tensor:
-        t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
-        return t.to(self.device, self.dtype) if t.is_floating_point() else t.to(self.device)
-
     @staticmethod
     def _check_batch(out: list) -> list:
         B = out[0].shape[0] if out[0].ndim else None
@@ -481,11 +478,17 @@ class Ranker:
         return out
 
     def _prepare(self, feats) -> tuple:
+        """The request's feature fields on the device, checked: a floating
+        field in the compute dtype, any other in its own.  Host arrays go
+        through the ranker's :class:`~drin_tpu_torch.data.staging.PinnedStager`
+        (on CUDA one pinned arena, filled and sent in chunks, the copies
+        asynchronous on the current stream); tensors already on the device
+        pass through."""
         feats = tuple(feats)
         n = len(_batch_type(self)._fields) - 1
         if len(feats) != n:
             raise ValueError(f"expected {n} feature fields, got {len(feats)}")
-        out = self._check_batch([self._to_device(x) for x in feats])
+        out = self._check_batch(self._stager.stage(feats, self.dtype))
         if self._feats_fn is not None and self.kind == "drin":
             rows, miet, mtei = out[7], out[8], out[9]
             if rows.ndim != 2 or miet.shape != rows.shape or mtei.shape != rows.shape:
@@ -952,9 +955,11 @@ class BatchingRanker:
     row 0, runs one ``ranker.rank`` or ``ranker.retrieve`` and splits the
     results back.  A group that fails is retried request by request, so a
     malformed request fails only its own caller.  ``pipeline_depth`` flushes
-    may be in flight at once; the ranker's host-to-device copies are
-    pageable and share one stream, so on CUDA they are not expected to
-    overlap another flush's compute."""
+    may be in flight at once.  The ranker stages each call's inputs through
+    its one pinned arena, one call at a time (a flush may fill the arena
+    while another flush's kernels run), and every flush runs on one stream,
+    so on CUDA a flush's copies to the device do not overlap another flush's
+    compute."""
 
     def __init__(self, ranker: Ranker, max_batch: int = 64, wait_ms: float = 2.0,
                  buckets: tuple = (1, 2, 4, 8, 16, 32, 64), pipeline_depth: int = 2):
