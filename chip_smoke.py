@@ -30,7 +30,12 @@ random weights.  Served, through ``Ranker`` and ``serve_http``:
     the entity precompute and ``rank_rows``; and once with the 8-layer
     transformer mention layer;
   * MELHI on WikiDiverse (C=11), its thresholds set inside the run's own
-    cosines so that both image-gate states occur (no kernel).
+    cosines so that both image-gate states occur (no kernel);
+  * GHMFC with granite-4.0-h-micro as its online text tower in bf16, at its
+    published size, through ``Ranker.rank`` as the benchmark cell
+    ``ghmfc-granite-rank-b8`` drives it: B=8 mentions, 101 candidates zipped
+    into 4 sentences (the SSD scan kernel, 72 launches per request: 36
+    Mamba-2 layers over the mention and the entity sentences).
 
 Trained, through ``Trainer`` and ``build_step_fns``:
 
@@ -121,6 +126,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -297,6 +303,11 @@ RETRIEVE_SCORE_ATOL = 2e-3
 # dropped in the backward moves its tensors by their whole norm, 1.0
 TRAIN_BASELINE_F32_GRAD_REL = 1e-3
 TRAIN_BASELINE_BF16_GRAD_REL = 0.5
+# the scan kernel shares ssd_plain's rounding points (the weighted scores, the
+# carried state and the weighted B in bf16) and sums in another order: its
+# error against the float32 scan may exceed the plain version's by a bf16
+# step or two of those intermediates, not by a whole term left out
+SSD_ERR_RATIO = 2.0
 # the card's published peaks (H100 SXM, dense): bytes/s and FLOP/s by type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
@@ -6106,6 +6117,9 @@ def phase_staging(torch, np, n_rows: int = 4096):
     requests = {"drin": [drin_request(rng) for _ in range(2)],
                 "online": [online_request(rng) for _ in range(2)]}
     stager = staging.PinnedStager(dev)
+    # the arena sized once for the largest request: allocating pinned memory
+    # inside a pair can take longer than the device work queued ahead of it
+    stager.stage(requests["drin"][0], torch.float32)
     out = {}
     for kind, (a, b) in requests.items():
         for dt in (torch.float32, torch.bfloat16):
@@ -6128,7 +6142,7 @@ def phase_staging(torch, np, n_rows: int = 4096):
                   f"counters moved {m}")
             assert ok, tag
             assert m["calls"] == 2 and m["bytes"] == 2 * nbytes and m["passthrough"] == 0, m
-            assert m["waits"] == 1, m
+            assert m["waits"] == 1 and m["grows"] == 0, m
             out[tag] = m
     torch.cuda.synchronize()
     before = count()
@@ -6165,6 +6179,126 @@ def phase_staging(torch, np, n_rows: int = 4096):
     out["batched"] = {"flushes": flushes, **m}
     print(f"[staging] {json.dumps(out)}")
     return out
+
+
+def ssd_inputs(torch, N: int, L: int, seed: int, H: int = 64, S: int = 128):
+    """A Mamba-2 layer's scan inputs as the granite tower hands them over: x,
+    B and C bf16 views into one [N, L, H * 64 + 2 S] buffer (the conv's
+    output), dt float32 after the softplus (dt_bias from Mamba-2's law), A
+    = -exp(log U(1, 16)), D ~ 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn((N, L, H * 64 + 2 * S), generator=g, device="cuda").to(torch.bfloat16)
+    x = buf[..., :H * 64].view(N, L, H, 64)
+    B, C = buf[..., H * 64:H * 64 + S], buf[..., H * 64 + S:]
+    u = torch.rand(H, generator=g, device="cuda")
+    dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = torch.nn.functional.softplus(torch.randn((N, L, H), generator=g, device="cuda")
+                                      + dt_bias)
+    A = -(1 + 15 * torch.rand(H, generator=g, device="cuda"))
+    D = 1 + 0.1 * torch.randn(H, generator=g, device="cuda")
+    return x, dt, A, B, C, D
+
+
+def phase_ssd(torch, np, ssd):
+    """The SSD scan kernel (``csrc/ssd_scan.cu``) against ``ssd_plain`` on the
+    card: at the granite cell's entity pass [32 sequences, 896 tokens, 64
+    heads] and mention pass [8, 128], and at lengths 1, 255, 256, 257 and
+    1,024 (chunk edges, four chunks).  Both are held against the scan in
+    float32 (``ssd_plain`` on the inputs in float32, nothing rounded): the
+    kernel's error must stay within SSD_ERR_RATIO of the plain version's,
+    whose rounding points it shares.  Times by CUDA events beside the
+    bound (``portbench/counts_granite.py``: the scan's products as bf16 or
+    its bytes), device time from the profiler; one launch a call."""
+    from portbench import counts_granite
+
+    layer = {"mamba_n_heads": 64, "mamba_d_head": 64, "mamba_d_state": 128,
+             "mamba_chunk_size": ssd.KERNEL_CHUNK}
+    out = {}
+    cases = [(32, 896), (8, 128), (2, 1), (2, 255), (2, 256), (2, 257), (2, 1024)]
+    for i, (N, L) in enumerate(cases):
+        x, dt, A, B, C, D = ssd_inputs(torch, N, L, SEED + 2300 + i)
+        before = ssd.launches
+        got = ssd.ssd_scan(x, dt, A, B, C, D).float()
+        assert ssd.launches == before + 1
+        plain = ssd.ssd_plain(x, dt, A, B, C, D).float()
+        exact = ssd.ssd_plain(x.float(), dt, A, B.float(), C.float(), D)
+        torch.cuda.synchronize()
+        scale = float(exact.abs().max())
+        err_k = float((got - exact).abs().max()) / scale
+        err_p = float((plain - exact).abs().max()) / scale
+        gap = float((got - plain).abs().max()) / scale
+        tag = f"[{N}, {L}, 64]"
+        print(f"[ssd] {tag}: kernel against float32 {err_k:.3e}, plain against float32 "
+              f"{err_p:.3e}, kernel against plain {gap:.3e} (of max |y| {scale:.3g})")
+        assert np.isfinite(err_k) and err_k <= SSD_ERR_RATIO * max(err_p, 2.0 ** -8), (tag, err_k, err_p)
+        out[tag] = {"err": err_k, "plain_err": err_p, "gap_to_plain": gap}
+        if i < 2:  # the cell's shapes: times
+            call = lambda: ssd.ssd_scan(x, dt, A, B, C, D)
+            ms = cuda_ms(call)
+            by_kernel = kernel_device_ms(torch, call)
+            assert sum(1 for k in by_kernel if "ssd_fwd_bf16" in k) == 1, by_kernel
+            dev = sum(v for k, v in by_kernel.items() if "ssd_fwd_bf16" in k)
+            plain_ms = cuda_ms(lambda: ssd.ssd_plain(x, dt, A, B, C, D), reps=3, warmup=1)
+            flops, moved = counts_granite.ssd_flops(layer, N, L), counts_granite.ssd_bytes(layer, N, L)
+            bound_ms, bound_by = bound(moved, flops, "bfloat16")
+            print(f"[ssd] {tag}: kernel {ms:.4f} ms (device {dev:.4f}), plain {plain_ms:.3f} ms, "
+                  f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
+                  f"{moved / 1e6:.1f} MB): device {dev / bound_ms:.2f}x the bound")
+            out[tag].update(kernel_ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+    print(f"[ssd] {json.dumps(out)}")
+    return out
+
+
+def phase_serve_granite(torch, np, mods, ssd):
+    """GHMFC with granite-4.0-h-micro as its online text tower, through
+    ``Ranker.rank`` as ``ghmfc-granite-rank-b8`` drives it: the benchmark's
+    own seeded weights, request maker and Ranker (the tower in bf16, 3.2 B
+    parameters), one request of B=8 mentions with 101 candidates zipped into
+    4 sentences.  The scan kernel launches once per Mamba-2 layer and tower
+    pass (the mention sentences, then the entity sentences), and no other
+    kernel launches; the served top 5 is held to the plain reference's
+    float32 scores at the cell's limits."""
+    import gc
+
+    from portbench import counts_granite, harness
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    run = harness.Run(harness.Bench(here), "ghmfc-granite-rank-b8", SEED + 2400, 0.0, False,
+                      False, False, torch.device("cuda"))
+    sysm, driver, k = run.system, run.bench.module("drivers", "closed_rank"), run.cell["k"]
+    t0 = time.perf_counter()
+    data = sysm.make_data(run)
+    feats = sysm.request_pool(run, data, 1, run.cell["batch"])[0]
+    ranker = sysm.build_ranker(run, data)
+    shape = sysm.shapes(run, feats)
+    ranker.rank(feats, k)  # the first call of this shape
+    torch.cuda.synchronize()
+    print(f"[granite] Ranker on cuda: {sysm.describe(run, data)}, built and warmed in "
+          f"{time.perf_counter() - t0:.1f} s; request {shape}")
+    zero_counts(mods)
+    ssd.launches = 0
+    vals, idx = ranker.rank(feats, k)
+    torch.cuda.synchronize()
+    launches = ssd.launches
+    others = {n: c for n, c in launch_counts(mods).items() if c}
+    layers = counts_granite.mamba_layers(run.config)
+    print(f"[granite] one rank call: {launches} scan launches ({layers} Mamba-2 layers x 2 "
+          f"tower passes), other kernels {others or 'none'}")
+    assert launches == 2 * layers and not others, (launches, others)
+    ms = cuda_ms(lambda: ranker.rank(feats, k), reps=5, warmup=1)
+    want = {0: sysm.reference_scores(run, data, feats)}
+    ok, checks = harness.judge(driver.compare([(0, vals, idx)], want, k), run.cell["limits"])
+    print(f"[granite] rank {ms:.1f} ms a call; against the float32 reference "
+          + ", ".join(f"{n} {c['value']:.4g} (limit {c['limit']:g})" for n, c in checks.items()))
+    assert ok, checks
+    info = {"rank_ms": ms, "shape": shape, "memory_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **{n: c["value"] for n, c in checks.items()}}
+    del ranker, data, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ssd_scan": launches}, info
 
 
 def profile_rank(torch, ranker, feats, label: str, reps: int = 5):
@@ -6232,7 +6366,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from drin_tpu_torch.ops.cuda import (_build, attention as attn, gather, gcn_layer as gcn,
-                                         nms as nms_mod, vertex_update as vu)
+                                         nms as nms_mod, ssd, vertex_update as vu)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -6256,7 +6390,7 @@ def main() -> int:
     measured = {"gather_dequant": phase_gather(torch, gather), "gcn_layer": phase_gcn(torch, gcn),
                 "attention": phase_attention(torch, np, attn),
                 "vertex_update": phase_vertex_update(torch, vu, gcn),
-                "nms": phase_nms(torch, np, nms_mod)}
+                "nms": phase_nms(torch, np, nms_mod), "ssd_scan": phase_ssd(torch, np, ssd)}
     measured.update(phase_attention_bwd(torch, np, attn))
     detector = phase_detector(torch, np, nms_mod)
     # the ranker's pinned input staging, before the paths count their launches
@@ -6338,6 +6472,9 @@ def main() -> int:
     # a Ranker over a row-sharded store: two ranks behind the HTTP front; the
     # main process's own launches (its one-process references) are not the path's
     paths["serve_ranks"], serve_ranks = timed("serve_ranks", phase_serve_ranks, torch, np)
+    # the granite tower through the Ranker, as the benchmark cell drives it
+    paths["serve_granite"], serve_granite = timed("serve_granite", phase_serve_granite, torch, np,
+                                                  mods, ssd)
     gcn_by_dtype["serve_ranks"] = {"bfloat16": paths["serve_ranks"]["gcn_layer"]}
     measured["attention"]["f32_bert_stage"] = pre["f32"]
     measured["nms"]["detector"] = {k: detector[k] for k in ("ms_per_image", "peak_gib",
@@ -6355,7 +6492,7 @@ def main() -> int:
         "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer", "nms"],
         "retrieve_sharded": [], "preprocess_dp": ["attention"], "train_dp": ["gcn_layer"],
         "train_rows": ["gcn_layer"], "train_baseline_ranks": ["attention", "attention_bwd"],
-        "serve_ranks": ["gcn_layer"]}, paths
+        "serve_ranks": ["gcn_layer"], "serve_granite": ["ssd_scan"]}, paths
     for path, counts in paths.items():
         assert all(counts.values()), f"{path} never launched one of its kernels: {counts}"
     # kernel 1 by dtype: the default-dtype paths launch only its float32 form,
@@ -6382,7 +6519,9 @@ def main() -> int:
         "attention_bwd_nomask": ("attention_bwd.cu", "drin_tpu/ops/pallas/attention.py:134"),
         "vertex_update": ("gcn_layer.cu", "drin_tpu/ops/pallas/gcn.py:58"),
         # a port-only kernel: the counterpart of a jnp loop, not of a Pallas kernel
-        "nms": ("nms.cu", "drin_tpu/ops/detection.py:29")}
+        "nms": ("nms.cu", "drin_tpu/ops/detection.py:29"),
+        # port-only: the granite tower's scan (the JAX package has no such layer)
+        "ssd_scan": ("ssd_scan.cu", None)}
     assert set(kernels) == set(measured)
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in kernels}
@@ -6393,6 +6532,7 @@ def main() -> int:
     measured["gcn_layer"]["serve_ranks"] = serve_ranks
     measured["attention"]["preprocess_dp"] = pre_dp
     measured["attention"]["train_baseline_ranks"] = baseline_ranks
+    measured["ssd_scan"]["serve_granite"] = serve_granite
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"drin_tpu_torch/csrc/{src}", "replaces": tpu,

@@ -19,9 +19,11 @@ def get_model(cfg: Config, generator: Optional[torch.Generator] = None,
     'baseline' the 9-tensor offline batch, 'online' the token-id
     ``OnlineBatch``.  The model may be moved to any device afterwards: the
     online model picks its attention path from where its input lies.
-    BERT's dimensions are ``bert_cfg``'s, else ``cfg.bert_checkpoint``'s
-    (its weights are loaded by the caller: ``encoders.checkpoints.load_bert``),
-    else bert-base's."""
+    The online model's text tower is ``bert_cfg``'s: BERT for a
+    ``BertConfig``, granite-4.0-h-micro's hybrid stack for a
+    ``encoders.granite_hybrid.GraniteHybridConfig``; without it, BERT with
+    ``cfg.bert_checkpoint``'s dimensions (its weights are loaded by the
+    caller: ``encoders.checkpoints.load_bert``), else bert-base's."""
     if cfg.model_type == "drin":
         from drin_tpu_torch.models.drin import DRIN
 

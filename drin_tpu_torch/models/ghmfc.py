@@ -162,8 +162,13 @@ class GHMFCOnline(nn.Module):
     direct mode (``num_entity_sentence == 0``): entity_ids/mask are
     [B, C, Le] and sep_idx is an ignored placeholder.
 
-    One shared BERT serves the mention and the entity tower, and the entity
-    sentences go through it as one batched [B*S, L] call.
+    One shared text tower serves the mention and the entity side, and the
+    entity sentences go through it as one batched [B*S, L] call.  The tower
+    is BERT (``bert_cfg`` a ``BertConfig``, parameters under ``bert.``) or
+    granite-4.0-h-micro's hybrid stack (``bert_cfg`` a
+    ``GraniteHybridConfig``, parameters under ``model.``, the upstream
+    checkpoint's prefix), whose width is ``cfg.bert_embed_dim`` either way;
+    the hybrid tower is causal, reads no mask and runs forward only.
     With a candidate ``split`` BERT encodes only this rank's entity
     sequences: [B*Cb, Le] candidates in direct mode, [B*S/n, L] sentences in
     zipped mode, whose S/n sentences pool to this rank's (S/n)*E candidate
@@ -180,24 +185,39 @@ class GHMFCOnline(nn.Module):
     def __init__(self, cfg: Config, bert_cfg=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         from drin_tpu_torch.encoders.bert import BertConfig, BertModel
+        from drin_tpu_torch.encoders.granite_hybrid import GraniteHybridConfig, GraniteHybridModel
 
         if cfg.num_entity_sentence and cfg.entity_final_pooling == "bert default":
             raise ValueError(
                 "entity_final_pooling='bert default' has no per-candidate pooler output in "
                 "zipped mode; use 'avg' or 'max', or set num_entity_sentence=0")
         self.cfg = cfg
-        self.bert = BertModel(bert_cfg or BertConfig(), remat=cfg.bert_remat,
-                              fused_attention=cfg.bert_fused_attention, generator=generator)
+        if isinstance(bert_cfg, GraniteHybridConfig):
+            if cfg.finetune_bert:
+                raise ValueError("the granite_hybrid text tower runs forward only (its scan "
+                                 "kernel has no backward): finetune_bert must be False")
+            if cfg.entity_final_pooling == "bert default" or \
+                    cfg.bert_embed_dim != bert_cfg.hidden_size:
+                raise ValueError("the granite_hybrid tower has no pooler output, and its "
+                                 f"width {bert_cfg.hidden_size} must be bert_embed_dim "
+                                 f"({cfg.bert_embed_dim})")
+            self._tower = "model"
+            self.model = GraniteHybridModel(bert_cfg, generator)
+        else:
+            self._tower = "bert"
+            self.bert = BertModel(bert_cfg or BertConfig(), remat=cfg.bert_remat,
+                                  fused_attention=cfg.bert_fused_attention, generator=generator)
         self.mention_encoder = MentionEncoder(cfg, generator)
         if cfg.entity_final_layer_name == "linear":
             self.entity_final_layer = Linear(cfg.bert_embed_dim, cfg.entity_final_output_dim,
                                              generator)
 
     def _encode(self, ids, mask):
+        tower = getattr(self, self._tower)
         if self.cfg.finetune_bert:
-            return self.bert(ids, mask)
+            return tower(ids, mask)
         with torch.no_grad():
-            return self.bert(ids, mask)
+            return tower(ids, mask)
 
     def forward(self, batch, deterministic: bool = True,
                 rng: Optional[torch.Generator] = None, split=None):

@@ -293,7 +293,8 @@ class Ranker:
     the weights come from ``<checkpoint_dir>/params.pt`` (``torch.save``
     of a state_dict).  Parameters are cast to ``cfg.compute_dtype`` on
     ``device``.  ``bert_cfg`` overrides the online model's bert-base
-    dimensions.  ``store_mesh`` row-shards the store over that mesh's model
+    dimensions, or picks its other text tower (``get_model``).
+    ``store_mesh`` row-shards the store over that mesh's model
     axis (every rank of its model group builds its Ranker alike; the
     token-level tables then need no pooled cache).  An online model with entity tables keeps them in a store
     for :meth:`retrieve` alone: its requests carry token ids, never rows."""
