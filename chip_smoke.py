@@ -10,8 +10,9 @@ the card (gather+dequant at DRIN's and offline GHMFC's two packed layouts,
 the GCN layer with its per-launch device times in bf16 and float32, on
 padded candidates whole and as two halves through its split entry, the
 attention forward, the attention backward with and without a mask, the
-vertex update in both dtypes, and the port-only NMS kernel on the detector's
-RPN and class problems and its edge cases), runs the full-width Faster R-CNN
+vertex update in both dtypes, the port-only NMS kernel on the detector's RPN
+and class problems and its edge cases, and the port-only float32 linear at
+BERT's four products against a float64 product), runs the full-width Faster R-CNN
 detector from a seeded torchvision-keyed checkpoint against its CPU forward,
 holds the ranker's pinned input staging against pageable copies (and two
 micro-batched flushes in flight against serial calls), then drives
@@ -24,7 +25,8 @@ random weights.  Served, through ``Ranker`` and ``serve_http``:
     kernel's float32 form: split-precision TF32 on the tensor cores);
   * GHMFC with online BERT at bert-base width: ``/rank`` requests of token
     ids, 101 candidates zipped into 12 sentences of 512 tokens (the fused
-    attention kernel, 12 launches per request);
+    attention kernel, 12 launches per request; with the default float32
+    compute dtype also the linear kernel, 48 launches a BERT pass);
   * offline GHMFC (multimodal fusion) over an int8 fused text-only store of
     32,768 entities (the gather+dequant kernel, one launch per rank), then
     the entity precompute and ``rank_rows``; and once with the 8-layer
@@ -308,6 +310,15 @@ TRAIN_BASELINE_BF16_GRAD_REL = 0.5
 # error against the float32 scan may exceed the plain version's by a bf16
 # step or two of those intermediates, not by a whole term left out
 SSD_ERR_RATIO = 2.0
+# the linear kernel's error against a float64 product, over the largest
+# value of the product (x . W^T + b): split TF32 keeps float32's accuracy (a
+# few f32 roundings of the sums over K), one TF32 pass (lo dropped) leaves a
+# 2^-11 relative error in every term
+LINEAR_ERR_REL = 2e-5
+# BERT's four float32 linears at bert-base width: (K, N, epilogue, weights
+# stacked); the joint query / key / value product stacks three
+LINEAR_SHAPES = ((768, 2304, "bias", 3), (768, 768, "residual", 1), (768, 3072, "gelu", 1),
+                 (3072, 768, "residual", 1))
 # the card's published peaks (H100 SXM, dense): bytes/s and FLOP/s by type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
@@ -2048,6 +2059,7 @@ def phase_online(torch, np, attn):
     from drin_tpu_torch import make_config
     from drin_tpu_torch.data.online import bucket_trim
     from drin_tpu_torch.models import get_model
+    from drin_tpu_torch.ops.cuda import linear as lin
     from drin_tpu_torch.serve import Ranker, rank_feat_fields, serve_http
 
     cfg = make_config("ghmfc", "wikimel", online_bert=True, finetune_bert=False,
@@ -2080,10 +2092,11 @@ def phase_online(torch, np, attn):
 
     try:
         # the main path, counted: /rank at B=1 and B=8
-        attn.launches = 0
+        attn.launches = lin.launches = 0
         served = {B: post(requests[B]) for B in (1, 8)}
         torch.cuda.synchronize()
         launches = attn.launches
+        assert lin.launches == 0, f"the bf16 model launched the float32 linear {lin.launches} times"
         layers = bert_cfg.num_hidden_layers
         print(f"[online] attention launches over {len(served)} /rank requests: {launches} "
               f"({layers} per entity-tower BERT call, 0 for the 128-token mention tower)")
@@ -2174,16 +2187,27 @@ def phase_online(torch, np, attn):
         # instantiation) against the CPU: summation order only
         del ranker
         f32 = Ranker(cfg.replace(compute_dtype="float32"), weights, device="cuda")
-        before = attn.launches
+        before, lin_before, splits_before = attn.launches, lin.launches, lin.splits
         f32_err = float(np.abs(f32.score(requests[1]) - reference.score(requests[1])).max())
         assert attn.launches == before + layers
         assert f32_err <= ONLINE_F32_ATOL, f"f32 on the card vs the CPU: max abs err {f32_err}"
-        print(f"[online] float32 on the card, B=1: {layers} launches, scores vs the f32 CPU "
+        # BERT's four float32 linears a layer through the split-TF32 kernel, on
+        # the mention pass and the entity pass: 4 x 12 x 2 a call; their images
+        # are built at the first call and kept
+        linear_launches, first_splits = lin.launches - lin_before, lin.splits - splits_before
+        f32.score(requests[8])
+        again = (lin.launches - lin_before - linear_launches, lin.splits - splits_before - first_splits)
+        assert linear_launches == 2 * 4 * layers and first_splits == 4 * layers, (linear_launches,
+                                                                                    first_splits)
+        assert again == (2 * 4 * layers, 0), again
+        print(f"[online] float32 on the card, B=1: {layers} attention launches, {linear_launches} "
+              f"linear launches ({4 * layers} a BERT pass) and {first_splits} weight images at the "
+              f"first call, {again[0]} and {again[1]} at the next (B=8); scores vs the f32 CPU "
               f"forward: max abs err {f32_err:.3g} (tol {ONLINE_F32_ATOL})")
     finally:
         server.shutdown()
         server.server_close()
-    return launches, score_err
+    return {"attention": launches, "linear": linear_launches}, score_err
 
 
 def _onehot_answers(np, cfg, B, seed):
@@ -2423,7 +2447,7 @@ def phase_train_online(torch, np, attn):
     # CLIs' default), every BERT layer through the kernels' float32 forms
     f32_counts, f32_stats = _train_online_f32(torch, np, attn, build, cfg, batch, valid, grads,
                                               rel_errs, layers)
-    counts = {name: counts[name] + f32_counts[name] for name in counts}
+    counts = {name: counts.get(name, 0) + f32_counts.get(name, 0) for name in {*counts, *f32_counts}}
     return counts, {"step_ms": step_ms, "peak_gib": peak, "f32": f32_stats}
 
 
@@ -2452,6 +2476,7 @@ def _train_online_f32(torch, np, attn, build, cfg, batch, valid, grads, rel_errs
     the same float32 model with attention_plain and autograd through it; a
     planted fault of the backward must exceed the limit; the loss falls over
     three steps; the step's time, peak memory and one profiled step."""
+    from drin_tpu_torch.ops.cuda import linear as lin
     from drin_tpu_torch.train import metrics as M
 
     n_steps = 3
@@ -2488,13 +2513,21 @@ def _train_online_f32(torch, np, attn, build, cfg, batch, valid, grads, rel_errs
 
     ev_before = float(trainer.fns.eval_step(batch, valid, M.init_state(cfg.metrics_topk, "cuda"))[0])
     torch.cuda.reset_peak_memory_stats()
-    attn.launches = attn.bwd_launches = attn.bwd_nomask_launches = 0
+    attn.launches = attn.bwd_launches = attn.bwd_nomask_launches = lin.launches = 0
+    splits_before = lin.splits
     with _launch_dtypes(attn) as seen:
         losses, times, mstate = _run_steps(torch, trainer, batch, valid, n_steps)
     torch.cuda.synchronize()
-    counts = {"attention": attn.launches, "attention_bwd": attn.bwd_launches}
+    counts = {"attention": attn.launches, "attention_bwd": attn.bwd_launches, "linear": lin.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    assert counts == {"attention": 2 * layers * n_steps, "attention_bwd": layers * n_steps}, counts
+    # the float32 linears: 4 a layer on the mention and the entity pass, each
+    # layer's forward run again by remat in the backward.  Each Adam step
+    # changes the weights in place, so each later step builds the 4 images a
+    # layer anew (once: both passes and the recompute share them); the first
+    # step finds those of the eval above
+    assert counts == {"attention": 2 * layers * n_steps, "attention_bwd": layers * n_steps,
+                      "linear": 2 * 2 * 4 * layers * n_steps}, counts
+    assert lin.splits - splits_before == 4 * layers * (n_steps - 1), lin.splits - splits_before
     assert attn.bwd_nomask_launches == 0 and set(seen["fwd"]) == set(seen["bwd"]) == {f32}, seen
     ev_after = float(trainer.fns.eval_step(batch, valid, mstate)[0])
     assert np.isfinite(losses).all() and np.isfinite([ev_before, ev_after]).all(), losses
@@ -2502,7 +2535,7 @@ def _train_online_f32(torch, np, attn, build, cfg, batch, valid, grads, rel_errs
     step_ms = statistics.median(times[1:])
     print(f"[train_online] float32: {n_steps} train steps, forward launches {counts['attention']} "
           f"and backward launches {counts['attention_bwd']}, all float32 ({2 * layers} and {layers} "
-          f"per step); train losses {[round(x, 5) for x in losses]}, eval loss {ev_before:.5f} "
+          f"per step), linear launches {counts['linear']} ({16 * layers} a step); train losses {[round(x, 5) for x in losses]}, eval loss {ev_before:.5f} "
           f"before and {ev_after:.5f} after; {step_ms:.1f} ms per step (median of {n_steps - 1}, "
           f"host clock to a synchronise; the first {times[0]:.1f} ms), peak memory {peak:.2f} GiB")
     mstate0 = M.init_state(cfg.metrics_topk, "cuda")
@@ -4203,6 +4236,7 @@ def phase_preprocess(torch, np, attn, gcn, nms_mod, tmp=None):
     from drin_tpu_torch.encoders.bert import BertModel
     from drin_tpu_torch.encoders.clip import CLIPModel
     from drin_tpu_torch.encoders.resnet import ResNetModel
+    from drin_tpu_torch.ops.cuda import linear as lin
     from drin_tpu_torch.preprocess import __main__ as pre_cli
     from drin_tpu_torch.preprocess import images, stages
     from drin_tpu_torch.train import cli
@@ -4250,7 +4284,7 @@ def phase_preprocess(torch, np, attn, gcn, nms_mod, tmp=None):
         # come back after it: the stages hold their encoders to full f32
         saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
-        attn.launches = gcn.launches = nms_mod.launches = 0
+        attn.launches = gcn.launches = nms_mod.launches = lin.launches = 0
         t0 = time.perf_counter()
         try:
             ran = pre_cli.main(["all"] + argv)
@@ -4261,6 +4295,7 @@ def phase_preprocess(torch, np, attn, gcn, nms_mod, tmp=None):
         pre_wall = time.perf_counter() - t0
         assert after == (True, False), f"the preprocessing CLI left the TF32 flags at {after}"
         counts["attention"], pre_gcn, counts["nms"] = attn.launches, gcn.launches, nms_mod.launches
+        counts["linear"] = lin.launches
         eval_dir = os.path.join(tmp, "eval")
         os.makedirs(eval_dir)
         cwd = os.getcwd()
@@ -4305,6 +4340,8 @@ def phase_preprocess(torch, np, attn, gcn, nms_mod, tmp=None):
               f"{eval_attention}")
         assert set(mention_buckets) == {128} and {128, 256, 384, 512} <= set(entity_buckets)
         assert counts["attention"] == layers * kernel_chunks and pre_gcn == 0, counts
+        # BERT's four float32 linears a layer on every chunk of either pass
+        assert counts["linear"] == 4 * layers * (len(mention_buckets) + len(entity_buckets)), counts
         n_eval = -(-PRE_MENTIONS // cfg.batch_size)
         assert counts["gcn_layer"] == cfg.num_gcn_layers * n_eval and eval_attention == 0
         # the detector: two NMS launches (the RPN's, the classes') a forward
@@ -6251,6 +6288,117 @@ def phase_ssd(torch, np, ssd):
     return out
 
 
+def _linear_inputs(torch, M, K, N, epi, n_w, seed):
+    """x [M, K] ~ N(0, 1) (BERT's LayerNorm outputs), weights N(0, 0.02) as
+    bert-base's initialiser, biases N(0, 0.02), the residual N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape, s=1.0: torch.randn(*shape, generator=g, device="cuda") * s  # noqa: E731
+    x = rnd(M, K)
+    ws = [rnd(N // n_w, K, s=0.02) for _ in range(n_w)]
+    bs = [rnd(N // n_w, s=0.02) for _ in range(n_w)]
+    res = rnd(M, N) if epi == "residual" else None
+    return x, ws, bs, res
+
+
+def phase_linear(torch, np, lin):
+    """The float32 linear kernel (``csrc/linear_f32.cu``) at BERT's four
+    products: the cell's entity pass (M = 36,864 token rows) and its mention
+    pass (M = 1,024).  Kernel, ``linear_plain`` (cuBLAS's float32 product and
+    the epilogue as torch ops) and torch's float32 product alone
+    (``F.linear``, the yardstick) against a float64 product: the error over
+    the product's largest value within LINEAR_ERR_REL, and the same kernel
+    built with one TF32 pass (``DRIN_LINEAR_PASSES=1``: the lo terms dropped)
+    outside it.  Times by CUDA events over calls queued back to back and
+    device times from the profiler, beside the bound: three TF32 products at
+    495 TFLOP/s (165 TFLOP/s float32-equivalent) or the bytes; the kernel
+    must be faster than both others.  One launch a call, one image a weight
+    set."""
+    import ctypes
+
+    from torch.nn import functional as F
+
+    from drin_tpu_torch.ops.cuda import _build
+
+    one_pass = ctypes.CDLL(str(_build.build_variants(
+        [("linear_f32", ("DRIN_LINEAR_PASSES=1",), _build.CSRC)])[0]))
+    fault_fn = one_pass.drin_linear_f32
+    fault_fn.restype, fault_fn.argtypes = ctypes.c_int, lin._LINEAR_ARGS
+    out = {}
+    for M in (36864, 1024):
+        for i, (K, N, epi, n_w) in enumerate(LINEAR_SHAPES):
+            x, ws, bs, res = _linear_inputs(torch, M, K, N, epi, n_w, SEED + 2500 + 10 * i + M)
+            gelu = epi == "gelu"
+            image = lin.SplitImage()
+            launches, splits = lin.launches, lin.splits
+            call = lambda: lin.linear(x, ws, bs, gelu=gelu, residual=res, image=image)  # noqa: E731
+            # several weights give their outputs stacked: [n_w, M, N / n_w], as [M, N] here
+            flat = lambda y: y if y.dim() == 2 else y.permute(1, 0, 2).reshape(M, N)  # noqa: E731
+            got = call()
+            call()
+            assert (lin.launches, lin.splits) == (launches + 2, splits + 1), (lin.launches, lin.splits)
+            plain = lin.linear_plain(x, ws, bs, gelu, res)
+            w64, b64 = torch.cat(ws).double(), torch.cat(bs).double()
+            z64 = x.double() @ w64.t() + b64
+            scale = float(z64.abs().max())
+            want = F.gelu(z64) if gelu else z64 + res.double() if res is not None else z64
+            img, bias = image.img, image.bias
+            fault = lin._launch(x, img, bias, M, N, K, n_w, lin.EPI_GELU if gelu else lin.EPI_RESIDUAL
+                                if res is not None else lin.EPI_BIAS, res, lib_fn=(one_pass, fault_fn))
+            torch.cuda.synchronize()
+            err = {name: float((flat(y).double() - want).abs().max()) / scale
+                   for name, y in (("kernel", got), ("plain", plain), ("one TF32 pass", fault))}
+            tag = f"[{M}, {K}] x [{N}, {K}]^T {epi}"
+            print(f"[linear] {tag}: error over max |x.W^T + b| ({scale:.3g}) against float64: "
+                  f"{ {k: float(f'{v:.3e}') for k, v in err.items()} }, limit {LINEAR_ERR_REL}")
+            assert np.isfinite(err["kernel"]) and err["kernel"] <= LINEAR_ERR_REL, (tag, err)
+            assert err["one TF32 pass"] > LINEAR_ERR_REL, f"{tag}: the check cannot see one TF32 pass"
+            del fault, want, z64, w64
+            wcat, bcat = torch.cat(ws), torch.cat(bs)
+            plain_call = lambda: lin.linear_plain(x, ws, bs, gelu, res)  # noqa: E731
+            lib_call = lambda: F.linear(x, wcat, bcat)  # noqa: E731
+            by_kernel = kernel_device_ms(torch, call)
+            assert list(by_kernel) and all("linear_tf32x3" in k for k in by_kernel), by_kernel
+            # each version's time a call over 10 calls queued back to back (the
+            # card never waits for the host), then its device time by the profiler
+            times = {name: cuda_ms(lambda f=f: [f() for _ in range(10)], reps=5) / 10
+                     for name, f in (("kernel", call), ("plain", plain_call), ("F.linear", lib_call))}
+            dev = {"kernel": sum(by_kernel.values()), "plain": device_ms(plain_call),
+                   "F.linear": device_ms(lib_call)}
+            flops = 2.0 * M * N * K
+            moved = nbytes(x, wcat, bcat, got) + (nbytes(res) if res is not None else 0)
+            bound_ms, bound_by, fma_ms = f32_bound(moved, flops)
+            rate = {name: flops / ms / 1e9 for name, ms in times.items()}
+            print(f"[linear] {tag}: ms a call (device ms) kernel {times['kernel']:.4f} "
+                  f"({dev['kernel']:.4f}), plain {times['plain']:.4f} ({dev['plain']:.4f}), F.linear "
+                  f"{times['F.linear']:.4f} ({dev['F.linear']:.4f}); TFLOP/s float32-equivalent "
+                  f"{ {k: round(v, 1) for k, v in rate.items()} }; bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB; FMA {fma_ms:.4f}): the kernel "
+                  f"{times['kernel'] / bound_ms:.2f}x the bound")
+            assert times["kernel"] < min(times["plain"], times["F.linear"]), (tag, times)
+            out[tag] = {"err": err["kernel"], "plain_err": err["plain"], "fault_err": err["one TF32 pass"],
+                        "kernel_ms": times["kernel"], "device_ms": dev["kernel"], "tflops": rate["kernel"],
+                        "plain_ms": times["plain"], "plain_device_ms": dev["plain"],
+                        "library_ms": times["F.linear"], "library_device_ms": dev["F.linear"],
+                        "bound_ms": bound_ms, "bound_by": bound_by, "fma_ms": fma_ms}
+            del x, ws, bs, res, got, plain, image, img, bias, wcat, bcat
+            torch.cuda.empty_cache()
+    # what the kernel refuses, by name, before a launch
+    x = torch.zeros(64, 768, device="cuda")
+    w, b = torch.zeros(768, 768, device="cuda"), torch.zeros(768, device="cuda")
+    for bad, match in ((lambda: lin.linear(x.bfloat16(), [w], [b]), "float32"),
+                       (lambda: lin.linear(x[:, :760], [w[:, :760].contiguous()], [b]), "multiple of 32"),
+                       (lambda: lin.linear(x.t(), [w[:128, :64].contiguous()], [b[:128]]),
+                        "contiguous rows")):
+        try:
+            bad()
+        except ValueError as e:
+            assert match in str(e), (match, e)
+        else:
+            raise AssertionError(f"the linear kernel took what it must refuse ({match})")
+    print(f"[linear] {json.dumps(out)}")
+    return out
+
+
 def phase_serve_granite(torch, np, mods, ssd):
     """GHMFC with granite-4.0-h-micro as its online text tower, through
     ``Ranker.rank`` as ``ghmfc-granite-rank-b8`` drives it: the benchmark's
@@ -6366,7 +6514,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from drin_tpu_torch.ops.cuda import (_build, attention as attn, gather, gcn_layer as gcn,
-                                         nms as nms_mod, ssd, vertex_update as vu)
+                                         linear as lin, nms as nms_mod, ssd, vertex_update as vu)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -6390,7 +6538,8 @@ def main() -> int:
     measured = {"gather_dequant": phase_gather(torch, gather), "gcn_layer": phase_gcn(torch, gcn),
                 "attention": phase_attention(torch, np, attn),
                 "vertex_update": phase_vertex_update(torch, vu, gcn),
-                "nms": phase_nms(torch, np, nms_mod), "ssd_scan": phase_ssd(torch, np, ssd)}
+                "nms": phase_nms(torch, np, nms_mod), "ssd_scan": phase_ssd(torch, np, ssd),
+                "linear": phase_linear(torch, np, lin)}
     measured.update(phase_attention_bwd(torch, np, attn))
     detector = phase_detector(torch, np, nms_mod)
     # the ranker's pinned input staging, before the paths count their launches
@@ -6423,7 +6572,7 @@ def main() -> int:
     paths["retrieve_sharded"], retrieve_sharded = timed("retrieve_sharded", phase_retrieve_sharded,
                                                         torch, np, mods, served)
     del drin, served
-    paths["serve_online"] = {"attention": timed("serve_online", phase_online, torch, np, attn)[0]}
+    paths["serve_online"] = timed("serve_online", phase_online, torch, np, attn)[0]
     paths["serve_text"], _ = timed("serve_text", phase_serve_text, torch, np, attn)
     paths["train_online"], _ = timed("train_online", phase_train_online, torch, np, attn)
     paths["train_text"], _ = timed("train_text", phase_train_text, torch, np, attn)
@@ -6482,14 +6631,14 @@ def main() -> int:
     print(f"seconds by path: {seconds}")
     assert {p: sorted(c) for p, c in paths.items()} == {
         "serve_drin": ["gather_dequant", "gcn_layer"], "serve_drin_f32": ["gather_dequant", "gcn_layer"],
-        "serve_online": ["attention"],
+        "serve_online": ["attention", "linear"],
         "serve_batched": ["gather_dequant", "gcn_layer"], "retrieve": [],
         "serve_text": ["attention"],
-        "train_online": ["attention", "attention_bwd"],
+        "train_online": ["attention", "attention_bwd", "linear"],
         "train_text": ["attention", "attention_bwd"], "train_drin": ["gcn_layer"],
         "train_drin_f32": ["gcn_layer"],
         "serve_ghmfc": ["gather_dequant"], "serve_ghmfc_transformer": [], "serve_melhi": [],
-        "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer", "nms"],
+        "train_ghmfc": [], "train_melhi": [], "preprocess": ["attention", "gcn_layer", "linear", "nms"],
         "retrieve_sharded": [], "preprocess_dp": ["attention"], "train_dp": ["gcn_layer"],
         "train_rows": ["gcn_layer"], "train_baseline_ranks": ["attention", "attention_bwd"],
         "serve_ranks": ["gcn_layer"], "serve_granite": ["ssd_scan"]}, paths
@@ -6521,7 +6670,9 @@ def main() -> int:
         # a port-only kernel: the counterpart of a jnp loop, not of a Pallas kernel
         "nms": ("nms.cu", "drin_tpu/ops/detection.py:29"),
         # port-only: the granite tower's scan (the JAX package has no such layer)
-        "ssd_scan": ("ssd_scan.cu", None)}
+        "ssd_scan": ("ssd_scan.cu", None),
+        # port-only: BERT's float32 linears, which the JAX package leaves to XLA
+        "linear": ("linear_f32.cu", None)}
     assert set(kernels) == set(measured)
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in kernels}

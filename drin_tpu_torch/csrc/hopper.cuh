@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the kernels (attention.cu,
-// attention_bwd.cu, gcn_layer.cu):
+// attention_bwd.cu, gcn_layer.cu, linear_f32.cu):
 //   * mbarriers for "tile has landed" and "tile is read", with waits that trap
 //     instead of hanging the card;
 //   * TMA copies (cp.async.bulk) and the host-side encoding of tensor maps
@@ -8,7 +8,7 @@
 //     from shared memory and B read from a 128-byte-swizzled tile, K-major or
 //     MN-major; wgmma m64n64k8 with TF32 operands (A from registers or from
 //     shared memory, B K-major: for .tf32 the instruction has no transposed
-//     form);
+//     form), and m64n128k8 with A from registers;
 //   * split-precision TF32: float32 operands split into TF32 hi + lo and each
 //     product taken as lo.hi + hi.lo + hi.hi (float32 accuracy on the tensor
 //     cores);
@@ -191,6 +191,29 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[8][4], const uint32_t 
       "}\n"
       : DRIN_ACC4(d, 0), DRIN_ACC4(d, 1), DRIN_ACC4(d, 2), DRIN_ACC4(d, 3), DRIN_ACC4(d, 4),
         DRIN_ACC4(d, 5), DRIN_ACC4(d, 6), DRIN_ACC4(d, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= a[64 x 8] . B with TF32 operands, A from registers as in
+// wgmma_tf32_n64; B is 8 x 128 through `desc` (K-major).  The accumulator is
+// wgmma_n64's over 16 column groups of 8.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[16][4], const uint32_t (&a)[4], uint64_t desc,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : DRIN_ACC4(d, 0), DRIN_ACC4(d, 1), DRIN_ACC4(d, 2), DRIN_ACC4(d, 3), DRIN_ACC4(d, 4),
+        DRIN_ACC4(d, 5), DRIN_ACC4(d, 6), DRIN_ACC4(d, 7), DRIN_ACC4(d, 8), DRIN_ACC4(d, 9),
+        DRIN_ACC4(d, 10), DRIN_ACC4(d, 11), DRIN_ACC4(d, 12), DRIN_ACC4(d, 13), DRIN_ACC4(d, 14),
+        DRIN_ACC4(d, 15)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 

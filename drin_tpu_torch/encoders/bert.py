@@ -12,6 +12,15 @@ finfo-min fill, no dropout.  Self-attention takes the hand-written kernel
 (``ops/cuda/attention.py``) under the JAX package's gate, ``fused and
 L % 8 == 0 and L >= FUSED_ATTENTION_MIN_LEN``, and the written-out product
 otherwise (outside any kernel in the JAX package too).
+
+In float32 a layer's four linears go through ``ops/cuda/linear.py``: query,
+key and value as one product over their stacked weights (its three outputs
+laid out as the separate products would lay them), the FFN's first linear
+with its gelu and the two output linears with their residual in the
+product's epilogue.  On the CPU
+that is ``F.linear`` and the same epilogue; on the card the split-TF32
+kernel.  Other dtypes (the bf16 bodies) keep ``F.linear``, as does the
+pooler.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from drin_tpu_torch.common.spans import span
 from drin_tpu_torch.nn.layers import Linear
 from drin_tpu_torch.ops.cuda.attention import fused_attention
+from drin_tpu_torch.ops.cuda.linear import SplitImage, linear
 
 
 class BertConfig:
@@ -96,6 +106,7 @@ class BertSelfAttention(nn.Module):
         self.query = Linear(D, D, generator)
         self.key = Linear(D, D, generator)
         self.value = Linear(D, D, generator)
+        self.qkv_image = SplitImage()  # the float32 kernel's image of the three weights
 
     def takes_kernel(self, device, L: int) -> bool:
         """The JAX package's gate for a sequence of ``L`` tokens on ``device``."""
@@ -110,9 +121,15 @@ class BertSelfAttention(nn.Module):
         B, L, D = x.shape
         H = self.num_heads
         hd = D // H
-        q = self.query(x).reshape(B, L, H, hd).transpose(1, 2)
-        k = self.key(x).reshape(B, L, H, hd).transpose(1, 2)
-        v = self.value(x).reshape(B, L, H, hd).transpose(1, 2)
+        if x.dtype == torch.float32:  # one product over the stacked weights: [3, B, L, D]
+            parts = (self.query, self.key, self.value)
+            q, k, v = linear(x, [m.weight for m in parts], [m.bias for m in parts],
+                             image=self.qkv_image).unbind(0)
+        else:
+            q, k, v = self.query(x), self.key(x), self.value(x)
+        q = q.reshape(B, L, H, hd).transpose(1, 2)
+        k = k.reshape(B, L, H, hd).transpose(1, 2)
+        v = v.reshape(B, L, H, hd).transpose(1, 2)
         if self.takes_kernel(x.device, L):
             # the kernel reads the strided views in place and writes
             # [B, L, H, hd], so the transpose back below copies nothing
@@ -133,8 +150,12 @@ class _SelfOutput(nn.Module):
         super().__init__()
         self.dense = Linear(in_features, cfg.hidden_size, generator)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.image = SplitImage()
 
     def forward(self, h, residual):
+        if h.dtype == torch.float32:  # the residual added in the product's epilogue
+            return self.LayerNorm(linear(h, [self.dense.weight], [self.dense.bias],
+                                         residual=residual, image=self.image))
         return self.LayerNorm(residual + self.dense(h))
 
 
@@ -151,6 +172,7 @@ class _Dense(nn.Module):
     def __init__(self, in_features: int, out_features: int, generator):
         super().__init__()
         self.dense = Linear(in_features, out_features, generator)
+        self.image = SplitImage()  # the FFN's float32 product (the pooler never builds one)
 
 
 class BertLayer(nn.Module):
@@ -163,7 +185,11 @@ class BertLayer(nn.Module):
 
     def forward(self, x, additive_mask):
         x = self.attention.output(self.attention.self(x, additive_mask), x)
-        h = F.gelu(self.intermediate.dense(x), approximate="none")
+        if x.dtype == torch.float32:  # gelu in the product's epilogue
+            dense = self.intermediate.dense
+            h = linear(x, [dense.weight], [dense.bias], gelu=True, image=self.intermediate.image)
+        else:
+            h = F.gelu(self.intermediate.dense(x), approximate="none")
         return self.output(h, x)
 
 

@@ -98,11 +98,11 @@ def test_package_data_lists_kernel_sources():
     assert '"drin_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
     assert sorted(p.name for p in (ROOT / "drin_tpu_torch" / "csrc").iterdir()) == [
         "attention.cu", "attention_bwd.cu", "attention_common.cuh", "common.cuh",
-        "gather_dequant.cu", "gcn_layer.cu", "hopper.cuh", "nms.cu", "ssd_scan.cu"]
+        "gather_dequant.cu", "gcn_layer.cu", "hopper.cuh", "linear_f32.cu", "nms.cu", "ssd_scan.cu"]
     from drin_tpu_torch.ops.cuda import _build
 
     assert _build.KERNELS == ("gather_dequant", "gcn_layer", "attention", "attention_bwd", "nms",
-                              "ssd_scan")
+                              "ssd_scan", "linear_f32")
     # the native sources (tokenizer, row gather, TSan harness) are the port's
     # own copies, built from its own directory, and include nothing but the
     # C++ standard library
