@@ -34,10 +34,10 @@
 //     run the epilogue.
 //   * The tensor cores round their float32 sums toward zero, an error that
 //     grows with K (2.4e-5 of the largest output at K = 3,072, against 2.9e-6
-//     for cuBLAS's float32 product on the FMA units): every DRIN_LINEAR_PROMOTE
-//     stages their sum is added into a second float32 sum in registers,
-//     rounded to nearest, and they start again (1e-6 at every K, for a few
-//     percent of the time).
+//     for cuBLAS's float32 product on the FMA units): every kPromote stages
+//     (128 columns of K) their sum is added into a second float32 sum in
+//     registers, rounded to nearest, and they start again (1e-6 at every K,
+//     for a few percent of the time).
 //   * The epilogue is fused: the second sum starts at the residual (the
 //     attention output and FFN output linears), loaded under the tile's first
 //     products; the epilogue adds the bias, takes the exact erf gelu (the
@@ -50,11 +50,6 @@
 // checks; 3 is the kernel
 #ifndef DRIN_LINEAR_PASSES
 #define DRIN_LINEAR_PASSES 3
-#endif
-// the stages (of 32 columns of K) between two promotions of the tensor cores'
-// sum into the second sum (0: none, one sum rounded toward zero throughout)
-#ifndef DRIN_LINEAR_PROMOTE
-#define DRIN_LINEAR_PROMOTE 4
 #endif
 
 namespace {
@@ -69,7 +64,9 @@ constexpr int kThreads = 3 * kWgThreads;     // and the producer warpgroup
 // registers a thread after setmaxnreg: the producer's warpgroup gives up what
 // the consumers take (65,536 an SM: 128 x 40 + 256 x 232)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kPromote = DRIN_LINEAR_PROMOTE;
+// the stages between two promotions of the tensor cores' sum into the second
+// sum: 128 columns of K
+constexpr int kPromote = 128 / kBK;
 
 enum Epi : int { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
@@ -227,7 +224,7 @@ linear_tf32x3(const __grid_constant__ CUtensorMap xmap, const LinArgs a) {
         }
       }
       fresh = 0;
-      if ((kPromote > 0 && (ks + 1) % (kPromote > 0 ? kPromote : 1) == 0) || ks + 1 == n_k) {
+      if ((ks + 1) % kPromote == 0 || ks + 1 == n_k) {
         // the run's sum into the second sum, rounded to nearest
         wgmma_wait<0>();
         fence_acc(acc);

@@ -30,7 +30,7 @@ so there is no backward kernel to port.
 from __future__ import annotations
 
 import ctypes
-import functools
+import threading
 import weakref
 from typing import Optional, Sequence
 
@@ -52,7 +52,7 @@ splits = 0  # W images built (CUDA path only)
 _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IMAGE_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P, _P]
 _LINEAR_ARGS = [_P, _S, _I, _I, _I, _P, _P, _P, _S, _P, _S, _I, _S, _I, _I, _I, _P]
-_sms: dict = {}
+_plans: dict = {}  # (M, N, device, cols) -> (tile width, blocks)
 
 
 def linear_plain(x, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
@@ -73,43 +73,48 @@ class SplitImage:
     the weights and biases it was built from are the same tensors, at the
     same storage and ``_version``: an in-place update (an optimizer step, a
     ``load_state_dict``) or other tensors handed in (``functional_call``)
-    build a new one.  A copy of a module starts empty."""
+    build a new one.  A copy of a module starts empty.
 
-    __slots__ = ("key", "img", "bias")
+    One module's forward may run in several threads at once (the HTTP
+    front's, a micro-batcher's flushes in flight): the kept state is one
+    tuple, read and replaced whole, and a lock lets one thread build while
+    the others wait for its image."""
+
+    __slots__ = ("state", "lock")
 
     def __init__(self):
-        self.key, self.img, self.bias = (), None, None
+        self.state = None  # (key, weak references, image, bias)
+        self.lock = threading.Lock()
 
-    def __deepcopy__(self, memo):
-        return SplitImage()
+    def __reduce__(self):  # copies and pickles start empty
+        return SplitImage, ()
 
     @staticmethod
-    def _state(t) -> tuple:
+    def _key(tensors) -> tuple:
         # an inference tensor keeps no version (it changes only inside inference mode)
-        return t.data_ptr(), -1 if t.is_inference() else t._version
+        return tuple((id(t), t.data_ptr(), -1 if t.is_inference() else t._version) for t in tensors)
 
-    def fresh(self, tensors) -> bool:
-        key = self.key
-        if len(key) != len(tensors):
-            return False
-        for (ref, state), t in zip(key, tensors):
-            if ref() is not t or state != self._state(t):
-                return False
-        return True
+    @staticmethod
+    def _fresh(state, key) -> bool:
+        # the same ids of tensors still alive: the same tensors
+        return state is not None and state[0] == key and all(r() is not None for r in state[1])
 
     def get(self, weights, biases, build):
         """(image, bias): the kept ones, or ``build(weights, biases)``'s."""
         global splits
         tensors = (*weights, *biases)
-        if not self.fresh(tensors):
-            self.img = self.bias = None  # free the old image before the new one is made
-            self.img, self.bias = build(weights, biases)
-            self.key = tuple((weakref.ref(t), self._state(t)) for t in tensors)
-            splits += 1
-        return self.img, self.bias
+        key, state = self._key(tensors), self.state
+        if not self._fresh(state, key):
+            with self.lock:
+                state = self.state
+                if not self._fresh(state, key):
+                    self.state = state = None  # free the old image before the new one is made
+                    img, bias = build(weights, biases)
+                    state = self.state = (key, tuple(map(weakref.ref, tensors)), img, bias)
+                    splits += 1
+        return state[2], state[3]
 
 
-@functools.lru_cache(maxsize=256)
 def tile_cols(M: int, N: int, sms: int) -> int:
     """Columns of the kernel's 128-row block tile: 128, or 64 where the
     128-column tiles would leave SMs idle for longer than the narrower
@@ -133,6 +138,8 @@ def _check_weights(weights, biases, device):
             if t.dtype != torch.float32 or t.ndim != dims or not t.is_contiguous():
                 raise ValueError(f"each {name} must be a contiguous float32 tensor of {dims} "
                                  f"dimensions, got {t.dtype} {tuple(t.shape)}")
+    if len(biases) == 1 and biases[0].data_ptr() % 8:  # read as float2 (several: a new cat)
+        raise ValueError("the bias must start 8-byte aligned")
     K = weights[0].shape[1]
     if K < KERNEL_DEPTH or K % KERNEL_DEPTH:
         raise ValueError(f"the linear kernel takes K a multiple of {KERNEL_DEPTH}, got K={K}")
@@ -173,15 +180,9 @@ def _check_input(x, K, N, n, residual, gelu) -> int:
         if tuple(residual.shape) != tuple(x.shape[:-1]) + (N,) or not residual.is_contiguous():
             raise ValueError(f"residual must be a contiguous {list(x.shape[:-1]) + [N]}, got "
                              f"{tuple(residual.shape)}")
+        if residual.data_ptr() % 8:  # read as float2
+            raise ValueError("the residual must start 8-byte aligned")
     return M
-
-
-def _check_cuda(x, weights, biases, residual, gelu):
-    """Refuse what the kernel does not take; returns (M, N, K)."""
-    if x.dtype != torch.float32:
-        raise ValueError(f"the linear kernel takes float32, got {x.dtype}")
-    N, K = _check_weights(weights, biases, x.device)
-    return _check_input(x, K, N, len(weights), residual, gelu), N, K
 
 
 def _image(weights, biases):
@@ -200,33 +201,35 @@ def _image(weights, biases):
 
 
 def _prepare(x, weights, biases, residual, gelu, image):
-    """(image, bias, M, N, K) of a launch: the kept image, or a new one built
-    from the checked weights; x and the residual checked."""
+    """(image, bias, M, N, K) of a launch: x and the residual checked, then
+    the kept image, or a new one built from the checked weights."""
     if x.get_device() != weights[0].get_device():
         raise ValueError(f"x must be on {weights[0].device}, got {x.device}")
-    img, bias = (image or SplitImage()).get(weights, biases, _image)
-    K = weights[0].shape[1]
+    K = weights[0].shape[-1]
     N = weights[0].shape[0] * len(weights)
-    return img, bias, _check_input(x, K, N, len(weights), residual, gelu), N, K
+    M = _check_input(x, K, N, len(weights), residual, gelu)
+    img, bias = (image or SplitImage()).get(weights, biases, _image)
+    return img, bias, M, N, K
 
 
-def _launch(x, img, bias, M, N, K, n, epi, residual=None, lib_fn=None) -> torch.Tensor:
+def _launch(x, img, bias, M, N, K, n, epi, residual=None, lib_fn=None, cols=None) -> torch.Tensor:
     """One launch of the product over ``n`` stacked weights; ``lib_fn``
-    another build's (library, entry)."""
+    another build's (library, entry), ``cols`` a tile width other than
+    :func:`tile_cols`'s."""
     global launches
     seg = N // n
     lead = tuple(x.shape[:-1])
     y = torch.empty((n, *lead, seg) if n > 1 else (*lead, N), dtype=torch.float32, device=x.device)
     dev = x.get_device()
-    sms = _sms.get(dev)
-    if sms is None:
-        sms = _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    cols = tile_cols(M, N, sms)
-    grid = min(sms, -(-M // 128) * (N // cols))
+    plan = _plans.get((M, N, dev, cols))
+    if plan is None:  # (tile width, persistent blocks), once a shape
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        width = cols or tile_cols(M, N, sms)
+        plan = _plans[M, N, dev, cols] = (width, min(sms, -(-M // 128) * (N // width)))
     lib, fn = lib_fn or _build.entry("linear_f32", "drin_linear_f32", _LINEAR_ARGS)
     status = fn(x.data_ptr(), x.stride(0) if x.ndim == 2 else K, M, N, K, img.data_ptr(),
                 bias.data_ptr(), residual.data_ptr() if residual is not None else None, N,
-                y.data_ptr(), seg, seg, M * seg, epi, cols, grid, _build.stream_of(x))
+                y.data_ptr(), seg, seg, M * seg, epi, *plan, _build.stream_of(x))
     _build.check(status, lib, "linear launch")
     launches += 1
     return y

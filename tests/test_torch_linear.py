@@ -10,6 +10,10 @@ from __future__ import annotations
 
 import copy
 import math
+import pickle
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -66,6 +70,12 @@ def _card(M=64, K=768, sizes=(768,), dtype=torch.float32, residual=False):
     return z(M, K), [z(n, K) for n in sizes], [z(n) for n in sizes], res
 
 
+# refusals of the weights, made when an image is built; every other case is
+# refused before one is
+WEIGHT_CASES = {"K=760", "K=16", "N=700", "stacked N=320", "weight on the CPU", "bias shape",
+                "stacked shapes", "four weights", "bias misaligned"}
+
+
 @pytest.mark.parametrize("case,match", [
     ("bf16", "takes float32"), ("fp16", "takes float32"), ("K=760", "multiple of 32"),
     ("K=16", "multiple of 32"), ("rows strided", "contiguous rows"),
@@ -74,10 +84,13 @@ def _card(M=64, K=768, sizes=(768,), dtype=torch.float32, residual=False):
     ("gelu and residual", "not both"), ("stacked residual", "one weight"),
     ("weight on the CPU", "must be on"), ("bias shape", "share one shape"),
     ("stacked shapes", "share one shape"), ("x's K", "does not fit"),
-    ("residual shape", "residual must be"), ("four weights", "one to three")])
-def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, match):
+    ("residual shape", "residual must be"), ("four weights", "one to three"),
+    ("bias misaligned", "bias must start 8-byte aligned"),
+    ("residual misaligned", "residual must start 8-byte aligned")])
+def test_cuda_checks_refuse_what_the_kernel_does_not_take(monkeypatch, case, match):
     """Every type, shape and layout the kernel does not take is refused by
-    name before a launch."""
+    name before a launch, on the launch's own path (``_prepare``); what is
+    wrong with x or the residual before any image is built."""
     x, ws, bs, res = _card(dtype={"bf16": torch.bfloat16, "fp16": torch.float16}.get(case, torch.float32))
     gelu = False
     if case.startswith("K="):
@@ -111,21 +124,32 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take(case, match):
         res = _OnCard(torch.zeros(64, 767))
     elif case == "four weights":
         x, ws, bs, res = _card(sizes=(192, 192, 192, 192))
+    elif case == "bias misaligned":  # a contiguous view one float in
+        bs = [_OnCard(torch.zeros(769)[1:])]
+    elif case == "residual misaligned":
+        res = _OnCard(torch.zeros(64 * 768 + 1)[1:].view(64, 768))
+    built, image = [], lin._image
+    monkeypatch.setattr(lin, "_image", lambda w, b: (built.append(len(w)), image(w, b))[1])
     with pytest.raises(ValueError, match=match):
-        lin._check_cuda(x, ws, bs, res, gelu)
+        lin._prepare(x, ws, bs, res, gelu, None)
+    assert built == ([len(ws)] if case in WEIGHT_CASES else [])
 
 
 @pytest.mark.parametrize("sizes,residual", [((768,), False), ((768, 768, 768), False),
                                             ((3072,), False), ((768,), True)])
 def test_cuda_checks_take_berts_products(sizes, residual):
     """BERT's four products: the stacked query / key / value, the attention
-    output with its residual, the FFN's two; x of 3 dimensions too."""
+    output with its residual, the FFN's two; x of 3 dimensions too.  The
+    weights pass the build's checks; ``_prepare`` then takes x with the kept
+    image."""
     x, ws, bs, res = _card(sizes=sizes, residual=residual)
-    assert lin._check_cuda(x, ws, bs, res, False) == (64, sum(sizes), 768)
+    image = lin.SplitImage()
+    image.get(ws, bs, lambda w, b: (lin._check_weights(w, b, w[0].device), ("image", "bias"))[1])
+    assert lin._prepare(x, ws, bs, res, False, image) == ("image", "bias", 64, sum(sizes), 768)
     x3 = _OnCard(torch.zeros(2, 32, 768))
     res3 = _OnCard(torch.zeros(2, 32, sum(sizes))) if residual else None
     gelu = not residual and len(sizes) == 1
-    assert lin._check_cuda(x3, ws, bs, res3, gelu) == (64, sum(sizes), 768)
+    assert lin._prepare(x3, ws, bs, res3, gelu, image)[2:] == (64, sum(sizes), 768)
 
 
 @pytest.mark.parametrize("M,N,cols", [(36864, 768, 128), (36864, 2304, 128), (36864, 3072, 128),
@@ -169,7 +193,31 @@ def test_split_image_is_kept_while_the_weights_are_unchanged():
     ws[0].data = ws[0].data.clone()  # the same tensor over new storage
     image.get(ws, bs, build)
     assert len(calls) == 6 and lin.splits == before + 6
-    assert copy.deepcopy(image).img is None
+    assert copy.deepcopy(image).state is None and pickle.loads(pickle.dumps(image)).state is None
+
+
+def test_split_image_builds_once_for_threads_at_once():
+    """Several threads of one module's forward (the HTTP front's, the
+    micro-batcher's flushes in flight) asking a fresh image for the same
+    weights while it is built: one build, and every thread gets it."""
+    _, ws, bs, _ = _problem(sizes=(128, 128))
+    image, calls, n = lin.SplitImage(), [], 8
+    start = threading.Barrier(n)
+
+    def slow_build(weights, biases):
+        calls.append(1)
+        time.sleep(0.05)  # the build's launch and allocations release the GIL
+        return torch.cat(list(weights)), torch.cat(list(biases))
+
+    def ask(_):
+        start.wait()
+        return image.get(ws, bs, slow_build)
+
+    with ThreadPoolExecutor(n) as pool:
+        got = list(pool.map(ask, range(n)))
+    assert len(calls) == 1
+    assert all(img is got[0][0] and bias is got[0][1] for img, bias in got)
+    assert torch.equal(got[0][0], torch.cat(ws))
 
 
 def test_split_image_sees_a_functional_call_swap():
